@@ -1,0 +1,29 @@
+"""Launcher of the CUDA paged-prefill kernel (``csrc/paged_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention.py:flash_attention_paged`` (the
+Pallas ``_paged_prefill_kernel``): causal chunk attention through a page
+table, one CTA per (slot, q head, 64 query rows).
+``kernels.ops.flash_attention_paged`` checks the arguments and counts
+launches; call that, not this.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_decode import DTYPES
+
+
+def paged_prefill(q, k_pages, v_pages, page_table, starts, out) -> None:
+    """Launch on the current stream; raise if the launch fails."""
+    lib = _build.load()
+    b, sq, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    err = lib.paged_prefill(
+        DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), b, sq, h, kvh, page_size, page_table.shape[1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_prefill launch failed: error {err}")

@@ -1,0 +1,215 @@
+"""Core layers of the dense decoder, as plain functions over parameter
+dicts of tensors (port of ``repro/models/layers.py``, dense subset).
+
+Weight layouts are the reference's einsum layouts: ``wq``/``wk``/``wv``
+(d_model, heads, head_dim) and ``wo`` (heads, head_dim, d_model). The
+projections view them as 2-D matrices in one place, ``_matmul_heads`` and
+``_matmul_out``. Matmul weights are stored in the compute dtype, which is
+the rounding the reference applies when it casts its fp32 weights at use;
+norm scales and biases stay fp32, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+
+Params = Dict[str, object]
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------------
+# Norms and rotary embeddings
+# ----------------------------------------------------------------------------
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm in fp32, the scale applied before the cast back."""
+    dtype = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Half-split RoPE. x: (..., seq, heads, head_dim); positions:
+    (..., seq). Angles and rotation in fp32, result in x's dtype."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., :, None].float() * freqs        # (..., s, half)
+    cos = torch.cos(angles)[..., None, :]                   # (..., s, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Attention
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: Optional[float] = 10000.0
+
+
+def _matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk"): the (d, h, k) weight as a (d, h*k) matrix."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _matmul_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd"): the (h, k, d) weight as a (h*k, d) matrix."""
+    h, k, d = w.shape
+    return o.flatten(-2) @ w.to(o.dtype).reshape(h * k, d)
+
+
+def _project_qkv(params: Params, cfg: AttnConfig, x, positions):
+    q = _matmul_heads(x, params["wq"])
+    k = _matmul_heads(x, params["wk"])
+    v = _matmul_heads(x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["b_q"].to(x.dtype)
+        k = k + params["b_k"].to(x.dtype)
+        v = v + params["b_v"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def sdpa(q, k, v, mask=None):
+    """Scaled dot-product attention with GQA head broadcasting.
+
+    q: (b, sq, h, d); k/v: (b, skv, kvh, d); ``mask`` additive, shaped
+    (sq, skv) or (b, sq, skv). Scores in q's dtype, cast to fp32 for the
+    softmax; probabilities cast back to q's dtype before P.V — the
+    reference's ``sdpa`` with ``probs_fp32``, not the kernels' math."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, sq, kvh, group, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(d)
+    scores = scores.float()
+    if mask is not None:
+        scores = scores + (mask[:, None, None] if mask.dim() == 3 else mask)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, h, d)
+
+
+def causal_mask(sq: int, device=None):
+    """Additive causal mask (sq, sq); query i attends keys <= i."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sq, device=device)[None, :]
+    return torch.where(kj <= qi, 0.0, NEG_INF).float()
+
+
+def attention_apply(params: Params, cfg: AttnConfig, x,
+                    cache: Optional[Params] = None
+                    ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Causal self-attention over the whole sequence (no cache), or one
+    decode step / prefill chunk against a paged cache (``cache`` holds
+    "kp").
+
+    The contiguous-cache branch of the reference is not ported."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    if cache is not None:
+        positions = positions + cache["index"].long()[:, None]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if cache is not None:
+        if "kp" not in cache:
+            raise NotImplementedError("only paged caches are ported")
+        return _paged_apply(params, x, q, k, v, cache)
+    out = sdpa(q, k, v, mask=causal_mask(s, device=x.device))
+    return _matmul_out(out, params["wo"]), None
+
+
+def _paged_apply(params: Params, x, q, k, v, cache: Params):
+    """Attention against a paged KV cache: single-token decode (s == 1)
+    and in-place chunked prefill (s > 1) share one path.
+
+    cache = {"kp"/"vp": (n_pages, page_size, kvh, hd) pool, "pages":
+    (b, max_pages) page table (0 = null page), "index": (b,) per-slot
+    write position}. The s new K/V rows are written through the table
+    first (write-then-attend). A position past the table's reach lands in
+    the null page, as does every write of a slot whose table row is zero.
+    The pool is updated in place (the reference returns a new pool); the
+    returned cache carries the advanced ``index``. Attention itself is
+    one of the two kernels (``kernels.ops``), whose wrappers send CPU
+    tensors to their plain versions."""
+    s = x.shape[1]
+    idx = cache["index"].long()                        # (b,)
+    kp, vp, pages = cache["kp"], cache["vp"], cache["pages"]
+    page_size, max_pages = kp.shape[1], pages.shape[1]
+    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]  # (b, s)
+    pj = pos.div(page_size, rounding_mode="floor").clamp(0, max_pages - 1)
+    page = torch.gather(pages.long(), 1, pj)
+    page = torch.where(pos < max_pages * page_size, page,
+                       torch.zeros_like(page))
+    row = pos % page_size
+    kp[page, row] = k.to(kp.dtype)
+    vp[page, row] = v.to(vp.dtype)
+    new_cache = dict(cache, index=cache["index"] + s)
+    if s == 1:
+        out = kernel_ops.flash_decode_paged(
+            q[:, 0], kp, vp, pages, cache["index"] + 1)[:, None]
+    else:
+        # The chunk's rows are already in the pool: queries at idx + r
+        # attend every written row <= their position.
+        out = kernel_ops.flash_attention_paged(q, kp, vp, pages,
+                                               cache["index"])
+    return _matmul_out(out, params["wo"]), new_cache
+
+
+# ----------------------------------------------------------------------------
+# MLP, embeddings
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLPConfig:
+    d_model: int
+    d_ff: int
+    activation: str = "swiglu"        # "swiglu" | "gelu"
+
+
+def mlp_apply(params: Params, cfg: MLPConfig, x):
+    if cfg.activation == "swiglu":
+        g = x @ params["w_gate"].to(x.dtype)
+        u = x @ params["w_up"].to(x.dtype)
+        h = F.silu(g) * u
+    else:
+        # jax.nn.gelu defaults to the tanh approximation.
+        h = F.gelu(x @ params["w_up"].to(x.dtype)
+                   + params["b_up"].to(x.dtype), approximate="tanh")
+    return h @ params["w_down"].to(x.dtype)
+
+
+def embed(params: Params, tokens, dtype=torch.float32):
+    return params["embedding"].to(dtype)[tokens.long()]
+
+
+def unembed(params: Params, x):
+    return x @ params["lm_head"].to(x.dtype)

@@ -1,0 +1,155 @@
+"""Dense decoder stack (port of ``repro/models/transformer.py``, dense
+subset): a Python loop over layers in place of the reference's
+``lax.scan`` over stacked periods.
+
+Parameters: {"embed": {"embedding"}, "blocks": [per-layer dict, ...],
+"ln_f": {"scale"}, "unembed": {"lm_head"}}; each layer holds "ln1",
+"attn", "ln2" and "mlp" with the reference's leaf names.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ModelConfig
+from repro_torch.models import layers
+
+Params = Dict[str, Any]
+
+
+def attn_cfg(cfg: ModelConfig) -> layers.AttnConfig:
+    return layers.AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.dhead,
+        qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+        rope_theta=cfg.rope_theta)
+
+
+def mlp_cfg(cfg: ModelConfig) -> layers.MLPConfig:
+    return layers.MLPConfig(cfg.d_model, cfg.d_ff, cfg.activation)
+
+
+# ----------------------------------------------------------------------------
+# Initialisation
+# ----------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None, dtype: Optional[torch.dtype] = None) -> Params:
+    """Random weights from the reference's distributions (``layers._init``:
+    a standard normal times 1/sqrt(fan_in), 1.0 for the embedding, zeros
+    for biases, ones for norm scales), drawn with ``generator``.
+
+    Matmul weights and the embedding are stored in ``dtype`` (default: the
+    config's compute dtype); norm scales and biases in fp32. ``generator``
+    must live on ``device``; None seeds a fresh one with 0."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def normal(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def ones(n):
+        return {"scale": torch.ones(n, device=device, dtype=torch.float32)}
+
+    d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
+                        cfg.d_ff)
+    blocks = []
+    for _ in range(cfg.n_layers):
+        attn = {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
+                "wv": normal((d, kvh, hd)),
+                "wo": normal((h, hd, d), scale=1.0 / math.sqrt(h * hd))}
+        if cfg.qkv_bias:
+            for name, heads in (("b_q", h), ("b_k", kvh), ("b_v", kvh)):
+                attn[name] = torch.zeros((heads, hd), device=device)
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
+        if cfg.activation == "swiglu":
+            mlp = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
+                   "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+        else:
+            mlp = {"w_up": normal((d, f)),
+                   "b_up": torch.zeros(f, device=device),
+                   "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+        blocks.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
+                       "mlp": mlp})
+    return {"embed": {"embedding": normal((cfg.vocab, d), scale=1.0)},
+            "blocks": blocks, "ln_f": ones(d),
+            "unembed": {"lm_head": normal((d, cfg.vocab))}}
+
+
+def param_count(params: Params) -> int:
+    def walk(p):
+        if isinstance(p, torch.Tensor):
+            return p.numel()
+        if isinstance(p, dict):
+            return sum(walk(v) for v in p.values())
+        return sum(walk(v) for v in p)
+    return walk(params)
+
+
+# ----------------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------------
+
+def _layer_apply(params: Params, cfg: ModelConfig, x, cache=None):
+    """One pre-norm block: attention + MLP, each with a residual."""
+    h = layers.rmsnorm(params["ln1"], x)
+    mix, new_cache = layers.attention_apply(
+        params["attn"], attn_cfg(cfg), h, cache=cache)
+    x = x + mix
+    h2 = layers.rmsnorm(params["ln2"], x)
+    x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
+    return x, new_cache
+
+
+def forward(params: Params, cfg: ModelConfig, tokens,
+            caches: Optional[List[Params]] = None
+            ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
+    """tokens (b, s) -> (logits (b, s, vocab), new caches or None).
+
+    With paged ``caches`` (``init_paged_caches``) the new K/V rows are
+    written into each layer's pool in place and every returned cache has
+    its write position advanced by s."""
+    x = layers.embed(params["embed"], tokens, cfg.dtype)
+    new_caches = [] if caches is not None else None
+    for i, block in enumerate(params["blocks"]):
+        cache = caches[i] if caches is not None else None
+        x, nc = _layer_apply(block, cfg, x, cache=cache)
+        if caches is not None:
+            new_caches.append(nc)
+    x = layers.rmsnorm(params["ln_f"], x)
+    return layers.unembed(params["unembed"], x), new_caches
+
+
+def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
+                      page_size: int, n_pages: int, device=None,
+                      dtype: Optional[torch.dtype] = None) -> List[Params]:
+    """Per layer: a shared K/V page pool and the slots' page table.
+
+    * ``kp``/``vp``: (n_pages, page_size, kvh, dhead) pool in the compute
+      dtype; page 0 is the null page.
+    * ``pages``: (batch, max_pages) int32 page table, zero-filled, and
+    * ``index``: (batch,) int32 per-slot write position — one logical
+      table for every layer, so all layers share the same two tensors.
+    """
+    device = resolve_device(device)
+    if n_pages < 2:
+        raise ValueError(f"n_pages {n_pages} < 2")
+    dtype = dtype or cfg.dtype
+    max_pages = -(-max_len // page_size)
+    pages = torch.zeros((batch, max_pages), dtype=torch.int32, device=device)
+    index = torch.zeros((batch,), dtype=torch.int32, device=device)
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.dhead)
+    return [{"kp": torch.zeros(shape, dtype=dtype, device=device),
+             "vp": torch.zeros(shape, dtype=dtype, device=device),
+             "pages": pages, "index": index}
+            for _ in range(cfg.n_layers)]

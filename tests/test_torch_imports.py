@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports JAX or the reference package ``repro``, and its
+entry points refuse to fall back to the CPU on their own."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(
+                        arg.value, str) and _forbidden(arg.value):
+                    bad.append(arg.value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_files_are_found():
+    assert (PORT / "serve" / "engine.py") in FILES
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    cfg = configs.get_smoke("qwen3-4b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_paged_caches(cfg, 2, 32, 8, 9)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(params, cfg, ServeConfig(max_len=32, batch=2,
+                                               chunk_size=8, page_size=8))
