@@ -8,21 +8,34 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 
 1. the card's name and power limit (``nvidia-smi``) and the toolchain;
 2. build of the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. each kernel against its plain PyTorch version, fp32 and bf16, head_dim
-   64/80/128, at the main path's head counts (ragged lengths with a 0,
-   shuffled page tables, chunks at start > 0 and past the table's end);
+3. each kernel against its plain PyTorch version, fp32 and bf16: paged
+   decode and paged prefill and contiguous decode at head_dim 64/80/128
+   and the main path's head counts (ragged lengths with a 0 and max_len,
+   shuffled page tables, chunks at start > 0 and past the table's end),
+   the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state;
 4. times at the main path's shapes: kernel, plain version, one PyTorch
-   library call (``scaled_dot_product_attention`` over the gathered view,
-   a yardstick only) and the card's bound for the same work;
+   library call where one computes the same function (a yardstick only;
+   none computes an SSD scan) and the card's bound for the same work;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
    bf16, random weights from a seeded ``torch.Generator``): 12 requests,
    32 tokens each, launch counters read around the run;
 6. the same engine on a squeezed page pool, which must preempt;
-7. kernel path against plain path on the same weights: logits of one
-   prefill chunk and one decode step in fp32 (against a limit that a
+7. paged kernel path against plain path on the same weights: logits of
+   one prefill chunk and one decode step in fp32 (against a limit that a
    planted one-key fault in each kernel, run here too, must exceed) and
    in bf16 (against the plain path's own bf16 error), and greedy stream
-   agreement.
+   agreement;
+8. the contiguous engine at the full width of ``qwen3-4b``: the same 12
+   requests; the contiguous decode kernel runs 36 times a decode step;
+9. the contiguous engine at the full width of ``mamba2-370m`` (48 layers,
+   bf16): 12 requests, one of them of a prime length; the SSD scan runs
+   48 times an admission;
+10. contiguous kernel path against plain path, as in phase 7: one decode
+    step of ``qwen3-4b`` (planted fault: decode given ``lengths - 1``),
+    and a 300-token prefill and one decode step of ``mamba2-370m`` on its
+    first two layers (planted faults: the scan's state not carried across
+    chunk boundaries, and its final state dropped); the 48-layer readings
+    are logged beside the plain path's own summation-order noise.
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -53,11 +66,26 @@ H, KVH, D, PS, B, MAX_LEN, CHUNK = 32, 8, 80, 16, 8, 2048, 256
 N_PAGES = 1 + B * MAX_LEN // PS
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
-REPLACES = {
-    "flash_decode_paged": "src/repro/kernels/flash_decode.py:162",
-    "flash_attention_paged": "src/repro/kernels/flash_attention.py:236",
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "flash_decode_paged": (CSRC + "paged_attention.cu",
+                           "src/repro/kernels/flash_decode.py:162"),
+    "flash_attention_paged": (CSRC + "paged_attention.cu",
+                              "src/repro/kernels/flash_attention.py:236"),
+    "flash_decode": (CSRC + "paged_attention.cu",
+                     "src/repro/kernels/flash_decode.py:87"),
+    "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62"),
 }
+# Main-path shapes of the SSD scan: mamba2-370m (32 heads of 64, d_state
+# 128) prefilling a batch-1 prompt; the kernel's chunk is 128 rows.
+SSD_H, SSD_P, SSD_N, SSD_L, SSD_CHUNK = 32, 64, 128, 1024, 128
+# Phase 10 holds mamba2-370m's logits to FP32_LOGIT_TOL on its first two
+# layers (the same weights): with random weights the 48-layer stack is
+# chaotic, and two plain fp32 runs that differ only in the scan's chunk
+# (64 against 128, the order of its sums) give logits 2.15 apart, 0.028 at
+# 16 layers, 6.0e-4 at 4 and 8.2e-5 at 2 (CPU, 301-token prompt). The
+# full-depth readings are logged beside that noise, not held to a limit.
+MAMBA_CHECK_LAYERS = 2
 N_REQUESTS, MAX_NEW = 12, 32
 # Phase 7, fp32 logits of the kernel path against the plain path: the
 # kernels' summation order moves them by far less than this; a planted
@@ -143,6 +171,61 @@ def check_kernels(dev, ops, ref) -> list:
                 f"(atol {tol[0]:g} + rtol {tol[1]:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("flash_attention_paged", dtype, d, err))
+    return failures
+
+
+def ssd_inputs(gen, dev, dtype, bt, l, h0=False):
+    """SSD scan inputs at the main path's head shape. The decays are the
+    model's: a = -softplus(N(0, 1)) * linspace(1, 16, h) (dt * A with the
+    reference's A_log initialisation). B and C are scaled by 0.3 so that
+    C.B is about 1 and y about 1, where an absolute tolerance means what
+    it says."""
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    x = rnd(bt, l, SSD_H, SSD_P).to(dtype)
+    a = -F.softplus(rnd(bt, l, SSD_H)) * torch.linspace(1, 16, SSD_H,
+                                                        device=dev)
+    b = (0.3 * rnd(bt, l, SSD_N)).to(dtype)
+    c = (0.3 * rnd(bt, l, SSD_N)).to(dtype)
+    return x, a, b, c, (0.5 * rnd(bt, SSD_H, SSD_P, SSD_N) if h0 else None)
+
+
+def check_contiguous_kernels(dev, ops, ref) -> list:
+    """The contiguous decode and the SSD scan against their plain
+    versions; returns failures."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ref.TOLERANCE[dtype]
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+        for d in (64, 80, 128):
+            k, v = rnd(B, MAX_LEN, KVH, d), rnd(B, MAX_LEN, KVH, d)
+            lens = torch.tensor([0, 1, 63, 64, 65, 700, 1201, MAX_LEN],
+                                dtype=torch.int32, device=dev)
+            q = rnd(B, H, d)
+            got = ops.flash_decode(q, k, v, lens)
+            torch.cuda.synchronize()
+            ok, err = ref.compare(got, ref.flash_decode(q, k, v, lens))
+            log(f"  decode (contiguous) {str(dtype):14s} d={d:3d}: max_abs_err "
+                f"{err:.3e} (atol {tol[0]:g} + rtol {tol[1]:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("flash_decode", dtype, d, err))
+        for l in (2, 127, 128, 300, 1031):
+            for h0 in (False, True):
+                x, a, b, c, h = ssd_inputs(gen, dev, dtype, 2, l, h0)
+                y, st = ops.ssd_scan(x, a, b, c, h0=h)
+                torch.cuda.synchronize()
+                wy, ws = ref.ssd_scan(x, a, b, c, h0=h, chunk=SSD_CHUNK)
+                (ok_y, err_y), (ok_s, err_s) = (
+                    ref.compare(y, wy, normwise=True),
+                    ref.compare(st, ws, normwise=True))
+                log(f"  ssd_scan {str(dtype):14s} l={l:4d} h0={int(h0)}: "
+                    f"max_abs_err y {err_y:.3e} state {err_s:.3e} (max |y| "
+                    f"{float(wy.float().abs().max()):.2f}, max |state| "
+                    f"{float(ws.abs().max()):.2f}; tolerance scaled by "
+                    f"them) {'ok' if ok_y and ok_s else 'FAIL'}")
+                if not (ok_y and ok_s):
+                    failures.append(("ssd_scan", dtype, l, h0, err_y, err_s))
     return failures
 
 
@@ -248,13 +331,71 @@ def time_kernels(dev, ops, ref) -> dict:
         bytes=nbytes, ops=ops_n,
         shape=f"b=1 sq={CHUNK} start={start} h={H} kvh={KVH} d={D} "
               f"page={PS}")
+    del views, pools
+
+    # Contiguous decode: the same slots and contexts over a (b, max_len,
+    # kvh, d) cache per layer.
+    caches = [(rnd(B, MAX_LEN, KVH, D), rnd(B, MAX_LEN, KVH, D))
+              for _ in range(n_layers)]
+    ok, err = ref.compare(ops.flash_decode(q, *caches[0], lens),
+                          ref.flash_decode(q, *caches[0], lens))
+    nbytes = 2 * q.numel() * esize + 2 * kv_rows * KVH * D * esize + 4 * B
+    # The library yardstick reads a (b, kvh, max_len, d) copy with a
+    # length mask; the copy is not timed.
+    views = [tuple(t.permute(0, 2, 1, 3).contiguous() for t in kv)
+             for kv in caches]
+    out["flash_decode"] = dict(
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda i: ops.flash_decode(q, *caches[i], lens),
+                   n_layers),
+        plain_ms=time_ms(lambda i: ref.flash_decode(q, *caches[i], lens),
+                         n_layers, iters=10),
+        library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
+            n_layers),
+        bytes=nbytes, ops=4 * kv_rows * H * D,
+        shape=f"b={B} h={H} kvh={KVH} d={D} max_len={MAX_LEN} contexts "
+              f"{lengths[0]}..{lengths[-1]} (sum {kv_rows})")
+    del views, caches
+
+    # SSD scan: one batch-1 prompt of SSD_L rows through a layer, from a
+    # zero state (the engine's prefill). 12 input sets (56 MB) so that L2
+    # does not hold one set across launches.
+    sets = [ssd_inputs(gen, dev, dtype, 1, SSD_L)[:4] for _ in range(12)]
+    x, a, b, c = sets[0]
+    y, st = ops.ssd_scan(x, a, b, c)
+    wy, ws = ref.ssd_scan(x, a, b, c, chunk=SSD_CHUNK)
+    (ok_y, err_y), (ok_s, err_s) = (ref.compare(y, wy, normwise=True),
+                                    ref.compare(st, ws, normwise=True))
+    nbytes = (2 * x.numel() * esize + 4 * a.numel() + 2 * b.numel() * esize
+              + 4 * st.numel())
+    # Useful flops per chunk and head: the causal half of C.B^T (n each)
+    # and of the decayed scores times x (p each), the carried state's
+    # term and the state update (p * n each per row).
+    tri = sum(min(SSD_CHUNK, SSD_L - t0) * (min(SSD_CHUNK, SSD_L - t0) + 1)
+              // 2 for t0 in range(0, SSD_L, SSD_CHUNK))
+    ops_n = SSD_H * 2 * (tri * (SSD_N + SSD_P) + 2 * SSD_L * SSD_P * SSD_N)
+    out["ssd_scan"] = dict(
+        max_abs_err=max(err_y, err_s), ok=ok_y and ok_s,
+        ms=time_ms(lambda i: ops.ssd_scan(*sets[i]), len(sets)),
+        plain_ms=time_ms(lambda i: ref.ssd_scan(*sets[i], chunk=SSD_CHUNK),
+                         len(sets), iters=10),
+        library_ms=None,
+        bytes=nbytes, ops=ops_n,
+        shape=f"bt=1 l={SSD_L} h={SSD_H} p={SSD_P} n={SSD_N} "
+              f"chunk={SSD_CHUNK}; no single PyTorch call computes an SSD "
+              f"scan, so no library yardstick")
+    del sets
+
     for name, r in out.items():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_OPS[dtype] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"  {name} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
             f"max_abs_err {r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
@@ -297,52 +438,82 @@ def check_served(eng, finished, prompts, max_new, vocab) -> None:
                                f"{eng.outcome[rid]}")
         if not all(0 <= t < vocab for t in toks):
             raise RuntimeError(f"request {rid}: token out of range")
-    if eng.pool.pages_in_use != 0:
+    if eng.pool is not None and eng.pool.pages_in_use != 0:
         raise RuntimeError(f"{eng.pool.pages_in_use} pages leaked")
 
 
 @contextlib.contextmanager
-def attention_ops(layers, decode, prefill):
-    """The same model with its paged attention computed by ``decode`` and
-    ``prefill`` in place of the kernel wrappers: the comparison paths of
-    phase 7."""
-    saved = layers.kernel_ops
-    layers.kernel_ops = types.SimpleNamespace(flash_decode_paged=decode,
-                                              flash_attention_paged=prefill)
+def kernel_ops(ops, **override):
+    """The same model with some kernel wrappers replaced by ``override``
+    (name -> function): the comparison paths of phases 7 and 10."""
+    from repro_torch.models import layers, mamba
+
+    ns = types.SimpleNamespace(**{n: override.get(n, getattr(ops, n))
+                                  for n in KERNELS})
+    saved = layers.kernel_ops, mamba.kernel_ops
+    layers.kernel_ops = mamba.kernel_ops = ns
     try:
         yield
     finally:
-        layers.kernel_ops = saved
+        layers.kernel_ops, mamba.kernel_ops = saved
 
 
-def attention_paths(ops, ref) -> dict:
-    """Phase 7's paths: (decode, prefill) for the plain versions and for
-    the kernels with one planted fault each. The faults are ones a page
-    walk or a mask can make: decode drops each slot's newest key
-    (``lengths - 1``), prefill lets each query see one key past its own
-    position (``starts + 1``, the causal mask off by one)."""
+def paged_paths(ops, ref) -> dict:
+    """Phase 7's paths: the plain versions, and the kernels with one
+    planted fault each. The faults are ones a page walk or a mask can
+    make: decode drops each slot's newest key (``lengths - 1``), prefill
+    lets each query see one key past its own position (``starts + 1``,
+    the causal mask off by one)."""
     return {
-        "plain": (ref.flash_decode_paged, ref.flash_attention_paged),
-        "decode fault": (
-            lambda q, kp, vp, t, n: ops.flash_decode_paged(q, kp, vp, t,
-                                                           n - 1),
-            ops.flash_attention_paged),
-        "prefill fault": (
-            ops.flash_decode_paged,
-            lambda q, kp, vp, t, s: ops.flash_attention_paged(q, kp, vp, t,
-                                                              s + 1)),
+        "plain": dict(flash_decode_paged=ref.flash_decode_paged,
+                      flash_attention_paged=ref.flash_attention_paged),
+        "decode fault": dict(flash_decode_paged=lambda q, kp, vp, t, n:
+                             ops.flash_decode_paged(q, kp, vp, t, n - 1)),
+        "prefill fault": dict(flash_attention_paged=lambda q, kp, vp, t, s:
+                              ops.flash_attention_paged(q, kp, vp, t, s + 1)),
     }
 
 
-def compare_paths(params, cfg, T, layers, ops, ref, dev, prompt) -> dict:
-    """Max |logit difference| of the plain path and of each planted fault
-    against the kernel path, on the last prefill chunk and one decode step,
-    with ``cfg``'s compute dtype throughout (weights cast at use)."""
-    kernel = path_logits(params, cfg, T, dev, prompt)
-    out = {"kernel": kernel}
-    for name, (dec, pre) in attention_paths(ops, ref).items():
-        with attention_ops(layers, dec, pre):
-            out[name] = path_logits(params, cfg, T, dev, prompt)
+def contiguous_paths(ops, ref) -> dict:
+    """Phase 10's paths: the plain versions, and the kernels with planted
+    faults: the contiguous decode given ``lengths - 1`` (each slot's
+    newest key dropped); the SSD scan run chunk by chunk with the state not
+    carried across a chunk boundary (it shows in the prefill's rows; the
+    decays forget the carried state within the last chunk's rows, so the
+    decode step barely moves); and the SSD scan returning a zero final
+    state (it shows in the decode step, which starts from that state).
+    "reorder" is the plain path with the scan's sums in another order
+    (chunks of 64): the plain path's own fp32 noise."""
+    def ssd_no_carry(x, a_log, b, c, h0=None):
+        ys, state = [], None
+        for t0 in range(0, x.shape[1], SSD_CHUNK):
+            part = [t[:, t0:t0 + SSD_CHUNK].contiguous()
+                    for t in (x, a_log, b, c)]
+            y, state = ops.ssd_scan(*part, h0=h0 if t0 == 0 else None)
+            ys.append(y)
+        return torch.cat(ys, dim=1), state
+
+    def ssd_no_state(*args, **kwargs):
+        y, state = ops.ssd_scan(*args, **kwargs)
+        return y, torch.zeros_like(state)
+
+    return {
+        "plain": dict(flash_decode=ref.flash_decode, ssd_scan=ref.ssd_scan),
+        "decode fault": dict(flash_decode=lambda q, k, v, n:
+                             ops.flash_decode(q, k, v, n - 1)),
+        "ssd fault": dict(ssd_scan=ssd_no_carry),
+        "ssd state fault": dict(ssd_scan=ssd_no_state),
+        "reorder": dict(ssd_scan=lambda *a, **k: ref.ssd_scan(*a, chunk=64,
+                                                               **k)),
+    }
+
+
+def compare_paths(logits_fn, paths, ops) -> dict:
+    """``logits_fn()`` through the kernels and through each path."""
+    out = {"kernel": logits_fn()}
+    for name, override in paths.items():
+        with kernel_ops(ops, **override):
+            out[name] = logits_fn()
     return out
 
 
@@ -350,7 +521,47 @@ def max_diff(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def path_logits(params, cfg, T, dev, prompt):
+def check_logits(f32, b16, parts, label) -> list:
+    """Kernel path against plain path on the same weights; returns
+    failures. ``parts``: (index into the logits pair, what it is, the
+    planted fault that must show there).
+
+    fp32: the kernels and their plain versions differ only in the order
+    of their sums, so a limit far below what a planted fault moves
+    (FP32_LOGIT_TOL) separates right from wrong. bf16: the limit is twice
+    the plain path's own bf16 error (plain bf16 against plain fp32, same
+    weights): kernel and plain path each sit within about that of the
+    fp32 logits."""
+    failed = []
+    for part, what, fault_name in parts:
+        sound = max_diff(f32["kernel"][part], f32["plain"][part])
+        fault = max_diff(f32["kernel"][part], f32[fault_name][part])
+        scale = float(f32["plain"][part].abs().max())
+        log(f"  {label} fp32 {what}: max |logit diff| kernel vs plain "
+            f"{sound:.3e}, planted {fault_name} {fault:.3e} (limit "
+            f"{FP32_LOGIT_TOL:g}; max |logit| {scale:.3f})")
+        if not (math.isfinite(sound) and sound <= FP32_LOGIT_TOL):
+            failed.append(f"{label} fp32 {what}: kernel and plain logits "
+                          f"differ")
+        if not fault > FP32_LOGIT_TOL:
+            failed.append(f"{label} fp32 {what}: the planted fault went "
+                          f"unseen")
+        sound = max_diff(b16["kernel"][part], b16["plain"][part])
+        noise = max_diff(b16["plain"][part], f32["plain"][part])
+        fault = max_diff(b16["kernel"][part], b16[fault_name][part])
+        agree = float((b16["kernel"][part].argmax(-1)
+                       == b16["plain"][part].argmax(-1)).float().mean())
+        log(f"  {label} bf16 {what}: max |logit diff| kernel vs plain "
+            f"{sound:.4f}, plain bf16 vs fp32 {noise:.4f} (limit "
+            f"{2 * noise:.4f}), planted fault {fault:.4f}, argmax agreement "
+            f"{agree:.3f}")
+        if not (math.isfinite(sound) and sound <= 2 * noise):
+            failed.append(f"{label} bf16 {what}: kernel and plain logits "
+                          f"differ")
+    return failed
+
+
+def paged_logits(params, cfg, T, dev, prompt):
     """Logits of the last prefill chunk (valid rows) and of one decode
     step, for one slot served through a fresh paged cache: all of the
     prompt but its last token is prefilled, the last token decoded, so
@@ -377,13 +588,59 @@ def path_logits(params, cfg, T, dev, prompt):
     return out, step[0, 0].float()
 
 
+def contiguous_logits(params, cfg, T, dev, prompt):
+    """Logits of a prefill of all of the prompt but its last token, and
+    of the decode step of that token, for one slot of a fresh contiguous
+    cache (the engine's row cache)."""
+    caches = T.init_caches(cfg, 1, MAX_LEN, per_slot_index=True, device=dev)
+    toks = torch.from_numpy(prompt.astype(np.int64)).to(dev)[None]
+    with torch.no_grad():
+        pre, caches = T.forward(params, cfg, toks[:, :-1], caches=caches)
+        step, _ = T.forward(params, cfg, toks[:, -1:], caches=caches)
+    return pre[0].float(), step[0, 0].float()
+
+
+def run_engine(label, params, cfg, scfg, prompts, dev, ops):
+    """Serve ``prompts`` at MAX_NEW tokens each and report; returns the
+    engine and the launch counts of this run."""
+    torch.cuda.reset_peak_memory_stats()
+    eng, finished, wall, launches = serve(params, cfg, scfg, prompts,
+                                          MAX_NEW, dev, ops)
+    check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
+    toks = sum(len(v) for v in finished.values())
+    log(f"  {label}: served {len(finished)} requests, {toks} tokens in "
+        f"{wall:.2f} s ({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
+        f"{eng.chunk_steps} chunk steps, {eng.decode_steps} decode steps, "
+        f"prefill buckets {dict(sorted(eng.prefill_buckets.items()))}, "
+        f"{eng.preemptions} preemptions, {eng.admission_rejections} holds, "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    used = {k: v for k, v in launches.items() if v}
+    log(f"  launches: {launches} (per tick: "
+        + ", ".join(f"{k} {v / eng.ticks:.2f}" for k, v in used.items())
+        + ")")
+    return eng, launches
+
+
+def init_model(name, configs, T, dev):
+    cfg = configs.get_config(name)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {T.param_count(params) / 1e9:.3f} B parameters, "
+        f"{cfg.n_layers} layers ({'/'.join(cfg.pattern)}), d_model "
+        f"{cfg.d_model}, bf16, initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
     from repro_torch import configs
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.models import layers
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeConfig
 
@@ -396,7 +653,8 @@ def main() -> None:
     log("== build ==")
     t0 = time.perf_counter()
     lib = _build.build()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"  built {lib.name} from {[f.name for f in _build.sources()]} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
@@ -404,6 +662,7 @@ def main() -> None:
 
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
+    failures += check_contiguous_kernels(dev, ops, ref)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -413,37 +672,18 @@ def main() -> None:
         raise RuntimeError("a timed kernel disagrees with its plain version")
     torch.cuda.empty_cache()
 
-    log("== engine: qwen3-4b at full width ==")
-    cfg = configs.get_config("qwen3-4b")
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
-    torch.cuda.synchronize()
-    log(f"  {cfg.name}: {T.param_count(params) / 1e9:.3f} B parameters, "
-        f"{cfg.n_layers} layers, d_model {cfg.d_model}, head_dim "
-        f"{cfg.dhead}, bf16, initialised in {time.perf_counter() - t0:.1f} s")
+    log("== engine: qwen3-4b at full width, paged ==")
+    cfg, params = init_model("qwen3-4b", configs, T, dev)
     prompts = make_requests(cfg.vocab, N_REQUESTS)
     log(f"  prompt lengths: {[len(p) for p in prompts]}")
-    scfg = ServeConfig(max_len=MAX_LEN, batch=B, page_size=PS,
+    scfg = ServeConfig(max_len=MAX_LEN, batch=B, paged=True, page_size=PS,
                        chunk_size=CHUNK, eos_id=-1)
-    torch.cuda.reset_peak_memory_stats()
-    eng, finished, wall, launches = serve(params, cfg, scfg, prompts,
-                                          MAX_NEW, dev, ops)
-    check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"main path skipped a kernel: {launches}")
-    toks = sum(len(v) for v in finished.values())
-    log(f"  served {len(finished)} requests, {toks} tokens in {wall:.2f} s "
-        f"({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
-        f"{eng.chunk_steps} chunk steps, {eng.decode_steps} decode steps, "
-        f"{eng.preemptions} preemptions, {eng.admission_rejections} holds, "
-        f"pool {eng.pool.n_pages} pages (high water "
-        f"{eng.pool.high_water}), max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  launches on the main path: {launches} "
-        f"(per tick: decode {launches['flash_decode_paged'] / eng.ticks:.2f},"
-        f" prefill {launches['flash_attention_paged'] / eng.ticks:.2f})")
-    main_ticks = eng.ticks
+    eng, launches = run_engine("paged", params, cfg, scfg, prompts, dev, ops)
+    if min(launches["flash_decode_paged"],
+           launches["flash_attention_paged"]) <= 0:
+        raise RuntimeError(f"paged path skipped a kernel: {launches}")
+    main_launches = dict(launches)
+    ticks = {"paged": eng.ticks}
     del eng
     torch.cuda.empty_cache()
 
@@ -460,68 +700,119 @@ def main() -> None:
     del eng
     torch.cuda.empty_cache()
 
-    log("== kernel path against plain path (same weights) ==")
+    log("== paged kernel path against plain path (same weights) ==")
     prompt = make_requests(cfg.vocab, 1, lo=300, hi=300)[0]
-    f32 = compare_paths(params, dataclasses.replace(
-        cfg, compute_dtype="float32"), T, layers, ops, ref, dev, prompt)
-    b16 = compare_paths(params, cfg, T, layers, ops, ref, dev, prompt)
-    failed = []
-    for part, what in ((0, "prefill chunk"), (1, "decode step")):
-        # fp32: the kernels and their plain versions differ only in the
-        # order of their sums, so a limit far below what a one-key fault
-        # moves (FP32_LOGIT_TOL) separates right from wrong.
-        sound = max_diff(f32["kernel"][part], f32["plain"][part])
-        fault = max_diff(f32["kernel"][part],
-                         f32["decode fault" if part else
-                             "prefill fault"][part])
-        scale = float(f32["plain"][part].abs().max())
-        log(f"  fp32 {what}: max |logit diff| kernel vs plain {sound:.3e}, "
-            f"planted {'decode' if part else 'prefill'} fault {fault:.3e} "
-            f"(limit {FP32_LOGIT_TOL:g}; max |logit| {scale:.3f})")
-        if not (math.isfinite(sound) and sound <= FP32_LOGIT_TOL):
-            failed.append(f"fp32 {what}: kernel and plain logits differ")
-        if not fault > FP32_LOGIT_TOL:
-            failed.append(f"fp32 {what}: the planted fault went unseen")
-        # bf16: the limit is twice the plain path's own bf16 error (plain
-        # bf16 against plain fp32, same weights): kernel and plain path
-        # each sit within about that of the fp32 logits.
-        sound = max_diff(b16["kernel"][part], b16["plain"][part])
-        noise = max_diff(b16["plain"][part], f32["plain"][part])
-        fault = max_diff(b16["kernel"][part],
-                         b16["decode fault" if part else
-                             "prefill fault"][part])
-        agree = float((b16["kernel"][part].argmax(-1)
-                       == b16["plain"][part].argmax(-1)).float().mean())
-        log(f"  bf16 {what}: max |logit diff| kernel vs plain {sound:.4f}, "
-            f"plain bf16 vs fp32 {noise:.4f} (limit {2 * noise:.4f}), "
-            f"planted fault {fault:.4f}, argmax agreement {agree:.3f}")
-        if not (math.isfinite(sound) and sound <= 2 * noise):
-            failed.append(f"bf16 {what}: kernel and plain logits differ")
+    f32cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    paths = paged_paths(ops, ref)
+    f32 = compare_paths(lambda: paged_logits(params, f32cfg, T, dev, prompt),
+                        paths, ops)
+    b16 = compare_paths(lambda: paged_logits(params, cfg, T, dev, prompt),
+                        paths, ops)
+    failed = check_logits(f32, b16, [(0, "prefill chunk", "prefill fault"),
+                                     (1, "decode step", "decode fault")],
+                          "paged")
     del f32, b16
     if failed:
         raise RuntimeError("; ".join(failed))
-    plain = attention_paths(ops, ref)["plain"]
     sp = make_requests(cfg.vocab, 2, lo=200, hi=400)
     small = dataclasses.replace(scfg, batch=2)
     _, k_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops)
-    with attention_ops(layers, *plain):
+    with kernel_ops(ops, **paths["plain"]):
         _, p_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops)
     same = sum(int(a == b) for r in k_fin for a, b in zip(k_fin[r], p_fin[r]))
     prefix = [next((j for j, (a, b) in enumerate(zip(k_fin[r], p_fin[r]))
                     if a != b), 16) for r in sorted(k_fin)]
     log(f"  greedy streams (2 x 16 tokens): {same}/32 tokens agree, "
         f"agreeing prefixes {prefix}")
+    torch.cuda.empty_cache()
+
+    log("== engine: qwen3-4b at full width, contiguous ==")
+    ccfg = ServeConfig(max_len=MAX_LEN, batch=B, eos_id=-1)
+    eng, launches = run_engine("contiguous", params, cfg, ccfg, prompts,
+                               dev, ops)
+    if not 0 < launches["flash_decode"] == cfg.n_layers * eng.decode_steps:
+        raise RuntimeError(f"contiguous decode launches {launches} != "
+                           f"{cfg.n_layers} x {eng.decode_steps} steps")
+    main_launches["flash_decode"] = launches["flash_decode"]
+    ticks["contiguous qwen3-4b"] = eng.ticks
+    del eng
+    torch.cuda.empty_cache()
+
+    log("== contiguous kernel path against plain path: qwen3-4b ==")
+    prompt = make_requests(cfg.vocab, 1, lo=301, hi=301)[0]
+    paths = {k: v for k, v in contiguous_paths(ops, ref).items()
+             if k in ("plain", "decode fault")}     # no Mamba layer here
+    f32 = compare_paths(lambda: contiguous_logits(params, f32cfg, T, dev,
+                                                  prompt), paths, ops)
+    b16 = compare_paths(lambda: contiguous_logits(params, cfg, T, dev,
+                                                  prompt), paths, ops)
+    failed = check_logits(f32, b16, [(1, "decode step", "decode fault")],
+                          "qwen3-4b contiguous")
+    del f32, b16, params
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    torch.cuda.empty_cache()
+
+    log("== engine: mamba2-370m at full width, contiguous ==")
+    cfg, params = init_model("mamba2-370m", configs, T, dev)
+    prompts = make_requests(cfg.vocab, N_REQUESTS - 1)
+    prompts.append(make_requests(cfg.vocab, 1, lo=1031, hi=1031)[0])
+    log(f"  prompt lengths: {[len(p) for p in prompts]} (1031 is prime)")
+    eng, launches = run_engine("contiguous", params, cfg, ccfg, prompts,
+                               dev, ops)
+    admissions = sum(eng.prefill_buckets.values())
+    if not 0 < launches["ssd_scan"] == cfg.n_layers * admissions:
+        raise RuntimeError(f"ssd_scan launches {launches} != "
+                           f"{cfg.n_layers} x {admissions} admissions")
+    main_launches["ssd_scan"] = launches["ssd_scan"]
+    ticks["contiguous mamba2-370m"] = eng.ticks
+    del eng
+    torch.cuda.empty_cache()
+
+    log("== contiguous kernel path against plain path: mamba2-370m ==")
+    prompt = make_requests(cfg.vocab, 1, lo=301, hi=301)[0]
+    paths = {k: v for k, v in contiguous_paths(ops, ref).items()
+             if k != "decode fault"}        # no attention layer here
+    f32cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    full = compare_paths(lambda: contiguous_logits(params, f32cfg, T, dev,
+                                                   prompt),
+                         {k: paths[k] for k in ("plain", "reorder")}, ops)
+    for part, what in ((0, "300-row prefill"), (1, "decode step")):
+        log(f"  mamba2-370m 48 layers fp32 {what}: max |logit diff| kernel "
+            f"vs plain {max_diff(full['kernel'][part], full['plain'][part]):.3e},"
+            f" plain vs plain reordered "
+            f"{max_diff(full['plain'][part], full['reorder'][part]):.3e} "
+            f"(logged only: the random 48-layer stack is chaotic)")
+    del full
+    cut = dict(params, blocks=params["blocks"][:MAMBA_CHECK_LAYERS])
+    f32cfg = dataclasses.replace(cfg, n_layers=MAMBA_CHECK_LAYERS,
+                                 compute_dtype="float32")
+    b16cfg = dataclasses.replace(cfg, n_layers=MAMBA_CHECK_LAYERS)
+    f32 = compare_paths(lambda: contiguous_logits(cut, f32cfg, T, dev,
+                                                  prompt), paths, ops)
+    b16 = compare_paths(lambda: contiguous_logits(cut, b16cfg, T, dev,
+                                                  prompt), paths, ops)
+    failed = check_logits(
+        f32, b16, [(0, "300-row prefill", "ssd fault"),
+                   (1, "decode step", "ssd state fault")],
+        f"mamba2-370m first {MAMBA_CHECK_LAYERS} layers")
+    log(f"  plain vs plain reordered, fp32: prefill "
+        f"{max_diff(f32['plain'][0], f32['reorder'][0]):.3e}, decode step "
+        f"{max_diff(f32['plain'][1], f32['reorder'][1]):.3e}")
+    del f32, b16, params, cut
+    if failed:
+        raise RuntimeError("; ".join(failed))
 
     kernels = []
-    for name in ("flash_decode_paged", "flash_attention_paged"):
+    for name, (source, replaces) in KERNELS.items():
         r = timing[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(f"  main path: {main_ticks} ticks; total {time.perf_counter() - t_start:.1f} s")
+    log(f"  ticks: {ticks}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

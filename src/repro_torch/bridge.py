@@ -6,9 +6,11 @@ that, e.g. ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dict. This module imports neither JAX nor ``repro``.
 
 The reference stacks each pattern position's parameters over periods
-(``_stack_init``: leading dim = n_layers for a dense ("attn",) pattern);
-here that dim is unstacked into one dict per layer. Weight layouts are
-kept as they are (``wq``/``wk``/``wv`` (d, h, hd), ``wo`` (h, hd, d)).
+(``_stack_init``: leading dim = n_layers for a one-kind pattern); here
+that dim is unstacked into one dict per layer. The ported patterns are
+the dense ``("attn",)`` and the Mamba-2 ``("mamba",)``. Weight layouts are
+kept as they are (``wq``/``wk``/``wv`` (d, h, hd), ``wo`` (h, hd, d),
+``w_x``/``w_z`` (d, h, p), ``w_ssm_out`` (h, p, d)).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from repro_torch.configs import ModelConfig
 
 # Leaves kept in fp32 whatever the compute dtype (the reference applies
 # them in fp32 or casts them at use).
-FP32_LEAVES = {"scale", "b_q", "b_k", "b_v", "b_up"}
+FP32_LEAVES = {"scale", "b_q", "b_k", "b_v", "b_up", "dt_bias", "A_log", "D"}
+PORTED_PATTERNS = (("attn",), ("mamba",))
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
@@ -46,8 +49,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         return out
 
     blocks_np = np_params["blocks"]
-    if len(blocks_np) != 1:
-        raise ValueError("only the dense ('attn',) pattern is ported")
+    if tuple(cfg.pattern) not in PORTED_PATTERNS or len(blocks_np) != 1:
+        raise ValueError(f"pattern {cfg.pattern} is not ported; ported: "
+                         f"{PORTED_PATTERNS}")
     stacked = blocks_np[0]
     periods = np.asarray(stacked["ln1"]["scale"]).shape[0]
     if periods != cfg.n_layers:

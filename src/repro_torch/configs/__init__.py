@@ -1,5 +1,5 @@
-"""Model configurations: the dense subset of the reference's
-``ModelConfig`` and the two dense GQA decoders the port serves.
+"""Model configurations: the subset of the reference's ``ModelConfig``
+the port serves — dense GQA decoders and Mamba-2 stacks.
 
 ``get_config(name)`` returns the full configuration, ``get_smoke(name)``
 the reduced same-family one used by the CPU tests. Field values are the
@@ -10,23 +10,27 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 ALIASES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder-only transformer (pre-norm RMSNorm, GQA attention
-    with optional qk-norm / qkv-bias and half-split RoPE, SwiGLU or GELU
-    MLP). Paged attention always goes through the kernel wrappers
-    (``kernels.ops``), and softmax probabilities are always fp32: the
-    reference's ``use_flash`` and ``attn_probs_fp32`` have no field here."""
+    """Decoder-only stack of pre-norm RMSNorm blocks. Each layer's mixer
+    is named by ``pattern`` (repeated over the depth): ``"attn"`` (GQA
+    attention with optional qk-norm / qkv-bias and half-split RoPE) or
+    ``"mamba"`` (a Mamba-2 SSD mixer, ``models.mamba``); ``d_ff > 0`` adds
+    a SwiGLU or GELU MLP to every block. Cached attention and the SSD scan
+    always go through the kernel wrappers (``kernels.ops``), and softmax
+    probabilities are always fp32: the reference's ``use_flash``,
+    ``use_ssd_kernel`` and ``attn_probs_fp32`` have no field here."""
 
     name: str
     n_layers: int
@@ -40,11 +44,35 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: Optional[float] = 10000.0
+    pattern: Tuple[str, ...] = ("attn",)
+    mamba_d_state: int = 128
+    mamba_head_dim: int = 64
+    mamba_expand: int = 2
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers is not "
+                             f"a multiple of the pattern {self.pattern}")
 
     @property
     def dhead(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def periods(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    def kind(self, layer: int) -> str:
+        """The mixer of layer ``layer``: its position in the pattern."""
+        return self.pattern[layer % len(self.pattern)]
+
+    def mamba_cfg(self):
+        from repro_torch.models.mamba import MambaConfig
+
+        return MambaConfig(d_model=self.d_model, d_state=self.mamba_d_state,
+                           head_dim=self.mamba_head_dim,
+                           expand=self.mamba_expand)
 
     @property
     def dtype(self) -> torch.dtype:

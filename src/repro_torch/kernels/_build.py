@@ -1,11 +1,11 @@
 """Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
 
-``csrc/paged_attention.cu`` has a plain C interface (no PyTorch headers),
-so one ``nvcc`` call takes seconds. The library lands in
-``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
-the source and the compiler flags, so an edited source rebuilds and an
-unchanged one is loaded as it is. Nothing is built when this module is
-imported.
+Every ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so each
+compiles in seconds. The sources are compiled in parallel, one ``nvcc``
+per source, and linked into one library under ``build/kernels/<hash>/`` at
+the root of the checkout, keyed by a hash of the sources, their headers
+and the compiler flags: an edited source rebuilds, an unchanged one is
+loaded as it is. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -16,22 +16,29 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (dtype, d, pointers..., ints..., stream) -> cudaError_t.
+# C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t.
 SIGNATURES = {
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "contiguous_decode": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
+    "ssd_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def nvcc() -> str:
@@ -46,18 +53,34 @@ def build() -> Path:
     """Compile the kernels unless their library is already built. The
     compiler's resource report (``-Xptxas -v``) is kept beside the library
     as ``build.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_ROOT / key.hexdigest()[:16] / "libpaged_attention.so"
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        key.update(f.name.encode() + f.read_bytes())
+    out = BUILD_ROOT / key.hexdigest()[:16] / "libkernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    tag = os.getpid()
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    (out.parent / "build.log").write_text("".join(logs))
+    for src, proc, log in zip(sources(), procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+    tmp = out.with_suffix(f".{tag}.tmp")
+    link = subprocess.run([nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
-    (out.parent / "build.log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -1,19 +1,27 @@
-// Paged attention for the serving loop, written by hand for Hopper (sm_90a).
+// Attention for the serving loop, written by hand for Hopper (sm_90a).
 //
-// Two kernels over a shared K/V page pool (n_pages, page_size, kvh, d) that
-// each slot walks through its own page table (b, max_pages), page 0 being
-// the null page:
+// Three kernels over K/V rows that are found either through a page table
+// (a shared pool (n_pages, page_size, kvh, d) walked through each slot's
+// table row (b, max_pages), page 0 being the null page) or at a fixed base
+// per slot (a contiguous cache (b, max_len, kvh, d)):
 //
-//   paged_decode_kernel  replaces repro/kernels/flash_decode.py
-//                        flash_decode_paged (_paged_decode_kernel,
-//                        _decode_body): one query token per slot.
-//   paged_prefill_kernel replaces repro/kernels/flash_attention.py
-//                        flash_attention_paged (_paged_prefill_kernel):
-//                        one causal chunk of queries per slot.
+//   decode_kernel<PagedLayout>      replaces repro/kernels/flash_decode.py
+//                                   flash_decode_paged (_paged_decode_kernel,
+//                                   _decode_body): one query token per slot.
+//   decode_kernel<ContiguousLayout> replaces repro/kernels/flash_decode.py
+//                                   flash_decode (_decode_kernel): the same
+//                                   decode over a contiguous ragged cache.
+//   paged_prefill_kernel            replaces repro/kernels/flash_attention.py
+//                                   flash_attention_paged
+//                                   (_paged_prefill_kernel): one causal chunk
+//                                   of queries per slot.
 //
-// Both keep the TPU kernels' math: q, k and v are read as fp32, scores,
-// the online softmax (running max m, denominator l, accumulator acc) and
-// the P.V products are fp32, and the output is rounded once to q's dtype.
+// The two decodes share one body; only how a logical row's address is
+// found differs (the layout's `rows(slot)`). All keep the TPU kernels'
+// math: q, k and v are read as fp32, scores, the online softmax (running
+// max m, denominator l, accumulator acc) and the P.V products are fp32,
+// and the output is rounded once to q's dtype. The cache stays in its own
+// dtype: it is widened to fp32 per tile on load, never copied.
 //
 // What bounds them on an H100. Decode reads every live K/V row of a slot
 // once per kv head and does 4 * group * d flops per row: it is bound by
@@ -37,59 +45,53 @@
 // the rows a slot needs are never read. `starts` and `lengths` are data,
 // so one build serves every chunk position and every context length.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using repro::Elem;
+using repro::kNegInf;
+using repro::warp_max;
+using repro::warp_sum;
+
 constexpr int kThreads = 256;
 constexpr int kTileK = 64;     // key rows staged per iteration
 constexpr int kBlockQ = 64;    // prefill query rows per CTA
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kPerVec = 4;  // elements per 16-byte load
-  __device__ static void load16(const float* src, float* dst) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  }
-  __device__ static float store(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kPerVec = 8;
-  __device__ static void load16(const __nv_bfloat16* src, float* dst) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(p[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);  // round to nearest even, as torch does
+// Where a slot's logical K/V rows live. rows(slot)(r) is the index of
+// logical row r in the (rows, kvh, d) view of the pool or cache, and
+// max_rows() bounds what a slot can reach.
+struct PagedRows {
+  const int* trow;  // the slot's page-table row
+  int page_size;
+  __device__ int64_t operator()(int row) const {
+    const int64_t page = trow[row / page_size];
+    return page * page_size + row % page_size;
   }
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+struct PagedLayout {
+  const int* table;  // (b, max_pages)
+  int page_size;
+  int max_pages;
+  __device__ int max_rows() const { return max_pages * page_size; }
+  __device__ PagedRows rows(int slot) const {
+    return {table + (int64_t)slot * max_pages, page_size};
+  }
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+struct ContiguousRows {
+  int64_t base;  // slot * max_len
+  __device__ int64_t operator()(int row) const { return base + row; }
+};
+
+struct ContiguousLayout {
+  int max_len;
+  __device__ int max_rows() const { return max_len; }
+  __device__ ContiguousRows rows(int slot) const {
+    return {(int64_t)slot * max_len};
+  }
+};
 
 // Reductions over the 16 lanes that share one prefill query row.
 __device__ __forceinline__ float half_max(float v) {
@@ -105,12 +107,11 @@ __device__ __forceinline__ float half_sum(float v) {
 }
 
 // Stage logical rows [k0, k0 + kTileK) of kv head `hk` into `dst` as fp32
-// (row stride D + 1), looking each row's page up in the slot's table row.
-// Rows at or past `n_rows` are zero-filled and their table entries unread.
-template <typename T, int D>
-__device__ void load_kv_tile(const T* __restrict__ pool,
-                             const int* __restrict__ trow, int page_size,
-                             int kvh, int hk, int k0, int n_rows,
+// (row stride D + 1), finding each row through `rows`. Rows at or past
+// `n_rows` are zero-filled and their addresses (page-table entries) unread.
+template <typename T, int D, typename Rows>
+__device__ void load_kv_tile(const T* __restrict__ src, Rows rows, int kvh,
+                             int hk, int k0, int n_rows,
                              float* __restrict__ dst) {
   constexpr int kPer = Elem<T>::kPerVec;
   constexpr int kVecs = D / kPer;
@@ -120,10 +121,7 @@ __device__ void load_kv_tile(const T* __restrict__ pool,
     const int row = k0 + r;
     float tmp[kPer];
     if (row < n_rows) {
-      const int64_t page = trow[row / page_size];
-      const int64_t off =
-          ((page * page_size + row % page_size) * kvh + hk) * D + c;
-      Elem<T>::load16(pool + off, tmp);
+      Elem<T>::load16(src + (rows(row) * kvh + hk) * D + c, tmp);
     } else {
 #pragma unroll
       for (int e = 0; e < kPer; ++e) tmp[e] = 0.f;
@@ -134,13 +132,12 @@ __device__ void load_kv_tile(const T* __restrict__ pool,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Layout>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ table,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int h, int kvh, int page_size, int max_pages,
-                    float scale) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, Layout layout,
+              const int* __restrict__ lengths, T* __restrict__ out, int h,
+              int kvh, float scale) {
   constexpr int DP = D + 1;
   constexpr int kWarps = kThreads / 32;
   constexpr int kPer = Elem<T>::kPerVec;
@@ -159,10 +156,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // Rows past the table's reach are not mapped: the TPU kernel's grid
-  // stops at max_pages * page_size rows too.
-  const int n = max(0, min(lengths[slot], max_pages * page_size));
-  const int* trow = table + (int64_t)slot * max_pages;
+  // Rows past the table's reach (or the cache's end) are not there: the
+  // TPU kernels' grids stop at max_pages * page_size (max_len) rows too.
+  const int n = max(0, min(lengths[slot], layout.max_rows()));
+  const auto rows = layout.rows(slot);
   // The group's query rows are contiguous in q (b, h, d).
   const T* qg = q + ((int64_t)slot * h + (int64_t)hk * group) * D;
   for (int v = tid; v < group * D / kPer; v += kThreads) {
@@ -178,8 +175,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
   for (int k0 = 0; k0 < n; k0 += kTileK) {
     __syncthreads();  // the last tile's readers are done with k_s/v_s/s_s
-    load_kv_tile<T, D>(kp, trow, page_size, kvh, hk, k0, n, k_s);
-    load_kv_tile<T, D>(vp, trow, page_size, kvh, hk, k0, n, v_s);
+    load_kv_tile<T, D>(kp, rows, kvh, hk, k0, n, k_s);
+    load_kv_tile<T, D>(vp, rows, kvh, hk, k0, n, v_s);
     __syncthreads();
     for (int e = tid; e < group * kTileK; e += kThreads) {
       const int g = e / kTileK;
@@ -263,7 +260,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // Query r sits at start + q0 + r and sees keys <= its position that the
   // table maps (< max_pages * page_size).
   const int n_keys = min(start + q0 + nq, max_pages * page_size);
-  const int* trow = table + (int64_t)slot * max_pages;
+  const PagedRows rows{table + (int64_t)slot * max_pages, page_size};
   for (int v = tid; v < kBlockQ * kVecs; v += kThreads) {
     const int r = v / kVecs;
     const int c = (v % kVecs) * kPer;
@@ -288,8 +285,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
   for (int k0 = 0; k0 < n_keys; k0 += kTileK) {
     __syncthreads();
-    load_kv_tile<T, D>(kp, trow, page_size, kvh, hk, k0, n_keys, k_s);
-    load_kv_tile<T, D>(vp, trow, page_size, kvh, hk, k0, n_keys, v_s);
+    load_kv_tile<T, D>(kp, rows, kvh, hk, k0, n_keys, k_s);
+    load_kv_tile<T, D>(vp, rows, kvh, hk, k0, n_keys, v_s);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -362,28 +359,20 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* kp, const void* vp,
-                          const void* table, const void* lengths, void* out,
-                          int b, int h, int kvh, int page_size, int max_pages,
-                          cudaStream_t stream) {
+template <typename T, int D, typename Layout>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          Layout layout, const void* lengths, void* out,
+                          int b, int h, int kvh, cudaStream_t stream) {
   const int group = h / kvh;
   const size_t smem =
       sizeof(float) * (2 * kTileK * (D + 1) + 2 * group * D + group * kTileK + 3 * group);
-  auto kernel = paged_decode_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
+  auto kernel = decode_kernel<T, D, Layout>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(kvh, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(table), static_cast<const int*>(lengths), static_cast<T*>(out),
-      h, kvh, page_size, max_pages, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      layout, static_cast<const int*>(lengths), static_cast<T*>(out), h, kvh,
+      1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -395,7 +384,7 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
   const size_t smem = sizeof(float) *
                       ((kBlockQ + 2 * kTileK) * (D + 1) + kBlockQ * (kTileK + 1));
   auto kernel = paged_prefill_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -405,34 +394,45 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-constexpr int kUnsupported = -1;
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim d in {64, 80, 128}.
 // Returns the cudaError_t of the launch (0 on success), or -1 for a dtype
 // or head_dim this build does not instantiate.
-extern "C" int paged_decode(int dtype, int d, const void* q, const void* kp,
-                            const void* vp, const void* table,
+#define DISPATCH_DECODE(LAYOUT)                                                 \
+  if (dtype == 0) {                                                            \
+    if (d == 64) DECODE(float, 64, LAYOUT);                                    \
+    if (d == 80) DECODE(float, 80, LAYOUT);                                    \
+    if (d == 128) DECODE(float, 128, LAYOUT);                                  \
+  } else if (dtype == 1) {                                                     \
+    if (d == 64) DECODE(__nv_bfloat16, 64, LAYOUT);                            \
+    if (d == 80) DECODE(__nv_bfloat16, 80, LAYOUT);                            \
+    if (d == 128) DECODE(__nv_bfloat16, 128, LAYOUT);                          \
+  }                                                                            \
+  return repro::kUnsupported
+#define DECODE(T, D, LAYOUT)                                                   \
+  return static_cast<int>(launch_decode<T, D>(q, k, v, LAYOUT, lengths, out,  \
+                                              b, h, kvh,                       \
+                                              static_cast<cudaStream_t>(stream)))
+
+extern "C" int paged_decode(int dtype, int d, const void* q, const void* k,
+                            const void* v, const void* table,
                             const void* lengths, void* out, int b, int h,
                             int kvh, int page_size, int max_pages,
                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DECODE(T, D)                                                           \
-  return static_cast<int>(launch_decode<T, D>(q, kp, vp, table, lengths, out,  \
-                                              b, h, kvh, page_size, max_pages, s))
-  if (dtype == 0) {
-    if (d == 64) DECODE(float, 64);
-    if (d == 80) DECODE(float, 80);
-    if (d == 128) DECODE(float, 128);
-  } else if (dtype == 1) {
-    if (d == 64) DECODE(__nv_bfloat16, 64);
-    if (d == 80) DECODE(__nv_bfloat16, 80);
-    if (d == 128) DECODE(__nv_bfloat16, 128);
-  }
-#undef DECODE
-  return kUnsupported;
+  const PagedLayout layout{static_cast<const int*>(table), page_size, max_pages};
+  DISPATCH_DECODE(layout);
 }
+
+extern "C" int contiguous_decode(int dtype, int d, const void* q,
+                                 const void* k, const void* v,
+                                 const void* lengths, void* out, int b, int h,
+                                 int kvh, int max_len, void* stream) {
+  const ContiguousLayout layout{max_len};
+  DISPATCH_DECODE(layout);
+}
+#undef DECODE
+#undef DISPATCH_DECODE
 
 extern "C" int paged_prefill(int dtype, int d, const void* q, const void* kp,
                              const void* vp, const void* table,
@@ -454,5 +454,5 @@ extern "C" int paged_prefill(int dtype, int d, const void* q, const void* kp,
     if (d == 128) PREFILL(__nv_bfloat16, 128);
   }
 #undef PREFILL
-  return kUnsupported;
+  return repro::kUnsupported;
 }

@@ -1,10 +1,11 @@
-"""Public wrappers of the paged-attention kernels.
+"""Public wrappers of the CUDA kernels.
 
 Same arguments and layouts as ``repro/kernels/ops.py``'s
-``flash_decode_paged`` / ``flash_attention_paged``; block sizes are the
-CUDA kernels' own constants. A tensor on the CPU goes to the plain version
-(``kernels.ref``); a CUDA tensor goes to the kernel, or the wrapper raises.
-There is no fallback from one to the other.
+``flash_decode_paged`` / ``flash_attention_paged`` / ``flash_decode`` /
+``ssd_scan``; block sizes are the CUDA kernels' own constants. A tensor on
+the CPU goes to the plain version (``kernels.ref``); a CUDA tensor goes to
+the kernel, or the wrapper raises. There is no fallback from one to the
+other.
 
 ``LAUNCHES`` counts kernel launches, one per call that reached the kernel;
 the plain versions never touch it.
@@ -19,9 +20,12 @@ import torch
 from repro_torch.kernels import flash_attention as _prefill
 from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 LAUNCHES: Dict[str, int] = {"flash_decode_paged": 0,
-                            "flash_attention_paged": 0}
+                            "flash_attention_paged": 0,
+                            "flash_decode": 0,
+                            "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -29,52 +33,70 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(q, k_pages, v_pages, page_table, lens, q_rank: int) -> None:
-    """Raise on anything the kernels do not take. Shared by both paths,
-    so the CPU tests exercise the same contract the card enforces."""
-    if q.dim() != q_rank or k_pages.dim() != 4:
-        raise ValueError(f"q rank {q.dim()} (want {q_rank}), pool rank "
-                         f"{k_pages.dim()} (want 4)")
-    if k_pages.shape != v_pages.shape:
-        raise ValueError(f"k/v pools differ: {tuple(k_pages.shape)} vs "
-                         f"{tuple(v_pages.shape)}")
-    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    kvh = k_pages.shape[2]
-    if k_pages.shape[3] != d or h % kvh:
-        raise ValueError(f"q heads/dim ({h}, {d}) vs pool kv heads/dim "
-                         f"({kvh}, {k_pages.shape[3]})")
-    if page_table.dim() != 2 or page_table.shape[0] != b \
-            or tuple(lens.shape) != (b,):
-        raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
-                         f"{tuple(lens.shape)} do not match batch {b}")
-    devs = {t.device for t in (q, k_pages, v_pages, page_table, lens)}
+def _check_device(tensors, dtype) -> bool:
+    """Common device checks; True when the tensors lie on the CPU (the
+    plain path), after which only the kernels' own limits remain."""
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"arguments on several devices: {devs}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"pool dtype {k_pages.dtype} != q dtype {q.dtype}")
-    if q.device.type == "cpu":
-        return
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    if q.dtype not in _decode.DTYPES:
-        raise TypeError(f"kernel takes float32/bfloat16, got {q.dtype}")
-    if d not in _decode.HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {_decode.HEAD_DIMS}, "
-                         f"got {d}")
-    if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise TypeError("page_table and lengths/starts must be int32")
-    for t in (q, k_pages, v_pages, page_table, lens):
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if dtype not in _decode.DTYPES:
+        raise TypeError(f"kernel takes float32/bfloat16, got {dtype}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel arguments must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("kernel arguments must be 16-byte aligned")
+    return False
+
+
+def _check(q, k, v, lens, q_rank: int, page_table=None) -> None:
+    """Raise on anything the attention kernels do not take. Shared by both
+    paths, so the CPU tests exercise the same contract the card enforces.
+    ``k``/``v`` are a page pool (n_pages, page_size, kvh, d) walked through
+    ``page_table``, or, without a table, a contiguous cache
+    (b, max_len, kvh, d)."""
+    if q.dim() != q_rank or k.dim() != 4:
+        raise ValueError(f"q rank {q.dim()} (want {q_rank}), cache rank "
+                         f"{k.dim()} (want 4)")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    kvh = k.shape[2]
+    if k.shape[3] != d or h % kvh:
+        raise ValueError(f"q heads/dim ({h}, {d}) vs cache kv heads/dim "
+                         f"({kvh}, {k.shape[3]})")
+    if tuple(lens.shape) != (b,):
+        raise ValueError(f"lengths/starts {tuple(lens.shape)} do not match "
+                         f"batch {b}")
+    if page_table is None:
+        if k.shape[0] != b:
+            raise ValueError(f"cache batch {k.shape[0]} != q batch {b}")
+    elif page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not "
+                         f"match batch {b}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"cache dtype {k.dtype} != q dtype {q.dtype}")
+    ints = [lens] + ([] if page_table is None else [page_table])
+    if _check_device([q, k, v, *ints], q.dtype):
+        return
+    if d not in _decode.HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {_decode.HEAD_DIMS}, "
+                         f"got {d}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("page_table and lengths/starts must be int32")
 
 
 def flash_decode_paged(q, k_pages, v_pages, page_table, lengths):
     """Paged GQA decode: q (b, h, d) vs a (n_pages, page_size, kvh, d)
     pool walked through ``page_table`` (b, max_pages); slot i attends its
     first ``lengths[i]`` rows (0 gives zeros). Returns (b, h, d)."""
-    _check(q, k_pages, v_pages, page_table, lengths, 3)
+    _check(q, k_pages, v_pages, lengths, 3, page_table)
     if q.device.type == "cpu":
         return ref.flash_decode_paged(q, k_pages, v_pages, page_table,
                                       lengths)
@@ -89,7 +111,7 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
     """Causal chunk attention against a paged pool: q (b, sq, h, d) at
     global positions ``starts[i] + [0, sq)``; the chunk's own K/V rows
     must already be written through the table. Returns (b, sq, h, d)."""
-    _check(q, k_pages, v_pages, page_table, starts, 4)
+    _check(q, k_pages, v_pages, starts, 4, page_table)
     if q.device.type == "cpu":
         return ref.flash_attention_paged(q, k_pages, v_pages, page_table,
                                          starts)
@@ -98,3 +120,65 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
         _prefill.paged_prefill(q, k_pages, v_pages, page_table, starts, out)
         LAUNCHES["flash_attention_paged"] += 1
     return out
+
+
+def flash_decode(q, k, v, lengths):
+    """Contiguous GQA decode: q (b, h, d) vs a ragged (b, max_len, kvh, d)
+    cache in q's dtype; slot i attends its first ``min(lengths[i],
+    max_len)`` rows (0 gives zeros). Returns (b, h, d)."""
+    _check(q, k, v, lengths, 3)
+    if q.device.type == "cpu":
+        return ref.flash_decode(q, k, v, lengths)
+    out = torch.empty_like(q)
+    if q.shape[0]:
+        _decode.contiguous_decode(q, k, v, lengths, out)
+        LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def _check_ssd(x, a_log, b, c, h0) -> None:
+    """Raise on anything the SSD scan kernel does not take."""
+    if x.dim() != 4 or a_log.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"ranks x {x.dim()} (want 4), a_log {a_log.dim()} "
+                         f"(want 3), b {b.dim()} (want 3)")
+    bt, l, h, p = x.shape
+    n = b.shape[-1]
+    if tuple(a_log.shape) != (bt, l, h):
+        raise ValueError(f"a_log {tuple(a_log.shape)} != {(bt, l, h)}")
+    if b.shape != c.shape or tuple(b.shape[:2]) != (bt, l):
+        raise ValueError(f"b {tuple(b.shape)} / c {tuple(c.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if h0 is not None and tuple(h0.shape) != (bt, h, p, n):
+        raise ValueError(f"h0 {tuple(h0.shape)} != {(bt, h, p, n)}")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"b/c dtype {b.dtype}/{c.dtype} != x dtype {x.dtype}")
+    if a_log.dtype != torch.float32 or (h0 is not None
+                                        and h0.dtype != torch.float32):
+        raise TypeError("a_log and h0 must be float32")
+    if l < 1:
+        raise ValueError("ssd_scan needs at least one row")
+    if _check_device([x, a_log, b, c] + ([] if h0 is None else [h0]),
+                     x.dtype):
+        return
+    if (p, n) not in _ssd.SHAPES:
+        raise ValueError(f"kernel takes (head_dim, d_state) in "
+                         f"{_ssd.SHAPES}, got {(p, n)}")
+
+
+def ssd_scan(x, a_log, b, c, h0=None):
+    """Chunked Mamba-2 SSD scan: x (bt, l, h, p) dt-scaled inputs, a_log
+    (bt, l, h) fp32 log decays, b/c (bt, l, n) in x's dtype shared by all
+    heads, h0 (bt, h, p, n) fp32 or None (zeros). Returns y (bt, l, h, p)
+    in x's dtype and the final state (bt, h, p, n) fp32. Any l: the last
+    chunk is masked, the chunk size stays ``ssd_scan.CHUNK``."""
+    _check_ssd(x, a_log, b, c, h0)
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, a_log, b, c, h0, chunk=_ssd.CHUNK)
+    bt, l, h, p = x.shape
+    y = torch.empty_like(x)
+    state = torch.empty((bt, h, p, b.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    if bt and h:
+        _ssd.ssd_scan(x, a_log, b, c, h0, y, state)
+        LAUNCHES["ssd_scan"] += 1
+    return y, state

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels (the allclose targets).
 
-They compute what the reference's Pallas kernels compute: q, k and v cast
-to fp32, products and softmax in fp32, the output cast to q's dtype. That
-is not what ``models.layers.sdpa`` computes at bf16 (it keeps scores in
-q's dtype), so a kernel is held against these, never against ``sdpa``.
+They compute what the reference's Pallas kernels compute: inputs cast to
+fp32, products, softmax and the scan in fp32, the output cast to the
+input's dtype. That is not what ``models.layers.sdpa`` computes at bf16
+(it keeps scores in q's dtype), so a kernel is held against these, never
+against ``sdpa``.
 
 Used by the CPU tests, by ``chip_smoke.py``'s comparisons, and by the
 ``kernels.ops`` wrappers for tensors that lie on the CPU.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.serve.paged import gather_kv
 
@@ -75,6 +77,27 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def ssd_scan(x, a_log, b, c, h0=None, chunk: int = 128):
+    """Chunked SSD scan at a fixed ``chunk``, the last chunk masked: l is
+    padded up to a multiple of the chunk with x = 0, a = 0 and B = C = 0
+    rows (they neither decay nor feed the state), run through the chunked
+    algorithm in fp32 (``models.mamba.ssd_chunked``) and cropped.
+
+    x (bt, l, h, p); a_log (bt, l, h) fp32; b, c (bt, l, n) shared by all
+    heads; h0 (bt, h, p, n) fp32 or None (zeros). Returns y (bt, l, h, p)
+    in x's dtype and the final state (bt, h, p, n) in fp32."""
+    from repro_torch.models.mamba import ssd_chunked
+
+    l = x.shape[1]
+    pad = -l % chunk
+    y, state = ssd_chunked(
+        F.pad(x.float(), (0, 0, 0, 0, 0, pad)),
+        F.pad(a_log.float(), (0, 0, 0, pad)),
+        F.pad(b.float(), (0, 0, 0, pad)), F.pad(c.float(), (0, 0, 0, pad)),
+        chunk, h0=None if h0 is None else h0.float())
+    return y[:, :l].to(x.dtype), state
+
+
 # How far a kernel may sit from its plain version, per dtype, as
 # (atol, rtol): fp32 leaves only summation order (1e-4 absolute); bf16
 # output may also round to the neighbouring value, one bf16 step (2**-7
@@ -83,10 +106,22 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
 TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
 
 
-def compare(got: torch.Tensor, want: torch.Tensor):
-    """(within tolerance, max absolute error) of a kernel's output
-    against its plain version's."""
+def compare(got: torch.Tensor, want: torch.Tensor, normwise: bool = False):
+    """(within tolerance, max absolute error) of a kernel's output against
+    its plain version's.
+
+    ``normwise`` scales the absolute tolerance by the output's magnitude,
+    max(1, max |want|). The SSD scan is compared so: its outputs are sums
+    of decayed terms, not convex combinations of its inputs (|y| and the
+    state reach 10-20 at the model's decays), and each decay
+    exp(a_cum[i] - a_cum[j]) carries the rounding of the cumulative sums,
+    a few ulps of |a_cum| that each side sums in another order, as a
+    relative error into its term. The reference holds its own Pallas scan
+    to 2e-3 against its oracle (``tests/test_kernels.py``)."""
     atol, rtol = TOLERANCE[want.dtype]
-    err = (got.float() - want.float()).abs()
-    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    wf = want.float()
+    if normwise and wf.numel():
+        atol *= max(1.0, float(wf.abs().max()))
+    err = (got.float() - wf).abs()
+    ok = bool((err <= atol + rtol * wf.abs()).all())
     return ok, float(err.max()) if err.numel() else 0.0

@@ -1,12 +1,14 @@
-"""Serving launcher: a batch of requests through the paged engine.
+"""Serving launcher: a batch of requests through the serving engine,
+contiguous caches by default, a page pool with ``--paged``.
 
   python -m repro_torch.launch.serve --arch qwen3-4b --requests 8
-  python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu \\
-      --max-len 64 --page-size 8 --chunk-size 8 --max-new 6
+  python -m repro_torch.launch.serve --arch mamba2-370m --requests 8
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged --smoke \\
+      --device cpu --max-len 64 --page-size 8 --chunk-size 8 --max-new 6
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
-with ``--seed``. Attention runs through the port's kernels (the plain
-versions on the CPU).
+with ``--seed``. Cached attention and the SSD scan run through the port's
+kernels (their plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
@@ -30,8 +33,12 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--paged", action="store_true",
+                    help="K/V rows from a shared page pool (attention "
+                         "stacks only); default: contiguous caches")
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--chunk-size", type=int, default=64)
+    ap.add_argument("--chunk-size", type=int, default=64,
+                    help="prefill chunk rows (paged; page-size multiple)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -43,7 +50,8 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
     scfg = ServeConfig(max_len=args.max_len, batch=args.batch,
-                       page_size=args.page_size, chunk_size=args.chunk_size)
+                       paged=args.paged, page_size=args.page_size,
+                       chunk_size=args.chunk_size)
     engine = ServingEngine(params, cfg, scfg, device=device)
     rng = np.random.RandomState(args.seed)
     for rid in range(args.requests):
@@ -52,6 +60,7 @@ def main(argv=None):
                               max_new=args.max_new))
     if device.type == "cuda":
         torch.cuda.synchronize()
+    ops.reset_launches()
     t0 = time.perf_counter()
     finished = engine.run_until_drained()
     if device.type == "cuda":
@@ -60,11 +69,18 @@ def main(argv=None):
     toks = sum(len(v) for v in finished.values())
     print(f"served {len(finished)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s) on {device}")
-    occ = engine.pool.occupancy()
-    print(f"  paged: {occ['high_water']}/{occ['capacity']} pages high-water "
-          f"({args.page_size} rows each), chunk={engine.chunk}, "
-          f"{engine.admission_rejections} admission holds, "
-          f"{engine.preemptions} preemptions, {engine.ticks} ticks")
+    if args.paged:
+        occ = engine.pool.occupancy()
+        print(f"  paged: {occ['high_water']}/{occ['capacity']} pages "
+              f"high-water ({args.page_size} rows each), chunk={engine.chunk}"
+              f", {engine.chunk_steps} chunk steps, "
+              f"{engine.admission_rejections} admission holds, "
+              f"{engine.preemptions} preemptions, {engine.ticks} ticks")
+    else:
+        print(f"  contiguous: {engine.ticks} ticks, prefill buckets "
+              f"{dict(sorted(engine.prefill_buckets.items()))} (bucket: "
+              f"prefills), {engine.decode_steps} decode steps")
+    print(f"  kernel launches: {dict(ops.LAUNCHES)}")
     for rid in sorted(finished):
         print(f"  req {rid}: {finished[rid][:10]}...")
     return finished

@@ -1,5 +1,5 @@
-"""Core layers of the dense decoder, as plain functions over parameter
-dicts of tensors (port of ``repro/models/layers.py``, dense subset).
+"""Core layers of the decoder, as plain functions over parameter dicts of
+tensors (port of ``repro/models/layers.py``, the RMSNorm/GQA/MLP subset).
 
 Weight layouts are the reference's einsum layouts: ``wq``/``wk``/``wv``
 (d_model, heads, head_dim) and ``wo`` (heads, head_dim, d_model). The
@@ -129,22 +129,61 @@ def causal_mask(sq: int, device=None):
 def attention_apply(params: Params, cfg: AttnConfig, x,
                     cache: Optional[Params] = None
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Causal self-attention over the whole sequence (no cache), or one
-    decode step / prefill chunk against a paged cache (``cache`` holds
-    "kp").
-
-    The contiguous-cache branch of the reference is not ported."""
+    """Causal self-attention over the whole sequence (no cache), or s new
+    rows against a cache: a paged one (``cache`` holds "kp") or a
+    contiguous one (``cache`` holds "k"/"v")."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if cache is not None:
-        positions = positions + cache["index"].long()[:, None]
+        idx = cache["index"].long()
+        positions = positions + (idx[:, None] if idx.dim() == 1 else idx)
     q, k, v = _project_qkv(params, cfg, x, positions)
     if cache is not None:
-        if "kp" not in cache:
-            raise NotImplementedError("only paged caches are ported")
-        return _paged_apply(params, x, q, k, v, cache)
+        if "kp" in cache:
+            return _paged_apply(params, x, q, k, v, cache)
+        return _contiguous_apply(params, x, q, k, v, cache)
     out = sdpa(q, k, v, mask=causal_mask(s, device=x.device))
     return _matmul_out(out, params["wo"]), None
+
+
+def _contiguous_apply(params: Params, x, q, k, v, cache: Params):
+    """Attention against a contiguous KV cache.
+
+    cache = {"k"/"v": (b, max_len, kvh, hd) in the compute dtype, "index":
+    (b,) per-slot write position, or a scalar one shared by every slot}.
+    The s new K/V rows are written at ``index`` first, **in place** (the
+    reference returns a new cache); rows past ``max_len`` are dropped, as
+    the reference's scatter drops them. The returned cache carries the
+    advanced ``index``. At s == 1 (decode) attention is the contiguous
+    decode kernel (``kernels.ops.flash_decode``) over each slot's first
+    ``index + 1`` rows; at s > 1 (prefill) it is the reference's plain
+    causal ``sdpa`` over the whole cache, query r of slot i seeing rows
+    ``<= index[i] + r``."""
+    b, s = x.shape[:2]
+    ck, cv = cache["k"], cache["v"]
+    max_len = ck.shape[1]
+    idx = cache["index"].long().expand(b)                      # (b,)
+    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]  # (b, s)
+    slots = torch.arange(b, device=x.device)[:, None].expand(b, s)
+    keep = pos < max_len
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if s == 1:
+        # One row a slot, so no two writes meet: a slot past the end
+        # rewrites its last row with itself (no host sync, unlike a mask).
+        last = pos.clamp(max=max_len - 1)
+        kept = keep[..., None, None]
+        ck[slots, last] = torch.where(kept, k, ck[slots, last])
+        cv[slots, last] = torch.where(kept, v, cv[slots, last])
+        out = kernel_ops.flash_decode(q[:, 0], ck, cv,
+                                      (idx + 1).int())[:, None]
+    else:
+        ck[slots[keep], pos[keep]] = k[keep]
+        cv[slots[keep], pos[keep]] = v[keep]
+        kj = torch.arange(max_len, device=x.device)[None, None, :]
+        mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
+        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask)
+    new_cache = dict(cache, index=cache["index"] + s)
+    return _matmul_out(out, params["wo"]), new_cache
 
 
 def _paged_apply(params: Params, x, q, k, v, cache: Params):

@@ -1,0 +1,217 @@
+"""Mamba-2 (SSD, state-space duality) mixer (port of ``repro/models/mamba.py``).
+
+As in the reference: a single B/C group shared by every head, and the
+short causal conv applied to x only. ``ssd_chunked`` is the chunked SSD
+algorithm of the Mamba-2 paper (arXiv:2405.21060, Listing 1) and
+``ssd_reference`` the O(l) sequential recurrence, both plain fp32 PyTorch.
+On the serving path a prompt (l > 1) goes through the SSD scan kernel
+(``kernels.ops.ssd_scan``, its plain version on the CPU) and one decode
+step (l == 1 with a cache) through the exact recurrence.
+
+Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
+in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
+not write the cache in place).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers
+
+Params = Dict[str, object]
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_model: int
+    d_state: int = 128          # N
+    head_dim: int = 64          # P
+    expand: int = 2
+    d_conv: int = 4
+    chunk: int = 128
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def mamba_init(generator: torch.Generator, cfg: MambaConfig, device,
+               dtype: torch.dtype) -> Params:
+    """The reference's distributions (``mamba.mamba_init``): normal times
+    1/sqrt(fan_in) for the projections, 0.5 for the conv, 1/sqrt(h p) for
+    the output projection; ``dt_bias`` zeros, ``A_log`` log(linspace(1,
+    16, h)), ``D`` and the norm scale ones. Projections and the conv are
+    stored in ``dtype``; ``dt_bias``, ``A_log``, ``D`` and the norm scale
+    in fp32 (the reference casts them at use)."""
+    d, h, p, n = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_state
+
+    def normal(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    f32 = dict(device=device, dtype=torch.float32)
+    return {
+        "w_x": normal((d, h, p)),
+        "w_z": normal((d, h, p)),
+        "w_B": normal((d, n)),
+        "w_C": normal((d, n)),
+        "w_dt": normal((d, h)),
+        "dt_bias": torch.zeros(h, **f32),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
+        "D": torch.ones(h, **f32),
+        "conv_w": normal((cfg.d_conv, h, p), scale=0.5),
+        "norm": {"scale": torch.ones(h * p, **f32)},
+        "w_ssm_out": normal((h, p, d), scale=1.0 / math.sqrt(h * p)),
+    }
+
+
+def _segsum(a):
+    """(..., l) -> (..., l, l): S[i, j] = sum_{j < m <= i} a[m], -inf above
+    the diagonal."""
+    l = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    s = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=a.device))
+    return s.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x, a_log, b, c, chunk: int,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD, in x's dtype (fp32 on every caller).
+
+    x: (bt, l, h, p) inputs (already dt-scaled); a_log: (bt, l, h) per-step
+    log decay (dt * A, negative); b, c: (bt, l, n) (single group); l a
+    multiple of ``chunk``. Returns (y (bt, l, h, p), final state
+    (bt, h, p, n))."""
+    bt, l, h, p = x.shape
+    n = b.shape[-1]
+    if l % chunk:
+        raise ValueError(f"length {l} is not a multiple of chunk {chunk}")
+    nc = l // chunk
+    xc = x.reshape(bt, nc, chunk, h, p)
+    ac = a_log.reshape(bt, nc, chunk, h).permute(0, 3, 1, 2)  # (bt,h,nc,q)
+    bc = b.reshape(bt, nc, chunk, n)
+    cc = c.reshape(bt, nc, chunk, n)
+    a_cum = torch.cumsum(ac, dim=-1)                           # (bt,h,nc,q)
+
+    # 1. Intra-chunk (diagonal blocks): attention-like with a decay mask.
+    decay = torch.exp(_segsum(ac))                             # (bt,h,nc,q,q)
+    scores = torch.einsum("bcln,bcsn->bcls", cc, bc)
+    y_diag = torch.einsum("bcls,bhcls,bcshp->bclhp", scores, decay, xc)
+
+    # 2. Per-chunk final states.
+    decay_states = torch.exp(a_cum[..., -1:] - a_cum)          # (bt,h,nc,q)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", bc, decay_states, xc)
+
+    # 3. Inter-chunk recurrence over the chunk states.
+    chunk_decay = torch.exp(a_cum[..., -1])                    # (bt,h,nc)
+    carry = (torch.zeros((bt, h, p, n), dtype=x.dtype, device=x.device)
+             if h0 is None else h0.to(x.dtype))
+    prev = []
+    for i in range(nc):
+        prev.append(carry)                                     # emit previous
+        carry = carry * chunk_decay[:, :, i, None, None] + states[:, i]
+    prev_states = torch.stack(prev, dim=1)                     # (bt,nc,h,p,n)
+
+    # 4. State -> output within each chunk.
+    state_decay = torch.exp(a_cum)                             # (bt,h,nc,q)
+    y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", cc, prev_states,
+                         state_decay)
+    return (y_diag + y_off).reshape(bt, l, h, p), carry
+
+
+def ssd_reference(x, a_log, b, c, h0=None):
+    """The O(l) sequential recurrence in fp32 (the decode step's path)."""
+    bt, l, h, p = x.shape
+    n = b.shape[-1]
+    state = (torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    ys = []
+    for t in range(l):
+        state = (state * torch.exp(a_log[:, t])[..., None, None]
+                 + torch.einsum("bhp,bn->bhpn", x[:, t], b[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+def _causal_conv(x, w, cache_conv=None):
+    """Depthwise causal conv along seq, then SiLU. x: (b, l, h, p),
+    w: (k, h, p); ``cache_conv`` holds the k - 1 rows before x. Returns
+    (out, the last k - 1 rows of the padded input)."""
+    k = w.shape[0]
+    if cache_conv is None:
+        pad = x.new_zeros((x.shape[0], k - 1) + tuple(x.shape[2:]))
+    else:
+        pad = cache_conv.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(k))
+    new_cache = xp[:, -(k - 1):] if k > 1 else None
+    return F.silu(out), new_cache
+
+
+def mamba_apply(params: Params, cfg: MambaConfig, x,
+                cache: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba-2 mixer. x: (b, l, d_model) -> (b, l, d_model).
+
+    With a cache, l == 1 runs the exact one-step recurrence from the
+    cached state; l > 1 runs the SSD scan kernel from the cached state
+    (the reference's kernel branch starts from zeros instead: a fault
+    recorded in ROADMAP Queue 3, not copied)."""
+    b_, l, _ = x.shape
+    h, p = cfg.n_heads, cfg.head_dim
+    dtype = x.dtype
+    xin = layers._matmul_heads(x, params["w_x"])                # (b,l,h,p)
+    z = layers._matmul_heads(x, params["w_z"])
+    bmat = x @ params["w_B"].to(dtype)                           # (b,l,n)
+    cmat = x @ params["w_C"].to(dtype)
+    dt = F.softplus(x @ params["w_dt"].to(dtype)
+                    + params["dt_bias"].to(dtype))               # (b,l,h)
+    a = -torch.exp(params["A_log"].float())                      # (h,)
+
+    xin, new_conv = _causal_conv(xin, params["conv_w"],
+                                 None if cache is None else cache["conv"])
+    a_log = dt.float() * a                                       # (b,l,h)
+    x_scaled = xin * dt[..., None].to(dtype)
+    h0 = None if cache is None else cache["ssm"].float()
+    if cache is not None and l == 1:
+        y, hn = ssd_reference(x_scaled.float(), a_log, bmat.float(),
+                              cmat.float(), h0=h0)
+        y = y.to(dtype)
+    else:
+        y, hn = kernel_ops.ssd_scan(x_scaled, a_log, bmat, cmat, h0=h0)
+
+    y = y + xin * params["D"].to(dtype)[None, None, :, None]
+    y = y * F.silu(z)
+    y = layers.rmsnorm(params["norm"], y.reshape(b_, l, h * p))
+    out = layers._matmul_out(y.reshape(b_, l, h, p), params["w_ssm_out"])
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": new_conv.to(cache["conv"].dtype),
+                     "ssm": hn.to(cache["ssm"].dtype),
+                     "index": cache["index"] + l}
+    return out, new_cache
+
+
+def init_cache(cfg: MambaConfig, batch: int, device,
+               dtype: torch.dtype) -> Params:
+    """Zero conv and SSM state for ``batch`` slots (no ``index``: the
+    caller adds the one it needs)."""
+    h, p, n = cfg.n_heads, cfg.head_dim, cfg.d_state
+    return {"conv": torch.zeros((batch, cfg.d_conv - 1, h, p), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, h, p, n), dtype=dtype, device=device)}

@@ -1,10 +1,11 @@
-"""Dense decoder stack (port of ``repro/models/transformer.py``, dense
-subset): a Python loop over layers in place of the reference's
-``lax.scan`` over stacked periods.
+"""Decoder stack (port of ``repro/models/transformer.py`` for patterns of
+attention and Mamba-2 layers): a Python loop over layers in place of the
+reference's ``lax.scan`` over stacked periods.
 
 Parameters: {"embed": {"embedding"}, "blocks": [per-layer dict, ...],
-"ln_f": {"scale"}, "unembed": {"lm_head"}}; each layer holds "ln1",
-"attn", "ln2" and "mlp" with the reference's leaf names.
+"ln_f": {"scale"}, "unembed": {"lm_head"}}; each layer holds "ln1" and
+its mixer, "attn" or "mamba" (``cfg.kind(i)``), then "ln2" and "mlp" when
+``d_ff > 0``, with the reference's leaf names.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
 
 Params = Dict[str, Any]
 
@@ -63,24 +64,33 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
                         cfg.d_ff)
     blocks = []
-    for _ in range(cfg.n_layers):
-        attn = {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
-                "wv": normal((d, kvh, hd)),
-                "wo": normal((h, hd, d), scale=1.0 / math.sqrt(h * hd))}
-        if cfg.qkv_bias:
-            for name, heads in (("b_q", h), ("b_k", kvh), ("b_v", kvh)):
-                attn[name] = torch.zeros((heads, hd), device=device)
-        if cfg.qk_norm:
-            attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
-        if cfg.activation == "swiglu":
-            mlp = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
-                   "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+    for i in range(cfg.n_layers):
+        block = {"ln1": ones(d)}
+        if cfg.kind(i) == "attn":
+            attn = {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
+                    "wv": normal((d, kvh, hd)),
+                    "wo": normal((h, hd, d), scale=1.0 / math.sqrt(h * hd))}
+            if cfg.qkv_bias:
+                for name, heads in (("b_q", h), ("b_k", kvh), ("b_v", kvh)):
+                    attn[name] = torch.zeros((heads, hd), device=device)
+            if cfg.qk_norm:
+                attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
+            block["attn"] = attn
+        elif cfg.kind(i) == "mamba":
+            block["mamba"] = mamba.mamba_init(generator, cfg.mamba_cfg(),
+                                              device, dtype)
         else:
-            mlp = {"w_up": normal((d, f)),
-                   "b_up": torch.zeros(f, device=device),
-                   "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
-        blocks.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
-                       "mlp": mlp})
+            raise ValueError(f"layer kind {cfg.kind(i)!r} is not ported")
+        if f > 0:
+            if cfg.activation == "swiglu":
+                mlp = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
+                       "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+            else:
+                mlp = {"w_up": normal((d, f)),
+                       "b_up": torch.zeros(f, device=device),
+                       "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+            block["ln2"], block["mlp"] = ones(d), mlp
+        blocks.append(block)
     return {"embed": {"embedding": normal((cfg.vocab, d), scale=1.0)},
             "blocks": blocks, "ln_f": ones(d),
             "unembed": {"lm_head": normal((d, cfg.vocab))}}
@@ -100,14 +110,21 @@ def param_count(params: Params) -> int:
 # Forward
 # ----------------------------------------------------------------------------
 
-def _layer_apply(params: Params, cfg: ModelConfig, x, cache=None):
-    """One pre-norm block: attention + MLP, each with a residual."""
+def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
+                 cache=None):
+    """One pre-norm block: the mixer, then the MLP if it has one, each
+    with a residual."""
     h = layers.rmsnorm(params["ln1"], x)
-    mix, new_cache = layers.attention_apply(
-        params["attn"], attn_cfg(cfg), h, cache=cache)
+    if kind == "mamba":
+        mix, new_cache = mamba.mamba_apply(params["mamba"], cfg.mamba_cfg(),
+                                           h, cache=cache)
+    else:
+        mix, new_cache = layers.attention_apply(
+            params["attn"], attn_cfg(cfg), h, cache=cache)
     x = x + mix
-    h2 = layers.rmsnorm(params["ln2"], x)
-    x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
+    if "mlp" in params:
+        h2 = layers.rmsnorm(params["ln2"], x)
+        x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
     return x, new_cache
 
 
@@ -116,18 +133,68 @@ def forward(params: Params, cfg: ModelConfig, tokens,
             ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
     """tokens (b, s) -> (logits (b, s, vocab), new caches or None).
 
-    With paged ``caches`` (``init_paged_caches``) the new K/V rows are
-    written into each layer's pool in place and every returned cache has
-    its write position advanced by s."""
+    With ``caches`` (``init_caches`` or ``init_paged_caches``) the new K/V
+    rows are written into each attention layer's cache in place, each
+    Mamba layer returns its new conv/SSM state, and every returned cache
+    has its write position advanced by s."""
     x = layers.embed(params["embed"], tokens, cfg.dtype)
     new_caches = [] if caches is not None else None
     for i, block in enumerate(params["blocks"]):
         cache = caches[i] if caches is not None else None
-        x, nc = _layer_apply(block, cfg, x, cache=cache)
+        x, nc = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache)
         if caches is not None:
             new_caches.append(nc)
     x = layers.rmsnorm(params["ln_f"], x)
     return layers.unembed(params["unembed"], x), new_caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                per_slot_index: bool = False, device=None,
+                dtype: Optional[torch.dtype] = None) -> List[Params]:
+    """Contiguous decode caches, one per layer, in the compute dtype:
+
+    * attention: ``k``/``v`` (batch, max_len, kvh, dhead);
+    * mamba: ``conv`` (batch, d_conv - 1, h, p) and ``ssm`` (batch, h, p, n);
+
+    each with an int32 ``index``: (batch,) per-slot write positions with
+    ``per_slot_index`` (continuous batching), else one scalar position
+    shared by every slot. All layers share one index tensor."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    index = torch.zeros((batch,) if per_slot_index else (), dtype=torch.int32,
+                        device=device)
+    caches = []
+    for i in range(cfg.n_layers):
+        if cfg.kind(i) == "attn":
+            shape = (batch, max_len, cfg.n_kv_heads, cfg.dhead)
+            c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        else:
+            c = mamba.init_cache(cfg.mamba_cfg(), batch, device, dtype)
+        c["index"] = index
+        caches.append(c)
+    return caches
+
+
+def cache_lengths(caches: List[Params]) -> torch.Tensor:
+    """Per-slot valid lengths, shape (batch,): the per-slot index, or a
+    scalar index broadcast over the batch read off a data leaf."""
+    c0 = caches[0]
+    idx = c0["index"]
+    if idx.dim() == 1:
+        return idx
+    batch = next(v for k, v in c0.items() if k != "index").shape[0]
+    return idx.expand(batch).clone()
+
+
+def set_cache_lengths(caches: List[Params], lengths) -> List[Params]:
+    """Every layer's write position overwritten with ``lengths`` (e.g.
+    after a padded bucketed prefill, whose true prompt is shorter than the
+    bucket). Returns new cache dicts; the K/V and state tensors are shared."""
+    idx = caches[0]["index"]
+    new = torch.as_tensor(lengths, dtype=idx.dtype,
+                          device=idx.device).expand(idx.shape).clone()
+    return [dict(c, index=new) for c in caches]
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,20 +1,27 @@
-"""Paged continuous-batching serving engine (port of the paged core of
-``repro/serve/engine.py``).
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``:
+its contiguous mode, its paged core, and the module-level generation loop).
 
-Requests join free slots; each ``tick`` admits, runs one prefill chunk per
-mid-prefill slot, grows decode pages lazily and runs one batched decode
-step for every decode-active slot:
+Requests join free slots; each ``tick`` admits, runs prefill, and runs one
+batched decode step for every decode-active slot. Two cache layouts:
 
-* **Admission** reserves only the first chunk's pages and leaves headroom
-  for what already-admitted slots take this tick; a short pool holds the
-  request (it stays queued) instead of failing. A request that could not
-  fit even an empty pool raises ``PagePoolExhausted``.
-* **Chunked prefill** writes a prompt in place through the page table,
-  ``chunk_size`` rows at a time, on a batch-1 view of the pools.
-* **Preemption**: a pool that runs short evicts a victim slot (least
-  progress first, youngest on ties); its pages return to the pool and the
-  request re-queues at the head with its generated tokens, which are
-  prefilled again as prompt on re-admission.
+* **Contiguous** (``ServeConfig(paged=False)``, the default, as in the
+  reference): every slot owns ``max_len`` rows of K/V (and its Mamba
+  state). Admission prefills one whole prompt per free slot per tick:
+  attention stacks pad the prompt to a power-of-two bucket
+  (``bucket_for``), SSM stacks prefill at exact length; the prompt runs
+  through a fresh batch-1 row cache, which is then installed in the slot.
+* **Paged** (``paged=True``): K/V rows live in a shared page pool.
+
+  - **Admission** reserves only the first chunk's pages and leaves
+    headroom for what already-admitted slots take this tick; a short pool
+    holds the request (it stays queued) instead of failing. A request
+    that could not fit even an empty pool raises ``PagePoolExhausted``.
+  - **Chunked prefill** writes a prompt in place through the page table,
+    ``chunk_size`` rows at a time, on a batch-1 view of the pools.
+  - **Preemption**: a pool that runs short evicts a victim slot (least
+    progress first, youngest on ties); its pages return to the pool and
+    the request re-queues at the head with its generated tokens, which
+    are prefilled again as prompt on re-admission.
 
 The page table and the per-slot write positions live on the host (numpy)
 and are sent to the device with each step: every change to them is a host
@@ -25,7 +32,7 @@ decoding (``temperature > 0``) is not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,12 +51,16 @@ PREEMPT_COOLDOWN = 2
 class ServeConfig:
     max_len: int
     batch: int
-    chunk_size: int              # prefill chunk rows, a page_size multiple
     temperature: float = 0.0     # only 0 (greedy) is ported
     eos_id: int = 1
-    page_size: int = 16
-    n_pages: Optional[int] = None  # pool incl. null page; None -> the
-    # contiguous equivalent, 1 + batch * max_len / page_size
+    min_bucket: int = 8          # smallest prefill bucket (power of two)
+    paged: bool = False          # K/V rows from a shared page pool
+    page_size: int = 16          # rows per page (paged)
+    n_pages: Optional[int] = None  # pool incl. null page (paged); None ->
+    # the contiguous equivalent, 1 + batch * max_len / page_size
+    chunk_size: Optional[int] = None  # prefill chunk rows (paged; a
+    # page_size multiple). The reference's None (an autotuned choice) is
+    # not ported: paged mode requires it.
 
 
 @dataclasses.dataclass
@@ -63,6 +74,54 @@ class Request:
     readmitted_at: Optional[int] = None  # tick of the last re-admission
 
 
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, caches):
+    """Run the prompt through the model, filling the caches. Returns the
+    last position's logits and the new caches."""
+    logits, caches = T.forward(params, cfg, tokens, caches=caches)
+    return logits[:, -1], caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, last_tokens, caches):
+    """One decode step: (b,) token ids -> (b, vocab) logits + new caches."""
+    logits, caches = T.forward(params, cfg, last_tokens[:, None],
+                               caches=caches)
+    return logits[:, -1], caches
+
+
+def make_serve_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
+    """The greedy decode step as a plain function (the reference jits it):
+    ``step(params, last_tokens, caches) -> (next ids, new caches)``."""
+    if temperature > 0:
+        raise NotImplementedError(
+            "sampled decoding is not ported; use temperature=0")
+
+    def step(params, last_tokens, caches):
+        logits, caches = decode_step(params, cfg, last_tokens, caches)
+        return logits.argmax(-1), caches
+
+    return step
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    max_new: int, max_len: Optional[int] = None):
+    """The generation loop the engines are compared with: prompt (b, s)
+    on the model's device -> (b, max_new) greedy ids, through contiguous
+    caches with one position shared by every row."""
+    b, s = prompt.shape
+    max_len = max_len or (s + max_new)
+    caches = T.init_caches(cfg, b, max_len, device=prompt.device)
+    logits, caches = prefill(params, cfg, prompt, caches)
+    tok = logits.argmax(-1)
+    out = [tok]
+    step = make_serve_step(cfg)
+    for _ in range(max_new - 1):
+        tok, caches = step(params, tok, caches)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
 class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch."""
 
@@ -72,21 +131,42 @@ class ServingEngine:
         if serve_cfg.temperature > 0:
             raise NotImplementedError(
                 "sampled decoding is not ported; use temperature=0")
-        ps, max_len = serve_cfg.page_size, serve_cfg.max_len
-        if max_len % ps:
-            raise ValueError(f"max_len {max_len} is not a multiple of "
-                             f"page_size {ps}")
-        chunk = serve_cfg.chunk_size
-        if chunk % ps or not 0 < chunk <= max_len:
-            raise ValueError(f"chunk_size {chunk} must be a page_size "
-                             f"multiple in (0, max_len]")
         self.cfg, self.scfg, self.params = cfg, serve_cfg, params
-        self.chunk = chunk
-        n_pages = serve_cfg.n_pages or 1 + serve_cfg.batch * max_len // ps
-        self.pool = paged_mod.PageAllocator(n_pages, ps)
-        self.caches = T.init_paged_caches(cfg, serve_cfg.batch, max_len, ps,
-                                          n_pages, device=self.device)
-        self.max_pages = max_len // ps
+        self._step = make_serve_step(cfg)
+        max_len = serve_cfg.max_len
+        # Bucketing pads the prompt on the right, which only attention
+        # layers mask; SSM stacks carry state through every position, so
+        # they prefill at exact length.
+        self._bucketed = all(k == "attn" for k in cfg.pattern)
+        if serve_cfg.paged:
+            if not self._bucketed:
+                raise ValueError("paged serving needs an attention-only "
+                                 f"stack, not {cfg.pattern}")
+            ps, chunk = serve_cfg.page_size, serve_cfg.chunk_size
+            if chunk is None:
+                raise NotImplementedError(
+                    "chunk_size=None (an autotuned chunk) is not ported; "
+                    "pass a chunk size")
+            if max_len % ps:
+                raise ValueError(f"max_len {max_len} is not a multiple of "
+                                 f"page_size {ps}")
+            if chunk % ps or not 0 < chunk <= max_len:
+                raise ValueError(f"chunk_size {chunk} must be a page_size "
+                                 f"multiple in (0, max_len]")
+            self.chunk: Optional[int] = chunk
+            n_pages = serve_cfg.n_pages or 1 + serve_cfg.batch * max_len // ps
+            self.pool: Optional[paged_mod.PageAllocator] = \
+                paged_mod.PageAllocator(n_pages, ps)
+            self.caches = T.init_paged_caches(cfg, serve_cfg.batch, max_len,
+                                              ps, n_pages, device=self.device)
+            self.max_pages = max_len // ps
+        else:
+            self.chunk = None
+            self.pool = None
+            self.caches = T.init_caches(cfg, serve_cfg.batch, max_len,
+                                        per_slot_index=True,
+                                        device=self.device)
+            self.max_pages = 0
         # Host copies of the page table and the write positions.
         self.pages = np.zeros((serve_cfg.batch, self.max_pages), np.int32)
         self.index = np.zeros((serve_cfg.batch,), np.int32)
@@ -103,13 +183,17 @@ class ServingEngine:
         self.admission_rejections = 0
         self.chunk_steps = 0
         self.decode_steps = 0
+        self.prefill_buckets: Dict[int, int] = {}  # bucket -> prefills run
 
     # -- device steps ---------------------------------------------------------
 
     def _step_caches(self, pages: np.ndarray, index: np.ndarray):
-        """Per-layer cache views with this step's table and positions."""
-        p = torch.from_numpy(np.ascontiguousarray(pages)).to(self.device)
+        """Per-layer cache views with this step's write positions (and,
+        when paged, page table)."""
         i = torch.from_numpy(np.ascontiguousarray(index)).to(self.device)
+        if self.pool is None:
+            return [dict(c, index=i) for c in self.caches]
+        p = torch.from_numpy(np.ascontiguousarray(pages)).to(self.device)
         return [dict(c, pages=p, index=i) for c in self.caches]
 
     @torch.no_grad()
@@ -129,13 +213,57 @@ class ServingEngine:
     @torch.no_grad()
     def _decode_step(self) -> np.ndarray:
         """One token for every slot (free and mid-prefill slots ride
-        along: their rows land in the null page or are overwritten)."""
+        along: their rows land in the null page, are overwritten, or are
+        never attended)."""
         caches = self._step_caches(self.pages, self.index)
-        toks = torch.from_numpy(self.last_tok[:, None]).to(self.device)
-        logits, _ = T.forward(self.params, self.cfg, toks, caches=caches)
+        toks = torch.from_numpy(self.last_tok).to(self.device)
+        nxt, new_caches = self._step(self.params, toks, caches)
+        if self.pool is None:
+            # Mamba layers return new state tensors; K/V were written in
+            # place. The host keeps the positions.
+            self.caches = [{k: v for k, v in c.items() if k != "index"}
+                           for c in new_caches]
         self.decode_steps += 1
         self.index += 1
-        return logits[:, -1].argmax(-1).cpu().numpy()
+        return nxt.cpu().numpy()
+
+    def bucket_for(self, prompt_len: int) -> int:
+        """Prefill length of a prompt: the smallest power-of-two multiple
+        of ``min_bucket`` that holds it, capped at ``max_len``, for
+        attention stacks; the exact length for SSM stacks."""
+        if not self._bucketed:
+            return prompt_len
+        b = self.scfg.min_bucket
+        while b < prompt_len:
+            b *= 2
+        return min(b, self.scfg.max_len)
+
+    @torch.no_grad()
+    def _prefill_into_slot(self, prompt: np.ndarray, slot: int) -> int:
+        """Prefill one prompt through a fresh batch-1 row cache at its
+        bucket length, install the row in ``slot`` and return the greedy
+        token at the prompt's last position. The padded rows past the
+        prompt sit at positions >= its length, which the slot's write
+        position masks out and decode overwrites."""
+        true_len = len(prompt)
+        bucket = self.bucket_for(true_len)
+        if not true_len <= bucket <= self.scfg.max_len:
+            raise ValueError(f"prompt of {true_len} rows does not fit "
+                             f"max_len {self.scfg.max_len}")
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :true_len] = prompt
+        row = T.init_caches(self.cfg, 1, self.scfg.max_len,
+                            per_slot_index=True, device=self.device)
+        logits, row = T.forward(self.params, self.cfg,
+                                torch.from_numpy(padded).to(self.device),
+                                caches=row)
+        self.prefill_buckets[bucket] = self.prefill_buckets.get(bucket, 0) + 1
+        for full, part in zip(self.caches, row):
+            for name, t in full.items():
+                if name != "index":
+                    t[slot].copy_(part[name][0])
+        self.index[slot] = true_len
+        return int(logits[0, true_len - 1].argmax(-1))
 
     # -- page-table plumbing --------------------------------------------------
 
@@ -244,14 +372,17 @@ class ServingEngine:
         return False
 
     def free_slot(self, i: int) -> None:
-        """Release slot ``i``: pages back to the pool, table row and write
-        position zeroed, so its drifting writes land in the null page."""
+        """Release slot ``i``: its write position zeroed (decode stops
+        reading the dead context) and, when paged, its pages back to the
+        pool and its table row zeroed, so its drifting writes land in the
+        null page."""
         self.slots[i] = None
         self._prefilling.pop(i, None)
         self._slot_seq.pop(i, None)
-        self.pool.free_slot(i)
         self.index[i] = 0
-        self.pages[i] = 0
+        if self.pool is not None:
+            self.pool.free_slot(i)
+            self.pages[i] = 0
 
     def _imminent_page_need(self) -> int:
         """Pages admitted slots take this tick: decode growth for
@@ -272,6 +403,9 @@ class ServingEngine:
         return total
 
     def _admit(self) -> None:
+        if self.pool is None:
+            self._admit_whole()
+            return
         ps, max_len = self.scfg.page_size, self.scfg.max_len
         for i, slot in enumerate(self.slots):
             if slot is not None or not self.queue:
@@ -302,6 +436,22 @@ class ServingEngine:
             self._slot_seq[i] = self._admit_seq
             self._admit_seq += 1
             self._append_pages(i, self.pool.alloc(i, first))
+
+    def _admit_whole(self) -> None:
+        """Contiguous admission: the queue's head goes to each free slot,
+        its whole prompt prefilled and installed now and its first token
+        recorded (a request that finishes on it leaves the slot free until
+        the next tick)."""
+        for i, slot in enumerate(self.slots):
+            if slot is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            tok = self._prefill_into_slot(self._effective_prompt(req), i)
+            self.slots[i] = req
+            self._slot_seq[i] = self._admit_seq
+            self._admit_seq += 1
+            if not self._record(i, req, tok):
+                self.last_tok[i] = tok
 
     def _prefill_order(self) -> List[int]:
         """Mid-prefill slots, fewest chunks left first (admission order
@@ -369,12 +519,13 @@ class ServingEngine:
             self.index[i] = cursor
 
     def tick(self) -> int:
-        """Admit, advance prefill chunks, one decode step for the
+        """Admit, advance prefill chunks (paged), one decode step for the
         decode-active slots; returns the number of slots making progress."""
         self.ticks += 1
         self._admit()
-        self._prefill_tick()
-        self._ensure_decode_pages()
+        if self.pool is not None:
+            self._prefill_tick()
+            self._ensure_decode_pages()
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i not in self._prefilling]
         if not active:

@@ -53,4 +53,49 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
     want = ref.flash_attention_paged(qc, kp, vp, table, starts)
     assert ref.compare(got, want)[0]
     assert ops.LAUNCHES == {"flash_decode_paged": 1,
-                            "flash_attention_paged": 1}
+                            "flash_attention_paged": 1,
+                            "flash_decode": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
+    """The contiguous decode kernel against its plain version, lengths
+    with a 0, max_len and past max_len (a drifting free slot)."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 1)
+    b, h, kvh, max_len = 8, 32, 8, 1024
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    k, v, q = mk(b, max_len, kvh, d), mk(b, max_len, kvh, d), mk(b, h, d)
+    lengths = torch.tensor([0, 1, 63, 64, 65, 700, 1024, 1500],
+                           dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    got = ops.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert ref.compare(got, ref.flash_decode(q, k, v, lengths))[0]
+    assert ops.LAUNCHES["flash_decode"] == 1
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 127, 128, 300])
+def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, l):
+    """The SSD scan kernel against its plain version at the main path's
+    head shape (p 64, n 128), from a zero and a non-zero state, within
+    ``ref.TOLERANCE`` scaled by the output's magnitude (``normwise``: see
+    ``ref.compare``). The state is fp32 in both; y is compared in x's
+    dtype."""
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    bt, h, p, n = 2, 4, 64, 128
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)   # noqa
+    x = mk(bt, l, h, p).to(dtype)
+    a = -mk(bt, l, h).abs() * 0.1
+    b, c = (mk(bt, l, n).mul(0.3).to(dtype) for _ in range(2))
+    for h0 in (None, mk(bt, h, p, n)):
+        ops.reset_launches()
+        y, state = ops.ssd_scan(x, a, b, c, h0=h0)
+        torch.cuda.synchronize()
+        wy, ws = ref.ssd_scan(x, a, b, c, h0=h0)
+        assert ref.compare(y, wy, normwise=True)[0]
+        assert ref.compare(state, ws, normwise=True)[0]
+        assert ops.LAUNCHES["ssd_scan"] == 1

@@ -26,7 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.serve import engine, paged
 
 PROMPT_LENS = (5, 16, 17, 27)
-BASE = dict(max_len=64, page_size=8, chunk_size=8, eos_id=-1)
+BASE = dict(max_len=64, page_size=8, chunk_size=8, eos_id=-1, paged=True)
 RUNS = {
     # name: (batch, n_pages, max_new)
     "roomy": (2, None, 8),
@@ -59,7 +59,7 @@ def reference_runs(model):
     out = {}
     for name, (batch, n_pages, max_new) in RUNS.items():
         eng = jengine.ServingEngine(jparams, jcfg, jengine.ServeConfig(
-            batch=batch, n_pages=n_pages, paged=True, **BASE))
+            batch=batch, n_pages=n_pages, **BASE))
         streams = _serve(eng, jengine.Request, prompts, max_new)
         out[name] = (eng, streams)
     return out

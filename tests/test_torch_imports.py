@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_port_files_are_found():
-    assert (PORT / "serve" / "engine.py") in FILES
+    for rel in (("serve", "engine.py"), ("models", "mamba.py"),
+                ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py")):
+        assert PORT.joinpath(*rel) in FILES
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -58,5 +60,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        ServingEngine(params, cfg, ServeConfig(max_len=32, batch=2,
-                                               chunk_size=8, page_size=8))
+        T.init_caches(cfg, 2, 32)
+    for paged in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServingEngine(params, cfg, ServeConfig(
+                max_len=32, batch=2, paged=paged, chunk_size=8, page_size=8))
