@@ -12,10 +12,18 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    decode and paged prefill and contiguous decode at head_dim 64/80/128
    and the main path's head counts (ragged lengths with a 0 and max_len,
    shuffled page tables, chunks at start > 0 and past the table's end),
-   the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state;
+   the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state,
+   the blocked GEMM with every tile at ragged shapes (1, 127, 4097 in
+   each dim) and the qwen3-4b MLP shapes, and the pointer chase
+   (bit-equal) on a permutation, a strided chain, past n, a line chain;
 4. times at the main path's shapes: kernel, plain version, one PyTorch
    library call where one computes the same function (a yardstick only;
-   none computes an SSD scan) and the card's bound for the same work;
+   none computes an SSD scan or a pointer chase) and the card's bound for
+   the same work; the GEMM with every tile at the qwen3-4b MLP shapes
+   and the tiling example's, bf16 and fp32, beside the tile chooser's
+   modelled speedup; the
+   pointer chase's nanoseconds per dependent load over footprints from
+   16 KiB to 512 MiB;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
    bf16, random weights from a seeded ``torch.Generator``): 12 requests,
    32 tokens each, launch counters read around the run;
@@ -35,7 +43,13 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     and a 300-token prefill and one decode step of ``mamba2-370m`` on its
     first two layers (planted faults: the scan's state not carried across
     chunk boundaries, and its final state dropped); the 48-layer readings
-    are logged beside the plain path's own summation-order noise.
+    are logged beside the plain path's own summation-order noise;
+11. the paper's probes through their entry points, launch counters read
+    around them: the GEMM tiling example at full size
+    (``repro_torch.launch.autotune_gemm``: modelled and measured speedup
+    of the tuned tile) and the latency dissection
+    (``repro_torch.launch.latency``: Table 4.1 by the control-word
+    method, dependent op chains as CUDA graphs, the pointer-chase sweep).
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -75,10 +89,16 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "flash_decode": (CSRC + "paged_attention.cu",
                      "src/repro/kernels/flash_decode.py:87"),
     "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62"),
+    "gemm": (CSRC + "gemm.cu", "src/repro/kernels/gemm.py:37"),
+    "pchase": (CSRC + "pchase.cu", "src/repro/kernels/pchase_probe.py:31"),
 }
 # Main-path shapes of the SSD scan: mamba2-370m (32 heads of 64, d_state
 # 128) prefilling a batch-1 prompt; the kernel's chunk is 128 rows.
 SSD_H, SSD_P, SSD_N, SSD_L, SSD_CHUNK = 32, 64, 128, 1024, 128
+# GEMM shapes: qwen3-4b's MLP projections over 2048 tokens (d_model 2560,
+# d_ff 9728), ragged edges, and the tiling example's problems.
+MLP_SHAPES = ((2048, 2560, 9728), (2048, 9728, 2560))
+RAGGED = (1, 127, 4097)
 # Phase 10 holds mamba2-370m's logits to FP32_LOGIT_TOL on its first two
 # layers (the same weights): with random weights the 48-layer stack is
 # chaotic, and two plain fp32 runs that differ only in the scan's chunk
@@ -95,6 +115,22 @@ FP32_LOGIT_TOL = 1e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def require_full_fp32() -> None:
+    """fp32 products must stay fp32: a TF32 ``torch.matmul`` would give
+    the GEMM's plain version and yardstick three decimal digits."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is on")
+
+
+def bound(nbytes: float, n_ops: float, dtype) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    bytes over its memory rate against operations over its peak for the
+    type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def nvidia_smi_line() -> str:
@@ -226,6 +262,63 @@ def check_contiguous_kernels(dev, ops, ref) -> list:
                     f"them) {'ok' if ok_y and ok_s else 'FAIL'}")
                 if not (ok_y and ok_s):
                     failures.append(("ssd_scan", dtype, l, h0, err_y, err_s))
+    return failures
+
+
+def perm_chain(n: int, seed: int) -> np.ndarray:
+    """One random cycle through n positions: the chain of the reference's
+    ``tests/test_kernels.py::test_pchase_kernel_follows_chain`` at n 128,
+    seed 4."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(n).astype(np.int32)
+    chain = np.empty(n, np.int32)
+    chain[perm] = np.roll(perm, -1)
+    return chain
+
+
+def check_probe_kernels(dev, ops, ref, latency, tiles) -> list:
+    """The GEMM with every tile and the pointer chase against their plain
+    versions; returns failures. The GEMM is compared normwise: its outputs
+    grow with sqrt(k)."""
+    require_full_fp32()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    failures = []
+    shapes = [(m, k, n) for m in RAGGED for k in RAGGED for n in RAGGED]
+    shapes += list(MLP_SHAPES)
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = {t: 0.0 for t in tiles}
+        for m, k, n in shapes:
+            x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+            y = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+            want = ref.gemm(x, y)
+            for tile in tiles:
+                got = ops.gemm(x, y, block=tile)
+                torch.cuda.synchronize()
+                ok, err = ref.compare(got, want, normwise=True)
+                worst[tile] = max(worst[tile], err)
+                if not ok:
+                    failures.append(("gemm", dtype, tile, (m, k, n), err))
+        tol = ref.TOLERANCE[dtype]
+        for tile, err in worst.items():
+            log(f"  gemm {str(dtype):14s} tile {tile}: {len(shapes)} shapes "
+                f"(m, k, n each in {RAGGED}, and {MLP_SHAPES}): max_abs_err "
+                f"{err:.3e} (atol {tol[0]:g} x max(1, max |out|) + rtol "
+                f"{tol[1]:g})")
+    chains = [("128-entry permutation", perm_chain(128, 4), 64),
+              ("128-entry permutation, steps past n", perm_chain(128, 4),
+               1000),
+              ("stride 32 over 4096", (np.arange(4096) + 32) % 4096, 5000),
+              ("1 MiB line chain", None, latency.STEPS)]
+    for label, chain, steps in chains:
+        chain = (latency.line_chain(2**20, device=dev) if chain is None
+                 else torch.from_numpy(chain.astype(np.int32)).to(dev))
+        got = ops.pchase(chain, steps)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref.pchase(chain, steps))
+        log(f"  pchase {label}, {steps} steps: "
+            f"{'bit-equal' if same else 'FAIL: differs'}")
+        if not same:
+            failures.append(("pchase", label, steps))
     return failures
 
 
@@ -388,10 +481,7 @@ def time_kernels(dev, ops, ref) -> dict:
     del sets
 
     for name, r in out.items():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / PEAK_OPS[dtype] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"  {name} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms, plain "
@@ -399,6 +489,80 @@ def time_kernels(dev, ops, ref) -> dict:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
             f"max_abs_err {r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+    return out
+
+
+def time_probe_kernels(dev, ops, ref, latency, autotune, tiles) -> dict:
+    """GEMM times with every tile (the naive and the tuned among them)
+    beside the plain version and ``torch.matmul`` (the library yardstick,
+    in the input dtype), and the pointer chase's nanoseconds per
+    dependent load over the footprints. The JSON rows: the GEMM at the
+    first MLP shape in bf16 with the tuned tile; the chase at the largest
+    footprint."""
+    require_full_fp32()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k, n in MLP_SHAPES + ((512, 512, 512), (1024, 4096, 1024)):
+            x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+            y = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+            gain = autotune.tuning_gain(autotune.GemmProblem(
+                m=m, k=k, n=n, in_bytes=x.element_size()))
+            naive, tuned = gain["naive"]["config"], gain["tuned"]["config"]
+            ok, err = ref.compare(ops.gemm(x, y, block=tuned), ref.gemm(x, y),
+                                  normwise=True)
+            ms = {t: time_ms(lambda i, t=t: ops.gemm(x, y, block=t), 1,
+                             iters=10) for t in tiles}
+            plain_ms = time_ms(lambda i: ref.gemm(x, y), 1, iters=10)
+            lib_ms = time_ms(lambda i: torch.matmul(x, y), 1, iters=10)
+            nbytes = (m * k + k * n + m * n) * x.element_size()
+            n_ops = 2 * m * k * n
+            b_ms, b_by = bound(nbytes, n_ops, dtype)
+            log(f"  gemm {m}x{k}x{n} {str(dtype):14s}: "
+                + ", ".join(f"tile {t} {v:.4f} ms" for t, v in ms.items())
+                + f"; naive {naive}, tuned {tuned} "
+                f"(modelled speedup {gain['speedup']:.3f}x, measured "
+                f"{ms[naive] / ms[tuned]:.3f}x; {n_ops / ms[tuned] / 1e9:.1f}"
+                f" TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"gemm {m}x{k}x{n} {dtype} disagrees "
+                                   f"with its plain version: {err}")
+            if (m, k, n) == MLP_SHAPES[0] and dtype == torch.bfloat16:
+                out["gemm"] = dict(
+                    max_abs_err=err, ok=ok, ms=ms[tuned], plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            del x, y
+
+    ns = {}
+    for fp in latency.FOOTPRINTS:
+        ns[fp] = latency.chase_ns_per_step(fp, device=dev)
+        log(f"  pchase {fp / 2**10:8.0f} KiB footprint, "
+            f"{latency.LINE_BYTES}-byte lines: {ns[fp]:.2f} ns per "
+            f"dependent load ({latency.STEPS} steps, one launch after a "
+            f"warm-up walk of the whole cycle)")
+    fp = latency.FOOTPRINTS[-1]
+    chain = latency.line_chain(fp, device=dev)
+    got = ops.pchase(chain, latency.STEPS)
+    want = ref.pchase(chain, latency.STEPS)
+    err = float((got - want).abs().max())
+    # Bytes: each distinct entry the chase reads, and each position it
+    # writes; the chase does no arithmetic worth a bound.
+    nbytes = 4 * min(latency.STEPS, fp // latency.LINE_BYTES) \
+        + 4 * latency.STEPS
+    b_ms, b_by = bound(nbytes, 0, torch.float32)
+    out["pchase"] = dict(
+        max_abs_err=err, ok=err == 0, ms=ns[fp] * latency.STEPS / 1e6,
+        plain_ms=time_ms(lambda i: ref.pchase(chain, latency.STEPS), 1,
+                         iters=2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, ns=ns)
+    log(f"  pchase [{fp // 2**20} MiB footprint, {latency.STEPS} steps]: "
+        f"kernel {out['pchase']['ms']:.4f} ms, plain (host loop, chain "
+        f"copied to the host) {out['pchase']['plain_ms']:.4f} ms, library "
+        f"none, bound {b_ms:.6f} ms ({b_by}; shown for completeness: the "
+        f"chase is latency-bound by design), max_abs_err {err:g}")
+    del chain
     return out
 
 
@@ -640,7 +804,11 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
     from repro_torch import configs
+    from repro_torch.core import autotune, latency
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.gemm import TILES
+    from repro_torch.launch import autotune_gemm
+    from repro_torch.launch import latency as latency_launch
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeConfig
 
@@ -663,11 +831,15 @@ def main() -> None:
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
     failures += check_contiguous_kernels(dev, ops, ref)
+    failures += check_probe_kernels(dev, ops, ref, latency, TILES)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
     log("== times at the main path's shapes ==")
     timing = time_kernels(dev, ops, ref)
+    torch.cuda.empty_cache()
+    timing.update(time_probe_kernels(dev, ops, ref, latency, autotune,
+                                     TILES))
     if not all(r["ok"] for r in timing.values()):
         raise RuntimeError("a timed kernel disagrees with its plain version")
     torch.cuda.empty_cache()
@@ -802,6 +974,33 @@ def main() -> None:
     del f32, b16, params, cut
     if failed:
         raise RuntimeError("; ".join(failed))
+    torch.cuda.empty_cache()
+
+    log("== probes: the paper's methods through their entry points ==")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tiling = autotune_gemm.main([])
+    lat = latency_launch.main([])
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"  launches: {launches}")
+    if min(launches["gemm"], launches["pchase"]) <= 0:
+        raise RuntimeError(f"probe path skipped a kernel: {launches}")
+    main_launches.update(gemm=launches["gemm"], pchase=launches["pchase"])
+    if lat["table_4_1"] != {"volta": (25, 25), "pascal": (43, 43)}:
+        raise RuntimeError(f"Table 4.1 not recovered: {lat['table_4_1']}")
+    readings = [*lat["op_chain_ns"].values(), *lat["chase_ns"].values(),
+                *(ms for r in tiling["problems"] for ms in r["ms"].values())]
+    if not all(math.isfinite(v) and v > 0 for v in readings):
+        raise RuntimeError(f"a probe reading is not a positive time: "
+                           f"{readings}")
+    log("  tiling (Ch.1): " + "; ".join(
+        f"{r['shape']}: tuned {r['tuned']}, modelled "
+        f"{r['modelled_speedup']:.3f}x, measured {r['measured_speedup']:.3f}x"
+        for r in tiling["problems"]))
+    log("  pointer chase, phase 4 against phase 11 (ns per load): "
+        + ", ".join(f"{fp // 2**10} KiB {timing['pchase']['ns'][fp]:.1f}/"
+                    f"{v:.1f}" for fp, v in lat["chase_ns"].items()))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

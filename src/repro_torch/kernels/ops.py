@@ -2,7 +2,8 @@
 
 Same arguments and layouts as ``repro/kernels/ops.py``'s
 ``flash_decode_paged`` / ``flash_attention_paged`` / ``flash_decode`` /
-``ssd_scan``; block sizes are the CUDA kernels' own constants. A tensor on
+``ssd_scan`` / ``gemm`` / ``pchase``; block sizes are the CUDA kernels' own
+constants, and ``gemm``'s tile one of those it instantiates. A tensor on
 the CPU goes to the plain version (``kernels.ref``); a CUDA tensor goes to
 the kernel, or the wrapper raises. There is no fallback from one to the
 other.
@@ -17,15 +18,20 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.kernels import flash_attention as _prefill
 from repro_torch.kernels import flash_decode as _decode
+from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import pchase_probe as _pchase
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
 LAUNCHES: Dict[str, int] = {"flash_decode_paged": 0,
                             "flash_attention_paged": 0,
                             "flash_decode": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0,
+                            "gemm": 0,
+                            "pchase": 0}
 
 
 def reset_launches() -> None:
@@ -182,3 +188,81 @@ def ssd_scan(x, a_log, b, c, h0=None):
         _ssd.ssd_scan(x, a_log, b, c, h0, y, state)
         LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+def _check_gemm(x, y, block) -> tuple:
+    """Raise on anything the GEMM kernel does not take; returns the tile,
+    ``block`` or, for None, the chooser's (``core.autotune``)."""
+    if x.dim() != 2 or y.dim() != 2:
+        raise ValueError(f"gemm takes (m, k) @ (k, n), got ranks {x.dim()} "
+                         f"and {y.dim()}")
+    if x.shape[1] != y.shape[0]:
+        raise ValueError(f"inner dims differ: {tuple(x.shape)} @ "
+                         f"{tuple(y.shape)}")
+    if x.dtype != y.dtype or x.dtype not in _decode.DTYPES:
+        raise TypeError(f"gemm takes float32/bfloat16 of one dtype, got "
+                        f"{x.dtype} and {y.dtype}")
+    if block is None:
+        cfg, _ = autotune.choose_gemm_block(autotune.GemmProblem(
+            m=x.shape[0], k=x.shape[1], n=y.shape[1],
+            in_bytes=x.element_size()))
+        block = (cfg.bm, cfg.bk, cfg.bn)
+    if tuple(block) not in _gemm.TILES:
+        raise ValueError(f"gemm tile {block} is not one the kernel "
+                         f"instantiates: {_gemm.TILES}")
+    if _check_device([x, y], x.dtype):
+        return tuple(block)
+    if max(*x.shape, y.shape[1]) >= 2**31:
+        raise ValueError(f"gemm dims {tuple(x.shape)} @ {tuple(y.shape)} "
+                         f"exceed the kernel's int32 sizes")
+    return tuple(block)
+
+
+def gemm(x, y, block=None):
+    """x (m, k) @ y (k, n) in fp32 or bf16 with an fp32 accumulator, the
+    output rounded once to x's dtype. ``block`` (bm, bk, bn) names one of
+    ``kernels.gemm.TILES``; None takes the tile ``core.autotune`` chooses
+    for the problem. Any m, k, n: the kernel masks ragged edges."""
+    block = _check_gemm(x, y, block)
+    if x.device.type == "cpu":
+        return ref.gemm(x, y)
+    out = torch.empty((x.shape[0], y.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    if out.numel():
+        _gemm.gemm(x, y, out, block)
+        LAUNCHES["gemm"] += 1
+    return out
+
+
+def _check_chain(chain, steps) -> None:
+    """Raise on a chain the chase kernel cannot follow safely: not a
+    contiguous rank-1 int32 tensor, no step, or an entry outside [0, n).
+    The entries are checked once per content of the chain (its version
+    counter, which every in-place write bumps), so a timed launch over a
+    checked chain runs no check."""
+    if chain.dim() != 1 or chain.dtype != torch.int32 \
+            or not chain.is_contiguous():
+        raise ValueError(f"pchase takes a contiguous rank-1 int32 chain, "
+                         f"got {chain.dtype} of shape {tuple(chain.shape)}")
+    if not 1 <= steps < 2**31:
+        raise ValueError(f"pchase takes 1 to 2**31 - 1 steps, got {steps}")
+    if chain.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {chain.device}")
+    if getattr(chain, "_pchase_checked", None) != chain._version:
+        n = chain.shape[0]
+        if n == 0 or bool(((chain < 0) | (chain >= n)).any()):
+            raise ValueError(f"pchase chain has an entry outside [0, {n})")
+        chain._pchase_checked = chain._version
+
+
+def pchase(chain, steps: int):
+    """Follow ``chain`` (int32 next-index array) from position 0 for
+    ``steps`` dependent loads; returns the visited positions (steps,)
+    int32."""
+    _check_chain(chain, steps)
+    if chain.device.type == "cpu":
+        return ref.pchase(chain, steps)
+    out = torch.empty(steps, dtype=torch.int32, device=chain.device)
+    _pchase.pchase(chain, out)
+    LAUNCHES["pchase"] += 1
+    return out

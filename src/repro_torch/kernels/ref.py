@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -96,6 +97,29 @@ def ssd_scan(x, a_log, b, c, h0=None, chunk: int = 128):
         F.pad(b.float(), (0, 0, 0, pad)), F.pad(c.float(), (0, 0, 0, pad)),
         chunk, h0=None if h0 is None else h0.float())
     return y[:, :l].to(x.dtype), state
+
+
+def gemm(x, y):
+    """(m, k) @ (k, n) with an fp32 accumulator, rounded once to x's dtype:
+    what the reference's Pallas ``gemm`` computes (its fp32 VMEM
+    accumulator, cast at the last k step), not ``repro/kernels/ref.py``'s
+    ``gemm``, which accumulates in the input dtype. fp32 inputs stay in
+    full fp32 on the card while ``torch.backends.cuda.matmul.allow_tf32``
+    is False (PyTorch's default)."""
+    return (x.float() @ y.float()).to(x.dtype)
+
+
+def pchase(chain, steps: int):
+    """Follow the int32 next-index ``chain`` from position 0 for ``steps``
+    dependent loads; returns the visited positions (int32, on the chain's
+    device). A loop on the host, as ``repro/kernels/ref.py``'s ``pchase``."""
+    nxt = chain.cpu().numpy()
+    out = np.empty(steps, dtype=np.int32)
+    pos = 0
+    for i in range(steps):
+        out[i] = pos
+        pos = int(nxt[pos])
+    return torch.from_numpy(out).to(chain.device)
 
 
 # How far a kernel may sit from its plain version, per dtype, as

@@ -9,10 +9,13 @@ This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import latency
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.gemm import TILES
 
 
 @pytest.fixture
@@ -54,7 +57,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
     assert ref.compare(got, want)[0]
     assert ops.LAUNCHES == {"flash_decode_paged": 1,
                             "flash_attention_paged": 1,
-                            "flash_decode": 0, "ssd_scan": 0}
+                            "flash_decode": 0, "ssd_scan": 0,
+                            "gemm": 0, "pchase": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -99,3 +103,73 @@ def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, l):
         assert ref.compare(y, wy, normwise=True)[0]
         assert ref.compare(state, ws, normwise=True)[0]
         assert ops.LAUNCHES["ssd_scan"] == 1
+
+
+# Ragged edges in every dim (1, 127, 4097), k or n off the 16-byte load
+# width (the scalar path), an empty k, and the qwen3-4b MLP shapes.
+GEMM_SHAPES = [(1, 1, 1), (127, 127, 127), (1, 4097, 127), (127, 1, 4097),
+               (4097, 127, 1), (64, 256, 127), (5, 0, 7), (130, 300, 72),
+               (2048, 2560, 9728), (2048, 9728, 2560)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", TILES, ids=str)
+def test_cuda_gemm_matches_plain_version(cuda_device, dtype, tile):
+    """The blocked GEMM kernel with each instantiated tile against its
+    plain version (fp32 sum, one rounding), within ``ref.TOLERANCE``
+    scaled by the output's magnitude (``normwise``: outputs grow with
+    sqrt(k)). fp32 products stay fp32 on both sides (no TF32)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    for m, k, n in GEMM_SHAPES:
+        x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+        y = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
+        ops.reset_launches()
+        got = ops.gemm(x, y, block=tile)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, ref.gemm(x, y), normwise=True)
+        assert ok, ((m, k, n), err)
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert ops.LAUNCHES["gemm"] == 1
+
+
+def test_cuda_gemm_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn(33, 7, device=cuda_device)
+    y = torch.randn(7, 9, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.gemm(x[1:], y)                   # base 28 bytes past alignment
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gemm(x, y.t().contiguous().t())
+    with pytest.raises(ValueError, match="tile"):
+        ops.gemm(x, y, block=(32, 16, 32))
+    with pytest.raises(ValueError, match="devices"):
+        ops.gemm(x, y.cpu())
+
+
+def _perm_chain(n, seed):
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(n).astype(np.int32)
+    chain = np.empty(n, np.int32)
+    chain[perm] = np.roll(perm, -1)
+    return chain
+
+
+def test_cuda_pchase_matches_plain_version(cuda_device):
+    """The pointer chase bit-equal to its plain version: a 128-entry
+    permutation, a strided chain, steps past n, a line chain of 1 MiB."""
+    chains = [(torch.from_numpy(_perm_chain(128, 4)), 64),
+              (torch.from_numpy(_perm_chain(128, 4)), 1000),
+              ((torch.arange(4096) + 32) % 4096, 5000),
+              (latency.line_chain(2**20, device="cpu"), latency.STEPS)]
+    for chain, steps in chains:
+        chain = chain.int().to(cuda_device)
+        ops.reset_launches()
+        got = ops.pchase(chain, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.pchase(chain, steps).cpu())
+        assert ops.LAUNCHES["pchase"] == 1
+    chain[0] = chain.shape[0]                # a write after the check
+    with pytest.raises(ValueError, match="outside"):
+        ops.pchase(chain, 4)
+    with pytest.raises(ValueError, match="int32"):
+        ops.pchase(chain.long(), 4)

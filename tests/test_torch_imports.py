@@ -40,7 +40,11 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_files_are_found():
     for rel in (("serve", "engine.py"), ("models", "mamba.py"),
-                ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py")):
+                ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
+                ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
+                ("core", "latency.py"), ("core", "autotune.py"),
+                ("core", "hwmodel.py"), ("launch", "autotune_gemm.py"),
+                ("launch", "latency.py")):
         assert PORT.joinpath(*rel) in FILES
     assert (ROOT / "chip_smoke.py").exists()
 
