@@ -49,7 +49,23 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     (``repro_torch.launch.autotune_gemm``: modelled and measured speedup
     of the tuned tile) and the latency dissection
     (``repro_torch.launch.latency``: Table 4.1 by the control-word
-    method, dependent op chains as CUDA graphs, the pointer-chase sweep).
+    method, dependent op chains as CUDA graphs, the pointer-chase sweep);
+12. the full-sequence attention kernel against its plain version, fp32
+    and bf16, causal and not, lengths 1/127/300 against 1031/2048, head_dim
+    64/80/128, groups 1/4/7; then its time at the cache-less forward's
+    shape beside the plain version, SDPA and the bound;
+13. the cache-less forward of ``qwen3-4b`` at full width (the weights of
+    phase 5): ``loss_fn`` on a 2 x 2048-token batch of the synthetic data
+    with ``use_flash`` under ``no_grad``, the kernel launched once a layer;
+    logits through the kernel against the plain ``sdpa`` in fp32 (against
+    the limit of phase 7, which a planted off-by-one causal offset must
+    exceed) and in bf16, and the NLL of both;
+14. the training launcher (``repro_torch.launch.train``) on ``qwen2-0.5b``
+    at full width: 30 steps at batch 4 x 512 with checkpoints every 10,
+    no kernel launched; a falling loss; a second run to step 40 that
+    resumes from step 30 and ends where a fresh run to 40 does; the
+    trained parameters scored through the kernel against the plain path
+    as in phase 13; a training step through the kernel refused.
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -64,6 +80,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -82,6 +99,8 @@ HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "flash_attention": (CSRC + "paged_attention.cu",
+                        "src/repro/kernels/flash_attention.py:120"),
     "flash_decode_paged": (CSRC + "paged_attention.cu",
                            "src/repro/kernels/flash_decode.py:162"),
     "flash_attention_paged": (CSRC + "paged_attention.cu",
@@ -111,6 +130,16 @@ N_REQUESTS, MAX_NEW = 12, 32
 # kernels' summation order moves them by far less than this; a planted
 # one-key fault in either kernel by far more.
 FP32_LOGIT_TOL = 1e-3
+# Phase 12-13: the cache-less forward of qwen3-4b over a 2 x 2048-token
+# batch (causal, bf16), and the lengths the kernel is checked at.
+FLASH_B, FLASH_S = 2, 2048
+FLASH_LENGTHS = ((1, 1), (127, 127), (300, 1031), (2048, 2048))
+# Phase 14: qwen2-0.5b trained at batch 4 x 512. The warmup spans all 40
+# steps, so the learning rate at a step does not depend on --steps (the
+# schedule's length) and a run to 30 resumed to 40 meets a fresh run to
+# 40; the fresh run saves only at its end.
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "4", "--seq", "512",
+              "--warmup", "40"]
 
 
 def log(msg: str) -> None:
@@ -566,6 +595,120 @@ def time_probe_kernels(dev, ops, ref, latency, autotune, tiles) -> dict:
     return out
 
 
+def check_flash_kernel(dev, ops, ref) -> list:
+    """The full-sequence kernel against its plain version over dtypes,
+    masks, lengths, head dims and GQA groups; returns failures."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+        tol = ref.TOLERANCE[dtype]
+        for causal in (True, False):
+            for d in (64, 80, 128):
+                worst = 0.0
+                for group in (1, 4, 7):
+                    for sq, skv in FLASH_LENGTHS:
+                        q = rnd(2, sq, 2 * group, d)
+                        k, v = rnd(2, skv, 2, d), rnd(2, skv, 2, d)
+                        got = ops.flash_attention(q, k, v, causal=causal)
+                        torch.cuda.synchronize()
+                        ok, err = ref.compare(got, ref.flash_attention(
+                            q, k, v, causal=causal))
+                        worst = max(worst, err)
+                        if not ok:
+                            failures.append(("flash_attention", dtype, causal,
+                                             d, group, sq, skv, err))
+                log(f"  flash_attention {str(dtype):14s} causal={int(causal)} "
+                    f"d={d:3d}: groups 1/4/7 x (sq, skv) {FLASH_LENGTHS}: "
+                    f"max_abs_err {worst:.3e} (atol {tol[0]:g} + rtol "
+                    f"{tol[1]:g})")
+    return failures
+
+
+def time_flash_kernel(dev, ops, ref) -> dict:
+    """The kernel at the cache-less forward's shape (qwen3-4b, 2 x 2048
+    tokens, causal, bf16) beside its plain version, SDPA and the bound."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    n_sets = 4                          # 4 x 52 MB > 50 MB of L2
+    sets = [(rnd(FLASH_B, FLASH_S, H, D), rnd(FLASH_B, FLASH_S, KVH, D),
+             rnd(FLASH_B, FLASH_S, KVH, D)) for _ in range(n_sets)]
+    q, k, v = sets[0]
+    ok, err = ref.compare(ops.flash_attention(q, k, v),
+                          ref.flash_attention(q, k, v))
+    # SDPA reads (b, heads, s, d); the transposed copies are not timed.
+    views = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    pairs = FLASH_S * (FLASH_S + 1) // 2
+    r = dict(
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda i: ops.flash_attention(*sets[i]), n_sets),
+        plain_ms=time_ms(lambda i: ref.flash_attention(*sets[i]), n_sets,
+                         iters=4),
+        library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            *views[i], is_causal=True, enable_gqa=True), n_sets),
+        bytes=2 * (2 * q.numel() + 2 * k.numel()),
+        ops=4 * FLASH_B * H * D * pairs)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
+    log(f"  flash_attention [b={FLASH_B} sq=skv={FLASH_S} h={H} kvh={KVH} "
+        f"d={D} causal, bf16]: kernel {r['ms']:.4f} ms "
+        f"({r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB,"
+        f" {r['ops'] / 1e9:.3f} GFLOP), max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    return r
+
+
+def flash_paths(ops) -> dict:
+    """Phases 13-14's comparison paths through ``kernel_ops``: the kernel
+    with its causal offset off by one (each query sees one key past its
+    position: k and v given one extra row at the end)."""
+    def shifted(q, k, v, causal=True):
+        pad = (0, 0, 0, 0, 0, 1)
+        return ops.flash_attention(q, F.pad(k, pad), F.pad(v, pad),
+                                   causal=causal)
+
+    return {"flash fault": dict(flash_attention=shifted)}
+
+
+def cacheless_logits(params, cfg, T, tokens, ops):
+    """fp32 logits of the cache-less forward through the kernel
+    ("kernel"), the plain ``sdpa`` ("plain") and the planted fault, each a
+    one-element tuple (the layout ``check_logits`` reads)."""
+    flash = dataclasses.replace(cfg, use_flash=True)
+
+    def run(c):
+        with torch.no_grad():
+            return (T.forward(params, c, tokens)[0].float(),)
+
+    out = {"kernel": run(flash), "plain": run(cfg)}
+    for name, override in flash_paths(ops).items():
+        with kernel_ops(ops, **override):
+            out[name] = run(flash)
+    return out
+
+
+def check_cacheless(params, cfg, T, steps, batch, ops, label) -> list:
+    """Phase 13's and 14's check of the cache-less forward through the
+    kernel against the plain path (fp32 and bf16, as ``check_logits``),
+    with the NLL of each; returns failures."""
+    f32cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    f32 = cacheless_logits(params, f32cfg, T, batch["tokens"], ops)
+    b16 = cacheless_logits(params, cfg, T, batch["tokens"], ops)
+    shape = tuple(batch["tokens"].shape)
+    failed = check_logits(f32, b16, [(0, f"{shape[0]} x {shape[1]}-token "
+                                         f"forward", "flash fault")], label)
+    nll = {f"{p} {dt}": float(steps.cross_entropy(logits[p][0],
+                                                  batch["labels"]))
+           for dt, logits in (("bf16", b16), ("fp32", f32))
+           for p in ("kernel", "plain")}
+    log(f"  {label} NLL: " + ", ".join(f"{k} {v:.6f}" for k, v in nll.items()))
+    if not all(math.isfinite(v) for v in nll.values()):
+        failed.append(f"{label}: NLL not finite: {nll}")
+    return failed
+
+
 # ----------------------------------------------------------------------------
 # The engine at full width
 # ----------------------------------------------------------------------------
@@ -799,18 +942,100 @@ def init_model(name, configs, T, dev):
     return cfg, params
 
 
+def run_training(dev, ops, configs, T, steps) -> dict:
+    """Phase 14: the training launcher at full width, resumed, scored
+    through the kernel; returns the numbers it reports."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import train as train_launch
+
+    cfg = configs.get_config("qwen2-0.5b")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        run = ["--ckpt", os.path.join(tmp, "run"), "--ckpt-every", "10"]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        first = train_launch.main(TRAIN_ARGS + run + ["--steps", "30"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resumed = train_launch.main(TRAIN_ARGS + run + ["--steps", "40"])
+        fresh = train_launch.main(TRAIN_ARGS + [
+            "--ckpt", os.path.join(tmp, "fresh"), "--ckpt-every", "40",
+            "--steps", "40"])
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+    losses = [m["loss"] for m in first["metrics"]]
+    dts = sorted(m["dt"] for m in first["metrics"] + resumed["metrics"]
+                 + fresh["metrics"])
+    step_s = dts[len(dts) // 2]
+    tokens = 4 * 512
+    out = {"params_B": round(T.param_count(fresh["state"]["params"]) / 1e9,
+                             4),
+           "losses": losses, "step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "peak_GiB": peak,
+           "first_30_steps_s": wall,
+           "loss_40": (resumed["metrics"][-1]["loss"],
+                       fresh["metrics"][-1]["loss"]),
+           "checkpoint_GB_on_disk_at_end": disk / 1e9}
+    log(f"  qwen2-0.5b ({out['params_B']} B parameters, fp32 masters, bf16 "
+        f"compute), batch 4 x 512: losses {losses} (steps 10/20/30); step "
+        f"{out['step_ms']:.1f} ms (median of logged steps), "
+        f"{out['tokens_per_s']:.0f} tokens/s; max_memory_allocated "
+        f"{peak:.2f} GiB; 30 steps with 3 checkpoints in {wall:.1f} s; "
+        f"launches over the three runs {launches}")
+    log(f"  resumed 30 -> 40: step-40 loss {out['loss_40'][0]:.6f}, fresh "
+        f"run to 40: {out['loss_40'][1]:.6f}")
+    failed = []
+    if any(launches.values()):
+        failed.append(f"training launched a kernel: {launches}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"loss did not fall: {losses}")
+    if [m["step"] for m in resumed["metrics"]] != [40]:
+        failed.append(f"the second run did not resume from step 30: "
+                      f"{resumed['metrics']}")
+    a, b = out["loss_40"]
+    if not abs(a - b) <= 1e-4 * abs(b):
+        failed.append(f"resumed and fresh step-40 losses differ: {a} {b}")
+    del first, resumed
+    state = fresh["state"]
+    tokens_np, labels_np = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=512, global_batch=4)).batch_at(40)
+    batch = {"tokens": torch.from_numpy(tokens_np).to(dev),
+             "labels": torch.from_numpy(labels_np).to(dev)}
+    ops.reset_launches()
+    failed += check_cacheless(state["params"], cfg, T, steps, batch, ops,
+                              "qwen2-0.5b trained, cache-less")
+    if ops.LAUNCHES["flash_attention"] < cfg.n_layers:
+        failed.append(f"scoring skipped the kernel: {dict(ops.LAUNCHES)}")
+    step = steps.make_train_step(dataclasses.replace(cfg, use_flash=True))
+    try:
+        step(state, batch)
+        failed.append("a training step through the kernel ran")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"  a training step at use_flash=True raises: {e}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return {k: out[k] for k in ("step_ms", "tokens_per_s", "peak_GiB")}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
     from repro_torch import configs
     from repro_torch.core import autotune, latency
+    from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.gemm import TILES
     from repro_torch.launch import autotune_gemm
     from repro_torch.launch import latency as latency_launch
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeConfig
+    from repro_torch.train import steps
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1001,6 +1226,55 @@ def main() -> None:
     log("  pointer chase, phase 4 against phase 11 (ns per load): "
         + ", ".join(f"{fp // 2**10} KiB {timing['pchase']['ns'][fp]:.1f}/"
                     f"{v:.1f}" for fp, v in lat["chase_ns"].items()))
+    torch.cuda.empty_cache()
+
+    log("== the full-sequence attention kernel against its plain version ==")
+    failures = check_flash_kernel(dev, ops, ref)
+    if failures:
+        raise RuntimeError(f"flash_attention disagrees with its plain "
+                           f"version: {failures}")
+    timing["flash_attention"] = time_flash_kernel(dev, ops, ref)
+    if not timing["flash_attention"]["ok"]:
+        raise RuntimeError("the timed flash_attention disagrees with its "
+                           "plain version")
+    torch.cuda.empty_cache()
+
+    log("== cache-less forward: qwen3-4b at full width through the kernel ==")
+    cfg, params = init_model("qwen3-4b", configs, T, dev)
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=FLASH_S, global_batch=FLASH_B)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = steps.loss_fn(params, dataclasses.replace(cfg,
+                                                            use_flash=True),
+                                batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"  loss_fn (use_flash, no_grad) on {FLASH_B} x {FLASH_S} tokens: "
+        f"loss {float(loss):.6f} in {wall:.3f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    if launches != dict(dict.fromkeys(launches, 0),
+                        flash_attention=cfg.n_layers):
+        raise RuntimeError(f"cache-less forward launches {launches}: want "
+                           f"flash_attention {cfg.n_layers} and nothing else")
+    main_launches["flash_attention"] = launches["flash_attention"]
+    failed = check_cacheless(params, cfg, T, steps, batch, ops,
+                             "qwen3-4b cache-less")
+    del params, batch
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    torch.cuda.empty_cache()
+
+    log("== training launcher: qwen2-0.5b at full width ==")
+    train_summary = run_training(dev, ops, configs, T, steps)
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1011,7 +1285,8 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(f"  ticks: {ticks}; total {time.perf_counter() - t_start:.1f} s")
+    log(f"  ticks: {ticks}; training: {train_summary}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,10 +27,17 @@ class ModelConfig:
     is named by ``pattern`` (repeated over the depth): ``"attn"`` (GQA
     attention with optional qk-norm / qkv-bias and half-split RoPE) or
     ``"mamba"`` (a Mamba-2 SSD mixer, ``models.mamba``); ``d_ff > 0`` adds
-    a SwiGLU or GELU MLP to every block. Cached attention and the SSD scan
-    always go through the kernel wrappers (``kernels.ops``), and softmax
-    probabilities are always fp32: the reference's ``use_flash``,
-    ``use_ssd_kernel`` and ``attn_probs_fp32`` have no field here."""
+    a SwiGLU or GELU MLP to every block.
+
+    ``use_flash`` governs only the cache-less forward (``forward`` without
+    caches: scoring, the loss): True runs its attention through the
+    full-sequence kernel (``kernels.ops.flash_attention``), False through
+    the masked plain ``sdpa``, which is what training differentiates (the
+    kernels have no backward). Cached attention always runs its kernels
+    (paged prefill and decode, contiguous decode) whatever ``use_flash``
+    says, and the SSD scan always runs its kernel; softmax probabilities
+    are always fp32. The reference's ``use_ssd_kernel`` and
+    ``attn_probs_fp32`` have no field here."""
 
     name: str
     n_layers: int
@@ -49,6 +56,7 @@ class ModelConfig:
     mamba_head_dim: int = 64
     mamba_expand: int = 2
     compute_dtype: str = "float32"
+    use_flash: bool = False
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern):

@@ -1,27 +1,34 @@
-// Attention for the serving loop, written by hand for Hopper (sm_90a).
+// Attention, written by hand for Hopper (sm_90a).
 //
-// Three kernels over K/V rows that are found either through a page table
+// Four kernels over K/V rows that are found either through a page table
 // (a shared pool (n_pages, page_size, kvh, d) walked through each slot's
 // table row (b, max_pages), page 0 being the null page) or at a fixed base
-// per slot (a contiguous cache (b, max_len, kvh, d)):
+// per batch row (a contiguous cache or sequence (b, max_len, kvh, d)):
 //
-//   decode_kernel<PagedLayout>      replaces repro/kernels/flash_decode.py
-//                                   flash_decode_paged (_paged_decode_kernel,
-//                                   _decode_body): one query token per slot.
-//   decode_kernel<ContiguousLayout> replaces repro/kernels/flash_decode.py
-//                                   flash_decode (_decode_kernel): the same
-//                                   decode over a contiguous ragged cache.
-//   paged_prefill_kernel            replaces repro/kernels/flash_attention.py
-//                                   flash_attention_paged
-//                                   (_paged_prefill_kernel): one causal chunk
-//                                   of queries per slot.
+//   decode_kernel<PagedLayout>       replaces repro/kernels/flash_decode.py
+//                                    flash_decode_paged (_paged_decode_kernel,
+//                                    _decode_body): one query token per slot.
+//   decode_kernel<ContiguousLayout>  replaces repro/kernels/flash_decode.py
+//                                    flash_decode (_decode_kernel): the same
+//                                    decode over a contiguous ragged cache.
+//   prefill_kernel<PagedLayout>      replaces repro/kernels/flash_attention.py
+//                                    flash_attention_paged
+//                                    (_paged_prefill_kernel): one causal chunk
+//                                    of queries per slot.
+//   prefill_kernel<ContiguousLayout> replaces repro/kernels/flash_attention.py
+//                                    flash_attention (_flash_kernel,
+//                                    _lower_tri_maps): full-sequence GQA
+//                                    attention, causal or not, q (b, sq, h, d)
+//                                    against k/v (b, skv, kvh, d).
 //
-// The two decodes share one body; only how a logical row's address is
-// found differs (the layout's `rows(slot)`). All keep the TPU kernels'
-// math: q, k and v are read as fp32, scores, the online softmax (running
-// max m, denominator l, accumulator acc) and the P.V products are fp32,
-// and the output is rounded once to q's dtype. The cache stays in its own
-// dtype: it is widened to fp32 per tile on load, never copied.
+// The two decodes share one body, and the two prefills another; only how
+// a logical row's address is found differs (the layout's `rows(slot)`),
+// and where the queries sit: a chunk's rows start at `starts[slot]`, a
+// sequence's at skv - sq (the causal diagonal's offset). All keep the TPU
+// kernels' math: q, k and v are read as fp32, scores, the online softmax
+// (running max m, denominator l, accumulator acc) and the P.V products are
+// fp32, and the output is rounded once to q's dtype. K/V stay in their
+// own dtype: they are widened to fp32 per tile on load, never copied.
 //
 // What bounds them on an H100. Decode reads every live K/V row of a slot
 // once per kv head and does 4 * group * d flops per row: it is bound by
@@ -33,12 +40,20 @@
 // batch, and nothing overlaps one tile's loads with the last tile's math.
 // Splitting the context across CTAs (flash-decoding) is the next step.
 //
-// Prefill at a 256-row chunk does 4 * d flops per (query, key) pair and
-// reads each K/V row once per query block: it is bound by operations.
-// Its design: one CTA per (slot, q head, 64 query rows), 256 threads each
-// owning a 4x4 block of the 64x64 score tile in registers (rows ty+16i,
-// columns tx+16j, so shared-memory reads are conflict-free), fp32 FMAs on
-// CUDA cores. Tensor cores (mma.sync, then wgmma/TMA) are later work.
+// Prefill at a 256-row chunk, and the full-sequence forward, do 4 * d
+// flops per (query, key) pair and read each K/V row once per query block:
+// they are bound by operations. The design: one CTA per (batch row, q
+// head, 64 query rows), 256 threads each owning a 4x4 block of the 64x64
+// score tile in registers (rows ty+16i, columns tx+16j, so shared-memory
+// reads are conflict-free), fp32 FMAs on CUDA cores. Causality is a loop
+// bound, not a grid: a CTA walks key tiles up to the last key its last
+// query row sees, and masks only what lies past the diagonal (or past the
+// end) inside a tile, so any sq and skv work, 1 and primes included. The
+// TPU kernel instead enumerates the lower triangle of (q block, k block)
+// pairs in scalar-prefetched maps and snaps its blocks to divisors of the
+// lengths. q, k and v are read in their (b, s, heads, d) layout; GQA is
+// kv_head = head / group. Tensor cores (mma.sync, then wgmma/TMA) are
+// later work.
 //
 // The page walk: before a tile's rows are loaded, each row's physical page
 // is read from the table (page_table[slot, row / page_size]); entries past
@@ -230,13 +245,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
+// Query r of batch row `slot` sits at position `start + r`, where start is
+// starts[slot] (a chunk through a page table) or, without `starts`, the
+// fixed `offset` (skv - sq: a sequence's causal diagonal). Causal: it sees
+// keys <= its position that the layout holds (< max_rows()); otherwise
+// every key the layout holds.
+template <typename T, int D, typename Layout>
 __global__ void __launch_bounds__(kThreads, 2)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ table,
-                     const int* __restrict__ starts, T* __restrict__ out,
-                     int sq, int h, int kvh, int page_size, int max_pages,
-                     float scale) {
+prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+               const T* __restrict__ vp, Layout layout,
+               const int* __restrict__ starts, int offset, bool causal,
+               T* __restrict__ out, int sq, int h, int kvh, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kTileK + 1;
   constexpr int DC = D / 16;  // output columns per thread
@@ -254,13 +273,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int start = starts[slot];
+  const int start = starts != nullptr ? starts[slot] : offset;
   const int q0 = qb * kBlockQ;
   const int nq = min(kBlockQ, sq - q0);
-  // Query r sits at start + q0 + r and sees keys <= its position that the
-  // table maps (< max_pages * page_size).
-  const int n_keys = min(start + q0 + nq, max_pages * page_size);
-  const PagedRows rows{table + (int64_t)slot * max_pages, page_size};
+  // The loop bound: the last key this block's last query sees.
+  const int n_keys = causal ? min(start + q0 + nq, layout.max_rows())
+                            : layout.max_rows();
+  const auto rows = layout.rows(slot);
   for (int v = tid; v < kBlockQ * kVecs; v += kThreads) {
     const int r = v / kVecs;
     const int c = (v % kVecs) * kPer;
@@ -313,7 +332,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        ok[j] = col <= pos && col < n_keys;
+        ok[j] = col < n_keys && (!causal || col <= pos);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -376,21 +395,21 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Layout>
 cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
-                           const void* table, const void* starts, void* out,
-                           int b, int sq, int h, int kvh, int page_size,
-                           int max_pages, cudaStream_t stream) {
+                           Layout layout, const void* starts, int offset,
+                           bool causal, void* out, int b, int sq, int h,
+                           int kvh, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
                       ((kBlockQ + 2 * kTileK) * (D + 1) + kBlockQ * (kTileK + 1));
-  auto kernel = paged_prefill_kernel<T, D>;
+  auto kernel = prefill_kernel<T, D, Layout>;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(table), static_cast<const int*>(starts), static_cast<T*>(out),
-      sq, h, kvh, page_size, max_pages, 1.0f / sqrtf(static_cast<float>(D)));
+      layout, static_cast<const int*>(starts), offset, causal, static_cast<T*>(out),
+      sq, h, kvh, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -434,25 +453,39 @@ extern "C" int contiguous_decode(int dtype, int d, const void* q,
 #undef DECODE
 #undef DISPATCH_DECODE
 
-extern "C" int paged_prefill(int dtype, int d, const void* q, const void* kp,
-                             const void* vp, const void* table,
+#define DISPATCH_PREFILL(LAYOUT, STARTS, OFFSET, CAUSAL)                      \
+  if (dtype == 0) {                                                            \
+    if (d == 64) PREFILL(float, 64, LAYOUT, STARTS, OFFSET, CAUSAL);           \
+    if (d == 80) PREFILL(float, 80, LAYOUT, STARTS, OFFSET, CAUSAL);           \
+    if (d == 128) PREFILL(float, 128, LAYOUT, STARTS, OFFSET, CAUSAL);         \
+  } else if (dtype == 1) {                                                     \
+    if (d == 64) PREFILL(__nv_bfloat16, 64, LAYOUT, STARTS, OFFSET, CAUSAL);   \
+    if (d == 80) PREFILL(__nv_bfloat16, 80, LAYOUT, STARTS, OFFSET, CAUSAL);   \
+    if (d == 128) PREFILL(__nv_bfloat16, 128, LAYOUT, STARTS, OFFSET, CAUSAL); \
+  }                                                                            \
+  return repro::kUnsupported
+#define PREFILL(T, D, LAYOUT, STARTS, OFFSET, CAUSAL)                          \
+  return static_cast<int>(launch_prefill<T, D>(                                \
+      q, k, v, LAYOUT, STARTS, OFFSET, CAUSAL, out, b, sq, h, kvh,             \
+      static_cast<cudaStream_t>(stream)))
+
+extern "C" int paged_prefill(int dtype, int d, const void* q, const void* k,
+                             const void* v, const void* table,
                              const void* starts, void* out, int b, int sq,
                              int h, int kvh, int page_size, int max_pages,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PREFILL(T, D)                                                          \
-  return static_cast<int>(launch_prefill<T, D>(q, kp, vp, table, starts, out,  \
-                                               b, sq, h, kvh, page_size,       \
-                                               max_pages, s))
-  if (dtype == 0) {
-    if (d == 64) PREFILL(float, 64);
-    if (d == 80) PREFILL(float, 80);
-    if (d == 128) PREFILL(float, 128);
-  } else if (dtype == 1) {
-    if (d == 64) PREFILL(__nv_bfloat16, 64);
-    if (d == 80) PREFILL(__nv_bfloat16, 80);
-    if (d == 128) PREFILL(__nv_bfloat16, 128);
-  }
-#undef PREFILL
-  return repro::kUnsupported;
+  const PagedLayout layout{static_cast<const int*>(table), page_size, max_pages};
+  DISPATCH_PREFILL(layout, starts, 0, true);
 }
+
+// q (b, sq, h, d), k/v (b, skv, kvh, d), out like q; causal 0 or 1. The
+// caller guarantees skv >= sq when causal (every query sees a key).
+extern "C" int flash_attention(int dtype, int d, const void* q, const void* k,
+                               const void* v, void* out, int b, int sq,
+                               int skv, int h, int kvh, int causal,
+                               void* stream) {
+  const ContiguousLayout layout{skv};
+  DISPATCH_PREFILL(layout, nullptr, skv - sq, causal != 0);
+}
+#undef PREFILL
+#undef DISPATCH_PREFILL

@@ -1,10 +1,18 @@
-"""Launcher of the CUDA paged-prefill kernel (``csrc/paged_attention.cu``).
+"""Launchers of the CUDA prefill kernel (``csrc/paged_attention.cu``).
 
-Replaces ``repro/kernels/flash_attention.py:flash_attention_paged`` (the
-Pallas ``_paged_prefill_kernel``): causal chunk attention through a page
-table, one CTA per (slot, q head, 64 query rows).
-``kernels.ops.flash_attention_paged`` checks the arguments and counts
-launches; call that, not this.
+One kernel body, one CTA per (batch row, q head, 64 query rows), two ways
+to find the K/V rows:
+
+* ``paged_prefill`` replaces
+  ``repro/kernels/flash_attention.py:flash_attention_paged`` (the Pallas
+  ``_paged_prefill_kernel``): causal chunk attention through a page table;
+* ``flash_attention`` replaces
+  ``repro/kernels/flash_attention.py:flash_attention`` (the Pallas
+  ``_flash_kernel``): full-sequence GQA attention, causal or not, over
+  contiguous (b, skv, kvh, d) K/V, the causal diagonal offset by skv - sq.
+
+``kernels.ops`` checks the arguments and counts launches; call that, not
+these.
 """
 
 from __future__ import annotations
@@ -27,3 +35,16 @@ def paged_prefill(q, k_pages, v_pages, page_table, starts, out) -> None:
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_prefill launch failed: error {err}")
+
+
+def flash_attention(q, k, v, causal: bool, out) -> None:
+    """Launch on the current stream; raise if the launch fails."""
+    lib = _build.load()
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    err = lib.flash_attention(
+        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, sq, skv, h, kvh, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: error {err}")

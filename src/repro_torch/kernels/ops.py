@@ -1,12 +1,18 @@
 """Public wrappers of the CUDA kernels.
 
 Same arguments and layouts as ``repro/kernels/ops.py``'s
-``flash_decode_paged`` / ``flash_attention_paged`` / ``flash_decode`` /
-``ssd_scan`` / ``gemm`` / ``pchase``; block sizes are the CUDA kernels' own
-constants, and ``gemm``'s tile one of those it instantiates. A tensor on
-the CPU goes to the plain version (``kernels.ref``); a CUDA tensor goes to
-the kernel, or the wrapper raises. There is no fallback from one to the
-other.
+``flash_attention`` / ``flash_decode_paged`` / ``flash_attention_paged`` /
+``flash_decode`` / ``ssd_scan`` / ``gemm`` / ``pchase``; block sizes are
+the CUDA kernels' own constants, and ``gemm``'s tile one of those it
+instantiates. A tensor on the CPU goes to the plain version
+(``kernels.ref``); a CUDA tensor goes to the kernel, or the wrapper raises.
+There is no fallback from one to the other.
+
+The kernels have no backward, as the reference's Pallas kernels have none
+(``jax.grad`` through them raises): every wrapper raises when grad mode is
+on and a floating input requires grad, on the CPU as on the card, so a
+gradient is never silently cut at a kernel's output. Call them under
+``torch.no_grad()``; training runs the plain ``sdpa``.
 
 ``LAUNCHES`` counts kernel launches, one per call that reached the kernel;
 the plain versions never touch it.
@@ -26,7 +32,8 @@ from repro_torch.kernels import pchase_probe as _pchase
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
-LAUNCHES: Dict[str, int] = {"flash_decode_paged": 0,
+LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                            "flash_decode_paged": 0,
                             "flash_attention_paged": 0,
                             "flash_decode": 0,
                             "ssd_scan": 0,
@@ -37,6 +44,17 @@ LAUNCHES: Dict[str, int] = {"flash_decode_paged": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _check_no_grad(tensors) -> None:
+    """Raise when autograd would need a kernel's backward, which none
+    has: grad mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            "the kernels have no backward: an input requires grad while "
+            "grad mode is on; run them under torch.no_grad() (training "
+            "goes through the plain sdpa, use_flash=False)")
 
 
 def _check_device(tensors, dtype) -> bool:
@@ -88,6 +106,7 @@ def _check(q, k, v, lens, q_rank: int, page_table=None) -> None:
                          f"match batch {b}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"cache dtype {k.dtype} != q dtype {q.dtype}")
+    _check_no_grad([q, k, v])
     ints = [lens] + ([] if page_table is None else [page_table])
     if _check_device([q, k, v, *ints], q.dtype):
         return
@@ -96,6 +115,53 @@ def _check(q, k, v, lens, q_rank: int, page_table=None) -> None:
                          f"got {d}")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("page_table and lengths/starts must be int32")
+
+
+def _check_flash(q, k, v, causal: bool) -> None:
+    """Raise on anything the full-sequence kernel does not take, where the
+    reference asserts or its shapes would not line up."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q rank {q.dim()} and k rank {k.dim()} (want 4)")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    kb, skv, kvh, kd = k.shape
+    if kb != b:
+        raise ValueError(f"k/v batch {kb} != q batch {b}")
+    if kd != d or h % kvh:
+        raise ValueError(f"q heads/dim ({h}, {d}) vs k/v heads/dim "
+                         f"({kvh}, {kd})")
+    if causal and sq > skv:
+        raise ValueError(f"causal attention with sq {sq} > skv {skv} "
+                         f"leaves early queries no key")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k/v dtype {k.dtype}/{v.dtype} != q dtype "
+                        f"{q.dtype}")
+    _check_no_grad([q, k, v])
+    if _check_device([q, k, v], q.dtype):
+        return
+    if d not in _decode.HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {_decode.HEAD_DIMS}, "
+                         f"got {d}")
+    if max(b, h) >= 2**16:
+        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid "
+                         f"(65535)")
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Full-sequence GQA attention: q (b, sq, h, d) vs k/v (b, skv, kvh,
+    d), fp32 online softmax, the output in q's dtype. Causal: query i
+    attends keys ``<= i + skv - sq``. Any sq and skv (the kernel masks the
+    ragged edges). Returns (b, sq, h, d)."""
+    _check_flash(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal)
+    out = torch.empty_like(q)
+    if out.numel():
+        _prefill.flash_attention(q, k, v, causal, out)
+        LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def flash_decode_paged(q, k_pages, v_pages, page_table, lengths):
@@ -163,6 +229,7 @@ def _check_ssd(x, a_log, b, c, h0) -> None:
         raise TypeError("a_log and h0 must be float32")
     if l < 1:
         raise ValueError("ssd_scan needs at least one row")
+    _check_no_grad([x, a_log, b, c, h0])
     if _check_device([x, a_log, b, c] + ([] if h0 is None else [h0]),
                      x.dtype):
         return
@@ -202,6 +269,7 @@ def _check_gemm(x, y, block) -> tuple:
     if x.dtype != y.dtype or x.dtype not in _decode.DTYPES:
         raise TypeError(f"gemm takes float32/bfloat16 of one dtype, got "
                         f"{x.dtype} and {y.dtype}")
+    _check_no_grad([x, y])
     if block is None:
         cfg, _ = autotune.choose_gemm_block(autotune.GemmProblem(
             m=x.shape[0], k=x.shape[1], n=y.shape[1],

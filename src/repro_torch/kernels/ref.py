@@ -23,6 +23,25 @@ from repro_torch.serve.paged import gather_kv
 NEG_INF = -1e30
 
 
+def flash_attention(q, k, v, causal: bool = True):
+    """Full-sequence GQA attention: q (b, sq, h, d) vs k/v (b, skv, kvh, d),
+    scores and softmax in fp32 scaled by 1/sqrt(d), the output in q's
+    dtype. Causal: query i attends keys ``<= i + skv - sq`` (the diagonal
+    offset when skv > sq). Port of ``repro.kernels.ref.flash_attention``."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, sq, kvh, group, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool,
+                          device=s.device).tril(diagonal=skv - sq)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
 def flash_decode(q, k, v, lengths):
     """Ragged single-token GQA decode: q (b, h, d) vs k/v (b, skv, kvh, d).
 

@@ -1,0 +1,135 @@
+"""Training launcher: the trainer over synthetic data on one device.
+
+  python -m repro_torch.launch.train --arch qwen2-0.5b --steps 30 \\
+      --batch 4 --seq 512 --ckpt DIR
+  python -m repro_torch.launch.train --arch qwen3-4b --smoke --device cpu \\
+      --steps 30 --batch 2 --seq 16 --ckpt DIR
+
+Runs on cuda unless ``--device cpu`` is given. Parameters are fp32
+masters drawn from a ``torch.Generator`` seeded with ``--seed``, computed
+in the config's dtype; attention trains through the plain ``sdpa``.
+Running again with a higher ``--steps`` against the same ``--ckpt``
+resumes from its last checkpoint. ``--key=value`` pairs override
+``ModelConfig`` fields (``--compute_dtype=float32``); booleans take true,
+false, 1 or 0. Only attention stacks train, on one device: ``--fsdp`` and
+``--mesh`` are not ported (ROADMAP Queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Any, Dict
+
+from repro_torch import configs, resolve_device
+from repro_torch.configs import ModelConfig
+from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.optim import schedule
+from repro_torch.train import steps as steps_mod
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+_BOOLS = {"true": True, "1": True, "false": False, "0": False}
+
+
+def _parse_bool(value: str) -> bool:
+    if value.lower() not in _BOOLS:
+        raise ValueError(f"not a boolean: {value!r} (true, false, 1 or 0)")
+    return _BOOLS[value.lower()]
+
+
+def apply_overrides(cfg: ModelConfig, overrides: Dict[str, str]) -> ModelConfig:
+    """``cfg`` with each field named in ``overrides`` parsed from its
+    string to the field's current type. Booleans are parsed strictly (the
+    reference's ``bool("False")`` is True)."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    typed: Dict[str, Any] = {}
+    for k, v in overrides.items():
+        if k not in fields:
+            raise ValueError(f"unknown config field {k}")
+        kind = type(getattr(cfg, k))
+        if kind is bool:
+            typed[k] = _parse_bool(v)
+        elif kind in (int, float, str):
+            typed[k] = kind(v)
+        else:
+            raise ValueError(f"config field {k} ({kind.__name__}) cannot be "
+                             f"overridden from the command line")
+    return dataclasses.replace(cfg, **typed)
+
+
+def build(cfg: ModelConfig, args, device):
+    """(step function, fresh-state function) for the trainer."""
+    sched = schedule.ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
+                                    total_steps=args.steps)
+    step = steps_mod.make_train_step(cfg, sched=sched,
+                                     accum_steps=args.accum,
+                                     compress_grads=args.compress_grads,
+                                     error_feedback=args.error_feedback)
+
+    def init_fn():
+        return steps_mod.init_state(cfg, args.seed, device,
+                                    error_feedback=args.error_feedback).tree()
+
+    return step, init_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", required=True, help="checkpoint directory")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--fsdp", action="store_true", help="not ported")
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="carry the int8 quantization residual in the "
+                         "train state (EF-SGD); implies --compress-grads")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "single", "multi"], help="not ported")
+    ap.add_argument("--device", default="cuda")
+    args, extra = ap.parse_known_args(argv)
+    if args.fsdp or args.mesh != "none":
+        raise NotImplementedError(
+            "--fsdp and --mesh are not ported: the port trains on one "
+            "device (ROADMAP Queue 1 item 13)")
+    bad = [a for a in extra if "=" not in a]
+    if bad:
+        ap.error(f"unrecognized arguments: {' '.join(bad)}")
+    if args.error_feedback:
+        args.compress_grads = True
+
+    device = resolve_device(args.device)
+    cfg = configs.get_smoke(args.arch) if args.smoke \
+        else configs.get_config(args.arch)
+    overrides = dict(a.lstrip("-").split("=", 1) for a in extra)
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.batch,
+                                      seed=args.seed))
+    step_fn, init_fn = build(cfg, args, device)
+    trainer = Trainer(
+        TrainerConfig(checkpoint_dir=args.ckpt, total_steps=args.steps,
+                      checkpoint_every=args.ckpt_every),
+        cfg, data, step_fn, init_fn, device=device)
+    result = trainer.run()
+    for m in result["metrics"]:
+        print(f"step {m['step']:5d} loss={m['loss']:.4f} "
+              f"nll={m['nll']:.4f} lr={m['lr']:.2e} dt={m['dt']:.3f}s")
+    print(f"done: {len(result['metrics'])} logs, "
+          f"{result['recoveries']} recoveries, "
+          f"{len(result['stragglers'])} stragglers")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -66,6 +66,7 @@ class AttnConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: Optional[float] = 10000.0
+    causal: bool = True
 
 
 def _matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -127,11 +128,16 @@ def causal_mask(sq: int, device=None):
 
 
 def attention_apply(params: Params, cfg: AttnConfig, x,
-                    cache: Optional[Params] = None
+                    cache: Optional[Params] = None, use_flash: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Causal self-attention over the whole sequence (no cache), or s new
-    rows against a cache: a paged one (``cache`` holds "kp") or a
-    contiguous one (``cache`` holds "k"/"v")."""
+    """Self-attention over the whole sequence (no cache; causal unless
+    ``cfg.causal`` is False), or s new rows against a cache: a paged one
+    (``cache`` holds "kp") or a contiguous one (``cache`` holds "k"/"v").
+
+    Without a cache, ``use_flash`` runs the full-sequence kernel
+    (``kernels.ops.flash_attention``, fp32 softmax, no backward), else the
+    masked plain ``sdpa``. With a cache it is not read: cached attention
+    always runs its kernels."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if cache is not None:
@@ -142,7 +148,11 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
         if "kp" in cache:
             return _paged_apply(params, x, q, k, v, cache)
         return _contiguous_apply(params, x, q, k, v, cache)
-    out = sdpa(q, k, v, mask=causal_mask(s, device=x.device))
+    if use_flash:
+        out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        mask = causal_mask(s, device=x.device) if cfg.causal else None
+        out = sdpa(q, k, v, mask=mask)
     return _matmul_out(out, params["wo"]), None
 
 

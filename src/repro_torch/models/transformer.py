@@ -120,7 +120,8 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
                                            h, cache=cache)
     else:
         mix, new_cache = layers.attention_apply(
-            params["attn"], attn_cfg(cfg), h, cache=cache)
+            params["attn"], attn_cfg(cfg), h, cache=cache,
+            use_flash=cfg.use_flash)
     x = x + mix
     if "mlp" in params:
         h2 = layers.rmsnorm(params["ln2"], x)
@@ -133,10 +134,12 @@ def forward(params: Params, cfg: ModelConfig, tokens,
             ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
     """tokens (b, s) -> (logits (b, s, vocab), new caches or None).
 
-    With ``caches`` (``init_caches`` or ``init_paged_caches``) the new K/V
-    rows are written into each attention layer's cache in place, each
-    Mamba layer returns its new conv/SSM state, and every returned cache
-    has its write position advanced by s."""
+    Without ``caches`` attention is causal over the whole sequence: the
+    full-sequence kernel under ``cfg.use_flash``, the plain ``sdpa``
+    otherwise. With ``caches`` (``init_caches`` or ``init_paged_caches``)
+    the new K/V rows are written into each attention layer's cache in
+    place, each Mamba layer returns its new conv/SSM state, and every
+    returned cache has its write position advanced by s."""
     x = layers.embed(params["embed"], tokens, cfg.dtype)
     new_caches = [] if caches is not None else None
     for i, block in enumerate(params["blocks"]):

@@ -104,6 +104,7 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
     return step
 
 
+@torch.no_grad()
 def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
                     max_new: int, max_len: Optional[int] = None):
     """The generation loop the engines are compared with: prompt (b, s)
@@ -518,6 +519,7 @@ class ServingEngine:
         for i, cursor in self._prefilling.items():
             self.index[i] = cursor
 
+    @torch.no_grad()
     def tick(self) -> int:
         """Admit, advance prefill chunks (paged), one decode step for the
         decode-active slots; returns the number of slots making progress."""

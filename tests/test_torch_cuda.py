@@ -9,13 +9,19 @@ This file imports neither JAX nor the reference package, so it runs on a
 machine that has only PyTorch.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import latency
+from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gemm import TILES
+from repro_torch.train import steps
+from repro_torch.tree import tree_items, tree_map
 
 
 @pytest.fixture
@@ -55,7 +61,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
     torch.cuda.synchronize()
     want = ref.flash_attention_paged(qc, kp, vp, table, starts)
     assert ref.compare(got, want)[0]
-    assert ops.LAUNCHES == {"flash_decode_paged": 1,
+    assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode_paged": 1,
                             "flash_attention_paged": 1,
                             "flash_decode": 0, "ssd_scan": 0,
                             "gemm": 0, "pchase": 0}
@@ -173,3 +179,91 @@ def test_cuda_pchase_matches_plain_version(cuda_device):
         ops.pchase(chain, 4)
     with pytest.raises(ValueError, match="int32"):
         ops.pchase(chain.long(), 4)
+
+
+# (sq, skv): 1, a prime, a full sequence, and a query block against a
+# longer key range (the causal diagonal offset by skv - sq).
+FLASH_LENGTHS = [(1, 1), (127, 127), (300, 1031), (2048, 2048)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, causal,
+                                                    dtype, d):
+    """The full-sequence kernel against its plain version at groups 1, 4
+    and 7 (qwen3-4b's and qwen2-0.5b's) and the lengths above, within
+    ``ref.TOLERANCE``."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device   # noqa
+                                ).to(dtype)
+    for group, kvh in ((1, 2), (4, 2), (7, 2)):
+        for sq, skv in FLASH_LENGTHS:
+            q, k, v = mk(2, sq, group * kvh, d), mk(2, skv, kvh, d), \
+                mk(2, skv, kvh, d)
+            ops.reset_launches()
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            ok, err = ref.compare(got, ref.flash_attention(q, k, v,
+                                                           causal=causal))
+            assert ok, (group, sq, skv, err)
+            assert ops.LAUNCHES["flash_attention"] == 1
+
+
+def test_cuda_kernels_refuse_to_run_inside_a_gradient(cuda_device):
+    """Every wrapper raises on a CUDA input that requires grad while grad
+    mode is on, before launching anything."""
+    mk = lambda *s: torch.randn(*s, device=cuda_device)   # noqa: E731
+    q4, k4, pool = mk(1, 64, 8, 64), mk(1, 64, 2, 64), mk(5, 16, 2, 64)
+    table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32,
+                         device=cuda_device)
+    n = torch.tensor([64], dtype=torch.int32, device=cuda_device)
+    calls = [(ops.flash_attention, (q4, k4, k4)),
+             (ops.flash_decode_paged, (q4[:, 0], pool, pool, table, n)),
+             (ops.flash_attention_paged, (q4, pool, pool, table, n - 64)),
+             (ops.flash_decode, (q4[:, 0].contiguous(), k4, k4, n)),
+             (ops.ssd_scan, (mk(1, 8, 2, 64), -mk(1, 8, 2).abs(),
+                             mk(1, 8, 128), mk(1, 8, 128))),
+             (ops.gemm, (mk(64, 64), mk(64, 64)))]
+    ops.reset_launches()
+    for fn, args in calls:
+        tracked = (args[0].clone().requires_grad_(),) + args[1:]
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*tracked)
+    assert not any(ops.LAUNCHES.values())
+    with torch.no_grad():
+        for fn, args in calls:
+            fn(args[0].clone().requires_grad_(), *args[1:])
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[k] == 1 for k in ("flash_attention", "gemm",
+                                              "ssd_scan", "flash_decode"))
+
+
+def test_cuda_train_steps_match_cpu(cuda_device):
+    """Three train steps of the qwen3-4b smoke model (fp32) on the card
+    and on the CPU from the same parameters: losses within 1e-4, the
+    parameters within a tenth of the learning rate (the bound of
+    ``tests/test_torch_train.py``; the card's embedding backward sums
+    with atomics, in no fixed order)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_smoke("qwen3-4b")
+    cpu = steps.init_state(cfg, device="cpu").tree()
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    step = steps.make_train_step(cfg)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                      global_batch=4))
+    lr_max = 0.0
+    for i in range(3):
+        tokens, labels = (torch.from_numpy(a) for a in data.batch_at(i))
+        cpu, m_cpu = step(cpu, {"tokens": tokens, "labels": labels})
+        card, m_card = step(card, {"tokens": tokens.to(cuda_device),
+                                   "labels": labels.to(cuda_device)})
+        assert abs(float(m_cpu["loss"]) - float(m_card["loss"])) <= 1e-4
+        lr_max = max(lr_max, float(m_cpu["lr"]))
+    want = dict(tree_items(cpu["params"]))
+    for key, p in tree_items(card["params"]):
+        assert float((p.cpu() - want[key]).abs().max()) <= 0.1 * lr_max, key
+    flash = steps.make_train_step(dataclasses.replace(cfg, use_flash=True))
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash(card, {"tokens": tokens.to(cuda_device),
+                     "labels": labels.to(cuda_device)})

@@ -44,17 +44,23 @@ def test_port_files_are_found():
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
                 ("core", "hwmodel.py"), ("launch", "autotune_gemm.py"),
-                ("launch", "latency.py")):
+                ("launch", "latency.py"), ("launch", "train.py"),
+                ("train", "steps.py"), ("train", "trainer.py"),
+                ("optim", "adamw.py"), ("optim", "schedule.py"),
+                ("data", "pipeline.py"), ("dist", "compression.py"),
+                ("checkpoint", "manager.py")):
         assert PORT.joinpath(*rel) in FILES
     assert (ROOT / "chip_smoke.py").exists()
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
     from repro_torch import configs
+    from repro_torch.launch import train
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train import steps
 
     cfg = configs.get_smoke("qwen3-4b")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -69,3 +75,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServingEngine(params, cfg, ServeConfig(
                 max_len=32, batch=2, paged=paged, chunk_size=8, page_size=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.init_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-4b", "--smoke", "--steps", "1",
+                    "--ckpt", str(tmp_path)])
+    assert not list(tmp_path.iterdir())

@@ -69,7 +69,7 @@ def test_plain_paged_decode_matches_reference(group, case):
     ops.reset_launches()
     got = ops.flash_decode_paged(_t(q), _t(kp), _t(vp), _t(table),
                                  _t(lengths)).numpy()
-    assert set(ops.LAUNCHES) == {"flash_decode_paged",
+    assert set(ops.LAUNCHES) == {"flash_attention", "flash_decode_paged",
                                  "flash_attention_paged", "flash_decode",
                                  "ssd_scan", "gemm", "pchase"}
     assert not any(ops.LAUNCHES.values())
