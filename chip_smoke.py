@@ -13,15 +13,17 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    and the main path's head counts (ragged lengths with a 0 and max_len,
    shuffled page tables, chunks at start > 0 and past the table's end),
    the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state,
-   the blocked GEMM with every tile at ragged shapes (1, 127, 4097 in
-   each dim) and the qwen3-4b MLP shapes, and the pointer chase
-   (bit-equal) on a permutation, a strided chain, past n, a line chain;
+   the GEMM with every tile of each dtype at ragged shapes (1, 127, 4097
+   in each dim) and the qwen3-4b MLP shapes, logging the path each ran
+   (fp32 on the CUDA cores; bf16 on the tensor cores, the MLP shapes
+   through TMA), and the pointer chase (bit-equal) on a permutation, a
+   strided chain, past n, a line chain;
 4. times at the main path's shapes: kernel, plain version, one PyTorch
    library call where one computes the same function (a yardstick only;
    none computes an SSD scan or a pointer chase) and the card's bound for
-   the same work; the GEMM with every tile at the qwen3-4b MLP shapes
-   and the tiling example's, bf16 and fp32, beside the tile chooser's
-   modelled speedup; the
+   the same work, with TFLOP/s; the GEMM with every tile of its dtype at
+   the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
+   and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
    16 KiB to 512 MiB;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
@@ -78,6 +80,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -162,11 +166,43 @@ def bound(nbytes: float, n_ops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def tflops(n_ops: float, ms: float) -> float:
+    return n_ops / ms / 1e9
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build_log: str) -> list:
+    """One line a kernel from the compiler's ``-Xptxas -v`` report:
+    registers and spills, the tensor-core kernels marked."""
+    names, regs, spills, fn = [], {}, {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            names.append(fn)
+        elif fn and "spill stores" in line:
+            spills[fn] = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            regs[fn] = re.search(r"Used (\d+) registers", line).group(1)
+    shown = names
+    if shutil.which("c++filt"):
+        shown = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True
+                               ).stdout.splitlines() or names
+    out = []
+    for fn, name in zip(names, shown):
+        name = re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", name)
+        tc = " [tensor cores]" if ("wgmma" in fn or "mma_kernel" in fn) \
+            else ""
+        out.append(f"{name}{tc}: {regs.get(fn, '?')} registers; "
+                   f"{spills.get(fn, '?')}")
+    return out
 
 
 def toolchain(build_mod) -> str:
@@ -305,28 +341,50 @@ def perm_chain(n: int, seed: int) -> np.ndarray:
     return chain
 
 
-def check_probe_kernels(dev, ops, ref, latency, tiles) -> list:
-    """The GEMM with every tile and the pointer chase against their plain
-    versions; returns failures. The GEMM is compared normwise: its outputs
-    grow with sqrt(k)."""
+def gemm_path_wanted(dtype, k: int, n: int) -> str:
+    """The path a GEMM launch must take: fp32 on the CUDA cores; bf16 on
+    the tensor cores, fed by TMA where its rows have 16-byte strides."""
+    if dtype == torch.float32:
+        return "cuda cores"
+    if k > 0 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma + TMA"
+    return "wgmma + element loads"
+
+
+def check_probe_kernels(dev, ops, ref, latency, gemm_kernel) -> list:
+    """The GEMM with every tile of each dtype and the pointer chase
+    against their plain versions; returns failures. The GEMM is compared
+    normwise (its outputs grow with sqrt(k)), and each launch must take
+    the path its dtype and shape call for (``gemm_path_wanted``)."""
     require_full_fp32()
     gen = torch.Generator(device=dev).manual_seed(5)
     failures = []
     shapes = [(m, k, n) for m in RAGGED for k in RAGGED for n in RAGGED]
     shapes += list(MLP_SHAPES)
     for dtype in (torch.float32, torch.bfloat16):
+        tiles = gemm_kernel.TILES[dtype]
         worst = {t: 0.0 for t in tiles}
+        paths = {}
         for m, k, n in shapes:
             x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
             y = torch.randn(k, n, generator=gen, device=dev).to(dtype)
             want = ref.gemm(x, y)
             for tile in tiles:
+                gemm_kernel.last_path = None
                 got = ops.gemm(x, y, block=tile)
                 torch.cuda.synchronize()
                 ok, err = ref.compare(got, want, normwise=True)
                 worst[tile] = max(worst[tile], err)
                 if not ok:
                     failures.append(("gemm", dtype, tile, (m, k, n), err))
+                if gemm_kernel.last_path != gemm_path_wanted(dtype, k, n):
+                    failures.append(("gemm path", dtype, tile, (m, k, n),
+                                     gemm_kernel.last_path))
+                paths.setdefault(gemm_kernel.last_path, set()).add((m, k, n))
+        for path, where in paths.items():
+            log(f"  gemm {str(dtype):14s} path {path!r}: {len(where)} shapes"
+                + (f", the MLP shapes {MLP_SHAPES} among them"
+                   if set(MLP_SHAPES) <= where else ""))
         tol = ref.TOLERANCE[dtype]
         for tile, err in worst.items():
             log(f"  gemm {str(dtype):14s} tile {tile}: {len(shapes)} shapes "
@@ -513,7 +571,8 @@ def time_kernels(dev, ops, ref) -> dict:
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"  {name} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms, plain "
+        log(f"  {name} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms "
+            f"({tflops(r['ops'], r['ms']):.2f} TFLOP/s), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
@@ -521,17 +580,19 @@ def time_kernels(dev, ops, ref) -> dict:
     return out
 
 
-def time_probe_kernels(dev, ops, ref, latency, autotune, tiles) -> dict:
-    """GEMM times with every tile (the naive and the tuned among them)
-    beside the plain version and ``torch.matmul`` (the library yardstick,
-    in the input dtype), and the pointer chase's nanoseconds per
-    dependent load over the footprints. The JSON rows: the GEMM at the
+def time_probe_kernels(dev, ops, ref, latency, autotune,
+                       gemm_kernel) -> dict:
+    """GEMM times with every tile of the dtype (the naive and the tuned
+    among them) beside the plain version and ``torch.matmul`` (the library
+    yardstick, in the input dtype), and the pointer chase's nanoseconds
+    per dependent load over the footprints. The JSON rows: the GEMM at the
     first MLP shape in bf16 with the tuned tile; the chase at the largest
     footprint."""
     require_full_fp32()
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
+        tiles = gemm_kernel.TILES[dtype]
         for m, k, n in MLP_SHAPES + ((512, 512, 512), (1024, 4096, 1024)):
             x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
             y = torch.randn(k, n, generator=gen, device=dev).to(dtype)
@@ -547,14 +608,17 @@ def time_probe_kernels(dev, ops, ref, latency, autotune, tiles) -> dict:
             nbytes = (m * k + k * n + m * n) * x.element_size()
             n_ops = 2 * m * k * n
             b_ms, b_by = bound(nbytes, n_ops, dtype)
-            log(f"  gemm {m}x{k}x{n} {str(dtype):14s}: "
-                + ", ".join(f"tile {t} {v:.4f} ms" for t, v in ms.items())
+            log(f"  gemm {m}x{k}x{n} {str(dtype):14s} "
+                f"({gemm_kernel.last_path}): "
+                + ", ".join(f"tile {t} {v:.4f} ms ({tflops(n_ops, v):.1f} "
+                            f"TFLOP/s)" for t, v in ms.items())
                 + f"; naive {naive}, tuned {tuned} "
                 f"(modelled speedup {gain['speedup']:.3f}x, measured "
-                f"{ms[naive] / ms[tuned]:.3f}x; {n_ops / ms[tuned] / 1e9:.1f}"
-                f" TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul "
-                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+                f"{ms[naive] / ms[tuned]:.3f}x), plain {plain_ms:.4f} ms, "
+                f"torch.matmul {lib_ms:.4f} ms "
+                f"({tflops(n_ops, lib_ms):.1f} TFLOP/s), bound {b_ms:.4f} "
+                f"ms ({b_by}), max_abs_err {err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"gemm {m}x{k}x{n} {dtype} disagrees "
                                    f"with its plain version: {err}")
@@ -652,8 +716,9 @@ def time_flash_kernel(dev, ops, ref) -> dict:
     r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
     log(f"  flash_attention [b={FLASH_B} sq=skv={FLASH_S} h={H} kvh={KVH} "
         f"d={D} causal, bf16]: kernel {r['ms']:.4f} ms "
-        f"({r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
-        f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+        f"({tflops(r['ops'], r['ms']):.1f} TFLOP/s), plain "
+        f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+        f"({tflops(r['ops'], r['library_ms']):.1f} TFLOP/s), bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB,"
         f" {r['ops'] / 1e9:.3f} GFLOP), max_abs_err {err:.3e} "
         f"{'ok' if ok else 'FAIL'}")
@@ -1030,7 +1095,7 @@ def main() -> None:
     from repro_torch.core import autotune, latency
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.gemm import TILES
+    from repro_torch.kernels import gemm as gemm_kernel
     from repro_torch.launch import autotune_gemm
     from repro_torch.launch import latency as latency_launch
     from repro_torch.models import transformer as T
@@ -1048,15 +1113,14 @@ def main() -> None:
     lib = _build.build()
     log(f"  built {lib.name} from {[f.name for f in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_report((lib.parent / "build.log").read_text()):
+        log(f"  ptxas: {line}")
     log(f"  toolchain: {toolchain(_build)}")
 
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
     failures += check_contiguous_kernels(dev, ops, ref)
-    failures += check_probe_kernels(dev, ops, ref, latency, TILES)
+    failures += check_probe_kernels(dev, ops, ref, latency, gemm_kernel)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -1064,7 +1128,7 @@ def main() -> None:
     timing = time_kernels(dev, ops, ref)
     torch.cuda.empty_cache()
     timing.update(time_probe_kernels(dev, ops, ref, latency, autotune,
-                                     TILES))
+                                     gemm_kernel))
     if not all(r["ok"] for r in timing.values()):
         raise RuntimeError("a timed kernel disagrees with its plain version")
     torch.cuda.empty_cache()

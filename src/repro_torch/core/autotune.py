@@ -3,17 +3,19 @@
 The paper's demonstration is that measured microarchitectural parameters
 let a human beat the compiler's schedule. Here the card's published limits
 (``hwmodel.H100``) drive an analytical choice among the tiles that the
-blocked GEMM kernel (``kernels/csrc/gemm.cu``, ``kernels.gemm.TILES``)
-instantiates. Port of the GEMM section of ``repro/core/autotune.py``,
-priced for the kernel's own engine:
+GEMM kernels (``kernels/csrc/gemm.cu``, ``kernels.gemm.TILES``) instantiate
+for the problem's input type. Port of the GEMM section of
+``repro/core/autotune.py``, priced for each kernel's own engine:
 
-* a candidate is an instantiated tile whose double-buffered input tiles
-  fit one block's shared memory (the reference's VMEM budget);
+* a candidate is an instantiated tile of the input type whose staged input
+  tiles fit one block's shared memory (the reference's VMEM budget): two
+  fp32 buffers for the CUDA-core kernel, ``TC_STAGES`` bf16 ones for the
+  tensor-core kernel;
 * the reference's MXU efficiency becomes the tile efficiency: the useful
   share of the padded (m, k, n) that the tiles cover, times the wave
   quantisation of ``ceil(tiles / 132)`` waves of one tile per SM, at the
-  CUDA cores' fp32 FFMA rate (the kernel multiplies in fp32 in both input
-  types);
+  engine's rate: the CUDA cores' fp32 FFMA rate for fp32 inputs, the
+  tensor cores' dense bf16 rate for bf16;
 * the traffic formula is the reference's C-stationary one, unchanged: with
   (bm, bk, bn) tiles A is streamed n/bn times, B m/bm times and C once.
 """
@@ -23,10 +25,12 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Tuple
 
-from repro_torch.core import hwmodel
-from repro_torch.kernels.gemm import TILES
+import torch
 
-SMEM_ELEM_BYTES = 4             # the kernel stages both inputs as fp32
+from repro_torch.core import hwmodel
+from repro_torch.kernels.gemm import TC_STAGES, TILES
+
+DTYPE_OF = {4: torch.float32, 2: torch.bfloat16}     # by input bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +48,13 @@ class GemmConfig:
     bk: int
     bn: int
 
-    def smem_bytes(self) -> int:
-        # Double-buffered input tiles, fp32 in shared memory whatever the
-        # input type; the accumulator lives in registers.
-        return 2 * (self.bm * self.bk + self.bk * self.bn) * SMEM_ELEM_BYTES
+    def smem_bytes(self, in_bytes: int = 4) -> int:
+        """Staged input tiles in shared memory; the accumulator lives in
+        registers. fp32: two buffers, as fp32. bf16: the tensor-core
+        kernel's ring of ``TC_STAGES`` bf16 stages."""
+        if in_bytes == 2:
+            return TC_STAGES * (self.bm + self.bn) * self.bk * 2
+        return 2 * (self.bm * self.bk + self.bk * self.bn) * 4
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -68,10 +75,11 @@ def tile_efficiency(p: GemmProblem, c: GemmConfig,
 
 def gemm_cost(p: GemmProblem, c: GemmConfig,
               gpu: hwmodel.GPUSpec = hwmodel.H100) -> Tuple[float, dict]:
-    """Modeled execution time (seconds) of the blocked GEMM, plus terms."""
+    """Modeled execution time (seconds) of the GEMM, plus terms. The
+    compute term runs at the engine's peak for the input type."""
     flops = 2.0 * p.m * p.k * p.n
     eff = tile_efficiency(p, c, gpu)
-    compute_s = flops / (gpu.peak_fp32_flops * eff)
+    compute_s = flops / (peak_flops(p.in_bytes, gpu) * eff)
     # Device-memory traffic in bytes (C-stationary): A x (N/bn), B x (M/bm),
     # C once.
     a_reads = _ceil_div(p.n, c.bn)
@@ -84,10 +92,23 @@ def gemm_cost(p: GemmProblem, c: GemmConfig,
                "traffic_bytes": traffic, "tile_efficiency": eff}
 
 
-def candidate_blocks(gpu: hwmodel.GPUSpec = hwmodel.H100) -> List[GemmConfig]:
-    """The kernel's instantiated tiles that fit one block's shared memory."""
-    return [c for c in (GemmConfig(*t) for t in TILES)
-            if c.smem_bytes() <= gpu.smem_per_block]
+def peak_flops(in_bytes: int, gpu: hwmodel.GPUSpec = hwmodel.H100) -> float:
+    """The engine's rate for the input type: tensor cores for bf16, CUDA
+    cores for fp32 (the kernel keeps fp32 off the TF32 tensor cores)."""
+    return gpu.peak_bf16_flops if in_bytes == 2 else gpu.peak_fp32_flops
+
+
+def tiles(in_bytes: int) -> tuple:
+    """The (bm, bk, bn) tiles the kernel instantiates for the input type."""
+    return TILES[DTYPE_OF[in_bytes]]
+
+
+def candidate_blocks(in_bytes: int = 4,
+                     gpu: hwmodel.GPUSpec = hwmodel.H100) -> List[GemmConfig]:
+    """The input type's instantiated tiles that fit one block's shared
+    memory."""
+    return [c for c in (GemmConfig(*t) for t in tiles(in_bytes))
+            if c.smem_bytes(in_bytes) <= gpu.smem_per_block]
 
 
 def choose_gemm_block(p: GemmProblem,
@@ -95,24 +116,28 @@ def choose_gemm_block(p: GemmProblem,
                       ) -> Tuple[GemmConfig, dict]:
     """Pick the minimum-modeled-time tile (the autotuner's decision)."""
     best, best_t, best_terms = None, float("inf"), None
-    for c in candidate_blocks(gpu):
+    for c in candidate_blocks(p.in_bytes, gpu):
         t, terms = gemm_cost(p, c, gpu)
         if t < best_t:
             best, best_t, best_terms = c, t, terms
     return best, dict(best_terms, time_s=best_t)
 
 
-NAIVE_BLOCK = GemmConfig(*min(TILES))
+def naive_block(in_bytes: int) -> GemmConfig:
+    """The smallest tile of the input type: the baseline a tuned tile is
+    measured against."""
+    return GemmConfig(*min(tiles(in_bytes)))
 
 
 def tuning_gain(p: GemmProblem,
                 gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
     """Naive-vs-tuned comparison — the Ch.1 '+15.4%' analogue, reported by
     ``launch/autotune_gemm.py`` beside the kernel's measured times."""
-    t_naive, naive_terms = gemm_cost(p, NAIVE_BLOCK, gpu)
+    naive = naive_block(p.in_bytes)
+    t_naive, naive_terms = gemm_cost(p, naive, gpu)
     cfg, terms = choose_gemm_block(p, gpu)
     return {
-        "naive": {"config": dataclasses.astuple(NAIVE_BLOCK), **naive_terms,
+        "naive": {"config": dataclasses.astuple(naive), **naive_terms,
                   "time_s": t_naive},
         "tuned": {"config": dataclasses.astuple(cfg), **terms},
         "speedup": t_naive / terms["time_s"],

@@ -25,7 +25,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t.
+# C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t;
+# blocked_gemm also takes an int* it writes the path that ran to.
 SIGNATURES = {
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "contiguous_decode": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -33,7 +34,7 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ssd_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "blocked_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    "blocked_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pchase": [_P, _P, _I, _P],
 }
 

@@ -1,7 +1,9 @@
 """Launchers of the CUDA prefill kernel (``csrc/paged_attention.cu``).
 
-One kernel body, one CTA per (batch row, q head, 64 query rows), two ways
-to find the K/V rows:
+One CTA per (batch row, q head, 64 query rows); the body multiplies bf16
+on the tensor cores (mma.sync) and fp32 on the CUDA cores (the tensor
+cores take fp32 only as TF32). Each body has two ways to find the K/V
+rows:
 
 * ``paged_prefill`` replaces
   ``repro/kernels/flash_attention.py:flash_attention_paged`` (the Pallas

@@ -275,9 +275,10 @@ def _check_gemm(x, y, block) -> tuple:
             m=x.shape[0], k=x.shape[1], n=y.shape[1],
             in_bytes=x.element_size()))
         block = (cfg.bm, cfg.bk, cfg.bn)
-    if tuple(block) not in _gemm.TILES:
+    if tuple(block) not in _gemm.TILES[x.dtype]:
         raise ValueError(f"gemm tile {block} is not one the kernel "
-                         f"instantiates: {_gemm.TILES}")
+                         f"instantiates for {x.dtype}: "
+                         f"{_gemm.TILES[x.dtype]}")
     if _check_device([x, y], x.dtype):
         return tuple(block)
     if max(*x.shape, y.shape[1]) >= 2**31:
@@ -289,8 +290,9 @@ def _check_gemm(x, y, block) -> tuple:
 def gemm(x, y, block=None):
     """x (m, k) @ y (k, n) in fp32 or bf16 with an fp32 accumulator, the
     output rounded once to x's dtype. ``block`` (bm, bk, bn) names one of
-    ``kernels.gemm.TILES``; None takes the tile ``core.autotune`` chooses
-    for the problem. Any m, k, n: the kernel masks ragged edges."""
+    ``kernels.gemm.TILES[x.dtype]``; None takes the tile ``core.autotune``
+    chooses for the problem. Any m, k, n: the kernel masks ragged edges.
+    fp32 runs on the CUDA cores, bf16 on the tensor cores."""
     block = _check_gemm(x, y, block)
     if x.device.type == "cpu":
         return ref.gemm(x, y)

@@ -5,9 +5,10 @@ runs it, and the output is held against the plain version.
   python -m repro_torch.launch.autotune_gemm               # on the card
   python -m repro_torch.launch.autotune_gemm --device cpu  # rehearsal
 
-For each problem it prints the tuned tile and the modelled speedup over the
-naive (smallest) tile; on the card also the kernel's measured time with
-every instantiated tile, bf16 inputs from a seeded ``torch.Generator``.
+For each problem it prints the tuned bf16 tile and the modelled speedup
+over the naive (smallest) bf16 tile, priced at the tensor cores' rate; on
+the card also the kernel's measured time with every instantiated bf16
+tile (the tensor-core kernel), inputs from a seeded ``torch.Generator``.
 Counterpart of ``examples/autotune_gemm.py``.
 """
 
@@ -21,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import autotune
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.gemm import TILES
+from repro_torch.kernels import gemm as gemm_kernel
 
 PROBLEMS = ((512, 512, 512), (1024, 4096, 1024))
 
@@ -62,13 +63,14 @@ def main(argv=None) -> dict:
             x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
             y = torch.randn(k, n, generator=gen, device=dev).bfloat16()
             row["ms"] = {t: kernel_ms(lambda t=t: ops.gemm(x, y, block=t))
-                         for t in TILES}
+                         for t in gemm_kernel.TILES[torch.bfloat16]}
             row["measured_speedup"] = row["ms"][naive] / row["ms"][tuned]
             ok, err = ref.compare(ops.gemm(x, y), ref.gemm(x, y),
                                   normwise=True)
             row["max_abs_err"] = err
-            print("  kernel, bf16: " + ", ".join(
-                f"{t} {ms:.4f} ms" for t, ms in row["ms"].items())
+            print(f"  kernel, bf16 ({gemm_kernel.last_path}): " + ", ".join(
+                f"{t} {ms:.4f} ms ({2 * m * k * n / ms / 1e9:.1f} TFLOP/s)"
+                for t, ms in row["ms"].items())
                 + f"; measured speedup of the tuned tile "
                 f"{row['measured_speedup']:.2f}x; tuned tile against the "
                 f"plain version: max_abs_err {err:.3e} "

@@ -18,6 +18,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import latency
 from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gemm import TILES
 from repro_torch.train import steps
@@ -112,31 +113,49 @@ def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, l):
 
 
 # Ragged edges in every dim (1, 127, 4097), k or n off the 16-byte load
-# width (the scalar path), an empty k, and the qwen3-4b MLP shapes.
+# width (the scalar path in fp32, the element loader in bf16), an empty
+# k, ragged tiles that TMA can address (k and n multiples of 8), and the
+# qwen3-4b MLP shapes.
 GEMM_SHAPES = [(1, 1, 1), (127, 127, 127), (1, 4097, 127), (127, 1, 4097),
                (4097, 127, 1), (64, 256, 127), (5, 0, 7), (130, 300, 72),
+               (129, 200, 264), (4097, 4104, 8),
                (2048, 2560, 9728), (2048, 9728, 2560)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tile", TILES, ids=str)
+def _gemm_path(dtype, k, n):
+    """The path the C entry point must report: fp32 on the CUDA cores;
+    bf16 on the tensor cores, through TMA where its rows have 16-byte
+    strides."""
+    if dtype == torch.float32:
+        return "cuda cores"
+    if k > 0 and k % 8 == 0 and n % 8 == 0:
+        return "wgmma + TMA"
+    return "wgmma + element loads"
+
+
+@pytest.mark.parametrize("dtype,tile", [(dt, t) for dt in TILES
+                                        for t in TILES[dt]], ids=str)
 def test_cuda_gemm_matches_plain_version(cuda_device, dtype, tile):
-    """The blocked GEMM kernel with each instantiated tile against its
-    plain version (fp32 sum, one rounding), within ``ref.TOLERANCE``
+    """The GEMM kernel with each instantiated tile of each dtype against
+    its plain version (fp32 sum, one rounding), within ``ref.TOLERANCE``
     scaled by the output's magnitude (``normwise``: outputs grow with
-    sqrt(k)). fp32 products stay fp32 on both sides (no TF32)."""
+    sqrt(k)), through the path its dtype and shape call for: the MLP
+    shapes in bf16 run wgmma fed by TMA. fp32 products stay fp32 on both
+    sides (no TF32)."""
     assert not torch.backends.cuda.matmul.allow_tf32
     g = torch.Generator(device=cuda_device).manual_seed(7)
     for m, k, n in GEMM_SHAPES:
         x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
         y = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
         ops.reset_launches()
+        gemm_kernel.last_path = None
         got = ops.gemm(x, y, block=tile)
         torch.cuda.synchronize()
         ok, err = ref.compare(got, ref.gemm(x, y), normwise=True)
         assert ok, ((m, k, n), err)
         assert got.dtype == dtype and got.shape == (m, n)
         assert ops.LAUNCHES["gemm"] == 1
+        assert gemm_kernel.last_path == _gemm_path(dtype, k, n), (m, k, n)
 
 
 def test_cuda_gemm_refuses_what_the_kernel_does_not_take(cuda_device):
@@ -179,6 +198,32 @@ def test_cuda_pchase_matches_plain_version(cuda_device):
         ops.pchase(chain, 4)
     with pytest.raises(ValueError, match="int32"):
         ops.pchase(chain.long(), 4)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_paged_prefill_bf16_matches_plain_version(cuda_device, d):
+    """The bf16 paged prefill (the tensor-core body) at the main path's
+    chunk of 256 rows and head counts: chunks at start 0 and later, one
+    running past the table's end, over shuffled tables, within
+    ``ref.TOLERANCE``."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 2)
+    b, h, kvh, ps, max_pages, chunk = 8, 32, 8, 16, 128, 256
+    n_pages = 1 + b * max_pages
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device   # noqa
+                                ).bfloat16()
+    kp, vp = mk(n_pages, ps, kvh, d), mk(n_pages, ps, kvh, d)
+    perm = torch.randperm(n_pages - 1, generator=g, device=cuda_device) + 1
+    table = perm.reshape(b, max_pages).int()
+    starts = torch.tensor([0, 256, 1024, 1536, 1792, 1900, 100, 17],
+                          dtype=torch.int32, device=cuda_device)
+    qc = mk(b, chunk, h, d)
+    ops.reset_launches()
+    got = ops.flash_attention_paged(qc, kp, vp, table, starts)
+    torch.cuda.synchronize()
+    ok, err = ref.compare(got, ref.flash_attention_paged(qc, kp, vp, table,
+                                                         starts))
+    assert ok, err
+    assert ops.LAUNCHES["flash_attention_paged"] == 1
 
 
 # (sq, skv): 1, a prime, a full sequence, and a query block against a

@@ -102,7 +102,7 @@ def test_gemm_matches_reference_pallas_kernel(m, k, n, dtype):
     x, y, jx, jy = _gemm_inputs(m, k, n, dtype)
     want = np.asarray(jgemm_raw(jx, jy, bm=128, bk=128, bn=128,
                                 interpret=True), np.float32)
-    for block in (None, *TILES):
+    for block in (None, *TILES[dtype]):
         got = ops.gemm(x, y, block=block)
         assert got.dtype == dtype and got.shape == (m, n)
         np.testing.assert_allclose(got.float().numpy(), want,
@@ -164,20 +164,23 @@ P_GRID = [(m, k, n) for m in (256, 1024, 4096) for k in (512, 2048)
           for n in (256, 2048, 8192)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", P_GRID)
 def test_chooser_picks_an_instantiated_tile_that_fits_and_beats_naive(m, k,
-                                                                     n):
+                                                                     n,
+                                                                     dtype):
     """The reference's property (``test_hlo_roofline.py::
     test_autotuner_respects_vmem_and_beats_naive``) on its grid, priced on
-    the H100: the tile is one the kernel has, fits one block's shared
-    memory, and is modelled no slower than the naive tile."""
-    for in_bytes in (2, 4):
-        p = autotune.GemmProblem(m=m, k=k, n=n, in_bytes=in_bytes)
-        cfg, terms = autotune.choose_gemm_block(p)
-        assert dataclasses.astuple(cfg) in TILES
-        assert cfg.smem_bytes() <= hwmodel.H100.smem_per_block
-        assert 0 < terms["tile_efficiency"] <= 1
-        assert autotune.tuning_gain(p)["speedup"] >= 1.0
+    the H100 for each input type: the tile is one the kernel has for that
+    type, fits one block's shared memory with its stages, and is modelled
+    no slower than the type's naive tile."""
+    in_bytes = torch.tensor([], dtype=dtype).element_size()
+    p = autotune.GemmProblem(m=m, k=k, n=n, in_bytes=in_bytes)
+    cfg, terms = autotune.choose_gemm_block(p)
+    assert dataclasses.astuple(cfg) in TILES[dtype]
+    assert cfg.smem_bytes(in_bytes) <= hwmodel.H100.smem_per_block
+    assert 0 < terms["tile_efficiency"] <= 1
+    assert autotune.tuning_gain(p)["speedup"] >= 1.0
 
 
 def test_traffic_formula_is_the_reference_one():
@@ -185,7 +188,7 @@ def test_traffic_formula_is_the_reference_one():
     the same tile; only the compute term is priced for the H100."""
     for shape in ((512, 512, 512), (1024, 4096, 1024), (2048, 2560, 9728),
                   (100, 300, 70)):
-        for t in TILES:
+        for t in TILES[torch.float32] + TILES[torch.bfloat16]:
             _, ours = autotune.gemm_cost(autotune.GemmProblem(*shape),
                                          autotune.GemmConfig(*t))
             _, theirs = jautotune.gemm_cost(jautotune.GemmProblem(*shape),
@@ -201,7 +204,29 @@ def test_tile_efficiency_counts_padding_and_waves():
     assert eff(64 * 133, 16, 64) == pytest.approx(133 / 264)
     assert eff(32 * 132, 16, 64) == pytest.approx(0.5)   # half-empty rows
     assert eff(64 * 132, 8, 64) == pytest.approx(0.5)    # k padded to 16
-    assert autotune.NAIVE_BLOCK == autotune.GemmConfig(*min(TILES))
+    for dtype, in_bytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        assert autotune.naive_block(in_bytes) == autotune.GemmConfig(
+            *min(TILES[dtype]))
+
+
+def test_bf16_compute_term_is_priced_at_the_tensor_core_rate():
+    """A bf16 tile's compute term runs at the tensor cores' dense rate, an
+    fp32 tile's at the CUDA cores' FFMA rate, each over the same tile
+    efficiency; the bf16 stages' shared memory is stages x (bm + bn) x bk
+    x 2 bytes."""
+    gpu = hwmodel.H100
+    for (m, k, n) in ((2048, 2560, 9728), (100, 300, 70)):
+        flops = 2.0 * m * k * n
+        for in_bytes, peak in ((2, gpu.peak_bf16_flops),
+                               (4, gpu.peak_fp32_flops)):
+            p = autotune.GemmProblem(m, k, n, in_bytes=in_bytes)
+            for t in autotune.tiles(in_bytes):
+                _, terms = autotune.gemm_cost(p, autotune.GemmConfig(*t))
+                assert terms["compute_s"] == pytest.approx(
+                    flops / (peak * terms["tile_efficiency"]))
+    cfg = autotune.GemmConfig(128, 64, 256)
+    assert cfg.smem_bytes(2) == 4 * (128 + 256) * 64 * 2 == 196_608
+    assert autotune.GemmConfig(128, 64, 128).smem_bytes(2) == 131_072
 
 
 def test_ops_gemm_resolves_none_through_the_chooser():
@@ -223,6 +248,20 @@ def test_gemm_contract_raises():
         ops.gemm(x, y.t())
     with pytest.raises(ValueError, match="tile"):
         ops.gemm(x, y, block=(128, 128, 128))
+
+
+@pytest.mark.parametrize("dtype,other", [(torch.float32, torch.bfloat16),
+                                         (torch.bfloat16, torch.float32)])
+def test_gemm_refuses_a_tile_of_the_other_dtype(dtype, other):
+    """Each dtype's kernel takes only its own tiles: the fp32 CUDA-core
+    tiles are not the bf16 tensor-core ones, and ``_check_gemm`` raises
+    on a tile of the other set before anything launches."""
+    x, y = torch.randn(8, 4).to(dtype), torch.randn(4, 6).to(dtype)
+    for tile in TILES[other]:
+        with pytest.raises(ValueError, match=f"instantiates for {dtype}"):
+            ops._check_gemm(x, y, tile)
+    for tile in TILES[dtype]:
+        assert ops._check_gemm(x, y, tile) == tile
 
 
 def test_pchase_contract_raises():
@@ -251,7 +290,8 @@ def test_autotune_gemm_launcher_rehearses_on_cpu(capsys):
     assert [r["shape"] for r in out["problems"]] == [
         (512, 512, 512), (1024, 4096, 1024)]
     for r in out["problems"]:
-        assert r["tuned"] in TILES and r["modelled_speedup"] >= 1.0
+        assert r["tuned"] in TILES[torch.bfloat16]
+        assert r["modelled_speedup"] >= 1.0
     assert "== plain version (CPU): OK" in capsys.readouterr().out
 
 
