@@ -11,7 +11,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 3. each kernel against its plain PyTorch version, fp32 and bf16: paged
    decode and paged prefill and contiguous decode at head_dim 64/80/128
    and the main path's head counts (ragged lengths with a 0 and max_len,
-   shuffled page tables, chunks at start > 0 and past the table's end),
+   shuffled page tables, chunks at start > 0 and past the table's end);
+   both decodes again at groups 1/4/7 over 2 kv heads and at lengths
+   about their 256-row splits, with exact zeros for a zero length, the
+   same bits from a second launch, and the merge's counters left at zero;
    the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state,
    the GEMM with every tile of each dtype at ragged shapes (1, 127, 4097
    in each dim) and the qwen3-4b MLP shapes, logging the path each ran
@@ -21,8 +24,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 4. times at the main path's shapes: kernel, plain version, one PyTorch
    library call where one computes the same function (a yardstick only;
    none computes an SSD scan or a pointer chase) and the card's bound for
-   the same work, with TFLOP/s; the GEMM with every tile of its dtype at
-   the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
+   the same work, with TFLOP/s; for the decodes their splits, GB/s and
+   share of the bound, and beside them the device time of the kernel and
+   of the library call with the launches queued behind a spin of the
+   card; the GEMM with every tile of its dtype at the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
    and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
    16 KiB to 512 MiB;
@@ -101,6 +106,7 @@ H, KVH, D, PS, B, MAX_LEN, CHUNK = 32, 8, 80, 16, 8, 2048, 256
 N_PAGES = 1 + B * MAX_LEN // PS
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SPIN_CYCLES = 20_000_000          # about 11 ms at the SM's 1.755 GHz
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "flash_attention": (CSRC + "paged_attention.cu",
@@ -275,6 +281,74 @@ def check_kernels(dev, ops, ref) -> list:
     return failures
 
 
+# Phase 3's lengths about the split decode's 256-row boundaries (two
+# batches of B slots over a reach of MAX_LEN rows): 0, 1, each boundary's
+# neighbours, the reach, and past it (clamped).
+SPLIT_LENGTHS = ([0, 1, 255, 256, 257, 511, 512, 513],
+                 [767, 768, 769, 1023, 1025, 1791, MAX_LEN, MAX_LEN + 52])
+# (h, kvh): the main path's, and groups 1, 4 and 7 over 2 kv heads.
+DECODE_HEADS = ((H, KVH), (2, 2), (8, 2), (14, 2))
+
+
+def check_decode_splits(dev, ops, ref, decode_mod) -> list:
+    """Both decodes against their plain versions at DECODE_HEADS and
+    SPLIT_LENGTHS, fp32 and bf16, head_dim 64/80/128: within
+    ``ref.TOLERANCE``, exact zeros for a zero length, the same bits from
+    a second launch on the same inputs, and the merge's counters left at
+    zero; returns failures."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    max_pages = MAX_LEN // PS
+    failures = []
+    for paged in (True, False):
+        run = ops.flash_decode_paged if paged else ops.flash_decode
+        plain = ref.flash_decode_paged if paged else ref.flash_decode
+        for dtype in (torch.float32, torch.bfloat16):
+            rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+            tol = ref.TOLERANCE[dtype]
+            for d in (64, 80, 128):
+                worst, bad = 0.0, []
+                for h, kvh in DECODE_HEADS:
+                    for lengths in SPLIT_LENGTHS:
+                        lens = torch.tensor(lengths, dtype=torch.int32,
+                                            device=dev)
+                        q = rnd(B, h, d)
+                        if paged:
+                            n_pages = 1 + B * max_pages
+                            kv = (rnd(n_pages, PS, kvh, d),
+                                  rnd(n_pages, PS, kvh, d))
+                            perm = torch.randperm(n_pages - 1, generator=gen,
+                                                  device=dev) + 1
+                            args = (q, *kv, perm.reshape(B, max_pages).int(),
+                                    lens)
+                        else:
+                            args = (q, rnd(B, MAX_LEN, kvh, d),
+                                    rnd(B, MAX_LEN, kvh, d), lens)
+                        got, again = run(*args), run(*args)
+                        torch.cuda.synchronize()
+                        ok, err = ref.compare(got, plain(*args))
+                        worst = max(worst, err)
+                        zero = lens == 0
+                        if not ok:
+                            bad.append(("tolerance", h, kvh, lengths, err))
+                        if bool(got[zero].any()):
+                            bad.append(("zero length not zeros", h, kvh))
+                        if not torch.equal(got, again):
+                            bad.append(("two launches differ", h, kvh))
+                name = "flash_decode_paged" if paged else "flash_decode"
+                log(f"  {name} {str(dtype):14s} d={d:3d}: (h, kvh) in "
+                    f"{DECODE_HEADS}, lengths about the splits: max_abs_err "
+                    f"{worst:.3e} (atol {tol[0]:g} + rtol {tol[1]:g}); zero "
+                    f"lengths exact zeros, second launch bit-identical: "
+                    f"{'ok' if not bad else bad}")
+                failures += [(name, dtype, d, *f) for f in bad]
+    left = [c for c in decode_mod._COUNTERS.values() if c.any()]
+    log(f"  the merge's counters after these launches: "
+        f"{'all zero' if not left else 'NOT ZERO'}")
+    if left:
+        failures.append(("decode counters left non-zero", left))
+    return failures
+
+
 def ssd_inputs(gen, dev, dtype, bt, l, h0=False):
     """SSD scan inputs at the main path's head shape. The decays are the
     model's: a = -softplus(N(0, 1)) * linspace(1, 16, h) (dt * A with the
@@ -413,23 +487,51 @@ def check_probe_kernels(dev, ops, ref, latency, gemm_kernel) -> list:
 # Times at the main path's shapes
 # ----------------------------------------------------------------------------
 
-def time_ms(fn, n_layers: int, iters: int = 50) -> float:
-    """Mean device time of ``fn(layer)`` over ``iters`` launches cycling
-    through ``n_layers`` distinct pools (as the engine's layers do), so
-    that the 50 MB L2 cache does not hold one pool across launches."""
+def time_ms(fn, n_layers: int, iters: int = 50, spin: bool = False) -> float:
+    """Mean time of ``fn(layer)`` between CUDA events over ``iters``
+    launches cycling through ``n_layers`` distinct pools (as the engine's
+    layers do), so that the 50 MB L2 cache does not hold one pool across
+    launches. The launches are issued at the host's pace, as a caller
+    issues them.
+
+    ``spin=True`` gives the device time instead: the launches are queued
+    behind a spin of the card (``torch.cuda._sleep``), so that they run
+    back to back however long the host takes to issue each. The spin
+    grows until the host has queued every launch before it ends; a
+    function that synchronises never gets ahead and is timed at the
+    host's pace, and says so."""
     for i in range(3):
         fn(i % n_layers)
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for i in range(iters):
-        fn(i % n_layers)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = SPIN_CYCLES
+    while True:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if spin:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(i % n_layers)
+        end.record()
+        ahead = spin and not start.query()   # the card still spinning
+        torch.cuda.synchronize()
+        if ahead or not spin or cycles >= 16 * SPIN_CYCLES:
+            if spin and not ahead:
+                log("    (the host could not queue these launches ahead of "
+                    "the card: timed at the host's pace)")
+            return start.elapsed_time(end) / iters
+        cycles *= 4
 
 
-def time_kernels(dev, ops, ref) -> dict:
+def decode_grid(decode_mod, lengths, max_rows: int, page_size: int) -> str:
+    """The split decode's grid at these lengths: its CTAs, and those with
+    rows to read (one query block: the group of 4 fits one)."""
+    rows, n_splits = decode_mod.splits(max_rows, page_size)
+    live = KVH * sum(-(-min(n, max_rows) // rows) for n in lengths)
+    return (f"{n_splits} splits of {rows} rows, {KVH * B * n_splits} CTAs, "
+            f"{live} with rows")
+
+
+def time_kernels(dev, ops, ref, decode_mod) -> dict:
     """Kernel, plain and library times and the bound, bf16, main path."""
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -472,6 +574,12 @@ def time_kernels(dev, ops, ref) -> dict:
         library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
             q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
             n_layers),
+        device_ms=time_ms(lambda i: ops.flash_decode_paged(
+            q, *pools[i], table, lens), n_layers, spin=True),
+        library_device_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
+            n_layers, spin=True),
+        grid=decode_grid(decode_mod, lengths, MAX_LEN, PS),
         bytes=nbytes, ops=ops_n,
         shape=f"b={B} h={H} kvh={KVH} d={D} page={PS} contexts "
               f"{lengths[0]}..{lengths[-1]} (sum {kv_rows})")
@@ -533,6 +641,12 @@ def time_kernels(dev, ops, ref) -> dict:
         library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
             q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
             n_layers),
+        device_ms=time_ms(lambda i: ops.flash_decode(q, *caches[i], lens),
+                          n_layers, spin=True),
+        library_device_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
+            n_layers, spin=True),
+        grid=decode_grid(decode_mod, lengths, MAX_LEN, 1),
         bytes=nbytes, ops=4 * kv_rows * H * D,
         shape=f"b={B} h={H} kvh={KVH} d={D} max_len={MAX_LEN} contexts "
               f"{lengths[0]}..{lengths[-1]} (sum {kv_rows})")
@@ -577,6 +691,15 @@ def time_kernels(dev, ops, ref) -> dict:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
             f"max_abs_err {r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+        if "grid" in r:
+            rate = lambda ms: (f"{r['bytes'] / ms / 1e6:.1f} GB/s, "  # noqa: E731
+                               f"{100 * r['bound_ms'] / ms:.1f} % of its bound")
+            log(f"    {name}: {r['grid']}; {rate(r['ms'])}, "
+                f"{r['ms'] / r['library_ms']:.2f}x SDPA; device time "
+                f"(launches queued behind a spin): kernel "
+                f"{r['device_ms']:.4f} ms ({rate(r['device_ms'])}), SDPA "
+                f"{r['library_device_ms']:.4f} ms, "
+                f"{r['device_ms'] / r['library_device_ms']:.2f}x")
     return out
 
 
@@ -1095,6 +1218,7 @@ def main() -> None:
     from repro_torch.core import autotune, latency
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_decode as decode_mod
     from repro_torch.kernels import gemm as gemm_kernel
     from repro_torch.launch import autotune_gemm
     from repro_torch.launch import latency as latency_launch
@@ -1120,12 +1244,13 @@ def main() -> None:
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
     failures += check_contiguous_kernels(dev, ops, ref)
+    failures += check_decode_splits(dev, ops, ref, decode_mod)
     failures += check_probe_kernels(dev, ops, ref, latency, gemm_kernel)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
     log("== times at the main path's shapes ==")
-    timing = time_kernels(dev, ops, ref)
+    timing = time_kernels(dev, ops, ref, decode_mod)
     torch.cuda.empty_cache()
     timing.update(time_probe_kernels(dev, ops, ref, latency, autotune,
                                      gemm_kernel))

@@ -28,8 +28,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t;
 # blocked_gemm also takes an int* it writes the path that ran to.
 SIGNATURES = {
-    "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "contiguous_decode": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "contiguous_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
     "paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

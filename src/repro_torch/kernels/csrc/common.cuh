@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA kernels: 16-byte loads that widen to
-// fp32, the single rounding of an fp32 result to the output type, warp
-// reductions, and the opt-in to more than 48 KB of dynamic shared memory.
+// fp32, the single rounding of an fp32 result to the output type, and the
+// opt-in to more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,18 +41,6 @@ struct Elem<__nv_bfloat16> {
     return __float2bfloat16(x);  // round to nearest even, as torch does
   }
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -1,4 +1,4 @@
-"""Launchers of the CUDA decode kernel (``csrc/paged_attention.cu``).
+"""Launchers of the CUDA decode kernels (``csrc/paged_attention.cu``).
 
 One kernel body, two ways to find a slot's K/V rows:
 
@@ -8,11 +8,17 @@ One kernel body, two ways to find a slot's K/V rows:
   (the Pallas ``_decode_kernel``): rows of a contiguous (b, max_len, kvh, d)
   cache.
 
-Single-token GQA decode, one CTA per (slot, kv head). ``kernels.ops``
+Single-token GQA decode, flash-decoding's design: each slot's context is
+cut into splits of ``rows_per_split`` rows, one CTA per (kv head, slot,
+split), and the last of a slot's splits to finish merges their fp32
+partials in split order. ``splits`` sizes the grid from the cache's shape
+alone, so a launch reads nothing of ``lengths`` on the host. ``kernels.ops``
 checks the arguments and counts launches; call that, not these.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,6 +26,41 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
+SPLIT_ROWS = 256   # rows a split covers, rounded to whole pages
+
+
+def splits(max_rows: int, page_size: int = 1) -> Tuple[int, int]:
+    """(rows_per_split, n_splits) for a cache whose slots reach at most
+    ``max_rows`` rows (``max_pages * page_size``, or ``max_len``): runs of
+    about ``SPLIT_ROWS`` rows in whole pages that together cover
+    ``max_rows``. Shapes only: a slot's length decides at run time which
+    splits have rows, never how many there are."""
+    rows = max(1, SPLIT_ROWS // page_size) * page_size
+    return rows, max(1, -(-max_rows // rows))
+
+
+# Zeroed int32 counters, one per (slot, query block), kept per (device,
+# stream): each launch leaves them at zero (the last split of a slot's query
+# block resets its own), so launches in order on one stream share them.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _partials(q, n_splits: int) -> torch.Tensor:
+    """fp32 scratch of the splits' (acc, m, l): b * h * n_splits * (d + 2)."""
+    b, h, d = q.shape
+    return torch.empty(b * h * n_splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _counters(q, stream: int) -> torch.Tensor:
+    """At least b * h zeroed int32 counters for launches on ``stream``."""
+    need = q.shape[0] * q.shape[1]
+    key = (q.device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _COUNTERS[key] = torch.zeros(need, dtype=torch.int32,
+                                           device=q.device)
+    return buf
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -32,11 +73,15 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, out) -> None:
     lib = _build.load()
     b, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    rows, n_splits = splits(max_pages * page_size, page_size)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = _partials(q, n_splits), _counters(q, stream)
     _raise_on(lib.paged_decode(
         DTYPES[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kvh, page_size, page_table.shape[1],
-        torch.cuda.current_stream(q.device).cuda_stream), "paged_decode")
+        part.data_ptr(), counters.data_ptr(), out.data_ptr(), b, h, kvh,
+        page_size, max_pages, rows, n_splits, stream), "paged_decode")
 
 
 def contiguous_decode(q, k, v, lengths, out) -> None:
@@ -44,8 +89,11 @@ def contiguous_decode(q, k, v, lengths, out) -> None:
     lib = _build.load()
     b, h, d = q.shape
     _, max_len, kvh, _ = k.shape
+    rows, n_splits = splits(max_len)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = _partials(q, n_splits), _counters(q, stream)
     _raise_on(lib.contiguous_decode(
         DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kvh, max_len,
-        torch.cuda.current_stream(q.device).cuda_stream),
+        lengths.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        out.data_ptr(), b, h, kvh, max_len, rows, n_splits, stream),
         "contiguous_decode")

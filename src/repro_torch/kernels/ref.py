@@ -63,6 +63,45 @@ def flash_decode(q, k, v, lengths):
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def flash_decode_split(q, k, v, lengths, rows_per_split: int):
+    """``flash_decode`` computed the way the CUDA decode cuts it: the
+    context in runs of ``rows_per_split`` rows, each run's fp32 partial
+    (running max m, denominator l, unnormalised acc) over its live rows,
+    the partials merged in split order by log-sum-exp. A split at or past
+    a slot's length (clamped to the cache's ``skv`` rows) is empty
+    (m = NEG_INF, l = 0) and weighs nothing; a slot with no live split
+    gives zeros. A model of the kernel for the tests, not a plain version
+    the wrappers route to."""
+    b, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, kvh, group, d).float()
+    n = lengths.to(q.device).long().clamp(0, skv)
+    parts = []
+    for s0 in range(0, max(skv, 1), rows_per_split):
+        kk = k[:, s0:s0 + rows_per_split].float()
+        vv = v[:, s0:s0 + rows_per_split].float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, kk) / math.sqrt(d)
+        live = (s0 + torch.arange(kk.shape[1], device=q.device))[None] \
+            < n[:, None]
+        s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1) if s.shape[-1] else torch.full(
+            s.shape[:-1], NEG_INF, device=q.device)
+        p = torch.where(live[:, None, None], torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        parts.append((m, p.sum(-1), torch.einsum("bhgk,bkhd->bhgd", p, vv)))
+    mx = torch.stack([torch.where(l > 0, m, torch.full_like(m, NEG_INF))
+                      for m, l, _ in parts]).amax(0)
+    lsum = torch.zeros_like(mx)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:                               # split order
+        w = torch.where(l > 0, torch.exp(m - mx), torch.zeros_like(m))
+        lsum = lsum + w * l
+        acc = acc + w[..., None] * a
+    out = acc / torch.where(lsum > 0, lsum, torch.ones_like(lsum))[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def flash_decode_paged(q, k_pages, v_pages, page_table, lengths):
     """Paged decode: ``gather_kv`` through the table, then ``flash_decode``.
 

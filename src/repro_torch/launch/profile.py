@@ -28,20 +28,38 @@ from repro_torch import configs, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
-# Kernel name fragment -> family, first match wins.
-FAMILIES = (("paged_prefill_kernel", "flash_attention_paged"),
-            ("PagedLayout", "flash_decode_paged"),
-            ("ContiguousLayout", "flash_decode"),
-            ("ssd_scan_kernel", "ssd_scan"),
-            ("gemm", "GEMM (cuBLAS)"), ("nvjet", "GEMM (cuBLAS)"),
-            ("xmma", "GEMM (cuBLAS)"), ("cutlass", "GEMM (cuBLAS)"),
-            ("reduce", "reductions"), ("index", "indexing and scatter"),
-            ("elementwise", "elementwise"), ("copy", "copies and casts"))
+# Kernel name fragments -> family: the first entry whose fragments all
+# occur in the (demangled) name wins. The port's kernels are keyed on their
+# own names, which sit in an anonymous namespace as no library's do, and on
+# the layout they are instantiated for; each family is the TPU kernel they
+# replace.
+PORT = "(anonymous namespace)::"
+FAMILIES = (((PORT + "decode_split_kernel<", "PagedLayout"),
+             "flash_decode_paged"),
+            ((PORT + "decode_split_kernel<", "ContiguousLayout"),
+             "flash_decode"),
+            ((PORT + "prefill_kernel<", "PagedLayout"),
+             "flash_attention_paged"),
+            ((PORT + "prefill_mma_kernel<", "PagedLayout"),
+             "flash_attention_paged"),
+            ((PORT + "prefill_kernel<", "ContiguousLayout"),
+             "flash_attention"),
+            ((PORT + "prefill_mma_kernel<", "ContiguousLayout"),
+             "flash_attention"),
+            ((PORT + "ssd_scan_kernel<",), "ssd_scan"),
+            ((PORT + "gemm_kernel<",), "gemm"),
+            ((PORT + "gemm_wgmma_kernel<",), "gemm"),
+            ((PORT + "pchase_kernel(",), "pchase"),
+            (("gemm",), "GEMM (cuBLAS)"), (("nvjet",), "GEMM (cuBLAS)"),
+            (("xmma",), "GEMM (cuBLAS)"), (("cutlass",), "GEMM (cuBLAS)"),
+            (("reduce",), "reductions"), (("index",), "indexing and scatter"),
+            (("elementwise",), "elementwise"), (("copy",), "copies and casts"))
 
 
 def family(name: str) -> str:
     low = name.lower()
-    return next((f for key, f in FAMILIES if key.lower() in low), "other")
+    return next((f for keys, f in FAMILIES
+                 if all(k.lower() in low for k in keys)), "other")
 
 
 def serve_once(params, cfg, scfg, prompts, max_new, device):

@@ -18,6 +18,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import latency
 from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.kernels import flash_decode
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gemm import TILES
@@ -86,6 +87,58 @@ def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
     assert ref.compare(got, ref.flash_decode(q, k, v, lengths))[0]
     assert ops.LAUNCHES["flash_decode"] == 1
     assert not got[0].any()
+
+
+# Lengths about the split decode's 256-row boundaries over a reach of 1024
+# rows (4 splits): 0 (every split empty), 1, each boundary and one row
+# either side, the reach, and past it (a drifting free slot).
+SPLIT_LENGTHS = [0, 1, 255, 256, 257, 511, 512, 513, 767, 768, 769, 1023,
+                 1024, 1500]
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_decodes_across_split_boundaries(cuda_device, paged, dtype, d):
+    """Both decode kernels against their plain versions at groups 1, 4
+    and 7 over kvh 2 (qwen2-0.5b's is 7) and the main path's 32 / 8, with
+    lengths straddling the splits, within ``ref.TOLERANCE``: zero-length
+    slots give exact zeros, each call counts one launch, and a second
+    launch on the same inputs gives the same bits (the splits merge in a
+    fixed order, no atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 7 * paged)
+    ps, max_pages = 16, 64
+    b = len(SPLIT_LENGTHS)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32,
+                           device=cuda_device)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)  # noqa
+    for h, kvh in ((2, 2), (8, 2), (14, 2), (32, 8)):
+        q = mk(b, h, d).to(dtype)
+        if paged:
+            n_pages = 1 + b * max_pages
+            kv = [mk(n_pages, ps, kvh, d).to(dtype) for _ in range(2)]
+            perm = torch.randperm(n_pages - 1, generator=g,
+                                  device=cuda_device) + 1
+            table = perm.reshape(b, max_pages).int()
+            args = (q, *kv, table, lengths)
+            run, plain = ops.flash_decode_paged, ref.flash_decode_paged
+        else:
+            kv = [mk(b, max_pages * ps, kvh, d).to(dtype) for _ in range(2)]
+            args = (q, *kv, lengths)
+            run, plain = ops.flash_decode, ref.flash_decode
+        ops.reset_launches()
+        got = run(*args)
+        again = run(*args)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, plain(*args))
+        assert ok, (h, kvh, err)
+        assert not got[0].any()
+        assert torch.equal(got, again), (h, kvh)
+        assert sum(ops.LAUNCHES.values()) == 2
+        assert ops.LAUNCHES["flash_decode_paged" if paged
+                            else "flash_decode"] == 2
+    # The merge's counters are left at zero for the next launch.
+    assert not any(c.any() for c in flash_decode._COUNTERS.values())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
