@@ -15,7 +15,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    both decodes again at groups 1/4/7 over 2 kv heads and at lengths
    about their 256-row splits, with exact zeros for a zero length, the
    same bits from a second launch, and the merge's counters left at zero;
-   the SSD scan at l 2/127/128/300/1031 from a zero and a non-zero state,
+   the SSD scan at l 1/2/127/128/129/300/1031/1536 (batch 2) and
+   129/1024 (batch 1, the engine's) from a zero and a non-zero state, with
+   the same bits from a second launch and its hand-off's tickets and
+   counts left at zero,
    the GEMM with every tile of each dtype at ragged shapes (1, 127, 4097
    in each dim) and the qwen3-4b MLP shapes, logging the path each ran
    (fp32 on the CUDA cores; bf16 on the tensor cores, the MLP shapes
@@ -27,7 +30,8 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    the same work, with TFLOP/s; for the decodes their splits, GB/s and
    share of the bound, and beside them the device time of the kernel and
    of the library call with the launches queued behind a spin of the
-   card; the GEMM with every tile of its dtype at the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
+   card; for the SSD scan its device time at l 128/1024/1536 with
+   TFLOP/s, share of the bound and launch grid; the GEMM with every tile of its dtype at the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
    and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
    16 KiB to 512 MiB;
@@ -124,6 +128,13 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 # Main-path shapes of the SSD scan: mamba2-370m (32 heads of 64, d_state
 # 128) prefilling a batch-1 prompt; the kernel's chunk is 128 rows.
 SSD_H, SSD_P, SSD_N, SSD_L, SSD_CHUNK = 32, 64, 128, 1024, 128
+# (bt, l) the scan is checked at: one row, one chunk and either side of it,
+# ragged lengths, the longest prompt; batch 1 as the engine prefills.
+SSD_CASES = ((2, 1), (2, 2), (2, 127), (2, 128), (2, 129), (2, 300),
+             (2, 1031), (2, 1536), (1, 129), (1, 1024))
+# Lengths whose device time phase 4 logs: a one-chunk prompt, the timed
+# one, and the longest the engine prefills.
+SSD_DEVICE_LENGTHS = (128, 1024, 1536)
 # GEMM shapes: qwen3-4b's MLP projections over 2048 tokens (d_model 2560,
 # d_ff 9728), ragged edges, and the tiling example's problems.
 MLP_SHAPES = ((2048, 2560, 9728), (2048, 9728, 2560))
@@ -364,9 +375,10 @@ def ssd_inputs(gen, dev, dtype, bt, l, h0=False):
     return x, a, b, c, (0.5 * rnd(bt, SSD_H, SSD_P, SSD_N) if h0 else None)
 
 
-def check_contiguous_kernels(dev, ops, ref) -> list:
+def check_contiguous_kernels(dev, ops, ref, decode_mod) -> list:
     """The contiguous decode and the SSD scan against their plain
-    versions; returns failures."""
+    versions; for the scan also the same bits from a second launch and
+    the hand-off's ints left at zero; returns failures."""
     gen = torch.Generator(device=dev).manual_seed(3)
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -385,22 +397,34 @@ def check_contiguous_kernels(dev, ops, ref) -> list:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("flash_decode", dtype, d, err))
-        for l in (2, 127, 128, 300, 1031):
+        for bt, l in SSD_CASES:
             for h0 in (False, True):
-                x, a, b, c, h = ssd_inputs(gen, dev, dtype, 2, l, h0)
+                x, a, b, c, h = ssd_inputs(gen, dev, dtype, bt, l, h0)
                 y, st = ops.ssd_scan(x, a, b, c, h0=h)
+                y2, st2 = ops.ssd_scan(x, a, b, c, h0=h)
                 torch.cuda.synchronize()
                 wy, ws = ref.ssd_scan(x, a, b, c, h0=h, chunk=SSD_CHUNK)
                 (ok_y, err_y), (ok_s, err_s) = (
                     ref.compare(y, wy, normwise=True),
                     ref.compare(st, ws, normwise=True))
-                log(f"  ssd_scan {str(dtype):14s} l={l:4d} h0={int(h0)}: "
-                    f"max_abs_err y {err_y:.3e} state {err_s:.3e} (max |y| "
-                    f"{float(wy.float().abs().max()):.2f}, max |state| "
-                    f"{float(ws.abs().max()):.2f}; tolerance scaled by "
-                    f"them) {'ok' if ok_y and ok_s else 'FAIL'}")
+                same = torch.equal(y, y2) and torch.equal(st, st2)
+                log(f"  ssd_scan {str(dtype):14s} bt={bt} l={l:4d} "
+                    f"h0={int(h0)}: max_abs_err y {err_y:.3e} state "
+                    f"{err_s:.3e} (max |y| {float(wy.float().abs().max()):.2f}"
+                    f", max |state| {float(ws.abs().max()):.2f}; tolerance "
+                    f"scaled by them) {'ok' if ok_y and ok_s else 'FAIL'}; "
+                    f"second launch {'bit-identical' if same else 'DIFFERS'}")
                 if not (ok_y and ok_s):
-                    failures.append(("ssd_scan", dtype, l, h0, err_y, err_s))
+                    failures.append(("ssd_scan", dtype, bt, l, h0, err_y,
+                                     err_s))
+                if not same:
+                    failures.append(("ssd_scan two launches differ", dtype,
+                                     bt, l, h0))
+    left = [c for c in decode_mod._COUNTERS.values() if c.any()]
+    log(f"  the hand-off's tickets and counts after these launches: "
+        f"{'all zero' if not left else 'NOT ZERO'}")
+    if left:
+        failures.append(("ssd_scan tickets or counts left non-zero", left))
     return failures
 
 
@@ -520,6 +544,28 @@ def time_ms(fn, n_layers: int, iters: int = 50, spin: bool = False) -> float:
                     "the card: timed at the host's pace)")
             return start.elapsed_time(end) / iters
         cycles *= 4
+
+
+def ssd_work(l: int, esize: int) -> tuple:
+    """(bytes, flops) of a batch-1 SSD scan of l rows at the main path's
+    head shape, from a zero state: x read and y written, a_log, B and C
+    read, the fp32 state written. The flops are the useful ones per chunk
+    and head: the causal half of C.B^T (n each) and of the decayed scores
+    times x (p each), the carried state's term and the state update (p * n
+    each per row)."""
+    nbytes = (2 * l * SSD_H * SSD_P * esize + 4 * l * SSD_H
+              + 2 * l * SSD_N * esize + 4 * SSD_H * SSD_P * SSD_N)
+    tri = sum(min(SSD_CHUNK, l - t0) * (min(SSD_CHUNK, l - t0) + 1) // 2
+              for t0 in range(0, l, SSD_CHUNK))
+    return nbytes, SSD_H * 2 * (tri * (SSD_N + SSD_P)
+                                + 2 * l * SSD_P * SSD_N)
+
+
+def ssd_grid(bt: int, l: int) -> str:
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    gx, gy, gz = ssd_mod.grid(bt, l, SSD_H, SSD_P)
+    return (f"({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs (head x p-block of "
+            f"{ssd_mod.P_BLOCK}, chunk of {ssd_mod.CHUNK}, batch row)")
 
 
 def decode_grid(decode_mod, lengths, max_rows: int, page_size: int) -> str:
@@ -653,28 +699,27 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
     del views, caches
 
     # SSD scan: one batch-1 prompt of SSD_L rows through a layer, from a
-    # zero state (the engine's prefill). 12 input sets (56 MB) so that L2
-    # does not hold one set across launches.
-    sets = [ssd_inputs(gen, dev, dtype, 1, SSD_L)[:4] for _ in range(12)]
-    x, a, b, c = sets[0]
+    # zero state (the engine's prefill). 12 input sets (56 MB at l 1024)
+    # so that L2 does not hold one set across launches.
+    sets = {l: [ssd_inputs(gen, dev, dtype, 1, l)[:4] for _ in range(12)]
+            for l in SSD_DEVICE_LENGTHS}
+    x, a, b, c = sets[SSD_L][0]
     y, st = ops.ssd_scan(x, a, b, c)
     wy, ws = ref.ssd_scan(x, a, b, c, chunk=SSD_CHUNK)
     (ok_y, err_y), (ok_s, err_s) = (ref.compare(y, wy, normwise=True),
                                     ref.compare(st, ws, normwise=True))
-    nbytes = (2 * x.numel() * esize + 4 * a.numel() + 2 * b.numel() * esize
-              + 4 * st.numel())
-    # Useful flops per chunk and head: the causal half of C.B^T (n each)
-    # and of the decayed scores times x (p each), the carried state's
-    # term and the state update (p * n each per row).
-    tri = sum(min(SSD_CHUNK, SSD_L - t0) * (min(SSD_CHUNK, SSD_L - t0) + 1)
-              // 2 for t0 in range(0, SSD_L, SSD_CHUNK))
-    ops_n = SSD_H * 2 * (tri * (SSD_N + SSD_P) + 2 * SSD_L * SSD_P * SSD_N)
+    nbytes, ops_n = ssd_work(SSD_L, esize)
+    device = {}
+    for l, ls in sets.items():
+        ms = time_ms(lambda i: ops.ssd_scan(*ls[i]), len(ls), spin=True)
+        device[l] = (ms, *ssd_work(l, esize))
     out["ssd_scan"] = dict(
         max_abs_err=max(err_y, err_s), ok=ok_y and ok_s,
-        ms=time_ms(lambda i: ops.ssd_scan(*sets[i]), len(sets)),
-        plain_ms=time_ms(lambda i: ref.ssd_scan(*sets[i], chunk=SSD_CHUNK),
-                         len(sets), iters=10),
-        library_ms=None,
+        ms=time_ms(lambda i: ops.ssd_scan(*sets[SSD_L][i]), 12),
+        plain_ms=time_ms(lambda i: ref.ssd_scan(*sets[SSD_L][i],
+                                                chunk=SSD_CHUNK),
+                         12, iters=10),
+        library_ms=None, ssd_device=device,
         bytes=nbytes, ops=ops_n,
         shape=f"bt=1 l={SSD_L} h={SSD_H} p={SSD_P} n={SSD_N} "
               f"chunk={SSD_CHUNK}; no single PyTorch call computes an SSD "
@@ -691,6 +736,12 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
             f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
             f"max_abs_err {r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+        for l, (ms, nb, n_ops) in r.get("ssd_device", {}).items():
+            b_ms, b_by = bound(nb, n_ops, dtype)
+            log(f"    {name} device time (launches queued behind a spin) "
+                f"at bt=1 l={l}: {ms:.4f} ms, {tflops(n_ops, ms):.2f} "
+                f"TFLOP/s, {100 * b_ms / ms:.1f} % of its bound {b_ms:.4f} "
+                f"ms ({b_by}); grid {ssd_grid(1, l)}")
         if "grid" in r:
             rate = lambda ms: (f"{r['bytes'] / ms / 1e6:.1f} GB/s, "  # noqa: E731
                                f"{100 * r['bound_ms'] / ms:.1f} % of its bound")
@@ -1243,7 +1294,7 @@ def main() -> None:
 
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
-    failures += check_contiguous_kernels(dev, ops, ref)
+    failures += check_contiguous_kernels(dev, ops, ref, decode_mod)
     failures += check_decode_splits(dev, ops, ref, decode_mod)
     failures += check_probe_kernels(dev, ops, ref, latency, gemm_kernel)
     if failures:

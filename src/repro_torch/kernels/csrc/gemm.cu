@@ -57,6 +57,7 @@
 namespace {
 
 using repro::Elem;
+using repro::smem_u32;
 
 constexpr int kBK = 16;
 constexpr int kTM = 8;  // register tile: kTM x kTN outputs a thread
@@ -255,10 +256,6 @@ struct TcTile {
   static constexpr int kSmem = kTcStages * kStageBytes + 1024 +
                                2 * kTcStages * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"

@@ -7,47 +7,465 @@
 // the final state (bt, h, p, n) fp32. Per chunk of kChunk rows, with
 // a_cum the chunk's inclusive cumulative sum of a_log:
 //
-//   y[i]  = sum_{j <= i} (C[i] . B[j]) exp(a_cum[i] - a_cum[j]) x[j]
-//         + exp(a_cum[i]) (state C[i])                 (carried state)
-//   state = exp(a_cum[-1]) state
-//         + sum_j exp(a_cum[-1] - a_cum[j]) x[j] B[j]^T
+//   y[i]   = sum_{j <= i} (C[i] . B[j]) exp(a_cum[i] - a_cum[j]) x[j]
+//          + exp(a_cum[i]) (h_prev C[i])              (carried state)
+//   S      = sum_j exp(a_cum[-1] - a_cum[j]) x[j] B[j]^T
+//   h_next = exp(a_cum[-1]) h_prev + S
 //
-// all in fp32, y rounded once. The TPU kernel carries the state in VMEM
-// scratch across a sequential grid axis over chunks; here one CTA per
-// (batch row, head) loops over the chunks in order and keeps the (p, n)
-// state in shared memory, so nothing crosses CTAs.
+// with fp32 sums and y rounded once. The TPU kernel carries the state in
+// VMEM scratch across a sequential grid axis over chunks. On Hopper blocks
+// run in parallel and in no order, so the carry is made explicit.
+//
+// The grid is (head x p-block, chunk, batch row). Rows of p are
+// independent: y[:, p-block] and the state's p-block rows need only
+// x[:, p-block]. So each CTA owns kPBlock rows of p of one head over one
+// chunk (bt 1, l 1024, h 32: 512 CTAs, where one CTA per head looping over
+// the chunks gave 32). Chunks are independent except for the state, which
+// goes from chunk to chunk through a look-back hand-off in the same
+// launch:
+//   1. a CTA takes its chunk from an int ticket per (batch row, head,
+//      p-block), so chunk c belongs to a CTA that started after the one
+//      that holds chunk c - 1, whatever order the hardware schedules
+//      blocks in: a CTA only ever waits on one that already runs;
+//   2. it stages its chunk and computes its own contribution S;
+//   3. it waits for chunk c - 1's count (acquire), reads h_prev (h0 or
+//      zeros for chunk 0), writes h_next and publishes its count (release);
+//   4. then it computes y, its chunk's rows of its p-block.
+// The states go through the output state buffer itself: chunk c reads
+// h_{c-1} there, keeps it in shared memory for step 4 and overwrites it
+// with h_c before it publishes, so the last chunk leaves the final state
+// and no scratch is needed. The last chunk resets the ticket and the
+// count, so the int buffer (kept zeroed per device and stream by the
+// caller) is zero again after every launch. The result does not depend on
+// the schedule: every sum runs in a fixed order, and two launches give the
+// same bits.
+//
+// bf16 (ssd_scan_mma_kernel): x, B and C are staged by cp.async in their
+// own dtype and all four products run on the tensor cores by mma.sync
+// m16n8k16 into fp32. C.B^T takes bf16 inputs, so its products are exact.
+// The three others carry an fp32 operand (the decayed scores, x weighted
+// by exp(a_cum[-1] - a_cum), the fp32 state), which goes in as a bf16 high
+// part plus a bf16 residual (16 bits, as the attention bodies' P.V): one
+// bf16 rounding of a decay-weighted operand (about 2e-3 relative) would
+// move the fp32 state past ref.TOLERANCE. Each of the 8 warps owns 16 rows
+// of the chunk for the scores and y, and a 16 x 32 block of S. C.B^T is
+// recomputed by each p-block of each head (64 CTAs a chunk at h 32):
+// sharing it would take a second hand-off through device memory. The
+// scores' decays exp(a_cum[i] - a_cum[j]) go through the special-function
+// unit (ex2.approx): at the model's decays most of them underflow, and
+// there the accurate expf is slow (scripts/ssd_scan_variants.py times the
+// scan with it); the approximation's 2 ulps reach only y, rounded to
+// bf16. fp32 (ssd_scan_kernel) keeps the CUDA cores (no TF32) and the
+// accurate expf on the same grid and hand-off: register blocks of fp32
+// FMAs fed from shared memory.
 //
 // Ragged length: the chunk stays kChunk rows and the last chunk is masked
-// (rows past l load as x = 0, B = 0, a = 0: they neither decay nor feed
+// (rows past l load as x = 0, B = C = 0, a = 0: they neither decay nor feed
 // the state, and are not stored). The reference wrapper instead shrinks
 // the chunk to a divisor of l, down to 1 at a prime length.
 //
-// What bounds it on an H100. At chunk 128, p 64, n 128 the work is
-// 4 * l * (chunk/2 * n + chunk/2 * p + 2 * p * n) flops per (row, head),
-// about 2.7 GFLOP at l 1024 and 32 heads, against about 10 MB of traffic:
-// the tensor cores would make it bound by bytes, but this first kernel
-// runs fp32 FMAs on CUDA cores and reads its operands from shared memory,
-// so it is bound by shared-memory bandwidth and FMA issue in each SM. Its
-// design: 256 threads; the fp32 tiles of x (chunk x p) and B (chunk x n)
-// and the state (p x n) stay in shared memory for the whole chunk; query
-// rows go in blocks of 32 so that C and the score block take 32 rows each
-// (about 166 KB in all, above the 48 KB static limit: dynamic shared
-// memory is opted in). Each thread owns a register block of every
-// product (2 x 8 scores, 2 x p/16 outputs, p/16 x n/16 state entries),
-// with rows padded to n + 1 floats so that shared-memory reads are
-// conflict-free. Batch-1 prefill gives h = 32 CTAs on 132 SMs, one CTA
-// each: the card is underfilled, and C.B^T, which all heads share, is
-// computed once per head. Both are later work.
+// What bounds it on an H100. At chunk 128, p 64, n 128 the useful work is
+// 2 * (chunk/2 * (n + p) + 2 * p * n) flops per row and head, 1.9 GFLOP at
+// l 1024 and 32 heads (2 us at the bf16 peak), against 10 MB of traffic
+// (3 us at 3.35 TB/s): bound by bytes. The kernel is far from either: each
+// CTA is a short serial program (stage 72 KB; S; the hand-off; the
+// triangular C.B^T, 16 rows a warp, so the last warp does 8 times the
+// first's), two CTAs an SM, and the hand-off adds one round trip through
+// L2 per chunk and (batch row, head, p-block), 8 in a row at l 1024.
+// A CTA does all of its chunk's work that needs no carried state before
+// it waits.
 
 #include "common.cuh"
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::Elem;
+using repro::fast_exp2;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma_bf16;
+using repro::pack_bf16;
+using repro::smem_u32;
+using repro::split_bf16;
+using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 128;
-constexpr int kRowBlock = 32;  // query rows per score block
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kChunk = 128;     // rows a CTA scans
+constexpr int kPBlock = 32;     // rows of p (of one head) a CTA owns
+constexpr int kRowBlock = 32;   // fp32 body: query rows per score block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// The hand-off. `sync` holds two ints per (batch row, head, p-block): the
+// next ticket and the number of chunk states published.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// This CTA's (ticket, count) pair.
+__device__ __forceinline__ int* sync_slot(int* sync) {
+  return sync + 2 * ((int64_t)blockIdx.z * gridDim.x + blockIdx.x);
+}
+
+// The chunk this CTA scans: its start order among the CTAs of its (batch
+// row, head, p-block). The last ticket resets the counter for the next
+// launch (every CTA of the group has taken one by then).
+__device__ int take_chunk(int* ticket) {
+  __shared__ int chunk;
+  if (threadIdx.x == 0) {
+    chunk = atomicAdd(ticket, 1);
+    if (chunk == (int)gridDim.y - 1) *ticket = 0;
+  }
+  __syncthreads();
+  return chunk;
+}
+
+// Block until chunk - 1 has published its state. The chunk it waits on
+// belongs to a CTA that started earlier, so the wait ends; a watchdog of
+// 10 s turns a fault that would hang the card (a count left non-zero by a
+// launch that never finished) into a launch error instead. Thread 0's
+// acquire and the CTA barrier after it order every thread's reads of the
+// state after chunk - 1's writes (with publish: the pattern of CUTLASS's
+// Semaphore).
+__device__ void wait_for_previous(const int* done, int chunk) {
+  if (chunk > 0 && threadIdx.x == 0) {
+    const uint64_t t0 = global_ns();
+    while (ld_acquire(done) < chunk) {
+      if (global_ns() - t0 > 10000000000ull) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// Once every thread has stored its share of the chunk's state: publish it
+// to chunk + 1 (the barrier orders every thread's stores before thread 0's
+// release), or, as the last chunk (nobody waits on the count any more),
+// reset the count for the next launch.
+__device__ void publish(int* done, int chunk) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (chunk == (int)gridDim.y - 1) {
+      *done = 0;
+    } else {
+      st_release(done, chunk + 1);
+    }
+  }
+}
+
+// Inclusive cumulative sum of the chunk's log decays (a[r * stride] for
+// r < nv, 0 past it) into cum[0, kChunk), by warp 0: kChunk / 32 rows a
+// lane, then a scan of the lanes' totals. The caller syncs before reading
+// cum.
+__device__ void chunk_cumsum(const float* __restrict__ a, int64_t stride,
+                             int nv, float* __restrict__ cum) {
+  constexpr int kPer = kChunk / 32;
+  static_assert(kPer * 32 == kChunk, "the chunk is whole rows a lane");
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  float v[kPer];
+  float run = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int r = lane * kPer + e;
+    run += r < nv ? a[r * stride] : 0.f;
+    v[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) cum[lane * kPer + e] = v[e] + (incl - run);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores. Shared-memory rows are padded by 8 elements: at
+// 272 bytes (C, B, the state) and 80 bytes (x) the 8 row addresses of an
+// ldmatrix fall on distinct banks.
+// ---------------------------------------------------------------------------
+
+template <int N>
+struct MmaSmem {
+  static constexpr int kRowN = N + 8;          // C, B and state rows
+  static constexpr int kRowX = kPBlock + 8;    // x rows
+  static constexpr int kCBytes = kChunk * kRowN * 2;
+  static constexpr int kXBytes = kChunk * kRowX * 2;
+  static constexpr int kHBytes = kPBlock * kRowN * 2;
+  static constexpr int kBytes =
+      2 * kCBytes + kXBytes + 2 * kHBytes + 2 * kChunk * 4;
+};
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_scan_mma_kernel(const bf16* __restrict__ x,
+                    const float* __restrict__ a_log,
+                    const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+                    const float* __restrict__ h0, bf16* __restrict__ y,
+                    float* hout, int* __restrict__ sync, int l, int h) {
+  using S = MmaSmem<N>;
+  constexpr int kRowN = S::kRowN;
+  constexpr int kRowX = S::kRowX;
+  constexpr int NB = kPBlock / 8;   // 8-column blocks of a y row block
+  // Each warp owns a 16 x SC block of S: 16 x 32 at a p-block of 32.
+  constexpr int SC = kPBlock / 16 * N / (kThreads / 32);
+  static_assert(P % kPBlock == 0 && SC % 16 == 0, "p and n tile the CTA");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t c_s = smem_u32(smem);
+  const uint32_t b_s = c_s + S::kCBytes;
+  const uint32_t x_s = b_s + S::kCBytes;
+  const uint32_t hh_s = x_s + S::kXBytes;  // h_prev, bf16 high part
+  const uint32_t hl_s = hh_s + S::kHBytes; // h_prev, bf16 residual
+  bf16* hh = reinterpret_cast<bf16*>(smem + 2 * S::kCBytes + S::kXBytes);
+  bf16* hl = hh + kPBlock * kRowN;
+  float* cum_s = reinterpret_cast<float*>(hl + kPBlock * kRowN);
+  float* w_s = cum_s + kChunk;  // exp(a_cum[-1] - a_cum)
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int head = blockIdx.x / (P / kPBlock);
+  const int p0 = (blockIdx.x % (P / kPBlock)) * kPBlock;
+  int* ticket = sync_slot(sync);
+  const int chunk = take_chunk(ticket);
+  const int t0 = chunk * kChunk;
+  const int nv = min(kChunk, l - t0);               // live rows
+  const int64_t row0 = (int64_t)blockIdx.z * l + t0;  // (bt, t0) as a row
+
+  // Stage C, B and x's p-block in their own dtype; rows past nv are zeros.
+  for (int v = tid; v < kChunk * (N / 8); v += kThreads) {
+    const int r = v / (N / 8);
+    const int c = (v % (N / 8)) * 8;
+    const bool valid = r < nv;
+    const int64_t off = valid ? (row0 + r) * N + c : 0;
+    cp_async16(c_s + (r * kRowN + c) * 2, cm + off, valid);
+    cp_async16(b_s + (r * kRowN + c) * 2, bm + off, valid);
+  }
+  for (int v = tid; v < kChunk * (kPBlock / 8); v += kThreads) {
+    const int r = v / (kPBlock / 8);
+    const int c = (v % (kPBlock / 8)) * 8;
+    const bool valid = r < nv;
+    const int64_t off = valid ? ((row0 + r) * h + head) * P + p0 + c : 0;
+    cp_async16(x_s + (r * kRowX + c) * 2, x + off, valid);
+  }
+  cp_async_commit();
+  chunk_cumsum(a_log + row0 * h + head, h, nv, cum_s);
+  __syncthreads();
+  const float cum_last = cum_s[kChunk - 1];
+  for (int r = tid; r < kChunk; r += kThreads)
+    w_s[r] = expf(cum_last - cum_s[r]);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // S (kPBlock x N) = (x * w)^T . B over the chunk's rows: this warp's
+  // p rows mt*16.. and n columns ng*SC... A = (x * w)^T from x by
+  // ldmatrix.trans, weighted and split; B by ldmatrix.trans.
+  const int mt = warp % (kPBlock / 16);
+  const int ng = warp / (kPBlock / 16);
+  const int nk = (nv + 15) / 16;  // k-steps with live rows
+  float st[SC / 8][4];
+#pragma unroll
+  for (int j = 0; j < SC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+  for (int kk = 0; kk < nk; ++kk) {
+    uint32_t xa[4], hi[4], lo[4];
+    ldsm_x4_trans(x_s + ((kk * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowX +
+                         mt * 16 + 8 * ((lane >> 3) & 1)) * 2, xa);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = kk * 16 + 8 * (i >> 1) + 2 * t4;
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xa[i]));
+      split_bf16(f.x * w_s[j], f.y * w_s[j + 1], hi[i], lo[i]);
+    }
+#pragma unroll
+    for (int np = 0; np < SC / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b_s + ((kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                               kRowN + ng * SC + np * 16 + 8 * (lane >> 4)) * 2,
+                    b);
+      mma_bf16(st[2 * np], hi, b[0], b[1]);
+      mma_bf16(st[2 * np], lo, b[0], b[1]);
+      mma_bf16(st[2 * np + 1], hi, b[2], b[3]);
+      mma_bf16(st[2 * np + 1], lo, b[2], b[3]);
+    }
+  }
+
+  // The hand-off. st[nb][e] sits at p-block row mt*16 + g + 8*(e/2),
+  // column ng*SC + 8*nb + 2*t4 + e%2. h_prev is read past L1 (another CTA
+  // wrote it), kept in shared memory as two bf16 parts, and replaced by
+  // h_next.
+  int* done = ticket + 1;
+  const float decay = expf(cum_last);
+  const bool has_prev = chunk > 0 || h0 != nullptr;
+  wait_for_previous(done, chunk);
+  const int64_t sbase =
+      (((int64_t)blockIdx.z * h + head) * P + p0) * N;
+  float2 prev[SC / 8][2];
+#pragma unroll
+  for (int nb = 0; nb < SC / 8; ++nb)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int64_t at = sbase + (int64_t)(mt * 16 + g + 8 * hf) * N +
+                         ng * SC + 8 * nb + 2 * t4;
+      prev[nb][hf] =
+          chunk > 0 ? __ldcg(reinterpret_cast<const float2*>(hout + at))
+          : h0 != nullptr ? *reinterpret_cast<const float2*>(h0 + at)
+                          : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+  for (int nb = 0; nb < SC / 8; ++nb)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = mt * 16 + g + 8 * hf;
+      const int n = ng * SC + 8 * nb + 2 * t4;
+      const float2 pv = prev[nb][hf];
+      __stcg(reinterpret_cast<float2*>(hout + sbase + (int64_t)r * N + n),
+             make_float2(fmaf(decay, pv.x, st[nb][2 * hf]),
+                         fmaf(decay, pv.y, st[nb][2 * hf + 1])));
+      uint32_t vh, vl;
+      split_bf16(pv.x, pv.y, vh, vl);
+      *reinterpret_cast<uint32_t*>(hh + r * kRowN + n) = vh;
+      *reinterpret_cast<uint32_t*>(hl + r * kRowN + n) = vl;
+    }
+  publish(done, chunk);  // its barrier also orders the hh/hl writes
+
+  // y for this warp's 16 rows i0..: scores C.B^T over columns up to the
+  // warp's last row, decayed and masked; then (scores) . x and C . h_prev^T.
+  const int rb = warp;  // row block
+  const int i0 = rb * 16;
+  if (i0 >= nv) return;
+  float s[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const uint32_t c_row =
+      c_s + ((i0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kRowN +
+             8 * (lane >> 4)) * 2;
+  // One branch per 16 key columns (rb is not known to be warp-uniform, and
+  // a branch inside the k loop stalls the mma.sync stream at each one).
+#pragma unroll
+  for (int jp = 0; jp < 8; ++jp) {
+    if (jp > rb) break;
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t ca[4], b[4];
+      ldsm_x4(c_row + kk * 32, ca);
+      ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
+                     kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
+      mma_bf16(s[2 * jp], ca, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
+    }
+  }
+  // The decay by the special-function unit (see the note at the top):
+  // most of these exponents are far below -126 at the model's decays.
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + g + 8 * hf;
+    const float ci = cum_s[i];
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) {
+      if (jb >= 2 * (rb + 1)) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = 8 * jb + 2 * t4 + e;
+        // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
+        s[jb][2 * hf + e] =
+            j <= i ? s[jb][2 * hf + e] * fast_exp2((ci - cum_s[j]) * kLog2e)
+                   : 0.f;
+      }
+    }
+  }
+  float o[NB][4], off[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = off[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk > rb) break;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* p = &s[2 * kk + (i >> 1)][2 * (i & 1)];
+      split_bf16(p[0], p[1], hi[i], lo[i]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < NB / 2; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_trans(x_s + ((kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                               kRowX + dp * 16 + 8 * (lane >> 4)) * 2, b);
+      mma_bf16(o[2 * dp], hi, b[0], b[1]);
+      mma_bf16(o[2 * dp], lo, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], hi, b[2], b[3]);
+      mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
+    }
+  }
+  if (has_prev) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t ca[4];
+      ldsm_x4(c_row + kk * 32, ca);
+#pragma unroll
+      for (int pp = 0; pp < NB / 2; ++pp) {
+        uint32_t bh[4], bl[4];
+        const uint32_t at = ((pp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
+                             kk * 16 + 8 * ((lane >> 3) & 1)) * 2;
+        ldsm_x4(hh_s + at, bh);
+        ldsm_x4(hl_s + at, bl);
+        mma_bf16(off[2 * pp], ca, bh[0], bh[1]);
+        mma_bf16(off[2 * pp], ca, bl[0], bl[1]);
+        mma_bf16(off[2 * pp + 1], ca, bh[2], bh[3]);
+        mma_bf16(off[2 * pp + 1], ca, bl[2], bl[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = i0 + g + 8 * hf;
+    if (i >= nv) continue;
+    const float e = expf(cum_s[i]);
+    bf16* yr = y + ((row0 + i) * h + head) * P + p0 + 2 * t4;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      *reinterpret_cast<uint32_t*>(yr + 8 * nb) =
+          pack_bf16(fmaf(e, off[nb][2 * hf], o[nb][2 * hf]),
+                    fmaf(e, off[nb][2 * hf + 1], o[nb][2 * hf + 1]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores: the same grid and hand-off. The fp32 tiles of x's
+// p-block (chunk x kPBlock) and B (chunk x n), and h_prev (kPBlock x n),
+// stay in shared memory; query rows go in blocks of kRowBlock so that C
+// and the score block take kRowBlock rows each. Each thread owns a
+// register block of every product (2 x 8 scores, 2 x 2 outputs, 2 x 8
+// state entries), with rows padded to n + 1 floats so that shared-memory
+// reads are conflict-free.
+// ---------------------------------------------------------------------------
 
 // Rows [0, n_rows) of a (rows, W) tile with row stride `stride` into
 // `dst` as fp32 (row stride dst_stride); rows at or past n_valid are 0.
@@ -73,132 +491,157 @@ __device__ void load_rows(const T* __restrict__ src, int64_t stride,
   }
 }
 
-template <typename T, int P, int N>
+template <int N>
+struct FmaSmem {
+  static constexpr int kFloats = kChunk * kPBlock + kChunk * (N + 1) +
+                                 kRowBlock * (N + 1) +
+                                 kRowBlock * (kChunk + 1) +
+                                 kPBlock * (N + 1) + 2 * kChunk;
+};
+
+template <int P, int N>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ a_log,
-                const T* __restrict__ bm, const T* __restrict__ cm,
-                const float* __restrict__ h0, T* __restrict__ y,
-                float* __restrict__ hout, int l, int h) {
-  static_assert(P % 16 == 0 && N % 16 == 0, "p and n are multiples of 16");
-  static_assert(kChunk == 4 * 32, "the cumulative sum gives 4 rows a lane");
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
+                const float* __restrict__ bm, const float* __restrict__ cm,
+                const float* __restrict__ h0, float* __restrict__ y,
+                float* hout, int* __restrict__ sync, int l, int h) {
+  static_assert(P % kPBlock == 0 && N % 16 == 0, "p and n tile the CTA");
   constexpr int NP = N + 1;        // padded row of B, C and the state
   constexpr int QP = kChunk + 1;   // padded row of the score block
-  constexpr int PC = P / 16;       // output columns a thread owns
+  constexpr int PC = kPBlock / 16; // y columns / state rows a thread owns
   constexpr int NC = N / 16;       // state columns a thread owns
-  const int head = blockIdx.x;
-  const int bt = blockIdx.y;
-  extern __shared__ float smem[];
-  float* x_s = smem;                  // kChunk x P
-  float* b_s = x_s + kChunk * P;      // kChunk x NP
-  float* c_s = b_s + kChunk * NP;     // kRowBlock x NP
-  float* s_s = c_s + kRowBlock * NP;  // kRowBlock x QP (decayed scores)
-  float* st_s = s_s + kRowBlock * QP; // P x NP (the carried state)
-  float* cum_s = st_s + P * NP;       // kChunk: a_cum
-  float* ea_s = cum_s + kChunk;       // kChunk: exp(a_cum)
-  float* ed_s = ea_s + kChunk;        // kChunk: exp(a_cum[-1] - a_cum)
+  extern __shared__ float fsmem[];
+  float* x_s = fsmem;                    // kChunk x kPBlock
+  float* b_s = x_s + kChunk * kPBlock;   // kChunk x NP
+  float* c_s = b_s + kChunk * NP;        // kRowBlock x NP
+  float* s_s = c_s + kRowBlock * NP;     // kRowBlock x QP (decayed scores)
+  float* st_s = s_s + kRowBlock * QP;    // kPBlock x NP (h_prev)
+  float* cum_s = st_s + kPBlock * NP;    // kChunk: a_cum
+  float* w_s = cum_s + kChunk;           // kChunk: exp(a_cum[-1] - a_cum)
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int lane = tid & 31;
-
-  const int64_t st_base = ((int64_t)bt * h + head) * P * N;
-  for (int e = tid; e < P * N; e += kThreads)
-    st_s[(e / N) * NP + e % N] = h0 ? h0[st_base + e] : 0.f;
+  const int head = blockIdx.x / (P / kPBlock);
+  const int p0 = (blockIdx.x % (P / kPBlock)) * kPBlock;
+  int* ticket = sync_slot(sync);
+  const int chunk = take_chunk(ticket);
+  const int t0 = chunk * kChunk;
+  const int nv = min(kChunk, l - t0);
+  const int64_t row0 = (int64_t)blockIdx.z * l + t0;
   const int64_t x_row = (int64_t)h * P;  // stride between rows t of x, y
-  const T* xb = x + (int64_t)bt * l * x_row + (int64_t)head * P;
-  T* yb = y + (int64_t)bt * l * x_row + (int64_t)head * P;
-  const float* ab = a_log + (int64_t)bt * l * h + head;
-  const T* bb = bm + (int64_t)bt * l * N;
-  const T* cb = cm + (int64_t)bt * l * N;
 
-  for (int t0 = 0; t0 < l; t0 += kChunk) {
-    const int nv = min(kChunk, l - t0);  // live rows of this chunk
-    __syncthreads();  // the last chunk's readers are done with every tile
-    load_rows<T, P>(xb + t0 * x_row, x_row, nv, kChunk, x_s, P);
-    load_rows<T, N>(bb + (int64_t)t0 * N, N, nv, kChunk, b_s, NP);
-    if (tid < 32) {
-      // Inclusive cumulative sum of a over the chunk: 4 rows a lane,
-      // then a scan of the lanes' totals.
-      float v[4];
-      float run = 0.f;
+  load_rows<float, kPBlock>(x + row0 * x_row + (int64_t)head * P + p0,
+                            x_row, nv, kChunk, x_s, kPBlock);
+  load_rows<float, N>(bm + row0 * N, N, nv, kChunk, b_s, NP);
+  chunk_cumsum(a_log + row0 * h + head, h, nv, cum_s);
+  __syncthreads();
+  const float cum_last = cum_s[kChunk - 1];
+  for (int r = tid; r < kChunk; r += kThreads)
+    w_s[r] = expf(cum_last - cum_s[r]);
+  __syncthreads();
+
+  // S: rows ty + 16 r of the p-block, columns tx + 16 c.
+  float upd[PC][NC];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = lane * 4 + e;
-        run += r < nv ? ab[(int64_t)(t0 + r) * h] : 0.f;
-        v[e] = run;
+  for (int r = 0; r < PC; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) upd[r][c] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < nv; ++j) {
+    const float w = w_s[j];
+    float xv[PC];
+#pragma unroll
+    for (int r = 0; r < PC; ++r) xv[r] = x_s[j * kPBlock + ty + 16 * r] * w;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float bv = b_s[j * NP + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < PC; ++r) upd[r][c] = fmaf(xv[r], bv, upd[r][c]);
+    }
+  }
+
+  // The hand-off, as in the bf16 body; h_prev stays in st_s for y.
+  int* done = ticket + 1;
+  const float decay = expf(cum_last);
+  const bool has_prev = chunk > 0 || h0 != nullptr;
+  wait_for_previous(done, chunk);
+  const int64_t sbase = (((int64_t)blockIdx.z * h + head) * P + p0) * N;
+  float prev[PC][NC];
+#pragma unroll
+  for (int r = 0; r < PC; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int64_t at = sbase + (int64_t)(ty + 16 * r) * N + tx + 16 * c;
+      prev[r][c] = chunk > 0 ? __ldcg(hout + at)
+                   : h0 != nullptr ? h0[at] : 0.f;
+    }
+#pragma unroll
+  for (int r = 0; r < PC; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int64_t at = sbase + (int64_t)(ty + 16 * r) * N + tx + 16 * c;
+      __stcg(hout + at, fmaf(decay, prev[r][c], upd[r][c]));
+      st_s[(ty + 16 * r) * NP + tx + 16 * c] = prev[r][c];
+    }
+  publish(done, chunk);
+
+  for (int i0 = 0; i0 < nv; i0 += kRowBlock) {
+    load_rows<float, N>(cm + (row0 + i0) * N, N, nv - i0, kRowBlock, c_s,
+                        NP);
+    __syncthreads();
+    // Scores of rows ty and ty + 16 of the block against columns
+    // tx + 16 jj; only columns up to the block's last row are needed.
+    const int ncol = (i0 + kRowBlock) / 16;
+    float s[2][8];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[r][jj] = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) {
+      const float a0 = c_s[ty * NP + n];
+      const float a1 = c_s[(ty + 16) * NP + n];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        if (jj < ncol) {
+          const float bj = b_s[(tx + 16 * jj) * NP + n];
+          s[0][jj] = fmaf(a0, bj, s[0][jj]);
+          s[1][jj] = fmaf(a1, bj, s[1][jj]);
+        }
       }
-      float incl = run;
+    }
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += t;
+    for (int r = 0; r < 2; ++r) {
+      const int i = ty + 16 * r;
+      const float ci = cum_s[i0 + i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = tx + 16 * jj;
+        // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
+        s_s[i * QP + j] =
+            (jj < ncol && j <= i0 + i) ? s[r][jj] * expf(ci - cum_s[j]) : 0.f;
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cum_s[lane * 4 + e] = v[e] + (incl - run);
     }
     __syncthreads();
-    const float cum_last = cum_s[kChunk - 1];
-    for (int r = tid; r < kChunk; r += kThreads) {
-      ea_s[r] = expf(cum_s[r]);
-      ed_s[r] = expf(cum_last - cum_s[r]);
+    float acc[2][PC];
+    float off[2][PC];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < PC; ++c) acc[r][c] = off[r][c] = 0.f;
+    const int jend = min(i0 + kRowBlock, nv);
+#pragma unroll 4
+    for (int j = 0; j < jend; ++j) {
+      const float p0v = s_s[ty * QP + j];
+      const float p1v = s_s[(ty + 16) * QP + j];
+#pragma unroll
+      for (int c = 0; c < PC; ++c) {
+        const float xv = x_s[j * kPBlock + tx + 16 * c];
+        acc[0][c] = fmaf(p0v, xv, acc[0][c]);
+        acc[1][c] = fmaf(p1v, xv, acc[1][c]);
+      }
     }
-
-    for (int i0 = 0; i0 < nv; i0 += kRowBlock) {
-      load_rows<T, N>(cb + (int64_t)(t0 + i0) * N, N, nv - i0, kRowBlock,
-                      c_s, NP);
-      __syncthreads();
-      // Scores of rows ty and ty + 16 of the block against columns
-      // tx + 16 jj; only columns up to the block's last row are needed.
-      const int ncol = (i0 + kRowBlock) / 16;
-      float s[2][8];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) s[r][jj] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        const float a0 = c_s[ty * NP + n];
-        const float a1 = c_s[(ty + 16) * NP + n];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          if (jj < ncol) {
-            const float bj = b_s[(tx + 16 * jj) * NP + n];
-            s[0][jj] = fmaf(a0, bj, s[0][jj]);
-            s[1][jj] = fmaf(a1, bj, s[1][jj]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = ty + 16 * r;
-        const float ci = cum_s[i0 + i];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int j = tx + 16 * jj;
-          // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
-          s_s[i * QP + j] =
-              (jj < ncol && j <= i0 + i) ? s[r][jj] * expf(ci - cum_s[j]) : 0.f;
-        }
-      }
-      __syncthreads();
-      float acc[2][PC];
-      float off[2][PC];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < PC; ++c) acc[r][c] = off[r][c] = 0.f;
-      const int jend = min(i0 + kRowBlock, nv);
-#pragma unroll 4
-      for (int j = 0; j < jend; ++j) {
-        const float p0 = s_s[ty * QP + j];
-        const float p1 = s_s[(ty + 16) * QP + j];
-#pragma unroll
-        for (int c = 0; c < PC; ++c) {
-          const float xv = x_s[j * P + tx + 16 * c];
-          acc[0][c] = fmaf(p0, xv, acc[0][c]);
-          acc[1][c] = fmaf(p1, xv, acc[1][c]);
-        }
-      }
+    if (has_prev) {
 #pragma unroll 4
       for (int n = 0; n < N; ++n) {
         const float c0 = c_s[ty * NP + n];
@@ -210,89 +653,66 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ a_log,
           off[1][c] = fmaf(c1, sv, off[1][c]);
         }
       }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = i0 + ty + 16 * r;
-        if (i >= nv) continue;
-        const float e = ea_s[i];
-        T* yr = yb + (t0 + i) * x_row;
-#pragma unroll
-        for (int c = 0; c < PC; ++c)
-          yr[tx + 16 * c] = Elem<T>::store(acc[r][c] + off[r][c] * e);
-      }
-      __syncthreads();  // c_s and s_s are reused by the next block
     }
-
-    // Every row block has read the old state: carry it over the chunk.
-    float upd[PC][NC];
 #pragma unroll
-    for (int r = 0; r < PC; ++r)
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + ty + 16 * r;
+      if (i >= nv) continue;
+      const float e = expf(cum_s[i]);
+      float* yr = y + (row0 + i) * x_row + (int64_t)head * P + p0;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) upd[r][c] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < nv; ++j) {
-      const float w = ed_s[j];
-      float xv[PC];
-#pragma unroll
-      for (int r = 0; r < PC; ++r) xv[r] = x_s[j * P + ty + 16 * r] * w;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float bv = b_s[j * NP + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < PC; ++r) upd[r][c] = fmaf(xv[r], bv, upd[r][c]);
-      }
+      for (int c = 0; c < PC; ++c)
+        yr[tx + 16 * c] = fmaf(e, off[r][c], acc[r][c]);
     }
-    const float g = expf(cum_last);
-#pragma unroll
-    for (int r = 0; r < PC; ++r)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float* sp = st_s + (ty + 16 * r) * NP + tx + 16 * c;
-        *sp = *sp * g + upd[r][c];
-      }
+    __syncthreads();  // c_s and s_s are reused by the next block
   }
-  __syncthreads();
-  for (int e = tid; e < P * N; e += kThreads)
-    hout[st_base + e] = st_s[(e / N) * NP + e % N];
 }
 
-template <typename T, int P, int N>
-cudaError_t launch_ssd(const void* x, const void* a_log, const void* b,
-                       const void* c, const void* h0, void* y, void* hout,
-                       int bt, int l, int h, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kChunk * P + kChunk * (N + 1) +
-                                       kRowBlock * (N + 1) +
-                                       kRowBlock * (kChunk + 1) +
-                                       P * (N + 1) + 3 * kChunk);
-  auto kernel = ssd_scan_kernel<T, P, N>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(h, bt), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(a_log),
-      static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(hout), l, h);
+template <int P, int N>
+cudaError_t launch_ssd(int dtype, const void* x, const void* a_log,
+                       const void* b, const void* c, const void* h0, void* y,
+                       void* hout, void* sync, int bt, int l, int h,
+                       cudaStream_t stream) {
+  const dim3 grid(h * (P / kPBlock), (l + kChunk - 1) / kChunk, bt);
+  const float* a = static_cast<const float*>(a_log);
+  const float* s0 = static_cast<const float*>(h0);
+  float* so = static_cast<float*>(hout);
+  int* sy = static_cast<int*>(sync);
+  if (dtype == 1) {
+    auto kernel = ssd_scan_mma_kernel<P, N>;
+    const size_t smem = MmaSmem<N>::kBytes;
+    cudaError_t err = repro::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), a, static_cast<const bf16*>(b),
+        static_cast<const bf16*>(c), s0, static_cast<bf16*>(y), so, sy, l,
+        h);
+  } else {
+    auto kernel = ssd_scan_kernel<P, N>;
+    const size_t smem = sizeof(float) * FmaSmem<N>::kFloats;
+    cudaError_t err = repro::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(x), a, static_cast<const float*>(b),
+        static_cast<const float*>(c), s0, static_cast<float*>(y), so, sy, l,
+        h);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); (p, n) = (64, 128).
-// h0 may be null (a zero initial state). Returns the cudaError_t of the
-// launch (0 on success), or -1 for a dtype or shape this build does not
-// instantiate.
+// h0 may be null (a zero initial state). `sync` is 2 * bt * h * (p / 32)
+// zeroed ints, left zeroed. Returns the cudaError_t of the launch (0 on
+// success), or -1 for a dtype or shape this build does not instantiate.
 extern "C" int ssd_scan(int dtype, int p, int n, const void* x,
                         const void* a_log, const void* b, const void* c,
-                        const void* h0, void* y, void* hout, int bt, int l,
-                        int h, void* stream) {
+                        const void* h0, void* y, void* hout, void* sync,
+                        int bt, int l, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 64 && n == 128) {
-    if (dtype == 0)
-      return static_cast<int>(
-          launch_ssd<float, 64, 128>(x, a_log, b, c, h0, y, hout, bt, l, h, s));
-    if (dtype == 1)
-      return static_cast<int>(launch_ssd<__nv_bfloat16, 64, 128>(
-          x, a_log, b, c, h0, y, hout, bt, l, h, s));
-  }
+  if (p == 64 && n == 128 && (dtype == 0 || dtype == 1))
+    return static_cast<int>(launch_ssd<64, 128>(dtype, x, a_log, b, c, h0, y,
+                                                 hout, sync, bt, l, h, s));
   return repro::kUnsupported;
 }

@@ -39,9 +39,11 @@ def splits(max_rows: int, page_size: int = 1) -> Tuple[int, int]:
     return rows, max(1, -(-max_rows // rows))
 
 
-# Zeroed int32 counters, one per (slot, query block), kept per (device,
-# stream): each launch leaves them at zero (the last split of a slot's query
-# block resets its own), so launches in order on one stream share them.
+# Zeroed int32 counters kept per (device, stream) and shared by the kernels
+# that hand work on between CTAs of one launch: the decodes' merge counts
+# (one per (slot, query block)) and the SSD scan's tickets and counts. Each
+# launch leaves the ints it used at zero (the last CTA to use one resets
+# it), so launches in order on one stream share them.
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -52,15 +54,19 @@ def _partials(q, n_splits: int) -> torch.Tensor:
                        device=q.device)
 
 
-def _counters(q, stream: int) -> torch.Tensor:
-    """At least b * h zeroed int32 counters for launches on ``stream``."""
-    need = q.shape[0] * q.shape[1]
-    key = (q.device, stream)
+def zeroed_ints(device, stream: int, need: int) -> torch.Tensor:
+    """At least ``need`` zeroed int32 counters for launches on ``stream``."""
+    key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < need:
         buf = _COUNTERS[key] = torch.zeros(need, dtype=torch.int32,
-                                           device=q.device)
+                                           device=device)
     return buf
+
+
+def _counters(q, stream: int) -> torch.Tensor:
+    """The merge's b * h zeroed counters for launches on ``stream``."""
+    return zeroed_ints(q.device, stream, q.shape[0] * q.shape[1])
 
 
 def _raise_on(err: int, name: str) -> None:

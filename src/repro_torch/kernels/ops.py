@@ -236,6 +236,7 @@ def _check_ssd(x, a_log, b, c, h0) -> None:
     if (p, n) not in _ssd.SHAPES:
         raise ValueError(f"kernel takes (head_dim, d_state) in "
                          f"{_ssd.SHAPES}, got {(p, n)}")
+    _ssd.check_grid(bt, l, h, p)
 
 
 def ssd_scan(x, a_log, b, c, h0=None):

@@ -47,6 +47,7 @@ FAMILIES = (((PORT + "decode_split_kernel<", "PagedLayout"),
             ((PORT + "prefill_mma_kernel<", "ContiguousLayout"),
              "flash_attention"),
             ((PORT + "ssd_scan_kernel<",), "ssd_scan"),
+            ((PORT + "ssd_scan_mma_kernel<",), "ssd_scan"),
             ((PORT + "gemm_kernel<",), "gemm"),
             ((PORT + "gemm_wgmma_kernel<",), "gemm"),
             ((PORT + "pchase_kernel(",), "pchase"),

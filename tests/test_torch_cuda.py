@@ -141,16 +141,24 @@ def test_cuda_decodes_across_split_boundaries(cuda_device, paged, dtype, d):
     assert not any(c.any() for c in flash_decode._COUNTERS.values())
 
 
+# (bt, l) of the SSD scan: one row, one chunk of 128 and either side of
+# it, ragged lengths, the longest prompt; batch 1 as the engine prefills.
+SSD_CASES = [(2, 1), (2, 127), (2, 128), (2, 129), (2, 300), (2, 1536),
+             (1, 129), (1, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l", [1, 127, 128, 300])
-def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, l):
+@pytest.mark.parametrize("bt,l", SSD_CASES)
+def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, bt, l):
     """The SSD scan kernel against its plain version at the main path's
-    head shape (p 64, n 128), from a zero and a non-zero state, within
-    ``ref.TOLERANCE`` scaled by the output's magnitude (``normwise``: see
-    ``ref.compare``). The state is fp32 in both; y is compared in x's
-    dtype."""
-    g = torch.Generator(device=cuda_device).manual_seed(l)
-    bt, h, p, n = 2, 4, 64, 128
+    head shape (h 32, p 64, n 128), from a zero and a non-zero state,
+    within ``ref.TOLERANCE`` scaled by the output's magnitude
+    (``normwise``: see ``ref.compare``). The state is fp32 in both; y is
+    compared in x's dtype. A second launch gives the same bits (the
+    chunks hand the state on in a fixed order), and the hand-off's
+    tickets and counts are left at zero."""
+    g = torch.Generator(device=cuda_device).manual_seed(l + bt)
+    h, p, n = 32, 64, 128
     mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)   # noqa
     x = mk(bt, l, h, p).to(dtype)
     a = -mk(bt, l, h).abs() * 0.1
@@ -158,11 +166,14 @@ def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, l):
     for h0 in (None, mk(bt, h, p, n)):
         ops.reset_launches()
         y, state = ops.ssd_scan(x, a, b, c, h0=h0)
+        y2, state2 = ops.ssd_scan(x, a, b, c, h0=h0)
         torch.cuda.synchronize()
         wy, ws = ref.ssd_scan(x, a, b, c, h0=h0)
         assert ref.compare(y, wy, normwise=True)[0]
         assert ref.compare(state, ws, normwise=True)[0]
-        assert ops.LAUNCHES["ssd_scan"] == 1
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+        assert ops.LAUNCHES["ssd_scan"] == 2
+    assert not any(c.any() for c in flash_decode._COUNTERS.values())
 
 
 # Ragged edges in every dim (1, 127, 4097), k or n off the 16-byte load

@@ -190,6 +190,7 @@ KERNEL_FAMILIES = {
     ("prefill_mma_kernel", "PagedLayout"): "flash_attention_paged",
     ("prefill_mma_kernel", "ContiguousLayout"): "flash_attention",
     ("ssd_scan_kernel", None): "ssd_scan",
+    ("ssd_scan_mma_kernel", None): "ssd_scan",
     ("gemm_kernel", None): "gemm",
     ("gemm_wgmma_kernel", None): "gemm",
     ("pchase_kernel", None): "pchase",

@@ -24,7 +24,6 @@ compression, 2.1e-5 with it, at lr 4.5e-4).
 import dataclasses
 import json
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +49,7 @@ from repro_torch.dist import compression
 from repro_torch.launch import train as launch
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import steps
+from repro_torch.train import trainer as trainer_module
 from repro_torch.train.trainer import (SimulatedPreemption, Trainer,
                                        TrainerConfig)
 from repro_torch.tree import tree_items, tree_map
@@ -444,27 +444,51 @@ def test_trainer_restart_resumes_and_is_deterministic(tmp_path):
         r3["metrics"][-1]["loss"], rel=1e-4)
 
 
-def test_watchdog_flags_stragglers(tmp_path):
+class _StepClock:
+    """Stands in for the trainer module's ``time``: ``perf_counter``
+    advances one second a call, so every step measures the same time
+    whatever else the machine runs (a wall-clock threshold moves when
+    the tests run in parallel workers); ``advance`` makes a step
+    slower."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += 1.0
+        return self.now
+
+    def advance(self, seconds):
+        self.now += seconds
+
+
+def test_watchdog_flags_stragglers(tmp_path, monkeypatch):
+    """Step 12 takes 10x the others: it, and only it, is flagged."""
+    clock = _StepClock()
+    monkeypatch.setattr(trainer_module, "time", clock)
     tr = _mk_trainer(tmp_path / "e", steps_=15)
     orig = tr.step_fn
 
     def slow_step(state, batch):
         if int(state["step"]) == 12:
-            time.sleep(0.6)
+            clock.advance(9.0)
         return orig(state, batch)
 
     tr.step_fn = slow_step
-    assert 12 in tr.run()["stragglers"]
+    assert tr.run()["stragglers"] == [12]
 
 
 # ----------------------------------------------------------------------------
 # The launcher
 # ----------------------------------------------------------------------------
 
-def test_launcher_trains_on_cpu_and_resumes(tmp_path, capsys):
+def test_launcher_trains_on_cpu_and_resumes(tmp_path, capsys, monkeypatch):
     """Loss falls over 30 steps; a second run to 40 resumes from step 30
     and ends where a fresh run to 40 does. The warmup spans all 40 steps,
-    so the rate does not depend on ``--steps`` (the schedule's length)."""
+    so the rate does not depend on ``--steps`` (the schedule's length).
+    Every step takes the same time on the trainer's clock, so none is a
+    straggler."""
+    monkeypatch.setattr(trainer_module, "time", _StepClock())
     base = ["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu", "--batch",
             "2", "--seq", "16", "--ckpt-every", "10", "--warmup", "40"]
     run = ["--ckpt", str(tmp_path / "run")]
