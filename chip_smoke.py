@@ -37,18 +37,25 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    16 KiB to 512 MiB;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
    bf16, random weights from a seeded ``torch.Generator``): 12 requests,
-   32 tokens each, launch counters read around the run;
-6. the same engine on a squeezed page pool, which must preempt;
+   32 tokens each, launch counters read around the run; run eagerly and
+   then graphed (each decode and chunk step one captured CUDA graph), which
+   must agree in ticks, steps, buckets, preemptions, holds, trace counts,
+   launches by kernel and greedy streams; tok/s, peak memory and the
+   capture's seconds and graph memory logged for both;
+6. the same engine, graphed, on a squeezed page pool, which must preempt;
 7. paged kernel path against plain path on the same weights: logits of
    one prefill chunk and one decode step in fp32 (against a limit that a
    planted one-key fault in each kernel, run here too, must exceed) and
    in bf16 (against the plain path's own bf16 error), and greedy stream
-   agreement;
+   agreement (eager engines: a captured graph would not see the plain
+   path swapped in);
 8. the contiguous engine at the full width of ``qwen3-4b``: the same 12
-   requests; the contiguous decode kernel runs 36 times a decode step;
+   requests, eager and graphed as in phase 5; the contiguous decode kernel
+   runs 36 times a decode step;
 9. the contiguous engine at the full width of ``mamba2-370m`` (48 layers,
-   bf16): 12 requests, one of them of a prime length; the SSD scan runs
-   48 times an admission;
+   bf16): 12 requests, one of them of a prime length, eager and graphed as
+   in phase 5; the SSD scan runs 48 times an admission (the prefill stays
+   eager);
 10. contiguous kernel path against plain path, as in phase 7: one decode
     step of ``qwen3-4b`` (planted fault: decode given ``lengths - 1``),
     and a 300-token prefill and one decode step of ``mamba2-370m`` on its
@@ -76,7 +83,14 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     no kernel launched; a falling loss; a second run to step 40 that
     resumes from step 30 and ends where a fresh run to 40 does; the
     trained parameters scored through the kernel against the plain path
-    as in phase 13; a training step through the kernel refused.
+    as in phase 13; a training step through the kernel refused;
+15. sampled decoding: keys folded from a grid of (rid, emitted index),
+    a negative rid and indices up to 2**31 - 1 among them, and their
+    random bits and uniforms over the vocabulary, bit-equal on the card
+    and the CPU; phase 5's engine and requests at temperature 0.8, seed
+    0, eager and graphed (identical streams), logging how many requests
+    drew the greedy token at each emitted index; then graphed on the
+    squeezed pool of phase 6, every request done and no page leaked.
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -147,6 +161,7 @@ RAGGED = (1, 127, 4097)
 # full-depth readings are logged beside that noise, not held to a limit.
 MAMBA_CHECK_LAYERS = 2
 N_REQUESTS, MAX_NEW = 12, 32
+SAMPLE_TEMPERATURE = 0.8          # phase 15
 # Phase 7, fp32 logits of the kernel path against the plain path: the
 # kernels' summation order moves them by far less than this; a planted
 # one-key fault in either kernel by far more.
@@ -958,11 +973,15 @@ def make_requests(vocab: int, n: int, lo: int = 64, hi: int = 1536):
     return [rng.randint(2, vocab, size=int(l)).astype(np.int32) for l in lens]
 
 
-def serve(params, cfg, scfg, prompts, max_new, dev, ops):
-    """Drive the engine over ``prompts``; launch counts cover this run only."""
+def serve(params, cfg, scfg, prompts, max_new, dev, ops, capture=True):
+    """Drive the engine over ``prompts``; launch counts cover this run only,
+    the wall time the run only (not the engine's construction, where a
+    graphed engine captures its steps)."""
     from repro_torch.serve.engine import Request, ServingEngine
 
-    eng = ServingEngine(params, cfg, scfg, device=dev)
+    eng = ServingEngine(params, cfg, scfg, device=dev, capture=capture)
+    if eng.graphed != capture:
+        raise RuntimeError(f"engine graphed={eng.graphed}, asked {capture}")
     for rid, p in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
     torch.cuda.synchronize()
@@ -1146,26 +1165,141 @@ def contiguous_logits(params, cfg, T, dev, prompt):
     return pre[0].float(), step[0, 0].float()
 
 
-def run_engine(label, params, cfg, scfg, prompts, dev, ops):
+def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True):
     """Serve ``prompts`` at MAX_NEW tokens each and report; returns the
-    engine and the launch counts of this run."""
+    engine, the launch counts, the streams and the tok/s of this run."""
     torch.cuda.reset_peak_memory_stats()
     eng, finished, wall, launches = serve(params, cfg, scfg, prompts,
-                                          MAX_NEW, dev, ops)
+                                          MAX_NEW, dev, ops, capture)
     check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
     toks = sum(len(v) for v in finished.values())
-    log(f"  {label}: served {len(finished)} requests, {toks} tokens in "
-        f"{wall:.2f} s ({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
+    mode = (f"graphed (captured in {eng.capture_seconds:.3f} s, graph "
+            f"pools {eng.graph_bytes / 2**20:.1f} MiB)" if eng.graphed
+            else "eager")
+    log(f"  {label}, {mode}: served {len(finished)} requests, {toks} tokens "
+        f"in {wall:.2f} s ({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
         f"{eng.chunk_steps} chunk steps, {eng.decode_steps} decode steps, "
         f"prefill buckets {dict(sorted(eng.prefill_buckets.items()))}, "
         f"{eng.preemptions} preemptions, {eng.admission_rejections} holds, "
-        f"max_memory_allocated "
+        f"decode_traces {eng.decode_traces}, prefill_traces "
+        f"{dict(sorted(eng.prefill_traces.items()))}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if eng.graphed:
+        log(f"  the port's kernels a replay, read from the captured graphs: "
+            f"{eng.graph_nodes}")
     used = {k: v for k, v in launches.items() if v}
     log(f"  launches: {launches} (per tick: "
         + ", ".join(f"{k} {v / eng.ticks:.2f}" for k, v in used.items())
         + ")")
-    return eng, launches
+    return eng, launches, finished, toks / wall
+
+
+def schedule(eng, launches) -> tuple:
+    """What a run decided, which must not depend on graphs: ticks, steps,
+    buckets, preemptions, holds, trace counts and launches by kernel."""
+    return (eng.ticks, eng.chunk_steps, eng.decode_steps,
+            dict(eng.prefill_buckets), eng.preemptions,
+            eng.admission_rejections, eng.decode_traces,
+            dict(eng.prefill_traces), dict(launches))
+
+
+def first_difference(a, b):
+    """(rid, emitted index) of the first token two runs disagree on."""
+    for rid in sorted(a):
+        for t, (x, y) in enumerate(zip(a[rid], b[rid])):
+            if x != y:
+                return rid, t
+    return None
+
+
+def graph_kernels(cfg, scfg) -> dict:
+    """The port's kernels each of the engine's graphs must hold a replay:
+    one decode (attention stacks) a layer, one paged prefill a layer."""
+    if all(k != "attn" for k in cfg.pattern):
+        return {"decode": {}}
+    n = cfg.n_layers
+    if not scfg.paged:
+        return {"decode": {"flash_decode": n}}
+    return {"decode": {"flash_decode_paged": n},
+            "chunk": {"flash_attention_paged": n}}
+
+
+def run_eager_and_graphed(label, params, cfg, scfg, prompts, dev, ops):
+    """The engine run eagerly, then graphed, in the same call (both warmed
+    up at construction): the same schedule, launches and streams, and
+    graphs that hold the kernels the path needs, or a RuntimeError naming
+    what differs. Returns the graphed engine, its launches, streams and
+    tok/s."""
+    eager, e_launches, e_fin, _ = run_engine(label, params, cfg, scfg,
+                                             prompts, dev, ops, capture=False)
+    e_sched = schedule(eager, e_launches)
+    del eager
+    torch.cuda.empty_cache()
+    eng, launches, fin, tok_s = run_engine(label, params, cfg, scfg,
+                                           prompts, dev, ops, capture=True)
+    if eng.graph_nodes != graph_kernels(cfg, scfg):
+        raise RuntimeError(f"{label}: the graphs hold {eng.graph_nodes}, "
+                           f"not {graph_kernels(cfg, scfg)}")
+    if schedule(eng, launches) != e_sched:
+        raise RuntimeError(f"{label}: graphed schedule "
+                           f"{schedule(eng, launches)} != eager {e_sched}")
+    if fin != e_fin:
+        raise RuntimeError(f"{label}: graphed and eager streams part at "
+                           f"(rid, index) {first_difference(fin, e_fin)}")
+    log(f"  {label}: graphed = eager in schedule, launches and streams")
+    return eng, launches, fin, tok_s
+
+
+# Phase 15: the (rid, emitted index) grid whose keys and uniform bits the
+# card must compute as the CPU does: a negative rid, int32's ends.
+KEY_RIDS = (0, 1, 11, -1, -2**31, 2**31 - 1)
+KEY_TS = (0, 1, 31, 2**16, 2**31 - 1)
+
+
+def check_keys_on_card(dev, sampling, vocab) -> None:
+    """Keys folded from the (rid, t) grid, and their random bits and
+    uniforms over the vocabulary, on the card and on the CPU: bit-equal."""
+    rids, ts = (v.flatten() for v in torch.meshgrid(
+        torch.tensor(KEY_RIDS), torch.tensor(KEY_TS), indexing="ij"))
+    base = sampling.prng_key(0)
+    cpu = sampling.fold_row_keys(base, rids, ts)
+    card = sampling.fold_row_keys(base.to(dev), rids.to(dev), ts.to(dev))
+    same = {"keys": torch.equal(card.cpu(), cpu),
+            "bits": torch.equal(sampling.random_bits(card, (vocab,)).cpu(),
+                                sampling.random_bits(cpu, (vocab,))),
+            "uniform": torch.equal(sampling.uniform(card, (vocab,)).cpu(),
+                                   sampling.uniform(cpu, (vocab,)))}
+    log(f"  keys and bits of {len(rids)} (rid, t) pairs (rids {KEY_RIDS}, "
+        f"t {KEY_TS}) over {vocab} entries, card against CPU: {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"the card's keys or bits differ: {same}")
+
+
+def run_sampled(params, cfg, scfg, prompts, greedy, dev, ops) -> float:
+    """Phase 15: the paged engine sampled, eager then graphed (identical
+    streams), then graphed on the squeezed pool (every request done, no
+    page leaked); logs, for each emitted index, how many requests drew the
+    greedy run's token. Returns the graphed run's tok/s."""
+    eng, _, fin, tok_s = run_eager_and_graphed("paged sampled", params, cfg,
+                                               scfg, prompts, dev, ops)
+    agree = [sum(int(fin[r][t] == greedy[r][t]) for r in fin)
+             for t in range(MAX_NEW)]
+    log(f"  sampled tokens equal to the greedy run's, by emitted index "
+        f"(of {len(fin)}): {agree}")
+    del eng
+    torch.cuda.empty_cache()
+    squeezed = dataclasses.replace(scfg, n_pages=161)
+    eng, s_fin, wall, _ = serve(params, cfg, squeezed, prompts, MAX_NEW,
+                                dev, ops)
+    check_served(eng, s_fin, prompts, MAX_NEW, cfg.vocab)
+    if eng.preemptions < 1:
+        raise RuntimeError("squeezed sampled pool ran without a preemption")
+    same = sum(int(a == b) for r in fin for a, b in zip(fin[r], s_fin[r]))
+    log(f"  squeezed, graphed: {len(s_fin)} requests done in {wall:.2f} s, "
+        f"{eng.ticks} ticks, {eng.preemptions} preemptions, "
+        f"{eng.admission_rejections} holds, no page leaked; "
+        f"{same}/{len(fin) * MAX_NEW} tokens as in the roomy pool")
+    return tok_s
 
 
 def init_model(name, configs, T, dev):
@@ -1274,6 +1408,7 @@ def main() -> None:
     from repro_torch.launch import autotune_gemm
     from repro_torch.launch import latency as latency_launch
     from repro_torch.models import transformer as T
+    from repro_torch.serve import sampling
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.train import steps
 
@@ -1315,7 +1450,8 @@ def main() -> None:
     log(f"  prompt lengths: {[len(p) for p in prompts]}")
     scfg = ServeConfig(max_len=MAX_LEN, batch=B, paged=True, page_size=PS,
                        chunk_size=CHUNK, eos_id=-1)
-    eng, launches = run_engine("paged", params, cfg, scfg, prompts, dev, ops)
+    eng, launches, greedy, _ = run_eager_and_graphed("paged", params, cfg,
+                                                     scfg, prompts, dev, ops)
     if min(launches["flash_decode_paged"],
            launches["flash_attention_paged"]) <= 0:
         raise RuntimeError(f"paged path skipped a kernel: {launches}")
@@ -1331,9 +1467,9 @@ def main() -> None:
     check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
     if eng.preemptions < 1:
         raise RuntimeError("squeezed pool ran without a preemption")
-    log(f"  n_pages {squeezed.n_pages}: {len(finished)} requests done in "
-        f"{wall:.2f} s, {eng.ticks} ticks, {eng.preemptions} preemptions, "
-        f"{eng.admission_rejections} holds")
+    log(f"  n_pages {squeezed.n_pages}, graphed: {len(finished)} requests "
+        f"done in {wall:.2f} s, {eng.ticks} ticks, {eng.preemptions} "
+        f"preemptions, {eng.admission_rejections} holds")
     del eng
     torch.cuda.empty_cache()
 
@@ -1353,9 +1489,13 @@ def main() -> None:
         raise RuntimeError("; ".join(failed))
     sp = make_requests(cfg.vocab, 2, lo=200, hi=400)
     small = dataclasses.replace(scfg, batch=2)
-    _, k_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops)
+    # Eager engines: a graph captured with the kernels would not see the
+    # plain path swapped in.
+    _, k_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops,
+                           capture=False)
     with kernel_ops(ops, **paths["plain"]):
-        _, p_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops)
+        _, p_fin, _, _ = serve(params, cfg, small, sp, 16, dev, ops,
+                               capture=False)
     same = sum(int(a == b) for r in k_fin for a, b in zip(k_fin[r], p_fin[r]))
     prefix = [next((j for j, (a, b) in enumerate(zip(k_fin[r], p_fin[r]))
                     if a != b), 16) for r in sorted(k_fin)]
@@ -1365,8 +1505,8 @@ def main() -> None:
 
     log("== engine: qwen3-4b at full width, contiguous ==")
     ccfg = ServeConfig(max_len=MAX_LEN, batch=B, eos_id=-1)
-    eng, launches = run_engine("contiguous", params, cfg, ccfg, prompts,
-                               dev, ops)
+    eng, launches, _, _ = run_eager_and_graphed("contiguous", params, cfg,
+                                                ccfg, prompts, dev, ops)
     if not 0 < launches["flash_decode"] == cfg.n_layers * eng.decode_steps:
         raise RuntimeError(f"contiguous decode launches {launches} != "
                            f"{cfg.n_layers} x {eng.decode_steps} steps")
@@ -1395,8 +1535,8 @@ def main() -> None:
     prompts = make_requests(cfg.vocab, N_REQUESTS - 1)
     prompts.append(make_requests(cfg.vocab, 1, lo=1031, hi=1031)[0])
     log(f"  prompt lengths: {[len(p) for p in prompts]} (1031 is prime)")
-    eng, launches = run_engine("contiguous", params, cfg, ccfg, prompts,
-                               dev, ops)
+    eng, launches, _, _ = run_eager_and_graphed("contiguous", params, cfg,
+                                                ccfg, prompts, dev, ops)
     admissions = sum(eng.prefill_buckets.values())
     if not 0 < launches["ssd_scan"] == cfg.n_layers * admissions:
         raise RuntimeError(f"ssd_scan launches {launches} != "
@@ -1516,6 +1656,17 @@ def main() -> None:
     train_summary = run_training(dev, ops, configs, T, steps)
     torch.cuda.empty_cache()
 
+    log("== sampled decoding: qwen3-4b at full width, paged ==")
+    cfg, params = init_model("qwen3-4b", configs, T, dev)
+    check_keys_on_card(dev, sampling, cfg.vocab)
+    sampled = dataclasses.replace(scfg, temperature=SAMPLE_TEMPERATURE,
+                                  seed=0)
+    sampled_tok_s = run_sampled(params, cfg, sampled,
+                                make_requests(cfg.vocab, N_REQUESTS), greedy,
+                                dev, ops)
+    del params
+    torch.cuda.empty_cache()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -1525,7 +1676,8 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(f"  ticks: {ticks}; training: {train_summary}; total "
+    log(f"  ticks: {ticks}; training: {train_summary}; sampled "
+        f"{sampled_tok_s:.1f} tok/s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,7 +18,7 @@ checks the arguments and counts launches; call that, not these.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -43,8 +43,11 @@ def splits(max_rows: int, page_size: int = 1) -> Tuple[int, int]:
 # that hand work on between CTAs of one launch: the decodes' merge counts
 # (one per (slot, query block)) and the SSD scan's tickets and counts. Each
 # launch leaves the ints it used at zero (the last CTA to use one resets
-# it), so launches in order on one stream share them.
+# it), so launches in order on one stream share them. A CUDA graph captured
+# on a stream holds the address of that stream's buffer, so a buffer that
+# is outgrown is kept in ``_OUTGROWN``, never freed.
 _COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_OUTGROWN: List[torch.Tensor] = []
 
 
 def _partials(q, n_splits: int) -> torch.Tensor:
@@ -59,6 +62,13 @@ def zeroed_ints(device, stream: int, need: int) -> torch.Tensor:
     key = (device, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < need:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the kernels' zeroed counters for a capture stream must "
+                "exist before the capture: run the step on that stream "
+                "once first")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = _COUNTERS[key] = torch.zeros(need, dtype=torch.int32,
                                            device=device)
     return buf

@@ -3,9 +3,12 @@ one engine run at full width.
 
   python -m repro_torch.launch.profile --arch qwen3-4b
   python -m repro_torch.launch.profile --arch qwen3-4b --paged
-  python -m repro_torch.launch.profile --arch mamba2-370m
+  python -m repro_torch.launch.profile --arch mamba2-370m [--eager]
 
-Serves ``chip_smoke.py``'s engine cell (12 requests with prompts of 64 to
+Profiles the graphed engine by default (each decode and chunk step one
+captured CUDA graph, replayed once a tick); ``--eager`` profiles the same
+engine with every step launched op by op from Python. Serves
+``chip_smoke.py``'s engine cell (12 requests with prompts of 64 to
 1536 tokens drawn from ``np.random.RandomState(0)``, 32 new tokens each,
 batch 8, max_len 2048; paged: pages of 16 rows, chunks of 256) once to
 warm up and once under the profiler, and prints the wall time, the device
@@ -63,8 +66,8 @@ def family(name: str) -> str:
                  if all(k.lower() in low for k in keys)), "other")
 
 
-def serve_once(params, cfg, scfg, prompts, max_new, device):
-    eng = ServingEngine(params, cfg, scfg, device=device)
+def serve_once(params, cfg, scfg, prompts, max_new, device, capture):
+    eng = ServingEngine(params, cfg, scfg, device=device, capture=capture)
     for rid, p in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
     torch.cuda.synchronize()
@@ -78,6 +81,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b", choices=configs.list_archs())
     ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--eager", action="store_true",
+                    help="launch every step's ops from Python (default: "
+                         "replay each step's captured CUDA graph)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
@@ -92,18 +98,24 @@ def main(argv=None):
                for n in lens]
     scfg = ServeConfig(max_len=2048, batch=8, eos_id=-1, paged=args.paged,
                        page_size=16, chunk_size=256)
-    serve_once(params, cfg, scfg, prompts, 32, device)         # warm-up
+    capture = not args.eager
+    serve_once(params, cfg, scfg, prompts, 32, device, capture)  # warm-up
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, wall = serve_once(params, cfg, scfg, prompts, 32, device)
+        eng, wall = serve_once(params, cfg, scfg, prompts, 32, device,
+                               capture)
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy_us = sum(e.self_device_time_total for e in kernels)
     by_family = defaultdict(float)
     for e in kernels:
         by_family[family(e.key)] += e.self_device_time_total
+    mode = (f"graphed (capture {eng.capture_seconds:.3f} s, graph pools "
+            f"{eng.graph_bytes / 2**20:.1f} MiB, outside the wall time)"
+            if eng.graphed else "eager")
     print(f"{torch.cuda.get_device_name(0)}; {cfg.name} "
-          f"{'paged' if args.paged else 'contiguous'}: {eng.ticks} ticks, "
+          f"{'paged' if args.paged else 'contiguous'}, {mode}: "
+          f"{eng.ticks} ticks, "
           f"{eng.decode_steps} decode steps, wall {wall:.3f} s under the "
           f"profiler, device busy {busy_us / 1e6:.3f} s "
           f"({busy_us / 1e4 / wall:.1f} %), idle "

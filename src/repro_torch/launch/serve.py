@@ -5,10 +5,13 @@ contiguous caches by default, a page pool with ``--paged``.
   python -m repro_torch.launch.serve --arch mamba2-370m --requests 8
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --smoke \\
       --device cpu --max-len 64 --page-size 8 --chunk-size 8 --max-new 6
+  python -m repro_torch.launch.serve --arch qwen3-4b --temperature 0.8
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
-with ``--seed``. Cached attention and the SSD scan run through the port's
-kernels (their plain versions on the CPU).
+with ``--seed``, which also seeds the sampling keys at ``--temperature``
+above 0. Cached attention and the SSD scan run through the port's
+kernels (their plain versions on the CPU). On a card each decode and
+chunk step is one captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ def main(argv=None):
     ap.add_argument("--chunk-size", type=int, default=64,
                     help="prefill chunk rows (paged; page-size multiple)")
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0: greedy; above 0, sampled under threefry keys "
+                         "of (request, emitted index)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -51,7 +57,8 @@ def main(argv=None):
     params = T.init_params(cfg, gen, device=device)
     scfg = ServeConfig(max_len=args.max_len, batch=args.batch,
                        paged=args.paged, page_size=args.page_size,
-                       chunk_size=args.chunk_size)
+                       chunk_size=args.chunk_size,
+                       temperature=args.temperature, seed=args.seed)
     engine = ServingEngine(params, cfg, scfg, device=device)
     rng = np.random.RandomState(args.seed)
     for rid in range(args.requests):
@@ -68,7 +75,11 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     toks = sum(len(v) for v in finished.values())
     print(f"served {len(finished)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s) on {device}")
+          f"({toks / dt:.1f} tok/s) on {device}, "
+          + (f"graphed (captured in {engine.capture_seconds:.2f}s)"
+             if engine.graphed else "eager")
+          + (f", sampled at temperature {args.temperature}"
+             if args.temperature else ", greedy"))
     if args.paged:
         occ = engine.pool.occupancy()
         print(f"  paged: {occ['high_water']}/{occ['capacity']} pages "

@@ -24,14 +24,34 @@ batched decode step for every decode-active slot. Two cache layouts:
     are prefilled again as prompt on re-admission.
 
 The page table and the per-slot write positions live on the host (numpy)
-and are sent to the device with each step: every change to them is a host
-decision, so the engine never reads them back. Decoding is greedy; sampled
-decoding (``temperature > 0``) is not ported.
+and are copied into static device buffers before each step: every change
+to them is a host decision, so the engine never reads them back.
+
+**Steps.** The decode step (and, paged, the chunk step) is a function of
+those static buffers (``serve.graphs.Step``). On the card it is captured
+as one CUDA graph at construction, while every slot is empty, and each
+tick replays it: the counterpart of the reference's jitted executables,
+counted in ``decode_traces`` and ``prefill_traces`` as the reference
+counts its traces. ``capture=False`` runs the same functions eagerly (the
+counterpart of ``jax.disable_jit``), as the CPU always does; on the card
+each step is still run once at construction, so that both modes start
+warm. The
+contiguous prefill stays eager: one graph per bucket (per length, for SSM
+stacks) would be replayed once or twice a run.
+
+**Sampling** (``temperature > 0``, ``serve.sampling``): every emitted
+token is drawn under a threefry key folded from (request id, emitted
+index), never from the tick, as the reference keys it; so a preempted
+and re-admitted stream replays its keys. The decode step folds the rows'
+keys on the device from static rid and index buffers; a prompt's first
+token (the paged engine's last chunk, the contiguous engine's admission)
+takes its key from the host. Greedy folds no key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -40,7 +60,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.serve import graphs
 from repro_torch.serve import paged as paged_mod
+from repro_torch.serve import sampling
 
 # The reference's default ``ServeConfig.preempt_cooldown``: a slot
 # re-admitted within this many ticks ranks behind its peers as a victim.
@@ -51,8 +73,9 @@ PREEMPT_COOLDOWN = 2
 class ServeConfig:
     max_len: int
     batch: int
-    temperature: float = 0.0     # only 0 (greedy) is ported
+    temperature: float = 0.0     # 0 -> greedy
     eos_id: int = 1
+    seed: int = 0                # sampling keys (temperature > 0)
     min_bucket: int = 8          # smallest prefill bucket (power of two)
     paged: bool = False          # K/V rows from a shared page pool
     page_size: int = 16          # rows per page (paged)
@@ -91,15 +114,15 @@ def decode_step(params, cfg: ModelConfig, last_tokens, caches):
 
 
 def make_serve_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
-    """The greedy decode step as a plain function (the reference jits it):
-    ``step(params, last_tokens, caches) -> (next ids, new caches)``."""
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampled decoding is not ported; use temperature=0")
+    """The decode step as a plain function (the reference jits it):
+    ``step(params, last_tokens, caches, key=None) -> (next ids, new
+    caches)``. One (2,) key draws the whole batch's noise, as the
+    reference's does; greedy reads no key."""
+    pick = sampling.sampler(temperature)
 
-    def step(params, last_tokens, caches):
+    def step(params, last_tokens, caches, key=None):
         logits, caches = decode_step(params, cfg, last_tokens, caches)
-        return logits.argmax(-1), caches
+        return pick(logits, key), caches
 
     return step
 
@@ -124,16 +147,15 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
 
 
 class ServingEngine:
-    """Slot-based continuous batching over a fixed decode batch."""
+    """Slot-based continuous batching over a fixed decode batch.
+
+    ``capture`` (the default) makes each repeating step one CUDA graph on
+    the card; it is not read on the CPU, where steps always run eagerly."""
 
     def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
-                 device=None):
+                 device=None, capture: bool = True):
         self.device = resolve_device(device)
-        if serve_cfg.temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding is not ported; use temperature=0")
         self.cfg, self.scfg, self.params = cfg, serve_cfg, params
-        self._step = make_serve_step(cfg)
         max_len = serve_cfg.max_len
         # Bucketing pads the prompt on the right, which only attention
         # layers mask; SSM stacks carry state through every position, so
@@ -185,48 +207,177 @@ class ServingEngine:
         self.chunk_steps = 0
         self.decode_steps = 0
         self.prefill_buckets: Dict[int, int] = {}  # bucket -> prefills run
+        # Builds of each step, as the reference counts its traces: a
+        # capture, or a step's first eager run.
+        self.decode_traces = 0
+        self.prefill_traces: Dict[int, int] = {}
+        self._pick = sampling.sampler(serve_cfg.temperature)
+        self._base_key = sampling.prng_key(serve_cfg.seed)      # host copy
+        self._rid_keys: Dict[int, torch.Tensor] = {}
+        self._init_steps(capture)
 
     # -- device steps ---------------------------------------------------------
 
-    def _step_caches(self, pages: np.ndarray, index: np.ndarray):
-        """Per-layer cache views with this step's write positions (and,
-        when paged, page table)."""
-        i = torch.from_numpy(np.ascontiguousarray(index)).to(self.device)
-        if self.pool is None:
-            return [dict(c, index=i) for c in self.caches]
-        p = torch.from_numpy(np.ascontiguousarray(pages)).to(self.device)
-        return [dict(c, pages=p, index=i) for c in self.caches]
+    @torch.no_grad()
+    def _init_steps(self, capture: bool) -> None:
+        """The static buffers each step reads and writes, and the steps
+        over them: warmed up on the card (and captured) now, while every
+        slot is empty, so that the warm-up's and the capture's writes land
+        in the null page or in rows that admission overwrites; the caches
+        are then zeroed, so a graphed engine and an eager one start warm
+        from the same state."""
+        dev, b = self.device, self.scfg.batch
+        ints = dict(dtype=torch.int64, device=dev)
+        # Decode: the last tokens, the (rid, emitted index) of each row's
+        # key, the next ids; the write positions (and page table) are the
+        # caches' own shared tensors.
+        self._tok = torch.zeros((b,), **ints)
+        self._rids = torch.zeros((b,), **ints)
+        self._ts = torch.zeros((b,), **ints)
+        self._next = torch.zeros((b,), **ints)
+        self._dev_key = self._base_key.to(dev)
+        t0 = time.perf_counter()
+        self._decode = graphs.Step(self._decode_fn(), dev, capture)
+        steps = [self._decode]
+        if self.pool is not None:
+            # Chunk: a batch-1 view of the pools through the slot's table
+            # row, its tokens, write position, sampled row and key.
+            self._ctok = torch.zeros((1, self.chunk), **ints)
+            self._cstart = torch.zeros((1,), dtype=torch.int32, device=dev)
+            self._cpages = torch.zeros((1, self.max_pages), dtype=torch.int32,
+                                       device=dev)
+            self._clast = torch.zeros((1,), **ints)
+            self._ckey = torch.zeros((2,), **ints)
+            self._cnext = torch.zeros((), **ints)
+            self._chunk_caches = [dict(c, pages=self._cpages,
+                                       index=self._cstart)
+                                  for c in self.caches]
+            self._chunk = graphs.Step(self._chunk_fn(), dev, capture)
+            steps.append(self._chunk)
+        self.graphed = self._decode.graph is not None
+        if dev.type == "cuda":
+            for c in self.caches:
+                for t in c.values():
+                    t.zero_()
+            torch.cuda.synchronize(dev)
+        if self.graphed:
+            self.decode_traces = 1
+            if self.pool is not None:
+                self.prefill_traces[self.chunk] = 1
+        self.capture_seconds = time.perf_counter() - t0 if self.graphed \
+            else 0.0
+        self.graph_bytes = sum(s.graph_bytes for s in steps)
+        # The port's kernels each captured graph holds, read back from it.
+        self.graph_nodes = {name: s.nodes for name, s in
+                            zip(("decode", "chunk"), steps)
+                            if s.graph is not None}
+
+    # The step functions close over the static buffers, not over the
+    # engine: a captured step that held the engine would form a cycle, and
+    # its caches would stay on the card until the garbage collector ran.
+
+    def _decode_fn(self) -> Callable[[], None]:
+        """The decode step over its static buffers: one token for every
+        slot into ``_next``. Mamba's new conv and SSM state are copied
+        into the caches in place, so that a replay reads them."""
+        params, cfg, caches, pick = self.params, self.cfg, self.caches, \
+            self._pick
+        tok, rids, ts, out, base = (self._tok, self._rids, self._ts,
+                                    self._next, self._dev_key)
+        sampled = self.scfg.temperature > 0
+
+        def step() -> None:
+            logits, new = decode_step(params, cfg, tok, caches)
+            for c, n in zip(caches, new):
+                if "ssm" in c:
+                    c["conv"].copy_(n["conv"])
+                    c["ssm"].copy_(n["ssm"])
+            keys = sampling.fold_row_keys(base, rids, ts) if sampled else None
+            out.copy_(pick(logits, keys))
+
+        return step
+
+    def _chunk_fn(self) -> Callable[[], None]:
+        """The chunk step over its static buffers: the chunk written in
+        place through the slot's table row, the token at ``_clast``
+        drawn under ``_ckey`` into ``_cnext``."""
+        params, cfg, caches, pick = self.params, self.cfg, \
+            self._chunk_caches, self._pick
+        toks, last, key, out = self._ctok, self._clast, self._ckey, \
+            self._cnext
+
+        def step() -> None:
+            logits, _ = T.forward(params, cfg, toks, caches=caches)
+            out.copy_(pick(logits[0].index_select(0, last)[0], key))
+
+        return step
 
     @torch.no_grad()
     def _chunk_step(self, tokens: np.ndarray, start: int, slot: int,
-                    last_in_chunk: int) -> torch.Tensor:
+                    last_in_chunk: int, req: Request) -> torch.Tensor:
         """One ``chunk``-row slice of one slot's prompt, written in place
         through the slot's table row (a batch-1 view, write position
-        ``start``). Returns the greedy token at ``last_in_chunk`` as a
-        device scalar: the host reads it only after the final chunk."""
-        caches = self._step_caches(self.pages[slot:slot + 1],
-                                   np.asarray([start], np.int32))
-        toks = torch.from_numpy(tokens).to(self.device)
-        logits, _ = T.forward(self.params, self.cfg, toks, caches=caches)
+        ``start``). Returns the token at ``last_in_chunk``, drawn under
+        ``req``'s next key, as a device scalar that the next chunk step
+        overwrites: the host reads it only after the final chunk."""
+        self._ctok.copy_(torch.from_numpy(tokens))
+        self._cstart.fill_(start)
+        self._clast.fill_(last_in_chunk)
+        self._cpages.copy_(torch.from_numpy(self.pages[slot:slot + 1]))
+        if self.scfg.temperature:
+            self._ckey.copy_(self._emit_key(req))
+        self._chunk()
+        self.prefill_traces.setdefault(self.chunk, 1)
         self.chunk_steps += 1
-        return logits[0, last_in_chunk].argmax(-1)
+        return self._cnext
 
     @torch.no_grad()
-    def _decode_step(self) -> np.ndarray:
+    def _decode_step(self, active: List[int]) -> np.ndarray:
         """One token for every slot (free and mid-prefill slots ride
         along: their rows land in the null page, are overwritten, or are
         never attended)."""
-        caches = self._step_caches(self.pages, self.index)
-        toks = torch.from_numpy(self.last_tok).to(self.device)
-        nxt, new_caches = self._step(self.params, toks, caches)
-        if self.pool is None:
-            # Mamba layers return new state tensors; K/V were written in
-            # place. The host keeps the positions.
-            self.caches = [{k: v for k, v in c.items() if k != "index"}
-                           for c in new_caches]
+        c0 = self.caches[0]
+        c0["index"].copy_(torch.from_numpy(self.index))
+        if self.pool is not None:
+            c0["pages"].copy_(torch.from_numpy(self.pages))
+        self._tok.copy_(torch.from_numpy(self.last_tok))
+        if self.scfg.temperature:
+            rids, ts = self._rid_ts(active)
+            self._rids.copy_(torch.from_numpy(rids))
+            self._ts.copy_(torch.from_numpy(ts))
+        self._decode()
+        self.decode_traces = 1
         self.decode_steps += 1
         self.index += 1
-        return nxt.cpu().numpy()
+        return self._next.cpu().numpy().copy()
+
+    # -- sampling keys --------------------------------------------------------
+
+    def _slot_key(self, rid: int, t: int) -> torch.Tensor:
+        """Key of request ``rid``'s ``t``-th emitted token, on the host:
+        keyed by (request, emitted index), never by tick, so a preempted
+        and re-admitted stream replays its keys. A negative rid folds as
+        its uint32 bit pattern, as on the device."""
+        base = self._rid_keys.get(rid)
+        if base is None:
+            base = self._rid_keys[rid] = sampling.fold_in(self._base_key,
+                                                          rid)
+        return sampling.fold_in(base, t)
+
+    def _emit_key(self, req: Request) -> torch.Tensor:
+        """Key of the next token ``req`` emits."""
+        return self._slot_key(req.rid, len(req.generated))
+
+    def _rid_ts(self, active: List[int]):
+        """(batch,) request ids and next emitted indices, the two int
+        vectors the decode step folds into its rows' keys; 0 for a row
+        that is not decode-active."""
+        rids = np.zeros((self.scfg.batch,), np.int64)
+        ts = np.zeros((self.scfg.batch,), np.int64)
+        for i in active:
+            rids[i] = self.slots[i].rid
+            ts[i] = len(self.slots[i].generated)
+        return rids, ts
 
     def bucket_for(self, prompt_len: int) -> int:
         """Prefill length of a prompt: the smallest power-of-two multiple
@@ -240,12 +391,13 @@ class ServingEngine:
         return min(b, self.scfg.max_len)
 
     @torch.no_grad()
-    def _prefill_into_slot(self, prompt: np.ndarray, slot: int) -> int:
+    def _prefill_into_slot(self, prompt: np.ndarray, slot: int,
+                           req: Request) -> int:
         """Prefill one prompt through a fresh batch-1 row cache at its
-        bucket length, install the row in ``slot`` and return the greedy
-        token at the prompt's last position. The padded rows past the
-        prompt sit at positions >= its length, which the slot's write
-        position masks out and decode overwrites."""
+        bucket length, install the row in ``slot`` and return the token
+        at the prompt's last position, drawn under ``req``'s next key. The
+        padded rows past the prompt sit at positions >= its length, which
+        the slot's write position masks out and decode overwrites."""
         true_len = len(prompt)
         bucket = self.bucket_for(true_len)
         if not true_len <= bucket <= self.scfg.max_len:
@@ -259,12 +411,15 @@ class ServingEngine:
                                 torch.from_numpy(padded).to(self.device),
                                 caches=row)
         self.prefill_buckets[bucket] = self.prefill_buckets.get(bucket, 0) + 1
+        self.prefill_traces.setdefault(bucket, 1)
         for full, part in zip(self.caches, row):
             for name, t in full.items():
                 if name != "index":
                     t[slot].copy_(part[name][0])
         self.index[slot] = true_len
-        return int(logits[0, true_len - 1].argmax(-1))
+        key = self._emit_key(req).to(self.device) \
+            if self.scfg.temperature else None
+        return int(self._pick(logits[0, true_len - 1], key))
 
     # -- page-table plumbing --------------------------------------------------
 
@@ -447,7 +602,8 @@ class ServingEngine:
             if slot is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
-            tok = self._prefill_into_slot(self._effective_prompt(req), i)
+            tok = self._prefill_into_slot(self._effective_prompt(req), i,
+                                          req)
             self.slots[i] = req
             self._slot_seq[i] = self._admit_seq
             self._admit_seq += 1
@@ -490,7 +646,7 @@ class ServingEngine:
             # token, and the write position resets to `end` so the padded
             # rows are never attended.
             last_in = (true_len - 1 - cursor) if end == true_len else n - 1
-            tok = self._chunk_step(chunk_toks, cursor, i, last_in)
+            tok = self._chunk_step(chunk_toks, cursor, i, last_in, req)
             self.index[i] = end
             if end < true_len:
                 self._prefilling[i] = end
@@ -501,7 +657,7 @@ class ServingEngine:
                 self.last_tok[i] = tok
 
     def _decode_tick(self, active: List[int]) -> None:
-        nxt = self._decode_step()
+        nxt = self._decode_step(active)
         active_set = set(active)
         for i in range(self.scfg.batch):
             if i in active_set:

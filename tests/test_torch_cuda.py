@@ -22,6 +22,9 @@ from repro_torch.kernels import flash_decode
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gemm import TILES
+from repro_torch.models import transformer as T
+from repro_torch.serve import graphs, sampling
+from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train import steps
 from repro_torch.tree import tree_items, tree_map
 
@@ -376,3 +379,189 @@ def test_cuda_train_steps_match_cpu(cuda_device):
     with pytest.raises(RuntimeError, match="no backward"):
         flash(card, {"tokens": tokens.to(cuda_device),
                      "labels": labels.to(cuda_device)})
+
+
+# A small bf16 attention stack at a head_dim the kernels take (64), and a
+# Mamba-2 stack at the SSD kernel's (p, n) = (64, 128).
+GRAPH_CFGS = {
+    "attn": dataclasses.replace(configs.get_smoke("qwen3-4b"), d_model=256,
+                                d_ff=512, vocab=1000,
+                                compute_dtype="bfloat16"),
+    "mamba": dataclasses.replace(configs.get_smoke("mamba2-370m"),
+                                 d_model=128, vocab=1000, mamba_d_state=128,
+                                 mamba_head_dim=64,
+                                 compute_dtype="bfloat16"),
+}
+
+
+def _graph_engines(device, arch, paged, temperature=0.8):
+    cfg = GRAPH_CFGS[arch]
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    scfg = ServeConfig(max_len=512, batch=4, paged=paged, page_size=16,
+                       chunk_size=64 if paged else None, eos_id=-1,
+                       temperature=temperature, seed=1)
+    return cfg, [ServingEngine(params, cfg, scfg, device=device,
+                               capture=capture) for capture in (False, True)]
+
+
+def _cache_tensors(eng):
+    return [t for c in eng.caches for name, t in sorted(c.items())
+            if name not in ("index", "pages")]
+
+
+@pytest.mark.parametrize("arch,paged", [("attn", True), ("attn", False),
+                                        ("mamba", False)],
+                         ids=["paged", "contiguous", "mamba"])
+def test_cuda_graphed_steps_match_eager_steps(cuda_device, arch, paged):
+    """Three steps with changing inputs through an eager engine and a
+    graphed one: the same ids and the same pool (or cache and state)
+    contents, bit for bit; each replay adds its captured launches to
+    ``ops.LAUNCHES``; the decodes' merge counters read zero after."""
+    cfg, (eager, graphed) = _graph_engines(cuda_device, arch, paged)
+    assert graphed.graphed and not eager.graphed
+    assert graphed.graph_bytes > 0 == eager.graph_bytes
+    assert graphed.decode_traces == 1 and eager.decode_traces == 0
+    kernel = {("attn", True): "flash_decode_paged",
+              ("attn", False): "flash_decode"}.get((arch, paged))
+    assert graphed._decode.launches == graphed._decode.nodes == (
+        {kernel: cfg.n_layers} if kernel else {})
+    if paged:
+        assert graphed._chunk.launches == graphed._chunk.nodes == {
+            "flash_attention_paged": cfg.n_layers}
+        assert graphed.prefill_traces == {64: 1}
+    rng = np.random.RandomState(0)
+    b = graphed.scfg.batch
+    table = rng.permutation(np.arange(1, 1 + b * 32)).reshape(b, 32)
+    for step in range(3):
+        index = rng.randint(0, 400, size=b).astype(np.int32)
+        last = rng.randint(0, cfg.vocab, size=b)
+        chunk = rng.randint(0, cfg.vocab, size=(1, 64))
+        outs = []
+        for eng in (eager, graphed):
+            eng.slots = [Request(rid=step - i, prompt=np.zeros(1, np.int32),
+                                 max_new=9, generated=[0] * (step + i))
+                         for i in range(b)]
+            if paged:
+                eng.pages[:] = table
+            eng.index[:] = index
+            eng.last_tok[:] = last
+            ops.reset_launches()
+            got = []
+            if paged:
+                tok = eng._chunk_step(chunk, int(index[0]), 0, 63 - step,
+                                      eng.slots[0])
+                got.append(int(tok))
+            got.append(eng._decode_step(list(range(b))).tolist())
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == dict(
+                dict.fromkeys(ops.LAUNCHES, 0),
+                **{k: v for s in (graphed._chunk if paged else None,
+                                  graphed._decode) if s
+                   for k, v in s.launches.items()})
+            outs.append(got)
+        assert outs[0] == outs[1], step
+        for a, g in zip(_cache_tensors(eager), _cache_tensors(graphed)):
+            assert torch.equal(a, g), step
+    assert all(int(t.count_nonzero()) == 0
+               for t in flash_decode._COUNTERS.values())
+
+
+def _one_launch_each(device, dtype):
+    """One call of each wrapper at small shapes, keyed by its
+    ``ops.LAUNCHES`` name: the kernel it launches in ``dtype``."""
+    g = torch.Generator(device=device).manual_seed(5)
+    mk = lambda *s: torch.randn(*s, generator=g, device=device).to(dtype)  # noqa
+    b, h, kvh, d, ps, n_pages = 2, 8, 2, 64, 16, 9
+    kp, vp = mk(n_pages, ps, kvh, d), mk(n_pages, ps, kvh, d)
+    table = torch.arange(1, 9, dtype=torch.int32, device=device).view(2, 4)
+    ints = dict(dtype=torch.int32, device=device)
+    lengths, starts = torch.tensor([5, 40], **ints), torch.tensor([0, 16], **ints)
+    k, v = mk(b, 64, kvh, d), mk(b, 64, kvh, d)
+    x = mk(1, 256, 4, 64)
+    a = -torch.rand(1, 256, 4, device=device) * 0.1
+    bm, cm = mk(1, 256, 128), mk(1, 256, 128)
+    chain = torch.roll(torch.arange(64, **ints), 1)
+    q1, qc, qs = mk(b, h, d), mk(b, 16, h, d), mk(b, 64, h, d)
+    gx, gy = mk(64, 128), mk(128, 64)
+    return {
+        "flash_decode_paged": lambda: ops.flash_decode_paged(
+            q1, kp, vp, table, lengths),
+        "flash_attention_paged": lambda: ops.flash_attention_paged(
+            qc, kp, vp, table, starts),
+        "flash_decode": lambda: ops.flash_decode(q1, k, v, lengths),
+        "flash_attention": lambda: ops.flash_attention(qs, k, v),
+        "ssd_scan": lambda: ops.ssd_scan(x, a, bm, cm),
+        "gemm": lambda: ops.gemm(gx, gy),
+        "pchase": lambda: ops.pchase(chain, 100),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graph_nodes_name_each_wrappers_kernel(cuda_device, dtype):
+    """Each wrapper's call captured alone: the graph's kernel nodes, read
+    back from the driver, hold its kernel once and no other of the
+    port's (the names ``graphs.KERNELS`` maps, in both dtypes)."""
+    for name, call in _one_launch_each(cuda_device, dtype).items():
+        step = graphs.Step(call, cuda_device, capture=True)
+        assert step.nodes == step.launches == {name: 1}, (
+            name, graphs.kernel_names(step.graph.raw_cuda_graph()))
+        ops.reset_launches()
+        step()
+        step()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                    **{name: 2})
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_cuda_graph_replays_hold_peak_memory_flat(cuda_device, paged):
+    _, (_, graphed) = _graph_engines(cuda_device, "attn", paged)
+    graphed.slots = [Request(rid=i, prompt=np.zeros(1, np.int32), max_new=9)
+                     for i in range(graphed.scfg.batch)]
+    peaks = []
+    for step in range(4):
+        graphed.index[:] = 10 * step
+        graphed._decode_step(list(range(graphed.scfg.batch)))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(cuda_device))
+    assert peaks[1] == peaks[2] == peaks[3], peaks
+
+
+@pytest.mark.parametrize("arch,paged", [("attn", True), ("attn", False),
+                                        ("mamba", False)],
+                         ids=["paged", "contiguous", "mamba"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_graphed_engines_serve_the_eager_streams(cuda_device, arch,
+                                                      paged, temperature):
+    """Whole runs, eager against graphed: the same streams, ticks, steps
+    and launches."""
+    cfg, engines = _graph_engines(cuda_device, arch, paged, temperature)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 70, 130, 9, 200, 33)]
+    runs = []
+    for eng in engines:
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=12))
+        ops.reset_launches()
+        streams = eng.run_until_drained()
+        torch.cuda.synchronize()
+        runs.append((streams, eng.ticks, eng.chunk_steps, eng.decode_steps,
+                     dict(eng.prefill_buckets), dict(ops.LAUNCHES),
+                     eng.decode_traces, dict(eng.prefill_traces)))
+    assert runs[0] == runs[1]
+
+
+def test_cuda_keys_and_bits_match_the_cpu(cuda_device):
+    rids = torch.tensor([0, 1, -1, -2**31, 2**31 - 1, 12345])
+    ts = torch.tensor([0, 2**31 - 1, 7, 1, 2**31 - 2, 31])
+    base = sampling.prng_key(0)
+    cpu = sampling.fold_row_keys(base, rids, ts)
+    card = sampling.fold_row_keys(base.to(cuda_device), rids.to(cuda_device),
+                                  ts.to(cuda_device))
+    assert torch.equal(card.cpu(), cpu)
+    bits = sampling.random_bits(cpu, (151936,))
+    assert torch.equal(sampling.random_bits(card, (151936,)).cpu(), bits)
+    u = sampling.uniform(cpu, (151936,))
+    assert torch.equal(sampling.uniform(card, (151936,)).cpu(), u)

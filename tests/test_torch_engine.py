@@ -10,6 +10,8 @@ once per module.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -109,14 +111,17 @@ def test_decode_advances_while_a_long_prompt_prefills(model):
 
 
 def test_never_admittable_request_and_sampling_raise(model):
+    """A request that could not fit even an empty pool raises at
+    admission, greedy or sampled (sampling itself no longer raises:
+    ``tests/test_torch_sampled_engine.py`` holds it to the reference)."""
     _, _, cfg, params, prompts = model
-    eng = _port_engine(model, 2, 3)            # capacity: 2 pages
-    eng.submit(engine.Request(rid=0, prompt=prompts[3], max_new=4))
-    with pytest.raises(paged.PagePoolExhausted):
-        eng.tick()
-    with pytest.raises(NotImplementedError):
-        engine.ServingEngine(params, cfg, engine.ServeConfig(
-            batch=2, temperature=0.7, **BASE), device="cpu")
+    for temperature in (0.0, 0.7):
+        eng = engine.ServingEngine(params, cfg, engine.ServeConfig(
+            batch=2, n_pages=3, temperature=temperature, **BASE),
+            device="cpu")                      # capacity: 2 pages
+        eng.submit(engine.Request(rid=0, prompt=prompts[3], max_new=4))
+        with pytest.raises(paged.PagePoolExhausted):
+            eng.tick()
 
 
 def test_pool_rows_of_live_pages_follow_the_page_table(model):
@@ -132,3 +137,22 @@ def test_pool_rows_of_live_pages_follow_the_page_table(model):
     kp = eng.caches[0]["kp"]
     assert torch.count_nonzero(kp[pages]) > 0
     assert eng._prefilling[0] == eng.index[0] == 8
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_engine_is_freed_as_soon_as_it_is_dropped(model, paged):
+    """No reference cycle holds an engine (and its caches, gigabytes on
+    the card) until the garbage collector runs: its steps close over
+    their buffers, not over the engine."""
+    _, _, cfg, params, prompts = model
+    eng = engine.ServingEngine(params, cfg, engine.ServeConfig(
+        batch=2, **dict(BASE, paged=paged)), device="cpu")
+    eng.submit(engine.Request(rid=0, prompt=prompts[0], max_new=3))
+    eng.run_until_drained()
+    alive = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert alive() is None
+    finally:
+        gc.enable()
