@@ -11,7 +11,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 3. each kernel against its plain PyTorch version, fp32 and bf16: paged
    decode and paged prefill and contiguous decode at head_dim 64/80/128
    and the main path's head counts (ragged lengths with a 0 and max_len,
-   shuffled page tables, chunks at start > 0 and past the table's end);
+   shuffled page tables, chunks at start > 0 and past the table's end),
+   and the paged prefill at the speculative verify's shape (8 slots of
+   2, 3 or 5 rows from ragged starts: 0, across a page boundary, past the
+   table's end, a freed slot whose table row is zero);
    both decodes again at groups 1/4/7 over 2 kv heads and at lengths
    about their 256-row splits, with exact zeros for a zero length, the
    same bits from a second launch, and the merge's counters left at zero;
@@ -30,7 +33,9 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    the same work, with TFLOP/s; for the decodes their splits, GB/s and
    share of the bound, and beside them the device time of the kernel and
    of the library call with the launches queued behind a spin of the
-   card; for the SSD scan its device time at l 128/1024/1536 with
+   card; the paged prefill at the verify shape (8 slots of 5 rows from
+   starts up to 2043) with its device time, SDPA's and the bound; for the
+   SSD scan its device time at l 128/1024/1536 with
    TFLOP/s, share of the bound and launch grid; the GEMM with every tile of its dtype at the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
    and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
@@ -90,7 +95,30 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     and the CPU; phase 5's engine and requests at temperature 0.8, seed
     0, eager and graphed (identical streams), logging how many requests
     drew the greedy token at each emitted index; then graphed on the
-    squeezed pool of phase 6, every request done and no page leaked.
+    squeezed pool of phase 6, every request done and no page leaked;
+16. speculative decoding (``spec_k`` 4, ``NgramDraft``) on phase 5's
+    engine and requests, eager and graphed (the verify step one captured
+    graph of 36 paged prefills and no decode), which must agree as in
+    phase 5, verify counters included; the paged prefill launched once a
+    layer a chunk and a verify step, the decode never; tok/s beside phase
+    5's and the accept rate; the squeezed pool (preempts, no page
+    leaked); fp32 logits of one verify step (8 slots, width 5, ragged
+    starts) against five decode steps over the same rows, within phase
+    7's limit, which the verify's attention given ``starts + 1`` or
+    ``starts - 1`` must exceed; one ``ModelDraft("self")`` request of 8
+    tokens, eager, its rollout through the contiguous decode kernel;
+17. prefix caching: 12 requests sharing a 1024-token prefix (64 pages)
+    with unique 64-512-token suffixes, request 0 alone until its prefill
+    ends: uncached (graphed), then cached eager and graphed, which must
+    agree; at least one hit of 64 pages; the index's pages freed by
+    ``clear()`` and nothing else held; tok/s and chunk steps cached
+    against uncached, and how many bf16 streams are identical; fp32
+    logits of a cached admission's first token (its first chunk at row
+    1024, through an earlier prompt's pages) against the same prompt
+    uncached, within phase 7's limit, which the hit mapped one page off
+    must exceed, and whether the K/V rows are bit-equal; then spec with
+    the prefix cache on the squeezed pool (every request done, splits
+    counted, no page leaked).
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -161,6 +189,18 @@ RAGGED = (1, 127, 4097)
 # full-depth readings are logged beside that noise, not held to a limit.
 MAMBA_CHECK_LAYERS = 2
 N_REQUESTS, MAX_NEW = 12, 32
+# Phases 3, 4 and 16: speculative decoding drafts SPEC_K tokens a slot, so
+# the verify step runs the paged prefill kernel at sq = SPEC_K + 1 over B
+# slots. Phase 3 checks widths 2, 3 and 5 from these starts (the last slot
+# freed); phase 4 times width 5 from starts spread up to MAX_LEN.
+SPEC_K = 4
+VERIFY_WIDTHS = (2, 3, 5)
+VERIFY_STARTS = [0, 15, 16, 300, 1023, MAX_LEN - 2, 1800, 700]
+# Phase 17: 12 requests sharing a 1024-token prefix (64 pages, 4 chunks)
+# and unique suffixes of 64-512 tokens.
+PREFIX_LEN, SUFFIX_LO, SUFFIX_HI = 1024, 64, 512
+# Phases 16-17's squeezed pool, phase 6's.
+SQUEEZED_PAGES = 161
 SAMPLE_TEMPERATURE = 0.8          # phase 15
 # Phase 7, fp32 logits of the kernel path against the plain path: the
 # kernels' summation order moves them by far less than this; a planted
@@ -304,6 +344,26 @@ def check_kernels(dev, ops, ref) -> list:
                 f"(atol {tol[0]:g} + rtol {tol[1]:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("flash_attention_paged", dtype, d, err))
+            # The verify step's shape: B slots of k + 1 rows from ragged
+            # starts: 0, across a page boundary, MAX_LEN - 2 (its last
+            # rows past the table's end), and a freed slot whose table
+            # row is zero (all its rows in the null page).
+            table = _tables(gen, dev, [min(s + SPEC_K + 1, MAX_LEN)
+                                       for s in VERIFY_STARTS], max_pages)
+            table[-1] = 0
+            st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+            for sq in VERIFY_WIDTHS:
+                qv = rnd(B, sq, H, d)
+                got = ops.flash_attention_paged(qv, kp, vp, table, st)
+                torch.cuda.synchronize()
+                ok, err = ref.compare(got, ref.flash_attention_paged(
+                    qv, kp, vp, table, st))
+                log(f"  verify  {str(dtype):14s} d={d:3d} sq={sq}: "
+                    f"max_abs_err {err:.3e} (starts {VERIFY_STARTS}, the "
+                    f"last slot freed) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(("flash_attention_paged verify", dtype,
+                                     d, sq, err))
     return failures
 
 
@@ -680,6 +740,62 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
         bytes=nbytes, ops=ops_n,
         shape=f"b=1 sq={CHUNK} start={start} h={H} kvh={KVH} d={D} "
               f"page={PS}")
+    del views
+
+    # The verify step: B slots of SPEC_K + 1 rows from starts spread over
+    # 512..MAX_LEN - SPEC_K - 1 (phase 16's shape).
+    w = SPEC_K + 1
+    starts = [int(x) for x in np.linspace(512, MAX_LEN - w, B)]
+    table = _tables(gen, dev, [s + w for s in starts], max_pages)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    qv = rnd(B, w, H, D)
+    ok, err = ref.compare(
+        ops.flash_attention_paged(qv, *pools[0], table, st),
+        ref.flash_attention_paged(qv, *pools[0], table, st))
+    kv_rows = sum(s + w for s in starts)
+    pairs = sum(s + r + 1 for s in starts for r in range(w))
+    nbytes = (2 * qv.numel() * esize + 2 * kv_rows * KVH * D * esize
+              + 4 * (sum(-(-(s + w) // PS) for s in starts) + B))
+    ops_n = 4 * pairs * H * D
+    views = []
+    for kp, vp in pools:
+        kc, vc = (t.permute(0, 2, 1, 3).contiguous()
+                  for t in ref.gather_kv(kp, vp, table))
+        views.append((kc, vc))
+    vmask = (torch.arange(MAX_LEN, device=dev)[None, None, :]
+             <= (st[:, None] + torch.arange(w, device=dev)[None, :])
+             [:, :, None])[:, None]
+    qt = qv.permute(0, 2, 1, 3).contiguous()
+    verify = dict(
+        max_abs_err=err, ok=ok,
+        ms=time_ms(lambda i: ops.flash_attention_paged(qv, *pools[i], table,
+                                                       st), n_layers),
+        device_ms=time_ms(lambda i: ops.flash_attention_paged(
+            qv, *pools[i], table, st), n_layers, spin=True),
+        plain_ms=time_ms(lambda i: ref.flash_attention_paged(
+            qv, *pools[i], table, st), n_layers, iters=10),
+        library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, views[i][0], views[i][1], attn_mask=vmask, enable_gqa=True),
+            n_layers),
+        library_device_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, views[i][0], views[i][1], attn_mask=vmask, enable_gqa=True),
+            n_layers, spin=True),
+        bytes=nbytes, ops=ops_n,
+        shape=f"b={B} sq={w} starts {starts[0]}..{starts[-1]} h={H} "
+              f"kvh={KVH} d={D} page={PS}")
+    verify["bound_ms"], verify["bound_by"] = bound(nbytes, ops_n, dtype)
+    log(f"  flash_attention_paged at the verify shape [{verify['shape']}, "
+        f"bf16]: kernel {verify['ms']:.4f} ms at the host's pace, device "
+        f"time {verify['device_ms']:.4f} ms "
+        f"({tflops(ops_n, verify['device_ms']):.2f} TFLOP/s, "
+        f"{100 * verify['bound_ms'] / verify['device_ms']:.1f} % of its "
+        f"bound), plain {verify['plain_ms']:.4f} ms, SDPA "
+        f"{verify['library_ms']:.4f} ms (device time "
+        f"{verify['library_device_ms']:.4f} ms), bound "
+        f"{verify['bound_ms']:.4f} ms ({verify['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP), grid "
+        f"({-(-w // 64)}, {H}, {B}) CTAs, max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
     del views, pools
 
     # Contiguous decode: the same slots and contexts over a (b, max_len,
@@ -766,6 +882,7 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
                 f"{r['device_ms']:.4f} ms ({rate(r['device_ms'])}), SDPA "
                 f"{r['library_device_ms']:.4f} ms, "
                 f"{r['device_ms'] / r['library_device_ms']:.2f}x")
+    out["verify"] = verify
     return out
 
 
@@ -973,20 +1090,29 @@ def make_requests(vocab: int, n: int, lo: int = 64, hi: int = 1536):
     return [rng.randint(2, vocab, size=int(l)).astype(np.int32) for l in lens]
 
 
-def serve(params, cfg, scfg, prompts, max_new, dev, ops, capture=True):
+def serve(params, cfg, scfg, prompts, max_new, dev, ops, capture=True,
+          stagger=False):
     """Drive the engine over ``prompts``; launch counts cover this run only,
     the wall time the run only (not the engine's construction, where a
-    graphed engine captures its steps)."""
+    graphed engine captures its steps). ``stagger``: request 0 alone
+    until its prefill ends (its first token), then the rest."""
     from repro_torch.serve.engine import Request, ServingEngine
 
     eng = ServingEngine(params, cfg, scfg, device=dev, capture=capture)
     if eng.graphed != capture:
         raise RuntimeError(f"engine graphed={eng.graphed}, asked {capture}")
-    for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+    reqs = [Request(rid=rid, prompt=p, max_new=max_new)
+            for rid, p in enumerate(prompts)]
+    for req in reqs[:1] if stagger else reqs:
+        eng.submit(req)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
+    if stagger:
+        while not reqs[0].generated:
+            eng.tick()
+        for req in reqs[1:]:
+            eng.submit(req)
     finished = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1003,7 +1129,18 @@ def check_served(eng, finished, prompts, max_new, vocab) -> None:
                                f"{eng.outcome[rid]}")
         if not all(0 <= t < vocab for t in toks):
             raise RuntimeError(f"request {rid}: token out of range")
-    if eng.pool is not None and eng.pool.pages_in_use != 0:
+    if eng.pool is None:
+        return
+    if eng.prefix is not None:
+        # Only the index may hold pages after a run: clearing it frees
+        # every one.
+        cls = eng.pool.page_classes()
+        if cls["pages_cached_idle"] != eng.pool.pages_in_use:
+            raise RuntimeError(f"pages held past the index after the run: "
+                               f"{cls}")
+        log(f"  the index held {len(eng.prefix)} pages after the run; clear() "
+            f"freed {eng.prefix.clear()}")
+    if eng.pool.pages_in_use != 0:
         raise RuntimeError(f"{eng.pool.pages_in_use} pages leaked")
 
 
@@ -1165,17 +1302,39 @@ def contiguous_logits(params, cfg, T, dev, prompt):
     return pre[0].float(), step[0, 0].float()
 
 
-def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True):
+def spec_line(eng) -> str:
+    return (f"spec_k {eng.spec_k}: {eng.verify_steps} verify steps, "
+            f"verify_traces {eng.verify_traces}, {eng.spec_ticks} slot "
+            f"verifies, {eng.spec_proposed} drafts proposed, "
+            f"{eng.spec_accepted} accepted (accept rate "
+            f"{eng.spec_accepted / max(1, eng.spec_proposed):.3f}), "
+            f"{eng.spec_emitted} tokens emitted "
+            f"({eng.spec_emitted / max(1, eng.spec_ticks):.3f} a slot "
+            f"verify)")
+
+
+def prefix_line(eng) -> str:
+    return (f"prefix cache: {eng.prefix_hits} hits, {eng.prefix_misses} "
+            f"misses, {eng.prefix_hit_pages} pages mapped, "
+            f"{eng.cow_copies} copy-on-write, {eng.prefix_evictions} "
+            f"evictions ({eng.prefix.evicted_pages} pages)")
+
+
+def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True,
+               stagger=False):
     """Serve ``prompts`` at MAX_NEW tokens each and report; returns the
     engine, the launch counts, the streams and the tok/s of this run."""
     torch.cuda.reset_peak_memory_stats()
     eng, finished, wall, launches = serve(params, cfg, scfg, prompts,
-                                          MAX_NEW, dev, ops, capture)
+                                          MAX_NEW, dev, ops, capture,
+                                          stagger)
     check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
     toks = sum(len(v) for v in finished.values())
+    pools = ", ".join(f"{k} {v / 2**20:.1f}"
+                      for k, v in eng.graph_pools.items())
     mode = (f"graphed (captured in {eng.capture_seconds:.3f} s, graph "
-            f"pools {eng.graph_bytes / 2**20:.1f} MiB)" if eng.graphed
-            else "eager")
+            f"pools {eng.graph_bytes / 2**20:.1f} MiB: {pools})"
+            if eng.graphed else "eager")
     log(f"  {label}, {mode}: served {len(finished)} requests, {toks} tokens "
         f"in {wall:.2f} s ({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
         f"{eng.chunk_steps} chunk steps, {eng.decode_steps} decode steps, "
@@ -1184,6 +1343,10 @@ def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True):
         f"decode_traces {eng.decode_traces}, prefill_traces "
         f"{dict(sorted(eng.prefill_traces.items()))}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if eng.spec_k:
+        log(f"  {label}: {spec_line(eng)}")
+    if eng.prefix is not None:
+        log(f"  {label}: {prefix_line(eng)}")
     if eng.graphed:
         log(f"  the port's kernels a replay, read from the captured graphs: "
             f"{eng.graph_nodes}")
@@ -1196,11 +1359,16 @@ def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True):
 
 def schedule(eng, launches) -> tuple:
     """What a run decided, which must not depend on graphs: ticks, steps,
-    buckets, preemptions, holds, trace counts and launches by kernel."""
+    buckets, preemptions, holds, trace counts, launches by kernel, the
+    speculative counters and the prefix cache's."""
     return (eng.ticks, eng.chunk_steps, eng.decode_steps,
             dict(eng.prefill_buckets), eng.preemptions,
             eng.admission_rejections, eng.decode_traces,
-            dict(eng.prefill_traces), dict(launches))
+            dict(eng.prefill_traces), dict(launches), eng.verify_steps,
+            eng.verify_traces, eng.spec_ticks, eng.spec_proposed,
+            eng.spec_accepted, eng.spec_emitted, eng.prefix_hits,
+            eng.prefix_misses, eng.prefix_hit_pages, eng.cow_copies,
+            eng.prefix_evictions)
 
 
 def first_difference(a, b):
@@ -1214,29 +1382,36 @@ def first_difference(a, b):
 
 def graph_kernels(cfg, scfg) -> dict:
     """The port's kernels each of the engine's graphs must hold a replay:
-    one decode (attention stacks) a layer, one paged prefill a layer."""
+    one decode (attention stacks) a layer, one paged prefill a layer (the
+    chunk step, and the verify step in place of the decode step)."""
     if all(k != "attn" for k in cfg.pattern):
         return {"decode": {}}
     n = cfg.n_layers
     if not scfg.paged:
         return {"decode": {"flash_decode": n}}
+    if scfg.spec_k:
+        return {"verify": {"flash_attention_paged": n},
+                "chunk": {"flash_attention_paged": n}}
     return {"decode": {"flash_decode_paged": n},
             "chunk": {"flash_attention_paged": n}}
 
 
-def run_eager_and_graphed(label, params, cfg, scfg, prompts, dev, ops):
+def run_eager_and_graphed(label, params, cfg, scfg, prompts, dev, ops,
+                          stagger=False):
     """The engine run eagerly, then graphed, in the same call (both warmed
     up at construction): the same schedule, launches and streams, and
     graphs that hold the kernels the path needs, or a RuntimeError naming
     what differs. Returns the graphed engine, its launches, streams and
     tok/s."""
     eager, e_launches, e_fin, _ = run_engine(label, params, cfg, scfg,
-                                             prompts, dev, ops, capture=False)
+                                             prompts, dev, ops, capture=False,
+                                             stagger=stagger)
     e_sched = schedule(eager, e_launches)
     del eager
     torch.cuda.empty_cache()
     eng, launches, fin, tok_s = run_engine(label, params, cfg, scfg,
-                                           prompts, dev, ops, capture=True)
+                                           prompts, dev, ops, capture=True,
+                                           stagger=stagger)
     if eng.graph_nodes != graph_kernels(cfg, scfg):
         raise RuntimeError(f"{label}: the graphs hold {eng.graph_nodes}, "
                            f"not {graph_kernels(cfg, scfg)}")
@@ -1300,6 +1475,306 @@ def run_sampled(params, cfg, scfg, prompts, greedy, dev, ops) -> float:
         f"{eng.admission_rejections} holds, no page leaked; "
         f"{same}/{len(fin) * MAX_NEW} tokens as in the roomy pool")
     return tok_s
+
+
+# ----------------------------------------------------------------------------
+# Phases 16-17: speculative decoding and prefix caching
+# ----------------------------------------------------------------------------
+
+# Phase 16's fp32 gate: the verify's B slots start here (a page boundary
+# crossed at 300 + 5, the last rows at MAX_LEN - 1).
+VERIFY_LOGIT_STARTS = [37, 300, 512, 777, 1024, 1300, 1800, MAX_LEN - 5]
+
+
+def check_spec_launches(label, eng, launches, n_layers) -> None:
+    """A speculative run launches the paged prefill kernel once a layer a
+    chunk step and a verify step, and never the paged decode."""
+    want = n_layers * (eng.chunk_steps + eng.verify_steps)
+    if not (eng.verify_steps > 0 and launches["flash_decode_paged"] == 0
+            and launches["flash_attention_paged"] == want):
+        raise RuntimeError(f"{label}: launches {launches}, want "
+                           f"flash_attention_paged {want} ({eng.chunk_steps} "
+                           f"chunk + {eng.verify_steps} verify steps) and no "
+                           f"decode")
+
+
+def verify_paths(params, cfg, T, dev):
+    """One verify step of B slots (width SPEC_K + 1) from
+    VERIFY_LOGIT_STARTS over contexts prefilled in chunks, and the SPEC_K
+    + 1 plain decode steps over the same rows: two functions giving
+    (B, width, vocab) fp32 logits."""
+    w = SPEC_K + 1
+    max_pages = MAX_LEN // PS
+    n_pages = 1 + B * max_pages
+    caches = T.init_paged_caches(cfg, B, MAX_LEN, PS, n_pages, device=dev)
+    table = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(3)) + 1).int().reshape(B, max_pages)
+    table = table.to(dev)
+    caches = [dict(c, pages=table) for c in caches]
+    ctx = np.random.RandomState(5).randint(2, cfg.vocab, size=(B, MAX_LEN))
+    with torch.no_grad():
+        for i, n in enumerate(VERIFY_LOGIT_STARTS):
+            for s0 in range(0, n, CHUNK):
+                toks = np.zeros((1, CHUNK), np.int64)
+                m = min(CHUNK, n - s0)
+                toks[0, :m] = ctx[i, s0:s0 + m]
+                idx = torch.tensor([s0], dtype=torch.int32, device=dev)
+                T.forward(params, cfg, torch.from_numpy(toks).to(dev),
+                          caches=[dict(c, pages=table[i:i + 1], index=idx)
+                                  for c in caches])
+    toks = torch.from_numpy(ctx[:, -w:]).to(dev)
+    st = torch.tensor(VERIFY_LOGIT_STARTS, dtype=torch.int32, device=dev)
+
+    @torch.no_grad()
+    def verify():
+        logits, _ = T.forward(params, cfg, toks,
+                              caches=[dict(c, index=st) for c in caches])
+        return logits.float()
+
+    @torch.no_grad()
+    def decode():
+        out = []
+        for j in range(w):
+            logits, _ = T.forward(params, cfg, toks[:, j:j + 1],
+                                  caches=[dict(c, index=st + j)
+                                          for c in caches])
+            out.append(logits[:, 0].float())
+        return torch.stack(out, dim=1)
+
+    return verify, decode
+
+
+def check_verify_logits(params, cfg, T, dev, ops) -> list:
+    """Phase 16's gate: one verify step against SPEC_K + 1 plain decode
+    steps over the same rows, fp32 within FP32_LOGIT_TOL, which the
+    verify's attention given ``starts + 1`` (each query sees the next
+    row) or ``starts - 1`` (each query loses its own row) must exceed;
+    bf16 logged. Returns failures."""
+    failed = []
+    for label, c in (("fp32", dataclasses.replace(
+            cfg, compute_dtype="float32")), ("bf16", cfg)):
+        verify, decode = verify_paths(params, c, T, dev)
+        want = decode()
+        sound = max_diff(verify(), want)
+        faults = {}
+        for shift in (1, -1):
+            fault = (lambda q, kp, vp, t, s, d=shift:
+                     ops.flash_attention_paged(q, kp, vp, t, s + d))
+            with kernel_ops(ops, flash_attention_paged=fault):
+                faults[shift] = max_diff(verify(), want)
+        agree = float((verify().argmax(-1) == want.argmax(-1)).float()
+                      .mean())
+        log(f"  verify {label} (b={B}, width {SPEC_K + 1}, starts "
+            f"{VERIFY_LOGIT_STARTS}): max |logit diff| verify vs {SPEC_K + 1} "
+            f"decode steps {sound:.3e}; planted starts + 1 {faults[1]:.3e}, "
+            f"starts - 1 {faults[-1]:.3e} (limit {FP32_LOGIT_TOL:g}, fp32 "
+            f"only); argmax agreement {agree:.3f}")
+        if label == "fp32":
+            if not (math.isfinite(sound) and sound <= FP32_LOGIT_TOL):
+                failed.append("verify fp32: verify and decode logits differ")
+            if not min(faults.values()) > FP32_LOGIT_TOL:
+                failed.append("verify fp32: a planted fault went unseen")
+        del verify, decode, want
+        torch.cuda.empty_cache()
+    return failed
+
+
+def run_spec(params, cfg, scfg, prompts, greedy, plain_tok_s, dev,
+             ops, T) -> dict:
+    """Phase 16: speculative decoding (NgramDraft, SPEC_K) on the paged
+    engine, eager then graphed; the squeezed pool; the fp32 verify gate;
+    one ModelDraft("self") request, eager. Returns the readings."""
+    spec = dataclasses.replace(scfg, spec_k=SPEC_K)
+    eng, launches, fin, tok_s = run_eager_and_graphed(
+        "paged spec", params, cfg, spec, prompts, dev, ops)
+    check_spec_launches("paged spec", eng, launches, cfg.n_layers)
+    same = sum(int(a == b) for r in fin for a, b in zip(fin[r], greedy[r]))
+    out = {"tok_s": tok_s, "plain_tok_s": plain_tok_s,
+           "verify_steps": eng.verify_steps,
+           "verify_launches": cfg.n_layers * eng.verify_steps,
+           "accept_rate": eng.spec_accepted / max(1, eng.spec_proposed)}
+    log(f"  spec graphed {tok_s:.1f} tok/s against phase 5's plain graphed "
+        f"{plain_tok_s:.1f} tok/s ({tok_s / plain_tok_s:.2f}x); accept rate "
+        f"{out['accept_rate']:.3f}; the verify graph replayed "
+        f"{eng.verify_steps} times ({out['verify_launches']} paged prefill "
+        f"launches); {same}/{len(fin) * MAX_NEW} tokens as phase 5's "
+        f"greedy streams (bf16, logged)")
+    del eng
+    torch.cuda.empty_cache()
+
+    squeezed = dataclasses.replace(spec, n_pages=SQUEEZED_PAGES)
+    eng, s_fin, wall, s_launches = serve(params, cfg, squeezed, prompts,
+                                         MAX_NEW, dev, ops)
+    check_served(eng, s_fin, prompts, MAX_NEW, cfg.vocab)
+    check_spec_launches("squeezed spec", eng, s_launches, cfg.n_layers)
+    if eng.preemptions < 1:
+        raise RuntimeError("squeezed spec pool ran without a preemption")
+    same = sum(int(a == b) for r in fin for a, b in zip(fin[r], s_fin[r]))
+    log(f"  squeezed spec, graphed: {len(s_fin)} requests done in "
+        f"{wall:.2f} s, {eng.ticks} ticks, {eng.preemptions} preemptions, "
+        f"{eng.admission_rejections} holds, no page leaked; {spec_line(eng)};"
+        f" {same}/{len(fin) * MAX_NEW} tokens as in the roomy pool")
+    del eng
+    torch.cuda.empty_cache()
+
+    failed = check_verify_logits(params, cfg, T, dev, ops)
+    if failed:
+        raise RuntimeError("; ".join(failed))
+
+    selfdraft = dataclasses.replace(spec, draft="self")
+    eng, d_fin, wall, d_launches = serve(params, cfg, selfdraft, prompts[:1],
+                                         8, dev, ops, capture=False)
+    check_served(eng, d_fin, prompts[:1], 8, cfg.vocab)
+    log(f"  ModelDraft('self'), eager: request 0 in {wall:.2f} s, stream "
+        f"{d_fin[0]}; {spec_line(eng)}; launches {d_launches}")
+    if not (eng.spec_emitted >= eng.spec_ticks > 0
+            and eng.spec_accepted <= eng.spec_proposed
+            and d_launches["flash_decode"] > 0):
+        raise RuntimeError(f"ModelDraft('self'): {spec_line(eng)}; "
+                           f"launches {d_launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_prompts(vocab: int) -> list:
+    """N_REQUESTS prompts: one PREFIX_LEN-token prefix and unique suffixes
+    of SUFFIX_LO..SUFFIX_HI tokens."""
+    rng = np.random.RandomState(7)
+    prefix = rng.randint(2, vocab, PREFIX_LEN)
+    lens = rng.randint(SUFFIX_LO, SUFFIX_HI + 1, N_REQUESTS)
+    return [np.concatenate([prefix, rng.randint(2, vocab, n)])
+            .astype(np.int32) for n in lens]
+
+
+def prefix_paths(params, cfg, T, dev, a, b) -> tuple:
+    """Prompt ``a`` prefilled in chunks through its own pages, then prompt
+    ``b`` (the same first PREFIX_LEN tokens) three ways: uncached, through
+    its own pages; cached, its table mapping ``a``'s prefix pages and its
+    first chunk at PREFIX_LEN; and the planted fault, mapped one page off.
+    Returns the fp32 logits of ``b``'s last row each way, and whether
+    ``b``'s prefix rows and suffix rows are bit-equal cached and
+    uncached."""
+    max_pages = MAX_LEN // PS
+    n_pages = 1 + 4 * max_pages
+    caches = T.init_paged_caches(cfg, 1, MAX_LEN, PS, n_pages, device=dev)
+    perm = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(4)) + 1).int().to(dev)
+    names = ("a", "uncached", "cached", "fault")
+    tables = {n: perm[j * max_pages:(j + 1) * max_pages][None].clone()
+              for j, n in enumerate(names)}
+    hit = PREFIX_LEN // PS
+    tables["cached"][0, :hit] = tables["a"][0, :hit]
+    tables["fault"][0, :hit] = tables["a"][0, 1:hit + 1]
+
+    @torch.no_grad()
+    def prefill(name, toks, start):
+        last = None
+        for s0 in range(start, len(toks), CHUNK):
+            n = min(CHUNK, len(toks) - s0)
+            chunk = np.zeros((1, CHUNK), np.int64)
+            chunk[0, :n] = toks[s0:s0 + n]
+            idx = torch.tensor([s0], dtype=torch.int32, device=dev)
+            logits, _ = T.forward(params, cfg,
+                                  torch.from_numpy(chunk).to(dev),
+                                  caches=[dict(c, pages=tables[name],
+                                               index=idx) for c in caches])
+            last = logits[0, n - 1].float()
+        return last
+
+    prefill("a", a, 0)
+    out = {"uncached": prefill("uncached", b, 0),
+           "cached": prefill("cached", b, PREFIX_LEN),
+           "fault": prefill("fault", b, PREFIX_LEN)}
+
+    def rows(name, lo, hi):
+        return [t[tables[name][0].long()].flatten(0, 1)[lo:hi]
+                for c in caches for t in (c["kp"], c["vp"])]
+
+    same = {part: all(torch.equal(x, y) for x, y in
+                      zip(rows("cached", lo, hi), rows("uncached", lo, hi)))
+            for part, (lo, hi) in (("prefix", (0, PREFIX_LEN)),
+                                   ("suffix", (PREFIX_LEN, len(b))))}
+    return out, same
+
+
+def check_prefix_logits(params, cfg, T, dev, prompts) -> list:
+    """Phase 17's gate: the first token's logits of a cached admission
+    (its first chunk at PREFIX_LEN, through the pages of an earlier
+    prompt) against the same prompt uncached, fp32 within FP32_LOGIT_TOL,
+    which the hit mapped one page off must exceed; bf16 logged, with
+    whether the K/V rows are bit-equal. Returns failures."""
+    failed = []
+    for label, c in (("fp32", dataclasses.replace(
+            cfg, compute_dtype="float32")), ("bf16", cfg)):
+        out, same = prefix_paths(params, c, T, dev, prompts[0], prompts[1])
+        sound = max_diff(out["cached"], out["uncached"])
+        fault = max_diff(out["fault"], out["uncached"])
+        log(f"  cached admission {label} ({len(prompts[1])}-token prompt, "
+            f"{PREFIX_LEN // PS} pages mapped): max |logit diff| cached vs "
+            f"uncached {sound:.3e}, planted one-page-off map {fault:.3e} "
+            f"(limit {FP32_LOGIT_TOL:g}, fp32 only); K/V rows bit-equal "
+            f"cached and uncached: prefix {same['prefix']}, suffix "
+            f"{same['suffix']}")
+        if label == "fp32":
+            if not (math.isfinite(sound) and sound <= FP32_LOGIT_TOL):
+                failed.append("prefix fp32: cached and uncached logits "
+                              "differ")
+            if not fault > FP32_LOGIT_TOL:
+                failed.append("prefix fp32: the planted fault went unseen")
+        del out
+        torch.cuda.empty_cache()
+    return failed
+
+
+def run_prefix(params, cfg, scfg, dev, ops, T) -> dict:
+    """Phase 17: prefix caching on the paged engine, requests sharing a
+    PREFIX_LEN-token prefix, request 0 first: uncached (graphed), cached
+    eager then graphed; the fp32 gate; spec with the prefix cache on the
+    squeezed pool. Returns the readings."""
+    prompts = prefix_prompts(cfg.vocab)
+    log(f"  prompt lengths: {[len(p) for p in prompts]} (a {PREFIX_LEN}-"
+        f"token prefix shared)")
+    u_eng, u_launches, u_fin, u_tok_s = run_engine(
+        "paged uncached", params, cfg, scfg, prompts, dev, ops, stagger=True)
+    u_chunks = u_eng.chunk_steps
+    del u_eng
+    torch.cuda.empty_cache()
+    cached = dataclasses.replace(scfg, prefix_cache=True)
+    eng, launches, fin, tok_s = run_eager_and_graphed(
+        "paged prefix cache", params, cfg, cached, prompts, dev, ops,
+        stagger=True)
+    if eng.prefix_hits < 1 or eng.prefix_hit_pages < PREFIX_LEN // PS:
+        raise RuntimeError(f"prefix cache: {prefix_line(eng)}")
+    same = sum(int(fin[r] == u_fin[r]) for r in fin)
+    toks = sum(int(a == b) for r in fin for a, b in zip(fin[r], u_fin[r]))
+    out = {"tok_s": tok_s, "uncached_tok_s": u_tok_s,
+           "chunk_steps": eng.chunk_steps, "uncached_chunk_steps": u_chunks}
+    log(f"  cached graphed {tok_s:.1f} tok/s, {eng.chunk_steps} chunk steps;"
+        f" uncached graphed {u_tok_s:.1f} tok/s, {u_chunks} chunk steps "
+        f"({tok_s / u_tok_s:.2f}x); bf16 streams identical cached and "
+        f"uncached: {same}/{len(fin)} ({toks}/{len(fin) * MAX_NEW} tokens)")
+    del eng
+    torch.cuda.empty_cache()
+
+    failed = check_prefix_logits(params, cfg, T, dev, prompts)
+    if failed:
+        raise RuntimeError("; ".join(failed))
+
+    both = dataclasses.replace(cached, spec_k=SPEC_K, n_pages=SQUEEZED_PAGES)
+    eng, s_fin, wall, s_launches = serve(params, cfg, both, prompts, MAX_NEW,
+                                         dev, ops, stagger=True)
+    log(f"  spec_k {SPEC_K} with the prefix cache, squeezed pool, graphed: "
+        f"{len(s_fin)} requests in {wall:.2f} s, {eng.ticks} ticks, "
+        f"{eng.preemptions} preemptions, {eng.admission_rejections} holds; "
+        f"{prefix_line(eng)}; {spec_line(eng)}")
+    check_served(eng, s_fin, prompts, MAX_NEW, cfg.vocab)
+    check_spec_launches("spec with prefix cache", eng, s_launches,
+                        cfg.n_layers)
+    out["squeezed_cows"] = eng.cow_copies
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def init_model(name, configs, T, dev):
@@ -1450,8 +1925,8 @@ def main() -> None:
     log(f"  prompt lengths: {[len(p) for p in prompts]}")
     scfg = ServeConfig(max_len=MAX_LEN, batch=B, paged=True, page_size=PS,
                        chunk_size=CHUNK, eos_id=-1)
-    eng, launches, greedy, _ = run_eager_and_graphed("paged", params, cfg,
-                                                     scfg, prompts, dev, ops)
+    eng, launches, greedy, plain_tok_s = run_eager_and_graphed(
+        "paged", params, cfg, scfg, prompts, dev, ops)
     if min(launches["flash_decode_paged"],
            launches["flash_attention_paged"]) <= 0:
         raise RuntimeError(f"paged path skipped a kernel: {launches}")
@@ -1664,6 +2139,18 @@ def main() -> None:
     sampled_tok_s = run_sampled(params, cfg, sampled,
                                 make_requests(cfg.vocab, N_REQUESTS), greedy,
                                 dev, ops)
+    torch.cuda.empty_cache()
+
+    log("== speculative decoding: qwen3-4b at full width, paged ==")
+    spec = run_spec(params, cfg, scfg, make_requests(cfg.vocab, N_REQUESTS),
+                    greedy, plain_tok_s, dev, ops, T)
+    log(f"  flash_attention_paged at the verify shape: device time "
+        f"{timing['verify']['device_ms']:.4f} ms a launch (paged decode "
+        f"{timing['flash_decode_paged']['device_ms']:.4f} ms), "
+        f"{spec['verify_launches']} launches in the graphed phase-16 run")
+
+    log("== prefix caching: qwen3-4b at full width, paged ==")
+    prefix = run_prefix(params, cfg, scfg, dev, ops, T)
     del params
     torch.cuda.empty_cache()
 
@@ -1677,7 +2164,7 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
-        f"{sampled_tok_s:.1f} tok/s; total "
+        f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,28 +22,45 @@ batched decode step for every decode-active slot. Two cache layouts:
     progress first, youngest on ties); its pages return to the pool and
     the request re-queues at the head with its generated tokens, which
     are prefilled again as prompt on re-admission.
+  - **Prefix caching** (``prefix_cache=True``): every full page of a
+    prompt that a chunk completes is published in a ``PrefixIndex``;
+    an admission maps the longest cached run of full pages into its
+    table (refcounts, no data moved) and prefills only the rest. A write
+    that would land in a page another holder reads first copies that
+    page (copy-on-write, one ``copy_`` a layer on the device). Pages only
+    the index holds are evicted, least recently used first, before a
+    hold or a preemption.
+  - **Speculative decoding** (``spec_k > 0``): each tick a draft source
+    (``serve.spec``) proposes up to ``spec_k`` tokens for every
+    decode-active slot, and one verify step of width ``spec_k + 1``
+    scores them with the pending token through the paged prefill kernel;
+    the longest accepted prefix and the target's next token are emitted,
+    and the write positions roll back over the rejected rows.
 
 The page table and the per-slot write positions live on the host (numpy)
 and are copied into static device buffers before each step: every change
 to them is a host decision, so the engine never reads them back.
 
-**Steps.** The decode step (and, paged, the chunk step) is a function of
-those static buffers (``serve.graphs.Step``). On the card it is captured
-as one CUDA graph at construction, while every slot is empty, and each
-tick replays it: the counterpart of the reference's jitted executables,
-counted in ``decode_traces`` and ``prefill_traces`` as the reference
-counts its traces. ``capture=False`` runs the same functions eagerly (the
-counterpart of ``jax.disable_jit``), as the CPU always does; on the card
-each step is still run once at construction, so that both modes start
-warm. The
-contiguous prefill stays eager: one graph per bucket (per length, for SSM
-stacks) would be replayed once or twice a run.
+**Steps.** The decode step (with ``spec_k``, the verify step in its
+place; paged, also the chunk step) is a function of those static buffers
+(``serve.graphs.Step``). On the card it is captured as one CUDA graph at
+construction, while every slot is empty, and each tick replays it: the
+counterpart of the reference's jitted executables, counted in
+``decode_traces``, ``verify_traces`` and ``prefill_traces`` as the
+reference counts its traces. ``capture=False`` runs the same functions
+eagerly (the counterpart of ``jax.disable_jit``), as the CPU always does;
+on the card each step is still run once at construction, so that both
+modes start warm. The contiguous prefill stays eager: one graph per
+bucket (per length, for SSM stacks) would be replayed once or twice a
+run.
 
 **Sampling** (``temperature > 0``, ``serve.sampling``): every emitted
 token is drawn under a threefry key folded from (request id, emitted
 index), never from the tick, as the reference keys it; so a preempted
-and re-admitted stream replays its keys. The decode step folds the rows'
-keys on the device from static rid and index buffers; a prompt's first
+and re-admitted stream replays its keys, and a verify draws the keys
+sequential decode would. The decode (verify) step folds the rows' (and
+positions') keys on the device from static rid and index buffers; a
+prompt's first
 token (the paged engine's last chunk, the contiguous engine's admission)
 takes its key from the host. Greedy folds no key.
 """
@@ -52,7 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +80,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import graphs
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
+from repro_torch.serve import spec as spec_mod
 
 # The reference's default ``ServeConfig.preempt_cooldown``: a slot
 # re-admitted within this many ticks ranks behind its peers as a victim.
@@ -84,6 +102,12 @@ class ServeConfig:
     chunk_size: Optional[int] = None  # prefill chunk rows (paged; a
     # page_size multiple). The reference's None (an autotuned choice) is
     # not ported: paged mode requires it.
+    spec_k: int = 0              # drafted tokens a verify tick (paged); 0
+    # decodes one token a tick. The width stays fixed.
+    draft: Any = None            # spec_k > 0: a draft source, or "ngram"
+    # (None), "self", or an arch name (``spec.resolve_draft``)
+    prefix_cache: bool = False   # paged: share full-page prompt prefixes
+    # through the page table (``paged.PrefixIndex``)
 
 
 @dataclasses.dataclass
@@ -183,7 +207,14 @@ class ServingEngine:
             self.caches = T.init_paged_caches(cfg, serve_cfg.batch, max_len,
                                               ps, n_pages, device=self.device)
             self.max_pages = max_len // ps
+            self.prefix: Optional[paged_mod.PrefixIndex] = \
+                paged_mod.PrefixIndex(self.pool) if serve_cfg.prefix_cache \
+                else None
         else:
+            if serve_cfg.spec_k or serve_cfg.prefix_cache:
+                raise ValueError("speculative decoding and prefix caching "
+                                 "need paged=True")
+            self.prefix = None
             self.chunk = None
             self.pool = None
             self.caches = T.init_caches(cfg, serve_cfg.batch, max_len,
@@ -211,6 +242,24 @@ class ServingEngine:
         # capture, or a step's first eager run.
         self.decode_traces = 0
         self.prefill_traces: Dict[int, int] = {}
+        self.verify_traces = 0
+        # Speculative decoding: verify steps; (slot, tick) verifies, and
+        # their drafts proposed and accepted and tokens emitted.
+        if serve_cfg.spec_k < 0:
+            raise ValueError(f"spec_k {serve_cfg.spec_k} < 0")
+        self.spec_k = serve_cfg.spec_k
+        self.draft = spec_mod.resolve_draft(serve_cfg.draft, cfg, params,
+                                            self.device) \
+            if self.spec_k else None
+        self.verify_steps = self.spec_ticks = self.spec_proposed = 0
+        self.spec_accepted = self.spec_emitted = 0
+        # Prefix cache: admissions that mapped cached pages or found none,
+        # the pages mapped, copy-on-write splits, pages evicted; and each
+        # slot's publish chain (digest of its deepest published page,
+        # pages published).
+        self.prefix_hits = self.prefix_misses = self.prefix_hit_pages = 0
+        self.cow_copies = self.prefix_evictions = 0
+        self._chain: Dict[int, Tuple[bytes, int]] = {}
         self._pick = sampling.sampler(serve_cfg.temperature)
         self._base_key = sampling.prng_key(serve_cfg.seed)      # host copy
         self._rid_keys: Dict[int, torch.Tensor] = {}
@@ -237,8 +286,18 @@ class ServingEngine:
         self._next = torch.zeros((b,), **ints)
         self._dev_key = self._base_key.to(dev)
         t0 = time.perf_counter()
-        self._decode = graphs.Step(self._decode_fn(), dev, capture)
-        steps = [self._decode]
+        steps: Dict[str, graphs.Step] = {}
+        if self.spec_k:
+            # Verify, in place of the decode step (which a speculative
+            # engine never runs): each slot's pending token and drafts,
+            # and the target's pick at each position.
+            self._vtok = torch.zeros((b, self.spec_k + 1), **ints)
+            self._picks = torch.zeros((b, self.spec_k + 1), **ints)
+            self._verify = steps["verify"] = graphs.Step(self._verify_fn(),
+                                                         dev, capture)
+        else:
+            self._decode = steps["decode"] = graphs.Step(self._decode_fn(),
+                                                         dev, capture)
         if self.pool is not None:
             # Chunk: a batch-1 view of the pools through the slot's table
             # row, its tokens, write position, sampled row and key.
@@ -252,25 +311,36 @@ class ServingEngine:
             self._chunk_caches = [dict(c, pages=self._cpages,
                                        index=self._cstart)
                                   for c in self.caches]
-            self._chunk = graphs.Step(self._chunk_fn(), dev, capture)
-            steps.append(self._chunk)
-        self.graphed = self._decode.graph is not None
+            self._chunk = steps["chunk"] = graphs.Step(self._chunk_fn(), dev,
+                                                       capture)
+        self.graphed = next(iter(steps.values())).graph is not None
         if dev.type == "cuda":
             for c in self.caches:
                 for t in c.values():
                     t.zero_()
             torch.cuda.synchronize(dev)
         if self.graphed:
-            self.decode_traces = 1
+            if self.spec_k:
+                self.verify_traces = 1
+            else:
+                self.decode_traces = 1
             if self.pool is not None:
                 self.prefill_traces[self.chunk] = 1
         self.capture_seconds = time.perf_counter() - t0 if self.graphed \
             else 0.0
-        self.graph_bytes = sum(s.graph_bytes for s in steps)
-        # The port's kernels each captured graph holds, read back from it.
-        self.graph_nodes = {name: s.nodes for name, s in
-                            zip(("decode", "chunk"), steps)
+        # Device memory of each graph's private pool, and their sum.
+        self.graph_pools = {name: s.graph_bytes for name, s in steps.items()
                             if s.graph is not None}
+        self.graph_bytes = sum(self.graph_pools.values())
+        # The port's kernels each captured graph holds, read back from it.
+        self.graph_nodes = {name: s.nodes for name, s in steps.items()
+                            if s.graph is not None}
+        # The verify is attention over k + 1 rows a slot: the paged
+        # prefill kernel once a layer, never a decode.
+        want = {"flash_attention_paged": self.cfg.n_layers}
+        if "verify" in self.graph_nodes and self.graph_nodes["verify"] != want:
+            raise RuntimeError(f"the verify graph holds the kernels "
+                               f"{self.graph_nodes['verify']}, not {want}")
 
     # The step functions close over the static buffers, not over the
     # engine: a captured step that held the engine would form a cycle, and
@@ -293,6 +363,27 @@ class ServingEngine:
                     c["conv"].copy_(n["conv"])
                     c["ssm"].copy_(n["ssm"])
             keys = sampling.fold_row_keys(base, rids, ts) if sampled else None
+            out.copy_(pick(logits, keys))
+
+        return step
+
+    def _verify_fn(self) -> Callable[[], None]:
+        """The verify step over its static buffers: ``spec_k + 1`` rows a
+        slot written through the table from its write position and
+        attended (write-then-attend, the paged prefill kernel), the
+        target's token at every position into ``_picks``; position j of
+        row i drawn under the key of (rid i, t0 i + j)."""
+        params, cfg, caches, pick = self.params, self.cfg, self.caches, \
+            self._pick
+        toks, rids, t0s, out, base = (self._vtok, self._rids, self._ts,
+                                      self._picks, self._dev_key)
+        width = self.spec_k + 1
+        sampled = self.scfg.temperature > 0
+
+        def step() -> None:
+            logits, _ = T.forward(params, cfg, toks, caches=caches)
+            keys = sampling.fold_span_keys(base, rids, t0s, width) \
+                if sampled else None
             out.copy_(pick(logits, keys))
 
         return step
@@ -331,25 +422,45 @@ class ServingEngine:
         self.chunk_steps += 1
         return self._cnext
 
+    def _load_positions(self, active: List[int]) -> None:
+        """Copy the write positions, the page table and (sampled) the
+        active rows' key inputs into the static buffers a decode or
+        verify step reads."""
+        c0 = self.caches[0]
+        c0["index"].copy_(torch.from_numpy(self.index))
+        if self.pool is not None:
+            c0["pages"].copy_(torch.from_numpy(self.pages))
+        if self.scfg.temperature:
+            rids, ts = self._rid_ts(active)
+            self._rids.copy_(torch.from_numpy(rids))
+            self._ts.copy_(torch.from_numpy(ts))
+
     @torch.no_grad()
     def _decode_step(self, active: List[int]) -> np.ndarray:
         """One token for every slot (free and mid-prefill slots ride
         along: their rows land in the null page, are overwritten, or are
         never attended)."""
-        c0 = self.caches[0]
-        c0["index"].copy_(torch.from_numpy(self.index))
-        if self.pool is not None:
-            c0["pages"].copy_(torch.from_numpy(self.pages))
+        self._load_positions(active)
         self._tok.copy_(torch.from_numpy(self.last_tok))
-        if self.scfg.temperature:
-            rids, ts = self._rid_ts(active)
-            self._rids.copy_(torch.from_numpy(rids))
-            self._ts.copy_(torch.from_numpy(ts))
         self._decode()
         self.decode_traces = 1
         self.decode_steps += 1
         self.index += 1
         return self._next.cpu().numpy().copy()
+
+    @torch.no_grad()
+    def _verify_step(self, tokens: np.ndarray, active: List[int]
+                     ) -> np.ndarray:
+        """Score ``tokens`` (batch, spec_k + 1) from every slot's write
+        position; returns the picks (batch, spec_k + 1). Every write
+        position advances by the width, as the step's own did."""
+        self._load_positions(active)
+        self._vtok.copy_(torch.from_numpy(tokens))
+        self._verify()
+        self.verify_traces = 1
+        self.verify_steps += 1
+        self.index += self.spec_k + 1
+        return self._picks.cpu().numpy().copy()
 
     # -- sampling keys --------------------------------------------------------
 
@@ -431,20 +542,96 @@ class ServingEngine:
         have = len(self.pool.slot_pages[slot]) - len(pages)
         self.pages[slot, have:have + len(pages)] = pages
 
+    # -- prefix cache ---------------------------------------------------------
+
+    def _cow_page(self, slot: int, pos: int) -> None:
+        """Copy-on-write split of table position ``pos`` of ``slot``: a
+        fresh page takes a copy of the shared page's rows in every layer
+        (on the engine's stream, outside the graphs), and the host table
+        names it; the next step reads the table."""
+        old, new = self.pool.cow(slot, pos)
+        self.cow_copies += 1
+        for c in self.caches:
+            c["kp"][new].copy_(c["kp"][old])
+            c["vp"][new].copy_(c["vp"][old])
+        self.pages[slot, pos] = new
+
+    def _cow_range(self, slot: int, lo: int, hi: int) -> None:
+        """Split every shared page that backs rows [lo, hi) of ``slot``
+        before a write lands there: no write may touch a page with two
+        holds or more."""
+        if self.prefix is None:
+            return
+        held = self.pool.slot_pages.get(slot, ())
+        ps = self.scfg.page_size
+        for pos in range(lo // ps, min((max(hi, lo + 1) - 1) // ps,
+                                       len(held) - 1) + 1):
+            if self.pool.refcount(held[pos]) >= 2:
+                self._cow_page(slot, pos)
+
+    def _publish_rows(self, slot: int, req: Request, rows: int) -> None:
+        """Publish every full page of the effective prompt below ``rows``
+        (rows written) that ``slot``'s chain has not: such a page lies
+        below every later write of the slot, so its rows stay as they
+        are while the index holds it."""
+        if self.prefix is None or slot not in self._chain:
+            return
+        ps = self.scfg.page_size
+        digest, done = self._chain[slot]
+        limit = min(int(rows), self._effective_len(req)) // ps
+        if limit <= done:
+            return
+        prompt = self._effective_prompt(req)
+        held = self.pool.slot_pages.get(slot, ())
+        for j in range(done, min(limit, len(held))):
+            nxt = self.prefix.publish(prompt[j * ps:(j + 1) * ps], held[j],
+                                      digest, now=self.ticks)
+            if nxt is None:            # a digest collision ends the chain
+                break
+            digest, done = nxt, j + 1
+        self._chain[slot] = (digest, done)
+
+    def _evict_prefixes(self, need: int, keep=()) -> bool:
+        """Evict cached-idle prefix pages (LRU), never one in ``keep``,
+        until ``need`` pages are free; True when they are. An idle entry
+        costs a later prefill at most, so it goes before any hold or
+        preemption."""
+        if self.prefix is None:
+            return self.pool.can_alloc(need)
+        while not self.pool.can_alloc(need):
+            n = self.prefix.evict(need - self.pool.free_pages,
+                                  now=self.ticks, keep=keep)
+            if not n:
+                break
+            self.prefix_evictions += 1
+        return self.pool.can_alloc(need)
+
+    # -- page accounting ------------------------------------------------------
+
     def _pages_through_tick(self, req: Request) -> int:
-        """Table entries a decode-active slot needs for this tick's write
-        at position prompt + generated - 1 (writes past max_len spill to
-        the null page)."""
-        length = len(req.prompt) + len(req.generated) - 1
+        """Table entries a decode-active slot needs for this tick's
+        writes at positions prompt + generated - 1 up to ``spec_k`` rows
+        past it (drafts backed before they are accepted; writes past
+        max_len spill to the null page)."""
+        length = len(req.prompt) + len(req.generated) - 1 + self.spec_k
         return min(length // self.scfg.page_size + 1, self.max_pages)
 
     def _ensure_decode_pages(self) -> None:
-        """Grow each decode-active slot's table so this tick's write lands
-        in a real page; a short pool preempts another slot, and a pool
-        with nothing left to preempt raises ``PagePoolExhausted``."""
+        """Split any shared page this tick's step writes into (a
+        mid-prefill slot's ``1 + spec_k`` rows from its cursor, a
+        decode-active slot's from its newest token on), then grow each
+        decode-active slot's table so its writes land in real pages; a
+        short pool preempts another slot, and a pool with nothing left to
+        preempt raises ``PagePoolExhausted``."""
         for i, slot in enumerate(self.slots):
-            if slot is None or i in self._prefilling:
+            if slot is None:
                 continue
+            if i in self._prefilling:
+                cur = self._prefilling[i]
+                self._cow_range(i, cur, cur + 1 + self.spec_k)
+                continue
+            eff = self._effective_len(slot)
+            self._cow_range(i, max(0, eff - 1), eff + self.spec_k)
             target = self._pages_through_tick(slot)
             while len(self.pool.slot_pages.get(i, ())) < target:
                 if not self._preempt_for(1, protect={i}):
@@ -469,8 +656,11 @@ class ServingEngine:
         return min(victims, key=score)
 
     def _preempt_for(self, need: int, protect: set) -> bool:
-        """Preempt slots outside ``protect`` until ``need`` pages are
-        free. False when no victim is left."""
+        """Evict cached-idle prefixes, then preempt slots outside
+        ``protect``, until ``need`` pages are free. False when no victim
+        is left."""
+        if self._evict_prefixes(need):
+            return True
         while not self.pool.can_alloc(need):
             victims = [i for i, s in enumerate(self.slots)
                        if s is not None and i not in protect]
@@ -529,14 +719,17 @@ class ServingEngine:
 
     def free_slot(self, i: int) -> None:
         """Release slot ``i``: its write position zeroed (decode stops
-        reading the dead context) and, when paged, its pages back to the
-        pool and its table row zeroed, so its drifting writes land in the
-        null page."""
+        reading the dead context) and, when paged, its holds on its pages
+        dropped (those no one else holds go back to the pool) and its
+        table row zeroed, so its drifting writes land in the null
+        page."""
         self.slots[i] = None
         self._prefilling.pop(i, None)
         self._slot_seq.pop(i, None)
+        self._chain.pop(i, None)
         self.index[i] = 0
         if self.pool is not None:
+            # Refcounted: a page the index or another slot holds stays.
             self.pool.free_slot(i)
             self.pages[i] = 0
 
@@ -571,27 +764,58 @@ class ServingEngine:
             if plen > max_len:
                 raise ValueError(f"request {req.rid}: {plen} rows > "
                                  f"max_len {max_len}")
-            # Whole prompt plus its first decode write: a request that
-            # cannot fit the empty pool could never finish.
-            with_decode = paged_mod.pages_for(min(plen + 1, max_len), ps)
+            # Whole prompt plus its first decode write (its drafts
+            # included): a request that cannot fit the empty pool could
+            # never finish.
+            with_decode = paged_mod.pages_for(
+                min(plen + 1 + self.spec_k, max_len), ps)
             if with_decode > self.pool.capacity:
                 raise paged_mod.PagePoolExhausted(
                     f"request {req.rid}: needs {with_decode} pages but the "
                     f"pool holds {self.pool.capacity}; raise n_pages or "
                     f"page_size")
-            first = paged_mod.chunk_page_need(0, min(self.chunk, plen), 0,
-                                              ps, max_len)
-            if not self.pool.can_alloc(first + self._imminent_page_need()):
+            # The longest cached run of full pages. A prompt cached whole
+            # still prefills its last row (the first token needs its
+            # logit): the cursor stops at plen - 1, inside the last hit
+            # page, which is split now, before any step writes there.
+            hit_pages: List[int] = []
+            hit_digest, n_hit = paged_mod.ROOT_DIGEST, 0
+            if self.prefix is not None:
+                hit_pages, hit_digest, n_hit = self.prefix.probe(
+                    self._effective_prompt(req), plen // ps, now=self.ticks)
+            cursor = min(n_hit * ps, plen - 1)
+            cow_at = n_hit - 1 if n_hit * ps > cursor else None
+            # Priced: the first uncached chunk, the hit pages held (and
+            # one page for the split).
+            suffix_need = paged_mod.chunk_page_need(
+                cursor, min(self.chunk, plen - cursor), n_hit, ps, max_len)
+            first = suffix_need + (cow_at is not None)
+            # The pages just probed are not evicted to make room for the
+            # admission that maps them (the reference evicts them, then
+            # fails its share() assertion).
+            if not self._evict_prefixes(first + self._imminent_page_need(),
+                                        keep=hit_pages):
                 self.admission_rejections += 1
                 return                # hold: everyone waits for pages
             self.queue.pop(0)
             self.slots[i] = req
             if req.preempt_count:
                 req.readmitted_at = self.ticks
-            self._prefilling[i] = 0
+            self._prefilling[i] = cursor
             self._slot_seq[i] = self._admit_seq
             self._admit_seq += 1
-            self._append_pages(i, self.pool.alloc(i, first))
+            if self.prefix is not None:
+                if n_hit:
+                    self.pool.share(i, hit_pages)
+                    self._append_pages(i, hit_pages)
+                    self.prefix_hits += 1
+                    self.prefix_hit_pages += n_hit
+                else:
+                    self.prefix_misses += 1
+                self._chain[i] = (hit_digest, n_hit)
+            if cow_at is not None:
+                self._cow_page(i, cow_at)
+            self._append_pages(i, self.pool.alloc(i, suffix_need))
 
     def _admit_whole(self) -> None:
         """Contiguous admission: the queue's head goes to each free slot,
@@ -639,6 +863,8 @@ class ServingEngine:
                 if not self._preempt_for(need, protect={i}):
                     continue                   # stalled, retry next tick
                 self._append_pages(i, self.pool.alloc(i, need))
+            # The chunk step writes its whole padded width.
+            self._cow_range(i, cursor, cursor + self.chunk)
             chunk_toks = np.zeros((1, self.chunk), np.int64)
             chunk_toks[0, :n] = prompt[cursor:cursor + n]
             end = cursor + n
@@ -648,6 +874,9 @@ class ServingEngine:
             last_in = (true_len - 1 - cursor) if end == true_len else n - 1
             tok = self._chunk_step(chunk_toks, cursor, i, last_in, req)
             self.index[i] = end
+            # Every row below `end` went through the chunk step: equal
+            # token prefixes give equal pages, which later admissions map.
+            self._publish_rows(i, req, end)
             if end < true_len:
                 self._prefilling[i] = end
                 continue
@@ -668,17 +897,85 @@ class ServingEngine:
             nxt[i] = 0
         self.last_tok = nxt.astype(np.int64)
 
+    def _draft_history(self, req: Request) -> np.ndarray:
+        """What the draft source sees: the trailing ``window`` tokens of
+        prompt + generated for a drafter that declares a window (its host
+        work stays constant in the context), the whole history
+        otherwise."""
+        window = getattr(self.draft, "window", None)
+        if window is None:
+            return self._effective_prompt(req)
+        gen = req.generated
+        if len(gen) >= window:
+            return np.asarray(gen[-window:], np.int32)
+        head = req.prompt[max(0, len(req.prompt) - (window - len(gen))):]
+        return np.concatenate([np.asarray(head, np.int32),
+                               np.asarray(gen, np.int32)])
+
+    def _spec_tick(self, active: List[int]) -> None:
+        """One draft-and-verify step: up to ``spec_k`` drafts a
+        decode-active slot, scored with its pending token in the verify
+        step; the longest accepted prefix and the target's next token are
+        recorded (at least one token a slot, so a tick that accepts
+        nothing is a plain decode tick).
+
+        The verify wrote ``spec_k + 1`` rows for every slot and advanced
+        every write position by as many. The rows of the pending token and
+        the accepted drafts are the rows plain decode would have written;
+        a live slot's position goes back to its live length, so the
+        rejected rows are overwritten by its next writes (or lie in the
+        null page). Freed slots are at 0 (``free_slot``), mid-prefill
+        slots go back to their cursors (``_reset_prefill_positions``)."""
+        width = self.spec_k + 1
+        tokens = np.zeros((self.scfg.batch, width), np.int64)
+        tokens[:, 0] = self.last_tok
+        base_len: Dict[int, int] = {}
+        n_prop: Dict[int, int] = {}
+        for i in active:
+            req = self.slots[i]
+            base_len[i] = self._effective_len(req) - 1   # write position
+            prop = np.asarray(self.draft.propose(self._draft_history(req),
+                                                 self.spec_k),
+                              np.int64).ravel()[:self.spec_k]
+            n_prop[i] = len(prop)
+            tokens[i, 1:1 + len(prop)] = np.clip(prop, 0, self.cfg.vocab - 1)
+        picks = self._verify_step(tokens, active)
+        last = np.zeros((self.scfg.batch,), np.int64)
+        for i in active:
+            req = self.slots[i]
+            # Only what was drafted is scored: a zero-padded position that
+            # matched would inflate the accept count.
+            accepted, emitted = spec_mod.longest_accept(
+                tokens[i, 1:1 + n_prop[i]], picks[i, :n_prop[i] + 1])
+            done, n_rec = False, 0
+            for tok in emitted:
+                n_rec += 1
+                if self._record(i, req, tok):
+                    done = True                # EOS or max_new: rest dropped
+                    break
+            self.spec_ticks += 1
+            self.spec_proposed += n_prop[i]
+            self.spec_accepted += accepted
+            self.spec_emitted += n_rec
+            if not done:
+                # Live rows: the pending token and the n_rec - 1 accepted
+                # drafts; the last emitted token is fed back unwritten.
+                self.index[i] = base_len[i] + n_rec
+                last[i] = emitted[n_rec - 1]
+        self.last_tok = last
+
     def _reset_prefill_positions(self) -> None:
-        """The decode step advanced every slot's write position and wrote
-        a garbage row at each mid-prefill slot's cursor (the next chunk
-        overwrites it); put their positions back."""
+        """The decode (verify) step advanced every slot's write position
+        and wrote garbage rows from each mid-prefill slot's cursor (the
+        next chunks overwrite them); put their positions back."""
         for i, cursor in self._prefilling.items():
             self.index[i] = cursor
 
     @torch.no_grad()
     def tick(self) -> int:
-        """Admit, advance prefill chunks (paged), one decode step for the
-        decode-active slots; returns the number of slots making progress."""
+        """Admit, advance prefill chunks (paged), one decode step (or,
+        with ``spec_k``, one draft-and-verify step) for the decode-active
+        slots; returns the number of slots making progress."""
         self.ticks += 1
         self._admit()
         if self.pool is not None:
@@ -689,7 +986,10 @@ class ServingEngine:
         if not active:
             return len(self._prefilling)
         n = len(active) + len(self._prefilling)
-        self._decode_tick(active)
+        if self.spec_k:
+            self._spec_tick(active)
+        else:
+            self._decode_tick(active)
         self._reset_prefill_positions()
         return n
 

@@ -74,6 +74,33 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 80, 128])
+def test_cuda_paged_prefill_at_the_verify_shape(cuda_device, dtype, d):
+    """The speculative verify's attention: 8 slots of k + 1 rows (k 1, 2,
+    4) from ragged starts: 0, across a page boundary, rows past the
+    table's end (1022 + 5 > 64 pages of 16), and a freed slot whose table
+    row is zero."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + d)
+    b, h, kvh, ps, n_pages, max_pages = 8, 32, 8, 16, 600, 64
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    kp, vp = mk(n_pages, ps, kvh, d), mk(n_pages, ps, kvh, d)
+    table = torch.stack([torch.randperm(n_pages - 1, generator=g,
+                                        device=cuda_device)[:max_pages] + 1
+                         for _ in range(b)]).int()
+    table[5] = 0
+    starts = torch.tensor([0, 15, 16, 300, 1022, 7, 511, 1019],
+                          dtype=torch.int32, device=cuda_device)
+    for sq in (2, 3, 5):
+        q = mk(b, sq, h, d)
+        got = ops.flash_attention_paged(q, kp, vp, table, starts)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, ref.flash_attention_paged(q, kp, vp,
+                                                             table, starts))
+        assert ok, (sq, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
     """The contiguous decode kernel against its plain version, lengths
     with a 0, max_len and past max_len (a drifting free slot)."""
@@ -551,6 +578,45 @@ def test_cuda_graphed_engines_serve_the_eager_streams(cuda_device, arch,
                      dict(eng.prefill_buckets), dict(ops.LAUNCHES),
                      eng.decode_traces, dict(eng.prefill_traces)))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_graphed_spec_engine_with_prefix_cache_serves_the_eager_streams(
+        cuda_device, temperature):
+    """Speculative decoding (spec_k 2) with the prefix cache, eager
+    against graphed: the verify graph holds one paged prefill a layer and
+    no decode; the same streams, ticks, counters and launches; cached
+    streams equal uncached ones."""
+    cfg = GRAPH_CFGS["attn"]
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(2)
+    shared = rng.randint(2, cfg.vocab, 128)
+    prompts = [np.concatenate([shared, rng.randint(2, cfg.vocab, n)])
+               .astype(np.int32) for n in (5, 70, 30, 9, 64, 33)]
+    runs = []
+    for capture, cache in ((False, True), (True, True), (True, False)):
+        eng = ServingEngine(params, cfg, ServeConfig(
+            max_len=512, batch=4, paged=True, page_size=16, chunk_size=64,
+            eos_id=-1, temperature=temperature, seed=1, spec_k=2,
+            prefix_cache=cache), device=cuda_device, capture=capture)
+        if capture:
+            assert eng.graph_nodes["verify"] == {
+                "flash_attention_paged": cfg.n_layers}
+            assert "decode" not in eng.graph_nodes
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=12))
+        ops.reset_launches()
+        streams = eng.run_until_drained()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_decode_paged"] == 0
+        assert ops.LAUNCHES["flash_attention_paged"] == cfg.n_layers * (
+            eng.chunk_steps + eng.verify_steps)
+        runs.append((streams, eng.ticks, eng.chunk_steps, eng.verify_steps,
+                     eng.spec_accepted, eng.spec_emitted, eng.prefix_hits,
+                     eng.prefix_hit_pages, dict(ops.LAUNCHES)))
+    assert runs[0] == runs[1]
+    assert runs[1][0] == runs[2][0] and runs[1][6] > 0
 
 
 def test_cuda_keys_and_bits_match_the_cpu(cuda_device):

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_files_are_found():
     for rel in (("serve", "engine.py"), ("serve", "sampling.py"),
-                ("serve", "graphs.py"), ("models", "mamba.py"),
+                ("serve", "graphs.py"), ("serve", "spec.py"),
+                ("serve", "paged.py"), ("models", "mamba.py"),
                 ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
@@ -76,6 +77,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             ServingEngine(params, cfg, ServeConfig(
                 max_len=32, batch=2, paged=paged, chunk_size=8, page_size=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(params, cfg, ServeConfig(
+            max_len=32, batch=2, paged=True, chunk_size=8, page_size=8,
+            spec_k=2, prefix_cache=True))
+    from repro_torch.serve import spec
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spec.resolve_draft("qwen2-0.5b", cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         steps.init_state(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -45,7 +45,7 @@ def test_allocator_matches_reference_on_random_ops(seed):
             assert mine.can_alloc(n) == ref.can_alloc(n)
         assert _state(mine) == _state(ref)
         assert mine.pages_allocated - mine.pages_freed == mine.pages_in_use
-        assert 0 not in mine._live
+        assert 0 not in mine._ref          # the live pages
 
 
 def test_allocation_units_match_reference():
