@@ -118,7 +118,20 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     uncached, within phase 7's limit, which the hit mapped one page off
     must exceed, and whether the K/V rows are bit-equal; then spec with
     the prefix cache on the squeezed pool (every request done, splits
-    counted, no page leaked).
+    counted, no page leaked);
+18. open-loop overload: 48 bursty arrivals of two classes (chat, priority
+    2, and a metered batch tenant) through the speculative engine with
+    ``max_queue`` 16, ``max_preemptions`` 3, ``degrade`` and a chunk
+    budget of 2 on phase 6's squeezed pool, under the canonical fault
+    schedule (pool squeeze, accept collapse, churn storm): eager traced,
+    graphed traced and graphed untraced; every request resolved, no page
+    leaked, the page events reconciled with the allocator, eager = graphed
+    in event trace, counters, outcomes, streams and launches, traced =
+    untraced; a shed, a preemption, a forced or capped outcome, a degrade
+    enter and exit and a hold all taken; the paged decode launched on the
+    degraded ticks and the paged prefill on chunks and verifies, the
+    decode and verify graphs 36 of their kernel each; the Chrome trace
+    written to ``build/`` and read back; ``summarize``'s numbers logged.
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -1777,6 +1790,236 @@ def run_prefix(params, cfg, scfg, dev, ops, T) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 18: open-loop overload and observability
+# ----------------------------------------------------------------------------
+
+# A chat service with a metered batch tenant under a burst, on phase 6's
+# squeezed pool, which loses pages to a co-tenant, then its drafts' accept
+# rate, then its slots to a churn storm (the canonical fault schedule).
+OVERLOAD = dict(max_queue=16, max_preemptions=3, degrade=True,
+                prefill_chunks_per_tick=2, trace_capacity=1 << 16)
+OVERLOAD_TRAFFIC = dict(process="bursty", rate=0.5, burst_factor=8,
+                        n_requests=48, seed=0, max_prompt=1536)
+OVERLOAD_FAULTS = dict(t0=6, dwell=10, gap=8)
+OVERLOAD_TRACE = os.path.join(ROOT, "build", "overload_trace.json")
+
+
+def overload_configs(scfg, cfg):
+    """Phase 18's engine and traffic configurations."""
+    from repro_torch.serve import traffic
+    from repro_torch.serve.engine import SLOClass
+
+    classes = (SLOClass("chat", priority=2, ttft_slo=16, tpot_slo=2.0),
+               SLOClass("batch", priority=0, rate=256.0))
+    ocfg = dataclasses.replace(scfg, n_pages=SQUEEZED_PAGES, spec_k=SPEC_K,
+                               classes=classes, **OVERLOAD)
+    tcfg = traffic.TrafficConfig(vocab=cfg.vocab, classes=(
+        traffic.TrafficClass("chat", weight=0.7, prompt_lo=64, prompt_hi=512,
+                             out_lo=16, out_hi=64, ttft_ms=500.0,
+                             tpot_ms=50.0),
+        traffic.TrafficClass("batch", weight=0.3, prompt_lo=512,
+                             prompt_hi=1536, out_lo=32, out_hi=64)),
+        **OVERLOAD_TRAFFIC)
+    return ocfg, tcfg
+
+
+def run_overload_once(params, cfg, ocfg, tcfg, dev, ops, capture: bool,
+                      telemetry: bool) -> dict:
+    """One open-loop run of the overload engine under the fault schedule;
+    launch counts and wall time cover the run only (not the engine's
+    construction)."""
+    from repro_torch.serve import faults, traffic
+    from repro_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, dataclasses.replace(
+        ocfg, telemetry=telemetry), device=dev, capture=capture)
+    if eng.graphed != capture:
+        raise RuntimeError(f"engine graphed={eng.graphed}, asked {capture}")
+    arrivals = traffic.TrafficGenerator(tcfg).arrivals()
+    inj = faults.FaultInjector(faults.canonical_schedule(**OVERLOAD_FAULTS))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = traffic.run_open_loop(eng, arrivals, injector=inj)
+    inj.finish(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(len(v) for v in eng.finished.values())
+    return dict(eng=eng, arrivals=arrivals, res=res, inj=inj, wall=wall,
+                launches=dict(ops.LAUNCHES), tok_s=toks / wall, toks=toks,
+                leaked=eng.pool.pages_in_use,
+                phantom=faults.PHANTOM_SLOT in eng.pool.slot_pages)
+
+
+def overload_trace(eng) -> list:
+    """The event trace without its times: (tick, kind, payload)."""
+    return [(tick, kind, p) for _, tick, kind, p in eng.telemetry.events]
+
+
+def check_overload_run(label, run, cfg) -> list:
+    """A run's own gates: every request resolved, nothing leaked, the
+    page events reconciled with the allocator, the two kernels launched
+    as the steps run. Returns failures."""
+    eng, failed = run["eng"], []
+    if run["res"]["unresolved"]:
+        failed.append(f"{label}: unresolved {run['res']['unresolved']}")
+    if run["leaked"] or run["phantom"]:
+        failed.append(f"{label}: {run['leaked']} pages leaked (phantom held:"
+                      f" {run['phantom']})")
+    if eng.telemetry.enabled:
+        if eng.telemetry.dropped_events:
+            failed.append(f"{label}: the ring dropped events")
+        tel = eng.telemetry
+        net = (sum(p["n"] for *_, p in tel.events_of("page_alloc"))
+               - sum(p["n"] for *_, p in tel.events_of("page_free")))
+        if net != eng.pool.pages_allocated - eng.pool.pages_freed:
+            failed.append(f"{label}: page events net {net}, allocator "
+                          f"{eng.pool.pages_allocated - eng.pool.pages_freed}")
+    n, launches = cfg.n_layers, run["launches"]
+    if not (eng.decode_steps > 0 and eng.verify_steps > 0
+            and launches["flash_decode_paged"] == n * eng.decode_steps
+            and launches["flash_attention_paged"]
+            == n * (eng.chunk_steps + eng.verify_steps)):
+        failed.append(f"{label}: launches {launches} for {eng.decode_steps} "
+                      f"decode, {eng.verify_steps} verify, {eng.chunk_steps} "
+                      f"chunk steps")
+    return failed
+
+
+def overload_report(run, tcfg) -> dict:
+    """Log ``summarize``'s numbers, per-class attainment and the spans;
+    returns the readings."""
+    from repro_torch.serve import traffic
+
+    eng = run["eng"]
+    s = traffic.summarize(eng, run["arrivals"], classes=tcfg.classes)
+    log(f"  summarize: {s['offered']} offered, {s['done']} done, "
+        f"{s['forced']} forced, {s['rejected']} rejected in {s['ticks']} "
+        f"ticks; TTFT p50/p99 {s['ttft_p50']:.1f}/{s['ttft_p99']:.1f} ticks "
+        f"({s['ttft_ms_p50']:.1f}/{s['ttft_ms_p99']:.1f} ms), TPOT p50/p99 "
+        f"{s['tpot_p50']:.3f}/{s['tpot_p99']:.3f} ticks "
+        f"({s['tpot_ms_p50']:.2f}/{s['tpot_ms_p99']:.2f} ms); goodput "
+        f"{s['goodput_tokens_per_tick']:.3f} tok/tick; shed rate "
+        f"{s['shed_rate']:.4f}; {s['preemptions']} preemptions, "
+        f"{s['admission_holds']} holds, {s['downshifts']} downshifts, "
+        f"{s['degraded_ticks']} degraded ticks; tick wall p50/p99 "
+        f"{s['tick_wall_s_p50'] * 1e3:.2f}/{s['tick_wall_s_p99'] * 1e3:.2f} "
+        f"ms (mean {s['tick_wall_s_mean'] * 1e3:.2f})")
+    for name, c in sorted(s["by_class"].items()):
+        att = ", ".join(f"{k} {c[k]:.3f}" for k in (
+            "ttft_slo_attainment", "tpot_slo_attainment",
+            "ttft_ms_slo_attainment", "tpot_ms_slo_attainment") if k in c)
+        log(f"  class {name}: {c['done']}/{c['offered']} done, {c['forced']} "
+            f"forced, {c['rejected']} rejected, shed "
+            f"{eng.shed_by_class.get(name, 0)}; TTFT p50 {c['ttft_p50']:.1f} "
+            f"ticks; attainment: {att or 'no targets'}")
+    for name, st in sorted(eng.telemetry.span_stats().items()):
+        log(f"  span {name}: n {st['n']}, execute mean "
+            f"{st['execute_mean_s'] * 1e3:.3f} ms, first runs "
+            f"{st['compile_n']} ({st['compile_s'] * 1e3:.1f} ms)")
+    return s
+
+
+def run_overload(params, cfg, scfg, dev, ops) -> dict:
+    """Phase 18: the overload engine eager and traced, graphed and traced,
+    graphed and untraced, under the same arrivals and faults; the gates
+    of each run, eager = graphed, traced = untraced, the overload paths
+    all taken, the graphs' kernels, and the Chrome trace. Returns the
+    readings."""
+    t_phase = time.perf_counter()
+    ocfg, tcfg = overload_configs(scfg, cfg)
+    runs, failed = {}, []
+    for label, capture, traced in (("eager traced", False, True),
+                                   ("graphed traced", True, True),
+                                   ("graphed untraced", True, False)):
+        run = runs[label] = run_overload_once(params, cfg, ocfg, tcfg, dev,
+                                              ops, capture, traced)
+        eng = run["eng"]
+        pools = ", ".join(f"{k} {v / 2**20:.1f}"
+                          for k, v in eng.graph_pools.items())
+        log(f"  {label}: {len(eng.finished)} finished, {len(eng.rejected)} "
+            f"rejected, {run['toks']} tokens in {run['wall']:.2f} s "
+            f"({run['tok_s']:.1f} tok/s), {eng.ticks} ticks, "
+            f"{eng.chunk_steps} chunk, {eng.decode_steps} decode, "
+            f"{eng.verify_steps} verify steps; faults {run['inj'].injected} "
+            f"armed, {run['inj'].cleared} cleared; launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }"
+            + (f"; graph pools {eng.graph_bytes / 2**20:.1f} MiB ({pools}),"
+               f" captured in {eng.capture_seconds:.3f} s"
+               if eng.graphed else ""))
+        failed += check_overload_run(label, run, cfg)
+        if label != "graphed untraced":
+            run["trace"] = overload_trace(eng)
+            run["counters"] = dict(eng.telemetry.counters)
+        if label == "eager traced":
+            run["eng"] = types.SimpleNamespace(
+                outcome=eng.outcome, finished=eng.finished, ticks=eng.ticks)
+            del eng
+            torch.cuda.empty_cache()
+    eager, graphed, untraced = (runs[k] for k in (
+        "eager traced", "graphed traced", "graphed untraced"))
+    g = graphed["eng"]
+    for key in ("trace", "counters", "launches"):
+        if eager[key] != graphed[key]:
+            failed.append(f"eager and graphed {key} differ")
+    for key in ("outcome", "finished"):
+        if getattr(eager["eng"], key) != getattr(g, key):
+            failed.append(f"eager and graphed {key} differ")
+    u = untraced["eng"]
+    if (u.finished, u.outcome, u.ticks) != (g.finished, g.outcome, g.ticks):
+        failed.append("graphed traced and untraced runs differ")
+    c = g.telemetry.counters
+    outcomes = list(g.outcome.values())
+    forced = sum(o.startswith("forced") or o.endswith("preempt_limit")
+                 or o.endswith("capacity") for o in outcomes)
+    took = {"shed": c.get("shed", 0), "preempt": c.get("preempt", 0),
+            "forced or capped": forced,
+            "degrade_enter": c.get("degrade_enter", 0),
+            "degrade_exit": c.get("degrade_exit", 0),
+            "admit_hold": c.get("admit_hold", 0)}
+    log(f"  overload paths taken (graphed): {took}; outcomes "
+        f"{ {o: outcomes.count(o) for o in sorted(set(outcomes))} }; "
+        f"{spec_line(g)}")
+    if min(took.values()) < 1:
+        failed.append(f"an overload path was not taken: {took}")
+    n = cfg.n_layers
+    want = {"verify": {"flash_attention_paged": n},
+            "decode": {"flash_decode_paged": n},
+            "chunk": {"flash_attention_paged": n}}
+    if g.graph_nodes != want:
+        failed.append(f"the graphs hold {g.graph_nodes}, not {want}")
+    os.makedirs(os.path.dirname(OVERLOAD_TRACE), exist_ok=True)
+    with open(OVERLOAD_TRACE, "w") as f:
+        json.dump(g.telemetry.chrome_trace(), f)
+    with open(OVERLOAD_TRACE) as f:
+        back = json.load(f)
+    tracks = {e["tid"] for e in back["traceEvents"] if "tid" in e}
+    phases = {f"phase:{name}" for name in g.telemetry.span_stats()
+              if name != "prefill_chunk"}
+    slots = {f"slot:{i}" for i in range(g.scfg.batch)}
+    log(f"  chrome trace {os.path.relpath(OVERLOAD_TRACE, ROOT)}: "
+        f"{len(back['traceEvents'])} events, {os.path.getsize(OVERLOAD_TRACE)}"
+        f" bytes, tracks {sorted(tracks)}")
+    if not phases | slots <= tracks:
+        failed.append(f"chrome trace lacks tracks "
+                      f"{sorted((phases | slots) - tracks)}")
+    s = overload_report(graphed, tcfg)
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    log(f"  eager = graphed in trace, counters, outcomes, streams and "
+        f"launches; traced = untraced in streams, outcomes and ticks; phase "
+        f"18 in {time.perf_counter() - t_phase:.1f} s")
+    out = {"tok_s": {k: r["tok_s"] for k, r in runs.items()},
+           "ticks": g.ticks, "shed": took["shed"],
+           "preemptions": took["preempt"], "graph_MiB": {
+               k: v / 2**20 for k, v in g.graph_pools.items()},
+           "ttft_ms_p50": s["ttft_ms_p50"], "tpot_ms_p50": s["tpot_ms_p50"]}
+    del g, u, runs, graphed, untraced
+    torch.cuda.empty_cache()
+    return out
+
+
 def init_model(name, configs, T, dev):
     cfg = configs.get_config(name)
     t0 = time.perf_counter()
@@ -2151,6 +2394,9 @@ def main() -> None:
 
     log("== prefix caching: qwen3-4b at full width, paged ==")
     prefix = run_prefix(params, cfg, scfg, dev, ops, T)
+
+    log("== open-loop overload: qwen3-4b at full width, paged ==")
+    overload = run_overload(params, cfg, scfg, dev, ops)
     del params
     torch.cuda.empty_cache()
 
@@ -2164,7 +2410,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
-        f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; total "
+        f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
+        f"overload {overload}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

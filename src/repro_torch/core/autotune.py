@@ -142,3 +142,35 @@ def tuning_gain(p: GemmProblem,
         "tuned": {"config": dataclasses.astuple(cfg), **terms},
         "speedup": t_naive / terms["time_s"],
     }
+
+
+# -- serving overload pressure ------------------------------------------------
+# Port of the reference's pressure signal and degradation latch
+# (``repro/core/autotune.py``): pure functions of floats, which the
+# engine's degrade ladder reads each tick.
+
+DEGRADE_HIGH = 0.85   # default enter-degraded threshold (ServeConfig)
+DEGRADE_LOW = 0.60    # default leave-degraded threshold (hysteresis)
+
+
+def serve_pressure(pool_occupancy: float, queue_depth: int,
+                   batch: int) -> float:
+    """Load pressure in [0, 1]: the worse of the page pool's occupancy
+    (pages in use / capacity: near 1 the next decode page comes from a
+    preemption) and the queue depth over the decode batch (a queue deeper
+    than the batch means arrivals outrun service). ``max``, not a sum:
+    either resource saturating alone is an overload."""
+    q = min(1.0, float(queue_depth) / max(1.0, float(batch)))
+    return max(min(1.0, float(pool_occupancy)), q)
+
+
+def choose_degradation(pressure: float, degraded: bool,
+                       high: float = DEGRADE_HIGH,
+                       low: float = DEGRADE_LOW) -> bool:
+    """Hysteresis band of the load-shedding latch: enter degraded mode
+    at or above ``high``, leave at or below ``low``. The dead band keeps
+    a downshift, which lowers pressure, from flapping back each tick."""
+    assert 0.0 <= low <= high <= 1.0, (low, high)
+    if degraded:
+        return pressure > low
+    return pressure >= high

@@ -9,16 +9,29 @@ contiguous caches by default, a page pool with ``--paged``.
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --spec-k 4 \
       --prefix-cache
 
+Open-loop traffic (``--rate``) replaces the batch submit with the seeded
+arrival generator (``serve/traffic.py``), SLO-aware admission and the
+operator report; ``--faults`` adds the canonical fault schedule:
+
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged --smoke \
+      --device cpu --max-len 64 --page-size 8 --chunk-size 8 --requests 24 \
+      --rate 2.0 --process bursty --max-queue 8 --max-preemptions 3 \
+      --degrade --faults --tenant "name=paid,priority=2,weight=1" \
+      --tenant "name=free,weight=3,rate=2,burst=16,ttft=32" \
+      --trace-out trace.json
+
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
 with ``--seed``, which also seeds the sampling keys at ``--temperature``
-above 0. Cached attention and the SSD scan run through the port's
-kernels (their plain versions on the CPU). On a card each decode (or,
-with ``--spec-k``, verify) and chunk step is one captured CUDA graph.
+above 0 and the traffic. Cached attention and the SSD scan run through
+the port's kernels (their plain versions on the CPU). On a card each
+decode (or, with ``--spec-k``, verify; both with ``--degrade``) and chunk
+step is one captured CUDA graph.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -27,7 +40,74 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+from repro_torch.serve import traffic
+from repro_torch.serve.engine import (Request, ServeConfig, ServingEngine,
+                                      SLOClass)
+from repro_torch.serve.faults import FaultInjector, canonical_schedule
+
+
+def _parse_tenant(spec: str):
+    """``name=paid,priority=2,rate=1.5,burst=8,ttft=16,tpot=4,weight=1``
+    -> (SLOClass, TrafficClass), unset fields at their defaults."""
+    kv = {}
+    for part in spec.split(","):
+        k, sep, v = part.partition("=")
+        if not sep or not k:
+            raise SystemExit(f"--tenant wants k=v pairs, got {part!r}")
+        kv[k.strip()] = v.strip()
+    name = kv.pop("name", None)
+    if not name:
+        raise SystemExit(f"--tenant needs name=..., got {spec!r}")
+    known = {"priority", "ttft", "tpot", "rate", "burst", "weight",
+             "prompt-lo", "prompt-hi", "out-lo", "out-hi", "ttft-ms",
+             "tpot-ms", "sessions", "prefix-len"}
+    if set(kv) - known:
+        raise SystemExit(f"--tenant unknown keys {sorted(set(kv) - known)}")
+    num = lambda k, d=None: float(kv[k]) if k in kv else d  # noqa: E731
+    slo = SLOClass(name, priority=int(num("priority", 0)),
+                   ttft_slo=num("ttft"), tpot_slo=num("tpot"),
+                   rate=num("rate"), burst=num("burst"))
+    tcls = traffic.TrafficClass(
+        name, weight=num("weight", 1.0),
+        prompt_lo=int(num("prompt-lo", 4)),
+        prompt_hi=int(num("prompt-hi", 12)),
+        out_lo=int(num("out-lo", 2)), out_hi=int(num("out-hi", 8)),
+        ttft_ms=num("ttft-ms"), tpot_ms=num("tpot-ms"),
+        sessions=int(num("sessions", 0)),
+        prefix_len=int(num("prefix-len", 0)))
+    return slo, tcls
+
+
+def _report(engine, arrivals, res, inj, dt, tcfg, process, rate) -> None:
+    """The operator's report of an open-loop run (``traffic.summarize``)."""
+    s = traffic.summarize(engine, arrivals, classes=tcfg.classes)
+    print(f"offered {s['offered']} requests at rate {rate} ({process}): "
+          f"{s['done']} done, {s['forced']} forced, {s['rejected']} "
+          f"rejected, {len(res['unresolved'])} unresolved in {s['ticks']} "
+          f"ticks / {dt:.2f}s")
+    print(f"  ttft p50/p99 {s['ttft_p50']:.0f}/{s['ttft_p99']:.0f} ticks, "
+          f"tpot p50/p99 {s['tpot_p50']:.2f}/{s['tpot_p99']:.2f}, goodput "
+          f"{s['goodput_tokens_per_tick']:.2f} tok/tick, shed "
+          f"{s['shed_rate']:.2f}")
+    print(f"  preemptions {s['preemptions']}, admission holds "
+          f"{s['admission_holds']}, downshifts {s['downshifts']} "
+          f"({s['degraded_ticks']} degraded ticks)")
+    if "tick_wall_s_mean" in s:
+        print(f"  wall-clock: tick mean/p99 {s['tick_wall_s_mean'] * 1e3:.2f}"
+              f"/{s['tick_wall_s_p99'] * 1e3:.2f} ms, ttft p50 "
+              f"{s['ttft_ms_p50']:.0f} ms, tpot p50 {s['tpot_ms_p50']:.1f} "
+              f"ms/token")
+    if inj is not None:
+        print(f"  faults: {inj.injected} injected, {inj.cleared} cleared, "
+              f"{engine.pool.pages_in_use if engine.pool else 0} pages "
+              f"leaked")
+    for name, c in sorted(s["by_class"].items()):
+        slo = (f", ttft-slo {c['ttft_slo_attainment']:.0%}"
+               if "ttft_slo_attainment" in c else "")
+        slo += (f", ttft-ms-slo {c['ttft_ms_slo_attainment']:.0%}"
+                if "ttft_ms_slo_attainment" in c else "")
+        print(f"  class {name}: {c['done']}/{c['offered']} done, shed "
+              f"{engine.shed_by_class.get(name, 0)}{slo}")
 
 
 def main(argv=None):
@@ -62,7 +142,50 @@ def main(argv=None):
                          "of (request, emitted index)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    traf = ap.add_argument_group(
+        "open-loop traffic / SLO admission",
+        "--rate switches from the batch submit to the seeded open-loop "
+        "generator (serve/traffic.py): requests arrive on a Poisson or "
+        "bursty clock, admission is SLO-aware, and the run ends with the "
+        "operator report.")
+    traf.add_argument("--rate", type=float, default=None,
+                      help="offered load in requests an engine tick "
+                           "(enables traffic mode)")
+    traf.add_argument("--process", choices=("poisson", "bursty"),
+                      default="poisson", help="arrival process")
+    traf.add_argument("--burst-factor", type=float, default=8.0,
+                      help="burst-state rate multiplier (bursty)")
+    traf.add_argument("--tenant", action="append", default=[],
+                      help="repeatable tenant class: 'name=paid,priority=2,"
+                           "rate=1.5,burst=8,ttft=16,tpot=4,weight=1,"
+                           "prompt-lo=4,prompt-hi=12,out-lo=2,out-hi=8'; "
+                           "ttft-ms/tpot-ms score wall-clock targets")
+    traf.add_argument("--max-queue", type=int, default=None,
+                      help="bounded queue: overflow sheds the "
+                           "lowest-priority newest request")
+    traf.add_argument("--max-preemptions", type=int, default=None,
+                      help="a request preempted this many times is "
+                           "force-finished or rejected instead")
+    traf.add_argument("--degrade", action="store_true",
+                      help="downshift under pressure (spec off, prefill "
+                           "budget 1); recovers on its own")
+    traf.add_argument("--faults", action="store_true",
+                      help="run the canonical fault schedule (pool squeeze "
+                           "-> accept collapse -> churn storm)")
+    obs = ap.add_argument_group(
+        "observability (serve/telemetry.py)",
+        "Event traces and wall-clock spans are on by default.")
+    obs.add_argument("--trace-out", default=None, metavar="PATH",
+                     help="write the Chrome-trace/Perfetto JSON timeline "
+                          "here after the run")
+    obs.add_argument("--no-telemetry", action="store_true",
+                     help="no event ring and no spans (the decision "
+                          "counters stay exact)")
     args = ap.parse_args(argv)
+    if args.rate is None and (args.tenant or args.faults):
+        raise SystemExit("--tenant/--faults need --rate (traffic mode)")
+    if args.trace_out and args.no_telemetry:
+        raise SystemExit("--trace-out needs telemetry (drop --no-telemetry)")
     if args.spec_k and not args.paged:
         raise SystemExit("--spec-k needs --paged (the verify runs the paged "
                          "prefill kernel)")
@@ -75,26 +198,52 @@ def main(argv=None):
         else configs.get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
+    tenants = [_parse_tenant(s) for s in args.tenant]
     scfg = ServeConfig(max_len=args.max_len, batch=args.batch,
                        paged=args.paged, page_size=args.page_size,
                        chunk_size=args.chunk_size,
                        temperature=args.temperature, seed=args.seed,
                        spec_k=args.spec_k, draft=args.draft,
-                       prefix_cache=args.prefix_cache)
+                       prefix_cache=args.prefix_cache,
+                       classes=tuple(slo for slo, _ in tenants) or None,
+                       max_queue=args.max_queue,
+                       max_preemptions=args.max_preemptions,
+                       degrade=args.degrade,
+                       telemetry=not args.no_telemetry)
     engine = ServingEngine(params, cfg, scfg, device=device)
-    rng = np.random.RandomState(args.seed)
-    for rid in range(args.requests):
-        prompt = rng.randint(2, cfg.vocab, size=rng.randint(4, 12))
-        engine.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
-                              max_new=args.max_new))
+    if args.rate is not None:
+        tcfg = traffic.TrafficConfig(
+            rate=args.rate, n_requests=args.requests, seed=args.seed,
+            process=args.process, burst_factor=args.burst_factor,
+            vocab=cfg.vocab, max_prompt=args.max_len - args.max_new,
+            classes=tuple(t for _, t in tenants) or
+            (traffic.TrafficClass("default", out_lo=2,
+                                  out_hi=max(2, args.max_new)),))
+        arrivals = traffic.TrafficGenerator(tcfg).arrivals()
+        inj = FaultInjector(canonical_schedule()) if args.faults else None
+    else:
+        rng = np.random.RandomState(args.seed)
+        for rid in range(args.requests):
+            prompt = rng.randint(2, cfg.vocab, size=rng.randint(4, 12))
+            engine.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+                                  max_new=args.max_new))
     if device.type == "cuda":
         torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    finished = engine.run_until_drained()
+    if args.rate is not None:
+        res = traffic.run_open_loop(engine, arrivals, injector=inj)
+        if inj is not None:
+            inj.finish(engine)
+        finished = engine.finished
+    else:
+        finished = engine.run_until_drained()
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if args.rate is not None:
+        _report(engine, arrivals, res, inj, dt, tcfg, args.process,
+                args.rate)
     toks = sum(len(v) for v in finished.values())
     print(f"served {len(finished)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s) on {device}, "
@@ -128,6 +277,22 @@ def main(argv=None):
         print(f"  contiguous: {engine.ticks} ticks, prefill buckets "
               f"{dict(sorted(engine.prefill_buckets.items()))} (bucket: "
               f"prefills), {engine.decode_steps} decode steps")
+    tel = engine.telemetry
+    tstats = tel.tick_stats()
+    if tstats["n"]:
+        print(f"  telemetry: tick p50/p99 {tstats['p50_s'] * 1e3:.2f}/"
+              f"{tstats['p99_s'] * 1e3:.2f} ms over {tstats['n']} ticks, "
+              f"{len(tel.events)} events in ring ({tel.dropped_events} "
+              f"evicted)")
+        for name, st in sorted(tel.span_stats().items()):
+            print(f"    span {name}: n={st['n']} exec-mean="
+                  f"{st['execute_mean_s'] * 1e3:.2f} ms (first runs "
+                  f"{st['compile_n']}x {st['compile_s'] * 1e3:.1f} ms)")
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            json.dump(tel.chrome_trace(), f)
+        print(f"  wrote {args.trace_out} (open at ui.perfetto.dev or "
+              f"chrome://tracing)")
     print(f"  kernel launches: {dict(ops.LAUNCHES)}")
     for rid in sorted(finished):
         print(f"  req {rid}: {finished[rid][:10]}...")

@@ -37,6 +37,30 @@ batched decode step for every decode-active slot. Two cache layouts:
     the longest accepted prefix and the target's next token are emitted,
     and the write positions roll back over the rejected rows.
 
+**Overload** (every knob off by default, as in the reference):
+
+* ``classes`` (``SLOClass``): admission runs highest priority first,
+  preempted re-admissions ahead of all, each metered class through a
+  debit token bucket; preemption evicts the lowest class first.
+* ``max_queue``: beyond this depth the lowest-priority newest fresh
+  request is shed (``rejected``, ``shed_by_class``).
+* ``max_preemptions``: a request evicted that many times is next
+  force-finished with its partial stream (or rejected if it emitted
+  nothing); a request over the pool's capacity is rejected, and a lone
+  slot short of a decode page preempts itself, instead of raising.
+* ``prefill_chunks_per_tick``: a per-tick chunk budget, shortest
+  remaining first with an aging term, so a long prompt is not starved.
+* ``degrade``: under pressure (``core.autotune.serve_pressure``, with the
+  hysteresis of ``choose_degradation``) speculation is shed, the tick
+  runs the plain decode step, and the chunk budget drops to 1.
+
+**Telemetry** (``serve.telemetry``): every decision emits a typed event,
+and the decision counters (``preemptions``, ``admission_rejections``, the
+spec and prefix counters) are views over its aggregates; the phases and
+steps of a tick run under wall-clock spans. No synchronisation is added
+for it: the decode and verify spans end with the step's read of its
+picks, the chunk span with the launch only.
+
 The page table and the per-slot write positions live on the host (numpy)
 and are copied into static device buffers before each step: every change
 to them is a host decision, so the engine never reads them back.
@@ -46,8 +70,11 @@ place; paged, also the chunk step) is a function of those static buffers
 (``serve.graphs.Step``). On the card it is captured as one CUDA graph at
 construction, while every slot is empty, and each tick replays it: the
 counterpart of the reference's jitted executables, counted in
-``decode_traces``, ``verify_traces`` and ``prefill_traces`` as the
-reference counts its traces. ``capture=False`` runs the same functions
+``decode_traces``, ``verify_traces`` and ``prefill_traces`` at a step's
+first use, as the reference counts a trace (a speculative engine that
+never degrades never decodes: ``decode_traces`` stays 0). A speculative
+engine with ``degrade`` holds both the verify and the decode step.
+``capture=False`` runs the same functions
 eagerly (the counterpart of ``jax.disable_jit``), as the CPU always does;
 on the card each step is still run once at construction, so that both
 modes start warm. The contiguous prefill stays eager: one graph per
@@ -76,15 +103,37 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.core import autotune
 from repro_torch.models import transformer as T
 from repro_torch.serve import graphs
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
 from repro_torch.serve import spec as spec_mod
+from repro_torch.serve import telemetry as telemetry_mod
 
-# The reference's default ``ServeConfig.preempt_cooldown``: a slot
-# re-admitted within this many ticks ranks behind its peers as a victim.
-PREEMPT_COOLDOWN = 2
+
+@dataclasses.dataclass(frozen=True)
+class SLOClass:
+    """One request class and its service-level objectives.
+
+    ``priority`` orders admission (higher first) and preemption (lower
+    evicted first). The TTFT/TPOT targets (ticks) are accounting, which
+    ``serve.traffic.summarize`` scores. ``rate``/``burst`` meter the
+    class's admission token bucket (tokens a tick / bucket cap); a class
+    with ``rate=None`` admits unmetered."""
+
+    name: str
+    priority: int = 0            # higher = more important
+    ttft_slo: Optional[int] = None     # target ticks to first token
+    tpot_slo: Optional[float] = None   # target ticks an output token
+    rate: Optional[float] = None       # bucket refill, tokens a tick
+    burst: Optional[float] = None      # bucket cap; None -> 8 * rate
+
+    @property
+    def bucket_cap(self) -> float:
+        if self.burst is not None:
+            return float(self.burst)
+        return 8.0 * float(self.rate or 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +157,37 @@ class ServeConfig:
     # (None), "self", or an arch name (``spec.resolve_draft``)
     prefix_cache: bool = False   # paged: share full-page prompt prefixes
     # through the page table (``paged.PrefixIndex``)
+    prefill_chunks_per_tick: Optional[int] = None  # paged: chunk budget a
+    # tick; None runs one chunk for every mid-prefill slot
+    # -- overload (all off by default) ---------------------------------------
+    classes: Optional[Tuple[SLOClass, ...]] = None  # request classes;
+    # ``Request.rclass`` names one (unknown: priority 0, unmetered)
+    max_queue: Optional[int] = None  # bounded queue: beyond it, shed
+    max_preemptions: Optional[int] = None  # per-request preemption cap
+    preempt_cooldown: int = 2    # a slot re-admitted within this many
+    # ticks ranks behind its class peers as a victim
+    degrade: bool = False        # downshift under pressure (spec off,
+    # chunk budget 1), with hysteresis between the two thresholds
+    pressure_high: float = 0.85  # enter degraded mode at or above this
+    pressure_low: float = 0.60   # leave it at or below this
+    # -- observability (``serve.telemetry``) ---------------------------------
+    telemetry: bool = True       # event ring and wall-clock spans; off,
+    # the decision aggregates stay exact and the streams the same
+    trace_capacity: int = 4096   # ring entries a stream (events, spans,
+    # tick times)
+
+
+def _counter_view(key: str, doc: str) -> property:
+    """An engine counter as a view over ``telemetry.counters``: readable
+    and writable, stored in the telemetry's aggregates, so the event
+    trace and the counter cannot disagree."""
+    def get(self):
+        return self.telemetry.counters.get(key, 0)
+
+    def set_(self, v):
+        self.telemetry.counters[key] = int(v)
+
+    return property(get, set_, doc=doc)
 
 
 @dataclasses.dataclass
@@ -117,6 +197,7 @@ class Request:
     max_new: int
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    rclass: str = "default"      # SLO class name (ServeConfig.classes)
     preempt_count: int = 0       # times evicted back to the queue
     readmitted_at: Optional[int] = None  # tick of the last re-admission
 
@@ -228,42 +309,109 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * serve_cfg.batch
         self.queue: List[Request] = []
         self.finished: Dict[int, List[int]] = {}
-        self.outcome: Dict[int, str] = {}
         self.ticks = 0
+        self.first_token_tick: Dict[int, int] = {}   # rid -> tick
         self._prefilling: Dict[int, int] = {}   # slot -> prompt rows written
+        self._prefill_wait: Dict[int, int] = {} # slot -> ticks outranked
         self._slot_seq: Dict[int, int] = {}     # slot -> admission sequence
         self._admit_seq = 0
-        self.preemptions = 0
-        self.admission_rejections = 0
         self.chunk_steps = 0
         self.decode_steps = 0
         self.prefill_buckets: Dict[int, int] = {}  # bucket -> prefills run
-        # Builds of each step, as the reference counts its traces: a
-        # capture, or a step's first eager run.
+        # Builds of each step, counted at its first use as the reference
+        # counts its traces.
         self.decode_traces = 0
         self.prefill_traces: Dict[int, int] = {}
         self.verify_traces = 0
-        # Speculative decoding: verify steps; (slot, tick) verifies, and
-        # their drafts proposed and accepted and tokens emitted.
+        # The decision counters below the class body (preemptions, holds,
+        # spec and prefix counters, shed_by_class, preemption_log) are
+        # views over the telemetry's aggregates.
+        self.telemetry = telemetry_mod.Telemetry(
+            enabled=serve_cfg.telemetry, capacity=serve_cfg.trace_capacity)
+        # Overload accounting, as ``serve.traffic.summarize`` reads it.
+        self.submit_tick: Dict[int, int] = {}   # rid -> tick of submit()
+        self.finish_tick: Dict[int, int] = {}   # rid -> tick of last token
+        self.rejected: Dict[int, str] = {}      # rid -> shed reason
+        # rid -> done | forced:<reason> | rejected:<reason>
+        self.outcome: Dict[int, str] = {}
+        self._arrival_seq: Dict[int, int] = {}  # rid -> submit order
+        self._n_arrivals = 0
+        self._classes: Dict[str, SLOClass] = {
+            c.name: c for c in (serve_cfg.classes or ())}
+        if len(self._classes) != len(serve_cfg.classes or ()):
+            raise ValueError("duplicate SLO class names")
+        for c in self._classes.values():
+            if c.rate is not None and c.rate <= 0:
+                raise ValueError(f"class {c.name}: rate {c.rate} <= 0")
+        self._buckets: Dict[str, float] = {
+            c.name: c.bucket_cap for c in self._classes.values()
+            if c.rate is not None}
+        for name, lo in (("max_queue", 1), ("max_preemptions", 0),
+                         ("prefill_chunks_per_tick", 1)):
+            v = getattr(serve_cfg, name)
+            if v is not None and v < lo:
+                raise ValueError(f"{name} {v} < {lo}")
+        if serve_cfg.preempt_cooldown < 0:
+            raise ValueError(f"preempt_cooldown {serve_cfg.preempt_cooldown}"
+                             f" < 0")
+        self.degraded = False           # the load-shedding latch
+        self.last_pressure = 0.0
+        # Speculative decoding: verify steps (the (slot, tick) verifies,
+        # drafts proposed and accepted and tokens emitted are views).
         if serve_cfg.spec_k < 0:
             raise ValueError(f"spec_k {serve_cfg.spec_k} < 0")
         self.spec_k = serve_cfg.spec_k
         self.draft = spec_mod.resolve_draft(serve_cfg.draft, cfg, params,
                                             self.device) \
             if self.spec_k else None
-        self.verify_steps = self.spec_ticks = self.spec_proposed = 0
-        self.spec_accepted = self.spec_emitted = 0
-        # Prefix cache: admissions that mapped cached pages or found none,
-        # the pages mapped, copy-on-write splits, pages evicted; and each
-        # slot's publish chain (digest of its deepest published page,
-        # pages published).
-        self.prefix_hits = self.prefix_misses = self.prefix_hit_pages = 0
-        self.cow_copies = self.prefix_evictions = 0
+        self.verify_steps = 0
+        # Prefix cache: each slot's publish chain (digest of its deepest
+        # published page, pages published).
         self._chain: Dict[int, Tuple[bytes, int]] = {}
         self._pick = sampling.sampler(serve_cfg.temperature)
         self._base_key = sampling.prng_key(serve_cfg.seed)      # host copy
         self._rid_keys: Dict[int, torch.Tensor] = {}
         self._init_steps(capture)
+
+    # -- telemetry-backed counter views ---------------------------------------
+
+    admission_rejections = _counter_view(
+        "admit_hold", "pool-exhausted admission holds")
+    preemptions = _counter_view(
+        "preempt", "slots evicted back to the queue")
+    spec_ticks = _counter_view(
+        "spec_verify", "(slot, tick) verify events")
+    spec_proposed = _counter_view(
+        "spec_proposed", "drafted tokens proposed")
+    spec_accepted = _counter_view(
+        "spec_accepted", "drafted tokens accepted")
+    spec_emitted = _counter_view(
+        "spec_emitted", "tokens emitted by verify ticks")
+    downshifts = _counter_view(
+        "degrade_enter", "clean -> degraded ladder transitions")
+    degraded_ticks = _counter_view(
+        "degraded_tick", "ticks spent in degraded mode")
+    prefix_hits = _counter_view(
+        "prefix_hit", "admissions that mapped cached prefix pages")
+    prefix_misses = _counter_view(
+        "prefix_miss", "admissions that probed the index and found none")
+    prefix_hit_pages = _counter_view(
+        "prefix_hit_pages", "cached pages mapped by admissions (sum)")
+    cow_copies = _counter_view(
+        "cow_copy", "copy-on-write splits of shared pages")
+    prefix_evictions = _counter_view(
+        "prefix_evict", "LRU reclaims of cached-idle prefix runs")
+
+    @property
+    def shed_by_class(self) -> Dict[str, int]:
+        """Clean rejects a class (a view over ``shed`` events)."""
+        return self.telemetry.shed_by_class
+
+    @property
+    def preemption_log(self) -> List[Tuple[int, str, int]]:
+        """(rid, class, tokens generated at eviction) a ``preempt``
+        event."""
+        return self.telemetry.preemption_log
 
     # -- device steps ---------------------------------------------------------
 
@@ -288,14 +436,14 @@ class ServingEngine:
         t0 = time.perf_counter()
         steps: Dict[str, graphs.Step] = {}
         if self.spec_k:
-            # Verify, in place of the decode step (which a speculative
-            # engine never runs): each slot's pending token and drafts,
-            # and the target's pick at each position.
+            # Verify, in place of the decode step: each slot's pending
+            # token and drafts, and the target's pick at each position.
             self._vtok = torch.zeros((b, self.spec_k + 1), **ints)
             self._picks = torch.zeros((b, self.spec_k + 1), **ints)
             self._verify = steps["verify"] = graphs.Step(self._verify_fn(),
                                                          dev, capture)
-        else:
+        if not self.spec_k or self.scfg.degrade:
+            # A speculative engine decodes only on its degraded ticks.
             self._decode = steps["decode"] = graphs.Step(self._decode_fn(),
                                                          dev, capture)
         if self.pool is not None:
@@ -319,13 +467,6 @@ class ServingEngine:
                 for t in c.values():
                     t.zero_()
             torch.cuda.synchronize(dev)
-        if self.graphed:
-            if self.spec_k:
-                self.verify_traces = 1
-            else:
-                self.decode_traces = 1
-            if self.pool is not None:
-                self.prefill_traces[self.chunk] = 1
         self.capture_seconds = time.perf_counter() - t0 if self.graphed \
             else 0.0
         # Device memory of each graph's private pool, and their sum.
@@ -336,11 +477,15 @@ class ServingEngine:
         self.graph_nodes = {name: s.nodes for name, s in steps.items()
                             if s.graph is not None}
         # The verify is attention over k + 1 rows a slot: the paged
-        # prefill kernel once a layer, never a decode.
-        want = {"flash_attention_paged": self.cfg.n_layers}
-        if "verify" in self.graph_nodes and self.graph_nodes["verify"] != want:
-            raise RuntimeError(f"the verify graph holds the kernels "
-                               f"{self.graph_nodes['verify']}, not {want}")
+        # prefill kernel once a layer, never a decode; the paged decode
+        # step, the paged decode kernel once a layer.
+        n = self.cfg.n_layers
+        for name, want in (("verify", {"flash_attention_paged": n}),
+                           ("decode", {"flash_decode_paged": n})):
+            got = self.graph_nodes.get(name)
+            if self.pool is not None and got is not None and got != want:
+                raise RuntimeError(f"the {name} graph holds the kernels "
+                                   f"{got}, not {want}")
 
     # The step functions close over the static buffers, not over the
     # engine: a captured step that held the engine would form a cycle, and
@@ -534,11 +679,18 @@ class ServingEngine:
 
     # -- page-table plumbing --------------------------------------------------
 
-    def _append_pages(self, slot: int, pages: List[int]) -> None:
-        """Extend the slot's table with freshly allocated pages (entries
-        [have, have + n); live entries are never overwritten)."""
+    def _append_pages(self, slot: int, pages: List[int],
+                      fresh: bool = True) -> None:
+        """Extend the slot's table with ``pages`` (entries [have, have +
+        n); live entries are never overwritten). ``fresh=False``: a prefix
+        hit maps pages that already exist, traced by ``prefix_hit``, so
+        no ``page_alloc`` (whose sizes sum to the allocator's
+        ``pages_allocated``)."""
         if not pages:
             return
+        if fresh:
+            self.telemetry.emit(self.ticks, "page_alloc", slot=slot,
+                                n=len(pages))
         have = len(self.pool.slot_pages[slot]) - len(pages)
         self.pages[slot, have:have + len(pages)] = pages
 
@@ -550,7 +702,8 @@ class ServingEngine:
         (on the engine's stream, outside the graphs), and the host table
         names it; the next step reads the table."""
         old, new = self.pool.cow(slot, pos)
-        self.cow_copies += 1
+        self.telemetry.emit(self.ticks, "cow_copy", slot=slot, old=old,
+                            new=new, pos=pos)
         for c in self.caches:
             c["kp"][new].copy_(c["kp"][old])
             c["vp"][new].copy_(c["vp"][old])
@@ -603,7 +756,7 @@ class ServingEngine:
                                   now=self.ticks, keep=keep)
             if not n:
                 break
-            self.prefix_evictions += 1
+            self.telemetry.emit(self.ticks, "prefix_evict", n=n)
         return self.pool.can_alloc(need)
 
     # -- page accounting ------------------------------------------------------
@@ -622,7 +775,9 @@ class ServingEngine:
         decode-active slot's from its newest token on), then grow each
         decode-active slot's table so its writes land in real pages; a
         short pool preempts another slot, and a pool with nothing left to
-        preempt raises ``PagePoolExhausted``."""
+        preempt raises ``PagePoolExhausted``, unless ``max_preemptions``
+        is set: then the lone slot preempts itself (its partial stream
+        re-queues, or finishes at the cap)."""
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
@@ -635,6 +790,9 @@ class ServingEngine:
             target = self._pages_through_tick(slot)
             while len(self.pool.slot_pages.get(i, ())) < target:
                 if not self._preempt_for(1, protect={i}):
+                    if self.scfg.max_preemptions is not None:
+                        self._preempt(i)
+                        break
                     raise paged_mod.PagePoolExhausted(
                         f"slot {i} needs a decode page and no other slot "
                         f"is left to preempt; raise n_pages")
@@ -642,16 +800,28 @@ class ServingEngine:
 
     # -- preemption -----------------------------------------------------------
 
+    def _class_priority(self, req: Request) -> int:
+        cls = self._classes.get(req.rclass)
+        return cls.priority if cls is not None else 0
+
     def _choose_victim(self, victims: List[int]) -> int:
-        """The slot with the least completion progress loses; a slot
-        re-admitted within ``PREEMPT_COOLDOWN`` ticks ranks behind its
-        peers; ties go to the youngest admission."""
+        """The lowest class loses first; within a class the slot with the
+        least completion progress, ties to the youngest admission. Two
+        guards rank above that: a slot whose request reached
+        ``max_preemptions`` ranks last of all (evicting it again would end
+        it), and a slot re-admitted within ``preempt_cooldown`` ticks
+        ranks behind its class peers. A sole victim is always taken."""
+        lim = self.scfg.max_preemptions
+        cool = self.scfg.preempt_cooldown
+
         def score(i):
             req = self.slots[i]
             ra = req.readmitted_at
-            cooling = ra is not None and self.ticks - ra < PREEMPT_COOLDOWN
+            cooling = ra is not None and self.ticks - ra < cool
+            capped = lim is not None and req.preempt_count >= lim
             done = len(req.generated) / max(1, req.max_new)
-            return (cooling, done, -self._slot_seq[i])
+            return (capped, self._class_priority(req), cooling, done,
+                    -self._slot_seq[i])
 
         return min(victims, key=score)
 
@@ -669,30 +839,120 @@ class ServingEngine:
             self._preempt(self._choose_victim(victims))
         return True
 
-    def _finish(self, req: Request, outcome: str) -> None:
+    def _finish_forced(self, req: Request, reason: str) -> None:
+        """Terminal: keep the partial stream (a prefix of the uncontended
+        one: every token is keyed by (rid, index)) and leave."""
         req.done = True
         self.finished[req.rid] = req.generated
-        self.outcome[req.rid] = outcome
+        self.finish_tick[req.rid] = self.ticks
+        self.outcome[req.rid] = f"forced:{reason}"
+        self.telemetry.emit(self.ticks, "finish", rid=req.rid,
+                            rclass=req.rclass, outcome=f"forced:{reason}",
+                            n_tokens=len(req.generated))
+
+    def _reject(self, req: Request, reason: str) -> None:
+        """Terminal: a clean reject of a request that emitted nothing,
+        recorded by a ``shed`` event."""
+        req.done = True
+        self.rejected[req.rid] = reason
+        self.outcome[req.rid] = f"rejected:{reason}"
+        self.telemetry.emit(self.ticks, "shed", rid=req.rid,
+                            rclass=req.rclass, reason=reason)
 
     def _preempt(self, i: int) -> None:
         """Evict slot ``i``: pages back to the pool, the request back to
         the head of the queue with its generated tokens. A context that
         already reaches max_len has nothing left to re-prefill: it
-        finishes with what it generated."""
+        finishes with what it generated. A request already evicted
+        ``max_preemptions`` times finishes with its partial stream (or is
+        rejected if it emitted nothing) instead."""
         req = self.slots[i]
         self.free_slot(i)
         self.last_tok[i] = 0
         if len(req.prompt) + len(req.generated) >= self.scfg.max_len:
-            self._finish(req, "forced:max_len")
+            self._finish_forced(req, "max_len")
             return
-        self.preemptions += 1
+        lim = self.scfg.max_preemptions
+        if lim is not None and req.preempt_count >= lim:
+            if req.generated:
+                self._finish_forced(req, "preempt_limit")
+            else:
+                self._reject(req, "preempt_limit")
+            return
+        self.telemetry.emit(self.ticks, "preempt", rid=req.rid,
+                            rclass=req.rclass,
+                            n_generated=len(req.generated))
         req.preempt_count += 1
         self.queue.insert(0, req)
 
     # -- request lifecycle ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
+        self.submit_tick.setdefault(req.rid, self.ticks)
+        self._arrival_seq.setdefault(req.rid, self._n_arrivals)
+        self._n_arrivals += 1
+        self.telemetry.emit(self.ticks, "submit", rid=req.rid,
+                            rclass=req.rclass, prompt_rows=len(req.prompt),
+                            max_new=req.max_new)
         self.queue.append(req)
+        mq = self.scfg.max_queue
+        if mq is None or len(self.queue) <= mq:
+            return
+        # Bounded queue: shed the lowest-priority newest fresh request
+        # (never a preempted one: its tokens must reach an outcome). The
+        # request just submitted is a candidate, so the bound holds.
+        cands = [r for r in self.queue if not r.preempt_count]
+        victim = min(cands, key=lambda r: (
+            self._class_priority(r), -self._arrival_seq[r.rid]))
+        self.queue.remove(victim)
+        self._reject(victim, "queue_full")
+
+    # -- SLO-aware admission --------------------------------------------------
+
+    def _refill_buckets(self) -> None:
+        """One tick's refill of every metered class, capped at its
+        burst."""
+        for name, cls in self._classes.items():
+            if cls.rate is not None:
+                self._buckets[name] = min(cls.bucket_cap,
+                                          self._buckets[name] + cls.rate)
+
+    def _bucket_ok(self, req: Request) -> bool:
+        """Debit bucket: a class admits while its bucket is not negative;
+        the admission's whole token cost then debits it (perhaps below
+        zero). A re-admission was charged at its first and passes."""
+        cls = self._classes.get(req.rclass)
+        if cls is None or cls.rate is None or req.preempt_count:
+            return True
+        return self._buckets[req.rclass] >= 0.0
+
+    def _charge_bucket(self, req: Request) -> None:
+        cls = self._classes.get(req.rclass)
+        if cls is None or cls.rate is None or req.preempt_count:
+            return
+        self._buckets[req.rclass] -= self._effective_len(req) + req.max_new
+
+    def _admission_order(self) -> List[int]:
+        """Queue indices in admission order: FIFO without classes; with
+        them, preempted re-admissions first, then class priority
+        descending, then arrival."""
+        if not self._classes:
+            return list(range(len(self.queue)))
+
+        def key(qi):
+            r = self.queue[qi]
+            return (0 if r.preempt_count else 1, -self._class_priority(r),
+                    self._arrival_seq.get(r.rid, qi), qi)
+
+        return sorted(range(len(self.queue)), key=key)
+
+    def _next_admission(self) -> Optional[int]:
+        """The first queue index in admission order whose bucket admits;
+        None when every queued request is throttled."""
+        for qi in self._admission_order():
+            if self._bucket_ok(self.queue[qi]):
+                return qi
+        return None
 
     @staticmethod
     def _effective_prompt(req: Request) -> np.ndarray:
@@ -711,8 +971,16 @@ class ServingEngine:
     def _record(self, i: int, req: Request, tok: int) -> bool:
         """Append ``tok``; finish and free the slot on EOS or max_new."""
         req.generated.append(tok)
+        if len(req.generated) == 1 and req.rid not in self.first_token_tick:
+            self.first_token_tick[req.rid] = self.ticks
         if tok == self.scfg.eos_id or len(req.generated) >= req.max_new:
-            self._finish(req, "done")
+            req.done = True
+            self.finished[req.rid] = req.generated
+            self.finish_tick[req.rid] = self.ticks
+            self.outcome[req.rid] = "done"
+            self.telemetry.emit(self.ticks, "finish", rid=req.rid,
+                                rclass=req.rclass, outcome="done",
+                                n_tokens=len(req.generated))
             self.free_slot(i)
             return True
         return False
@@ -725,12 +993,17 @@ class ServingEngine:
         page."""
         self.slots[i] = None
         self._prefilling.pop(i, None)
+        self._prefill_wait.pop(i, None)
         self._slot_seq.pop(i, None)
         self._chain.pop(i, None)
         self.index[i] = 0
         if self.pool is not None:
-            # Refcounted: a page the index or another slot holds stays.
-            self.pool.free_slot(i)
+            # Refcounted: a page the index or another slot holds stays,
+            # and ``page_free`` counts only the pages that freed.
+            freed = self.pool.free_slot(i)
+            if freed:
+                self.telemetry.emit(self.ticks, "page_free", slot=i,
+                                    n=len(freed))
             self.pages[i] = 0
 
     def _imminent_page_need(self) -> int:
@@ -752,104 +1025,157 @@ class ServingEngine:
         return total
 
     def _admit(self) -> None:
-        if self.pool is None:
-            self._admit_whole()
-            return
+        """Fill free slots from the queue in admission order. Paged: the
+        first chunk's pages are reserved (the chunks run in
+        ``_prefill_tick``), and a short pool holds the admission, which
+        every later request waits behind. Contiguous: the whole prompt is
+        prefilled and installed now."""
+        self._refill_buckets()
         ps, max_len = self.scfg.page_size, self.scfg.max_len
         for i, slot in enumerate(self.slots):
-            if slot is not None or not self.queue:
+            if slot is not None:
                 continue
-            req = self.queue[0]
-            plen = self._effective_len(req)
-            if plen > max_len:
-                raise ValueError(f"request {req.rid}: {plen} rows > "
-                                 f"max_len {max_len}")
-            # Whole prompt plus its first decode write (its drafts
-            # included): a request that cannot fit the empty pool could
-            # never finish.
-            with_decode = paged_mod.pages_for(
-                min(plen + 1 + self.spec_k, max_len), ps)
-            if with_decode > self.pool.capacity:
-                raise paged_mod.PagePoolExhausted(
-                    f"request {req.rid}: needs {with_decode} pages but the "
-                    f"pool holds {self.pool.capacity}; raise n_pages or "
-                    f"page_size")
-            # The longest cached run of full pages. A prompt cached whole
-            # still prefills its last row (the first token needs its
-            # logit): the cursor stops at plen - 1, inside the last hit
-            # page, which is split now, before any step writes there.
-            hit_pages: List[int] = []
-            hit_digest, n_hit = paged_mod.ROOT_DIGEST, 0
-            if self.prefix is not None:
-                hit_pages, hit_digest, n_hit = self.prefix.probe(
-                    self._effective_prompt(req), plen // ps, now=self.ticks)
-            cursor = min(n_hit * ps, plen - 1)
-            cow_at = n_hit - 1 if n_hit * ps > cursor else None
-            # Priced: the first uncached chunk, the hit pages held (and
-            # one page for the split).
-            suffix_need = paged_mod.chunk_page_need(
-                cursor, min(self.chunk, plen - cursor), n_hit, ps, max_len)
-            first = suffix_need + (cow_at is not None)
-            # The pages just probed are not evicted to make room for the
-            # admission that maps them (the reference evicts them, then
-            # fails its share() assertion).
-            if not self._evict_prefixes(first + self._imminent_page_need(),
-                                        keep=hit_pages):
-                self.admission_rejections += 1
-                return                # hold: everyone waits for pages
-            self.queue.pop(0)
-            self.slots[i] = req
-            if req.preempt_count:
-                req.readmitted_at = self.ticks
-            self._prefilling[i] = cursor
-            self._slot_seq[i] = self._admit_seq
-            self._admit_seq += 1
-            if self.prefix is not None:
-                if n_hit:
-                    self.pool.share(i, hit_pages)
-                    self._append_pages(i, hit_pages)
-                    self.prefix_hits += 1
-                    self.prefix_hit_pages += n_hit
-                else:
-                    self.prefix_misses += 1
-                self._chain[i] = (hit_digest, n_hit)
-            if cow_at is not None:
-                self._cow_page(i, cow_at)
-            self._append_pages(i, self.pool.alloc(i, suffix_need))
+            while self.queue:
+                qi = self._next_admission()
+                if qi is None:
+                    return            # every queued class throttled
+                req = self.queue[qi]
+                if self.pool is None:
+                    self._admit_whole(i, qi, req)
+                    break
+                plen = self._effective_len(req)
+                if plen > max_len:
+                    raise ValueError(f"request {req.rid}: {plen} rows > "
+                                     f"max_len {max_len}")
+                # Whole prompt plus its first decode write (its drafts
+                # included): a request that cannot fit the empty pool
+                # could never finish. Under max_preemptions it gets an
+                # outcome (forced, or rejected if it emitted nothing);
+                # otherwise the engine raises.
+                with_decode = paged_mod.pages_for(
+                    min(plen + 1 + self.spec_k, max_len), ps)
+                if with_decode > self.pool.capacity:
+                    if self.scfg.max_preemptions is not None:
+                        self.queue.pop(qi)
+                        if req.generated:
+                            self._finish_forced(req, "capacity")
+                        else:
+                            self._reject(req, "capacity")
+                        continue       # this slot, the next request
+                    raise paged_mod.PagePoolExhausted(
+                        f"request {req.rid}: needs {with_decode} pages but "
+                        f"the pool holds {self.pool.capacity}; raise n_pages "
+                        f"or page_size")
+                # The longest cached run of full pages. A prompt cached
+                # whole still prefills its last row (the first token needs
+                # its logit): the cursor stops at plen - 1, inside the
+                # last hit page, which is split now, before any step
+                # writes there.
+                hit_pages: List[int] = []
+                hit_digest, n_hit = paged_mod.ROOT_DIGEST, 0
+                if self.prefix is not None:
+                    hit_pages, hit_digest, n_hit = self.prefix.probe(
+                        self._effective_prompt(req), plen // ps,
+                        now=self.ticks)
+                cursor = min(n_hit * ps, plen - 1)
+                cow_at = n_hit - 1 if n_hit * ps > cursor else None
+                # Priced: the first uncached chunk, the hit pages held
+                # (and one page for the split).
+                suffix_need = paged_mod.chunk_page_need(
+                    cursor, min(self.chunk, plen - cursor), n_hit, ps,
+                    max_len)
+                first = suffix_need + (cow_at is not None)
+                # The pages just probed are not evicted to make room for
+                # the admission that maps them (the reference evicts
+                # them, then fails its share() assertion).
+                if not self._evict_prefixes(first + self._imminent_page_need(),
+                                            keep=hit_pages):
+                    self.telemetry.emit(self.ticks, "admit_hold", rid=req.rid,
+                                        rclass=req.rclass, need=first,
+                                        free=self.pool.free_pages)
+                    return            # hold: everyone waits for pages
+                self.queue.pop(qi)
+                self._charge_bucket(req)
+                self.slots[i] = req
+                if req.preempt_count:
+                    req.readmitted_at = self.ticks   # the storm guard
+                self._prefilling[i] = cursor
+                self._slot_seq[i] = self._admit_seq
+                self._admit_seq += 1
+                self.telemetry.emit(self.ticks, "admit", rid=req.rid, slot=i,
+                                    rclass=req.rclass, rows=plen,
+                                    readmit=req.preempt_count)
+                if self.prefix is not None:
+                    if n_hit:
+                        self.pool.share(i, hit_pages)
+                        self._append_pages(i, hit_pages, fresh=False)
+                        self.telemetry.emit(self.ticks, "prefix_hit",
+                                            rid=req.rid, slot=i,
+                                            pages=n_hit, rows=cursor)
+                        self.telemetry.count("prefix_hit_pages", n_hit)
+                    else:
+                        self.telemetry.emit(self.ticks, "prefix_miss",
+                                            rid=req.rid, slot=i)
+                    self._chain[i] = (hit_digest, n_hit)
+                if cow_at is not None:
+                    self._cow_page(i, cow_at)
+                self._append_pages(i, self.pool.alloc(i, suffix_need))
+                break
 
-    def _admit_whole(self) -> None:
-        """Contiguous admission: the queue's head goes to each free slot,
-        its whole prompt prefilled and installed now and its first token
-        recorded (a request that finishes on it leaves the slot free until
-        the next tick)."""
-        for i, slot in enumerate(self.slots):
-            if slot is not None or not self.queue:
-                continue
-            req = self.queue.pop(0)
-            tok = self._prefill_into_slot(self._effective_prompt(req), i,
-                                          req)
-            self.slots[i] = req
-            self._slot_seq[i] = self._admit_seq
-            self._admit_seq += 1
-            if not self._record(i, req, tok):
-                self.last_tok[i] = tok
+    def _admit_whole(self, i: int, qi: int, req: Request) -> None:
+        """Contiguous admission of queue entry ``qi`` into free slot
+        ``i``: its whole prompt prefilled and installed now and its first
+        token recorded (a request that finishes on it leaves the slot
+        free until the next tick)."""
+        prompt = self._effective_prompt(req)
+        self.queue.pop(qi)
+        self._charge_bucket(req)
+        self.telemetry.emit(self.ticks, "admit", rid=req.rid, slot=i,
+                            rclass=req.rclass, rows=len(prompt),
+                            readmit=req.preempt_count)
+        bucket = self.bucket_for(len(prompt))
+        with self.telemetry.span("prefill_bucket", self.ticks,
+                                 slot=i) as sp:
+            n0 = self.prefill_traces.get(bucket, 0)
+            tok = self._prefill_into_slot(prompt, i, req)
+            sp.compile = self.prefill_traces.get(bucket, 0) > n0
+        self.slots[i] = req
+        self._slot_seq[i] = self._admit_seq
+        self._admit_seq += 1
+        if not self._record(i, req, tok):
+            self.last_tok[i] = tok
 
     def _prefill_order(self) -> List[int]:
-        """Mid-prefill slots, fewest chunks left first (admission order
-        breaks ties)."""
+        """Mid-prefill slots, fewest chunks left first, aged: each tick a
+        slot was outranked under the chunk budget counts as one chunk
+        less, so a long prompt is not starved by shorter arrivals
+        (admission order breaks ties)."""
         def key(i):
             remaining = -(-(self._effective_len(self.slots[i])
                             - self._prefilling[i]) // self.chunk)
-            return (remaining, self._slot_seq[i])
+            return (remaining - self._prefill_wait.get(i, 0),
+                    self._slot_seq[i])
 
         return sorted(self._prefilling, key=key)
 
     def _prefill_tick(self) -> None:
-        """One chunk for every mid-prefill slot. Each chunk's pages are
-        allocated right before it; a short pool preempts another slot or,
-        with none left, stalls this slot for the tick."""
+        """One chunk for each mid-prefill slot in ``_prefill_order``, up
+        to the tick's budget (``prefill_chunks_per_tick``; 1 while
+        degraded). Each chunk's pages are allocated right before it; a
+        short pool preempts another slot or, with none left, stalls this
+        slot for the tick."""
         ps, max_len = self.scfg.page_size, self.scfg.max_len
+        budget = self.scfg.prefill_chunks_per_tick
+        if self.degraded:
+            budget = 1 if budget is None else min(1, budget)
+        served = 0
+        tel = self.telemetry
         for i in self._prefill_order():
+            if budget is not None and served >= budget:
+                # Outranked by a served chunk: age.
+                if i in self._prefilling:
+                    self._prefill_wait[i] = self._prefill_wait.get(i, 0) + 1
+                continue
             if i not in self._prefilling:      # preempted by an earlier
                 continue                       # slot's chunk this tick
             req = self.slots[i]
@@ -865,6 +1191,8 @@ class ServingEngine:
                 self._append_pages(i, self.pool.alloc(i, need))
             # The chunk step writes its whole padded width.
             self._cow_range(i, cursor, cursor + self.chunk)
+            served += 1
+            self._prefill_wait.pop(i, None)
             chunk_toks = np.zeros((1, self.chunk), np.int64)
             chunk_toks[0, :n] = prompt[cursor:cursor + n]
             end = cursor + n
@@ -872,7 +1200,12 @@ class ServingEngine:
             # token, and the write position resets to `end` so the padded
             # rows are never attended.
             last_in = (true_len - 1 - cursor) if end == true_len else n - 1
-            tok = self._chunk_step(chunk_toks, cursor, i, last_in, req)
+            tel.emit(self.ticks, "prefill_chunk", rid=req.rid, slot=i,
+                     start=cursor, rows=n)
+            with tel.span("prefill_chunk", self.ticks, slot=i) as sp:
+                n0 = self.prefill_traces.get(self.chunk, 0)
+                tok = self._chunk_step(chunk_toks, cursor, i, last_in, req)
+                sp.compile = self.prefill_traces.get(self.chunk, 0) > n0
             self.index[i] = end
             # Every row below `end` went through the chunk step: equal
             # token prefixes give equal pages, which later admissions map.
@@ -885,8 +1218,48 @@ class ServingEngine:
             if not self._record(i, req, tok):
                 self.last_tok[i] = tok
 
+    def _update_pressure(self) -> None:
+        """The load-shedding latch (``degrade``): the pressure signal
+        (pool occupancy against queue depth, ``autotune.serve_pressure``)
+        drives a hysteresis band (``choose_degradation``). Degraded ticks
+        shed speculation and run one chunk; both downshifts emit exactly
+        the tokens clean ticks would."""
+        if not self.scfg.degrade:
+            return
+        occ = (self.pool.pages_in_use / max(1, self.pool.capacity)
+               if self.pool is not None else
+               sum(s is not None for s in self.slots) / self.scfg.batch)
+        self.last_pressure = autotune.serve_pressure(
+            occ, len(self.queue), self.scfg.batch)
+        was = self.degraded
+        self.degraded = autotune.choose_degradation(
+            self.last_pressure, was, self.scfg.pressure_high,
+            self.scfg.pressure_low)
+        if self.degraded:
+            # An aggregate only: the transitions are the ring's events.
+            self.telemetry.count("degraded_tick")
+            if not was:
+                self.telemetry.emit(self.ticks, "degrade_enter",
+                                    pressure=self.last_pressure)
+        elif was:
+            self.telemetry.emit(self.ticks, "degrade_exit",
+                                pressure=self.last_pressure)
+
+    def _spec_width(self) -> int:
+        """Drafts a slot this tick: ``spec_k``, or 0 (a plain decode tick)
+        without speculation or while degraded."""
+        return 0 if self.degraded else self.spec_k
+
     def _decode_tick(self, active: List[int]) -> None:
-        nxt = self._decode_step(active)
+        tel = self.telemetry
+        # Context accounting from host ints (no device read).
+        tel.count("decode_slot_ticks", len(active))
+        tel.count("decode_context_rows",
+                  sum(self._effective_len(self.slots[i]) for i in active))
+        with tel.span("decode", self.ticks) as sp:
+            n0 = self.decode_traces
+            nxt = self._decode_step(active)
+            sp.compile = self.decode_traces > n0
         active_set = set(active)
         for i in range(self.scfg.batch):
             if i in active_set:
@@ -927,19 +1300,28 @@ class ServingEngine:
         null page). Freed slots are at 0 (``free_slot``), mid-prefill
         slots go back to their cursors (``_reset_prefill_positions``)."""
         width = self.spec_k + 1
+        tel = self.telemetry
+        tel.count("verify_slot_ticks", len(active))
+        tel.count("verify_context_rows",
+                  sum(self._effective_len(self.slots[i]) for i in active))
         tokens = np.zeros((self.scfg.batch, width), np.int64)
         tokens[:, 0] = self.last_tok
         base_len: Dict[int, int] = {}
         n_prop: Dict[int, int] = {}
-        for i in active:
-            req = self.slots[i]
-            base_len[i] = self._effective_len(req) - 1   # write position
-            prop = np.asarray(self.draft.propose(self._draft_history(req),
-                                                 self.spec_k),
-                              np.int64).ravel()[:self.spec_k]
-            n_prop[i] = len(prop)
-            tokens[i, 1:1 + len(prop)] = np.clip(prop, 0, self.cfg.vocab - 1)
-        picks = self._verify_step(tokens, active)
+        with tel.span("draft", self.ticks):
+            for i in active:
+                req = self.slots[i]
+                base_len[i] = self._effective_len(req) - 1  # write position
+                prop = np.asarray(self.draft.propose(
+                    self._draft_history(req), self.spec_k),
+                    np.int64).ravel()[:self.spec_k]
+                n_prop[i] = len(prop)
+                tokens[i, 1:1 + len(prop)] = np.clip(prop, 0,
+                                                     self.cfg.vocab - 1)
+        with tel.span("spec_verify", self.ticks) as sp:
+            n0 = self.verify_traces
+            picks = self._verify_step(tokens, active)
+            sp.compile = self.verify_traces > n0
         last = np.zeros((self.scfg.batch,), np.int64)
         for i in active:
             req = self.slots[i]
@@ -953,10 +1335,9 @@ class ServingEngine:
                 if self._record(i, req, tok):
                     done = True                # EOS or max_new: rest dropped
                     break
-            self.spec_ticks += 1
-            self.spec_proposed += n_prop[i]
-            self.spec_accepted += accepted
-            self.spec_emitted += n_rec
+            # One event a (slot, tick), carrying the accept accounting.
+            tel.emit(self.ticks, "spec_verify", rid=req.rid, slot=i,
+                     proposed=n_prop[i], accepted=accepted, emitted=n_rec)
             if not done:
                 # Live rows: the pending token and the n_rec - 1 accepted
                 # drafts; the last emitted token is fed back unwritten.
@@ -973,24 +1354,33 @@ class ServingEngine:
 
     @torch.no_grad()
     def tick(self) -> int:
-        """Admit, advance prefill chunks (paged), one decode step (or,
-        with ``spec_k``, one draft-and-verify step) for the decode-active
-        slots; returns the number of slots making progress."""
+        """Update the degrade latch, admit, advance prefill chunks
+        (paged), one decode step (or, with ``spec_k`` and not degraded,
+        one draft-and-verify step) for the decode-active slots; returns
+        the number of slots making progress. The tick and its phases run
+        under wall-clock spans; none adds a synchronisation."""
+        tel = self.telemetry
+        t0 = tel.clock()
         self.ticks += 1
-        self._admit()
-        if self.pool is not None:
-            self._prefill_tick()
-            self._ensure_decode_pages()
+        self._update_pressure()
+        with tel.span("admit", self.ticks):
+            self._admit()
+        with tel.span("prefill", self.ticks):
+            if self.pool is not None:
+                self._prefill_tick()
+                self._ensure_decode_pages()
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i not in self._prefilling]
         if not active:
+            tel.tick_done(self.ticks, t0)
             return len(self._prefilling)
         n = len(active) + len(self._prefilling)
-        if self.spec_k:
+        if self._spec_width():
             self._spec_tick(active)
         else:
             self._decode_tick(active)
         self._reset_prefill_positions()
+        tel.tick_done(self.ticks, t0)
         return n
 
     def run_until_drained(self, max_ticks: int = 10000) -> Dict[int, List[int]]:

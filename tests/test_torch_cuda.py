@@ -23,8 +23,10 @@ from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gemm import TILES
 from repro_torch.models import transformer as T
-from repro_torch.serve import graphs, sampling
-from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+from repro_torch.serve import graphs, sampling, traffic
+from repro_torch.serve.engine import (Request, ServeConfig, ServingEngine,
+                                      SLOClass)
+from repro_torch.serve.faults import FaultInjector, canonical_schedule
 from repro_torch.train import steps
 from repro_torch.tree import tree_items, tree_map
 
@@ -448,7 +450,8 @@ def test_cuda_graphed_steps_match_eager_steps(cuda_device, arch, paged):
     cfg, (eager, graphed) = _graph_engines(cuda_device, arch, paged)
     assert graphed.graphed and not eager.graphed
     assert graphed.graph_bytes > 0 == eager.graph_bytes
-    assert graphed.decode_traces == 1 and eager.decode_traces == 0
+    # Builds are counted at a step's first use, captured or not.
+    assert graphed.decode_traces == eager.decode_traces == 0
     kernel = {("attn", True): "flash_decode_paged",
               ("attn", False): "flash_decode"}.get((arch, paged))
     assert graphed._decode.launches == graphed._decode.nodes == (
@@ -456,7 +459,7 @@ def test_cuda_graphed_steps_match_eager_steps(cuda_device, arch, paged):
     if paged:
         assert graphed._chunk.launches == graphed._chunk.nodes == {
             "flash_attention_paged": cfg.n_layers}
-        assert graphed.prefill_traces == {64: 1}
+        assert graphed.prefill_traces == eager.prefill_traces == {}
     rng = np.random.RandomState(0)
     b = graphed.scfg.batch
     table = rng.permutation(np.arange(1, 1 + b * 32)).reshape(b, 32)
@@ -490,6 +493,9 @@ def test_cuda_graphed_steps_match_eager_steps(cuda_device, arch, paged):
         assert outs[0] == outs[1], step
         for a, g in zip(_cache_tensors(eager), _cache_tensors(graphed)):
             assert torch.equal(a, g), step
+    assert graphed.decode_traces == eager.decode_traces == 1
+    assert graphed.prefill_traces == eager.prefill_traces == (
+        {64: 1} if paged else {})
     assert all(int(t.count_nonzero()) == 0
                for t in flash_decode._COUNTERS.values())
 
@@ -617,6 +623,60 @@ def test_cuda_graphed_spec_engine_with_prefix_cache_serves_the_eager_streams(
                      eng.prefix_hit_pages, dict(ops.LAUNCHES)))
     assert runs[0] == runs[1]
     assert runs[1][0] == runs[2][0] and runs[1][6] > 0
+
+
+def test_cuda_degrading_spec_engine_replays_both_graphs_under_faults(
+        cuda_device):
+    """A speculative engine with ``degrade`` holds a verify graph and a
+    decode graph; open-loop bursty traffic of two classes under the
+    canonical fault schedule runs both (verify ticks, and plain decode
+    ticks while degraded), eager and graphed alike: the same event trace,
+    outcomes, streams and launches, every request resolved, no page
+    leaked."""
+    cfg = GRAPH_CFGS["attn"]
+    n = cfg.n_layers
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    scfg = ServeConfig(max_len=512, batch=4, paged=True, page_size=16,
+                       chunk_size=64, eos_id=-1, n_pages=49, spec_k=2,
+                       degrade=True, max_queue=8, max_preemptions=3,
+                       prefill_chunks_per_tick=2, trace_capacity=1 << 16,
+                       classes=(SLOClass("chat", priority=2),
+                                SLOClass("batch", rate=64.0)))
+    tcfg = traffic.TrafficConfig(
+        rate=0.5, n_requests=24, seed=0, process="bursty", vocab=cfg.vocab,
+        max_prompt=300, classes=(
+            traffic.TrafficClass("chat", weight=0.7, prompt_lo=16,
+                                 prompt_hi=128, out_lo=8, out_hi=24),
+            traffic.TrafficClass("batch", weight=0.3, prompt_lo=128,
+                                 prompt_hi=300, out_lo=8, out_hi=24)))
+    runs = []
+    for capture in (False, True):
+        eng = ServingEngine(params, cfg, scfg, device=cuda_device,
+                            capture=capture)
+        if capture:
+            assert eng.graph_nodes == {
+                "verify": {"flash_attention_paged": n},
+                "decode": {"flash_decode_paged": n},
+                "chunk": {"flash_attention_paged": n}}
+        inj = FaultInjector(canonical_schedule())
+        ops.reset_launches()
+        res = traffic.run_open_loop(eng, traffic.TrafficGenerator(tcfg)
+                                    .arrivals(), injector=inj)
+        inj.finish(eng)
+        torch.cuda.synchronize()
+        assert res["unresolved"] == [] and eng.pool.pages_in_use == 0
+        assert inj.injected == inj.cleared == 3
+        assert eng.decode_steps > 0 and eng.verify_steps > 0
+        assert eng.downshifts >= 1 and eng.preemptions >= 1
+        assert ops.LAUNCHES["flash_decode_paged"] == n * eng.decode_steps
+        assert ops.LAUNCHES["flash_attention_paged"] == n * (
+            eng.chunk_steps + eng.verify_steps)
+        runs.append(([e[1:] for e in eng.telemetry.events], eng.outcome,
+                     eng.finished, eng.ticks, dict(eng.telemetry.counters),
+                     dict(ops.LAUNCHES), eng.decode_traces,
+                     eng.verify_traces))
+    assert runs[0] == runs[1]
 
 
 def test_cuda_keys_and_bits_match_the_cpu(cuda_device):

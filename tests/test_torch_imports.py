@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_files_are_found():
     for rel in (("serve", "engine.py"), ("serve", "sampling.py"),
                 ("serve", "graphs.py"), ("serve", "spec.py"),
-                ("serve", "paged.py"), ("models", "mamba.py"),
+                ("serve", "paged.py"), ("serve", "telemetry.py"),
+                ("serve", "traffic.py"), ("serve", "faults.py"),
+                ("models", "mamba.py"),
                 ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
