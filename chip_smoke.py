@@ -131,7 +131,25 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     enter and exit and a hold all taken; the paged decode launched on the
     degraded ticks and the paged prefill on chunks and verifies, the
     decode and verify graphs 36 of their kernel each; the Chrome trace
-    written to ``build/`` and read back; ``summarize``'s numbers logged.
+    written to ``build/`` and read back; ``summarize``'s numbers logged;
+19. the serving cost models and their calibration: every constant of
+    ``core.calibrate`` measured on the card into the phase's own tuning
+    cache (the page-lookup probe through both decode kernels, a stream
+    four times the L2 no faster than the data sheet), each beside its
+    assumed value; phase 5's requests served graphed with the chunk the
+    calibrated model chooses and with chunk 256 (equal streams, tok/s of
+    both); an adaptive speculative engine in fp32 (``spec_k`` 4,
+    ``NgramDraft``, the width re-chosen and a trial tick every 4 ticks)
+    through an accept-collapse window, eager then graphed: equal to each
+    other and to plain decode's streams, ``k_live`` open when the window
+    opens, 0 in it and above 0 after it, both the decode and the verify
+    graph captured; the drift report's ratios finite and positive under
+    the calibrated and the default constants, and ``choose_spec_k`` at
+    the accept rate measured beside phase 16's measured spec-over-plain
+    ratio.
+
+Phase 1 also holds the registers the GEMM tile chooser prices each tile
+with (``kernels.gemm.REGISTERS``) to this build's ptxas report.
 
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -2020,6 +2038,292 @@ def run_overload(params, cfg, scfg, dev, ops) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 19: the serving cost models and their calibration
+# ----------------------------------------------------------------------------
+
+# The phase's own tuning cache (removed before and after), so that no later
+# run's engines read what this one measured.
+COST_CACHE = os.path.join(ROOT, "build", "chip_smoke_tuning_cache.json")
+# The adaptive speculative engine: SPEC_K drafts at most, the width
+# re-chosen every ADAPT_EVERY verify ticks, a trial tick every ADAPT_EVERY
+# plain ticks once it is 0; drafts corrupted for COLLAPSE_TICKS ticks from
+# the first tick at or after COLLAPSE_AFTER at which speculation is open
+# (its early windows propose little, so k_live is often 0 there, and where
+# it re-opens depends on the constants this run measured). fp32, so that
+# its streams can be held to plain decode's (bf16 flips near-ties).
+ADAPT_EVERY = 4
+COLLAPSE_AFTER, COLLAPSE_TICKS = 24, 12
+ADAPT_REQUESTS, ADAPT_NEW = 8, 128
+
+
+def check_gemm_registers(report: list, gemm_kernel) -> list:
+    """The registers ``kernels.gemm.REGISTERS`` prices each tile's
+    occupancy with, against ptxas's report of this build."""
+    failed = []
+    for dtype, tiles in gemm_kernel.REGISTERS.items():
+        for (bm, _, bn), regs in tiles.items():
+            name = (f"gemm_kernel<float, {bm}, {bn}, true>"
+                    if dtype == torch.float32 else
+                    f"gemm_wgmma_kernel<{bn}, ")
+            got = [int(m.group(1)) for line in report if name in line
+                   for m in [re.search(r": (\d+) registers", line)] if m]
+            if not got or set(got) != {regs}:
+                failed.append(f"{name}: ptxas {got}, REGISTERS {regs}")
+    return failed
+
+
+def adaptive_run(params, cfg, scfg, prompts, dev, ops, capture: bool,
+                 faults):
+    """Serve ``prompts`` on the adaptive speculative engine, with an
+    accept-collapse window scheduled where speculation is open; returns
+    the engine, streams, launches, wall, the k_live a tick and the
+    window."""
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    eng = ServingEngine(params, cfg, scfg, device=dev, capture=capture)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=ADAPT_NEW))
+    inj = faults.FaultInjector([])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    traj, window = [], None
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        if window is None and eng.ticks >= COLLAPSE_AFTER and eng.k_live:
+            window = (eng.ticks, eng.ticks + COLLAPSE_TICKS)
+            inj.schedule.append(faults.Fault(
+                kind=faults.FaultInjector.ACCEPT_COLLAPSE, start=window[0],
+                stop=window[1]))
+        inj.step(eng)
+        n = eng.tick()
+        traj.append(eng.k_live)
+        if n == 0 and not eng.queue:
+            break
+    inj.finish(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if inj.injected != 1 or inj.cleared != 1:
+        raise RuntimeError(f"accept collapse injected {inj.injected}, "
+                           f"cleared {inj.cleared} (window {window})")
+    return eng, dict(eng.finished), dict(ops.LAUNCHES), wall, traj, window
+
+
+def collapse_and_reopen(traj: list, window) -> bool:
+    """``k_live`` (one entry a tick: ``traj[i]`` after tick i + 1) was
+    above 0 when the collapse window [lo, hi) opened (the window is armed
+    before tick lo + 1), reached 0 inside it, and was above 0 again after
+    the window's end."""
+    lo, hi = window
+    if len(traj) <= hi or not traj[lo - 1]:
+        return False
+    off = [i for i in range(lo, hi) if traj[i] == 0]
+    return bool(off) and any(traj[hi:])
+
+
+def drift_lines(label, rep) -> list:
+    """Log ``drift_report``'s components; returns the ratios that are not
+    finite and positive."""
+    bad = []
+    for comp in ("decode", "prefill_chunk", "spec_verify"):
+        row = rep.get(comp)
+        if row is None:
+            continue
+        log(f"  drift {label} {comp}: measured {row['measured_s'] * 1e3:.4f}"
+            f" ms over {row['n_spans']} spans; modelled (calibrated) "
+            f"{row['modeled_s'] * 1e3:.4f} ms, ratio {row['ratio']:.3f}; "
+            f"modelled (defaults) {row['modeled_default_s'] * 1e3:.4f} ms, "
+            f"ratio {row['ratio_default']:.3f}"
+            + (f"; mean context {row['mean_context']}, slots "
+               f"{row['mean_slots']}" if "mean_context" in row else "")
+            + (f"; accept rate {row['accept_rate']:.3f}"
+               if "accept_rate" in row else ""))
+        for key in ("ratio", "ratio_default"):
+            if not (math.isfinite(row[key]) and row[key] > 0):
+                bad.append(f"{label} {comp} {key} {row[key]}")
+    return bad
+
+
+def run_costmodels(params, cfg, scfg, dev, ops, spec) -> dict:
+    """Phase 19: calibrate every constant on the card into the phase's own
+    cache; serve phase 5's requests with the chunk the calibrated model
+    chooses and with chunk 256; the adaptive speculative engine through an
+    accept collapse, eager then graphed, against plain decode (fp32); the
+    drift report; ``choose_spec_k`` at the accept rate measured there.
+    Returns the readings."""
+    from repro_torch.core import autotune, calibrate
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import faults, telemetry
+    from repro_torch.serve.spec import NgramDraft
+    from repro_torch.tree import tree_map
+
+    saved = (autotune.TUNING_CACHE_PATH, autotune._tuning_cache,
+             os.environ.pop(autotune.DEFAULT_CONSTANTS_ENV, None))
+    if os.path.exists(COST_CACHE):
+        os.remove(COST_CACHE)
+    autotune.TUNING_CACHE_PATH, autotune._tuning_cache = COST_CACHE, None
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        results = calibrate.run_calibration(device=dev)
+        assumed = autotune.assumed_constants()
+        for name, r in results.items():
+            detail = {k: v for k, v in r.detail.items()
+                      if k not in ("lookups", "t_paged_s", "t_contig_s")}
+            log(f"  calibrated {name}: {r.value:.4e} {r.unit} (assumed "
+                f"{assumed[name]:.4e}, drift "
+                f"{autotune.drift_ratio(r.value, assumed[name]):.3f}; "
+                f"{r.n_trials} trials, spread {r.spread:.3f}); {detail}")
+        lk = results["page_lookup_s"].detail
+        log(f"  page-lookup sweep (device ms a launch, paged / contiguous):"
+            + ", ".join(f" {n} rows {p * 1e3:.4f}/{c * 1e3:.4f}"
+                        for n, p, c in zip(lk["tables"], lk["t_paged_s"],
+                                           lk["t_contig_s"])))
+        bad = [n for n, r in results.items()
+               if not (math.isfinite(r.value) and r.value > 0)]
+        if bad or set(results) != set(autotune.CALIBRATED_NAMES):
+            raise RuntimeError(f"calibration: constants {bad} not finite "
+                               f"and positive, or missing")
+        if results["hbm_bandwidth"].value > HBM_BYTES_PER_S:
+            raise RuntimeError("the stream read faster than the data sheet")
+        if min(lk["launches"].values()) <= 0:
+            raise RuntimeError(f"page-lookup probe launches {lk['launches']}")
+        const = autotune.resolve_constants(backend=dev.type)
+        if const.source != "calibrated":
+            raise RuntimeError(f"constants after calibration: {const}")
+        log(f"  calibration took {time.perf_counter() - t0:.1f} s")
+        out["constants"] = {n: r.value for n, r in results.items()}
+
+        # The chunk the calibrated model chooses, against chunk 256.
+        prompts = make_requests(cfg.vocab, N_REQUESTS)
+        auto = dataclasses.replace(scfg, chunk_size=None)
+        default_chunk, _ = autotune.choose_prefill_chunk(
+            MAX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.dhead, PS)
+        runs = {}
+        for label, c in (("chosen", auto), ("256", scfg)):
+            eng, fin, wall, launches = serve(params, cfg, c, prompts,
+                                             MAX_NEW, dev, ops)
+            check_served(eng, fin, prompts, MAX_NEW, cfg.vocab)
+            toks = sum(len(v) for v in fin.values())
+            runs[label] = dict(eng=eng, fin=fin, tok_s=toks / wall)
+            log(f"  chunk {eng.chunk} ({label}), graphed: {toks} tokens in "
+                f"{wall:.2f} s ({toks / wall:.1f} tok/s), {eng.ticks} ticks, "
+                f"{eng.chunk_steps} chunk steps, launches {launches}")
+        chosen = runs["chosen"]["eng"].chunk
+        log(f"  the calibrated model chose chunk {chosen} (the defaults "
+            f"choose {default_chunk}); {runs['chosen']['tok_s']:.1f} tok/s "
+            f"against chunk 256's {runs['256']['tok_s']:.1f}")
+        part = first_difference(runs["chosen"]["fin"], runs["256"]["fin"])
+        if part is not None:
+            raise RuntimeError(f"chunk {chosen} and chunk 256 streams part "
+                               f"at (rid, index) {part}")
+        chunk_drift = telemetry.drift_report(runs["chosen"]["eng"])
+        out.update(chunk=chosen, default_chunk=default_chunk,
+                   chunk_tok_s=runs["chosen"]["tok_s"],
+                   chunk256_tok_s=runs["256"]["tok_s"])
+        del runs, eng
+        torch.cuda.empty_cache()
+
+        # Adaptive speculation through an accept collapse, fp32.
+        f32cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        f32 = tree_map(lambda t: t.float(), params)   # a second copy
+        aprompts = make_requests(cfg.vocab, ADAPT_REQUESTS, lo=64, hi=512)
+        plain, p_fin, _, _ = serve(f32, f32cfg, scfg, aprompts, ADAPT_NEW,
+                                   dev, ops)
+        check_served(plain, p_fin, aprompts, ADAPT_NEW, cfg.vocab)
+        del plain
+        adapt = dataclasses.replace(
+            scfg, spec_k=SPEC_K, draft=NgramDraft(),
+            spec_adapt_every=ADAPT_EVERY, spec_probe_every=ADAPT_EVERY)
+        seen = {}
+        for capture in (False, True):
+            eng, fin, launches, wall, traj, window = adaptive_run(
+                f32, f32cfg, adapt, aprompts, dev, ops, capture, faults)
+            check_served(eng, fin, aprompts, ADAPT_NEW, cfg.vocab)
+            mode = "graphed" if capture else "eager"
+            log(f"  adaptive spec ({mode}, fp32): {eng.ticks} ticks in "
+                f"{wall:.2f} s, collapse over ticks {window}, k_live a "
+                f"tick {traj}; {eng.spec_probes} "
+                f"trial ticks; {spec_line(eng)}; {eng.decode_steps} decode "
+                f"steps, launches {launches}")
+            seen[mode] = (fin, traj, eng.spec_probes, launches,
+                          schedule(eng, launches), window)
+            if capture:
+                break
+            del eng
+            torch.cuda.empty_cache()
+        if seen["graphed"][1:] != seen["eager"][1:] or \
+                seen["graphed"][0] != seen["eager"][0]:
+            raise RuntimeError("adaptive spec: graphed and eager differ in "
+                               "streams, k_live, trial ticks or schedule")
+        diff = first_difference(seen["graphed"][0], p_fin)
+        if diff is not None:
+            raise RuntimeError(f"adaptive spec streams part from plain "
+                               f"decode at (rid, index) {diff}")
+        traj, window = seen["graphed"][1], seen["graphed"][5]
+        if window is None or not collapse_and_reopen(traj, window):
+            raise RuntimeError(f"k_live was not open at the collapse "
+                               f"window {window}, or did not fall to 0 "
+                               f"in it and reopen after it: {traj}")
+        want = {"verify": {"flash_attention_paged": cfg.n_layers},
+                "decode": {"flash_decode_paged": cfg.n_layers},
+                "chunk": {"flash_attention_paged": cfg.n_layers}}
+        if eng.graph_nodes != want:
+            raise RuntimeError(f"adaptive graphs hold {eng.graph_nodes}, "
+                               f"not {want}")
+        launches = seen["graphed"][3]
+        if min(launches["flash_decode_paged"],
+               launches["flash_attention_paged"]) <= 0:
+            raise RuntimeError(f"adaptive spec launches {launches}")
+        log(f"  adaptive spec: graphed = eager, streams = plain decode "
+            f"(fp32); the graphs {eng.graph_nodes}")
+        out.update(k_live=traj, collapse=window,
+                   spec_probes=eng.spec_probes, adaptive_launches=launches)
+
+        # Drift, and choose_spec_k at the accept rate measured here.
+        rep = telemetry.drift_report(eng, persist=True)
+        bad = drift_lines("adaptive fp32", rep)
+        bad += drift_lines("chunk-chooser bf16", chunk_drift)
+        cal = rep["calibration"]
+        log(f"  drift report constants: {rep['constants']}; calibration "
+            f"source {cal['source']}")
+        if bad or rep["constants"]["source"] != "calibrated":
+            raise RuntimeError(f"drift ratios not finite and positive: "
+                               f"{bad}")
+        rate = eng.spec_accepted / max(1, eng.spec_proposed)
+        c = eng.telemetry.counters
+        ctx = max(1, round(c["verify_context_rows"]
+                           / max(1, c["verify_slot_ticks"])))
+        param_bytes = T.active_param_count(cfg) * 2.0
+        k, terms = autotune.choose_spec_k(
+            [ctx] * B, cfg.n_heads, cfg.n_kv_heads, cfg.dhead, PS, rate,
+            param_bytes, ks=tuple(range(1, SPEC_K + 1)), constants=const)
+        at4 = autotune.spec_decode_model(
+            [ctx] * B, cfg.n_heads, cfg.n_kv_heads, cfg.dhead, PS, SPEC_K,
+            spec["accept_rate"], param_bytes, constants=const)
+        log(f"  choose_spec_k (bf16, {B} slots of {ctx} rows, calibrated) at "
+            f"the accept rate {rate:.3f} measured here: k {k}, modelled "
+            f"speedup {terms['speedup']:.3f}x; at k {SPEC_K} and phase 16's "
+            f"accept rate {spec['accept_rate']:.3f} the model says "
+            f"{at4['speedup']:.3f}x, where phase 16 measured graphed spec "
+            f"over plain {spec['tok_s'] / spec['plain_tok_s']:.3f}x")
+        out.update(drift={c: rep[c]["ratio"] for c in
+                          ("decode", "prefill_chunk", "spec_verify")
+                          if c in rep},
+                   chosen_k=k, modelled_speedup=terms["speedup"],
+                   modelled_k4=at4["speedup"],
+                   measured_k4=spec["tok_s"] / spec["plain_tok_s"])
+        del eng, f32
+        torch.cuda.empty_cache()
+    finally:
+        autotune.TUNING_CACHE_PATH, autotune._tuning_cache = saved[:2]
+        if saved[2] is not None:
+            os.environ[autotune.DEFAULT_CONSTANTS_ENV] = saved[2]
+        if os.path.exists(COST_CACHE):
+            os.remove(COST_CACHE)
+    return out
+
+
 def init_model(name, configs, T, dev):
     cfg = configs.get_config(name)
     t0 = time.perf_counter()
@@ -2141,9 +2445,14 @@ def main() -> None:
     lib = _build.build()
     log(f"  built {lib.name} from {[f.name for f in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in ptxas_report((lib.parent / "build.log").read_text()):
+    report = ptxas_report((lib.parent / "build.log").read_text())
+    for line in report:
         log(f"  ptxas: {line}")
     log(f"  toolchain: {toolchain(_build)}")
+    failed = check_gemm_registers(report, gemm_kernel)
+    if failed:
+        raise RuntimeError(f"the GEMM tile chooser's registers differ from "
+                           f"this build's: {failed}")
 
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
@@ -2397,6 +2706,12 @@ def main() -> None:
 
     log("== open-loop overload: qwen3-4b at full width, paged ==")
     overload = run_overload(params, cfg, scfg, dev, ops)
+    torch.cuda.empty_cache()
+
+    log("== cost models and calibration: qwen3-4b at full width, paged ==")
+    t0 = time.perf_counter()
+    costs = run_costmodels(params, cfg, scfg, dev, ops, spec)
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
 
@@ -2411,7 +2726,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
         f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
-        f"overload {overload}; total "
+        f"overload {overload}; cost models {costs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,17 @@
-"""Microbenchmark-informed GEMM tiling on the H100 (the paper's Ch.1 thesis).
+"""Microbenchmark-informed tuning on the H100 (the paper's Ch.1 thesis), and
+the serving path's cost models and their calibrated constants.
 
 The paper's demonstration is that measured microarchitectural parameters
 let a human beat the compiler's schedule. Here the card's published limits
-(``hwmodel.H100``) drive an analytical choice among the tiles that the
-GEMM kernels (``kernels/csrc/gemm.cu``, ``kernels.gemm.TILES``) instantiate
-for the problem's input type. Port of the GEMM section of
-``repro/core/autotune.py``, priced for each kernel's own engine:
+(``hwmodel.H100``) and constants measured on it (``core.calibrate``) drive
+analytical choices. Port of ``repro/core/autotune.py``, priced for the
+port's own kernels.
+
+GEMM tiles
+----------
+
+The GEMM kernels (``kernels/csrc/gemm.cu``, ``kernels.gemm.TILES``)
+instantiate a few tiles for each input type; the chooser picks among them:
 
 * a candidate is an instantiated tile of the input type whose staged input
   tiles fit one block's shared memory (the reference's VMEM budget): two
@@ -13,22 +19,73 @@ for the problem's input type. Port of the GEMM section of
   tensor-core kernel;
 * the reference's MXU efficiency becomes the tile efficiency: the useful
   share of the padded (m, k, n) that the tiles cover, times the wave
-  quantisation of ``ceil(tiles / 132)`` waves of one tile per SM, at the
-  engine's rate: the CUDA cores' fp32 FFMA rate for fp32 inputs, the
-  tensor cores' dense bf16 rate for bf16;
+  quantisation of waves of ``resident_ctas`` tiles on each of the 132 SMs
+  (the CTAs an SM holds by its registers, shared memory and thread
+  slots), times the share of the SM's dispatch slots the resident warps
+  keep busy (``dispatch_share``), at the engine's rate: the CUDA cores'
+  fp32 FFMA rate for fp32 inputs, the tensor cores' dense bf16 rate for
+  bf16;
 * the traffic formula is the reference's C-stationary one, unchanged: with
   (bm, bk, bn) tiles A is streamed n/bn times, B m/bm times and C once.
+
+Attention kernels
+-----------------
+
+The reference chose a Pallas block for each attention problem. The port's
+tiles are compile-time constants of ``kernels/csrc/paged_attention.cu``, so
+there is nothing to choose: ``attn_cost`` prices the tile each kernel runs
+(``decode_tile``, ``PREFILL_TILE``), and the serving models below price
+through it.
+
+Serving-path cost constants
+---------------------------
+
+The serving models price fixed costs with the constants below. Each has a
+hand-set default, an assumption written down before anything was measured
+(the reproducible fallback), and a value measured on the device by
+``core.calibrate`` (``python -m repro_torch.launch.calibrate``), kept in
+the port's tuning cache under the ``calibrated:`` namespace and preferred by
+``resolve_constants``:
+
+===================  =========  ==========================================
+constant             default    measured by (``core.calibrate`` probe)
+===================  =========  ==========================================
+``PAGE_LOOKUP_S``    5e-10 s    the paged decode's slope against the
+                                contiguous decode's over a sweep of
+                                context lengths, per page-table entry read
+``CHUNK_DISPATCH_S`` 2e-5 s     the mean chunk span of a small paged
+                                engine (on the card: a graph replay's
+                                launch)
+``PREFIX_HASH_S``    2e-6 s     a timed digest chain, per page of tokens
+``NGRAM_DRAFT_S``    2e-6 s     a timed ``NgramDraft.propose``, per token
+``dispatch_s``       (none)     best-of-N round trip of a tiny kernel (no
+                                model term: its baseline is
+                                ``CHUNK_DISPATCH_S``)
+``hbm_bandwidth``    the spec   a timed ``a + 1`` stream several times the
+                                size of the L2 (read and write)
+===================  =========  ==========================================
+
+Every model and ``choose_*`` takes ``constants=`` (a ``ServeConstants``);
+None means the hand-set defaults. The serving engine resolves them once,
+at construction (``resolve_constants``); ``REPRO_DEFAULT_CONSTANTS=1``
+forces the defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import json
+import math
+import os
+import tempfile
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import hwmodel
-from repro_torch.kernels.gemm import TC_STAGES, TILES
+from repro_torch.kernels import flash_attention as _prefill_kernel
+from repro_torch.kernels import flash_decode as _decode_kernel
+from repro_torch.kernels.gemm import REGISTERS, TC_STAGES, TC_THREADS, TILES
 
 DTYPE_OF = {4: torch.float32, 2: torch.bfloat16}     # by input bytes
 
@@ -61,16 +118,62 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def cta_threads(c: GemmConfig, in_bytes: int) -> int:
+    """Threads of one CTA of the tile's kernel: the tensor-core kernel's
+    two consumer warpgroups and producer warp, or one thread for each 8 x 8
+    register tile of the CUDA-core kernel."""
+    return TC_THREADS if in_bytes == 2 else (c.bm // 8) * (c.bn // 8)
+
+
+def resident_ctas(c: GemmConfig, in_bytes: int,
+                  gpu: hwmodel.GPUSpec = hwmodel.H100) -> int:
+    """CTAs of the tile's kernel that one SM holds at once: the least that
+    its registers (allocated a warp at a time, 256 at a time; the counts
+    ptxas reports, ``kernels.gemm.REGISTERS``), its shared memory (with the
+    block's reserved kilobyte), its thread slots and its block slots
+    allow. A tile the build does not instantiate has no register count:
+    its registers are not priced."""
+    threads = cta_threads(c, in_bytes)
+    warps = _ceil_div(threads, 32)
+    fits = [gpu.smem_per_sm // (c.smem_bytes(in_bytes)
+                                + gpu.smem_per_cta_reserved),
+            gpu.max_threads_per_sm // threads, gpu.max_ctas_per_sm]
+    regs = REGISTERS[DTYPE_OF[in_bytes]].get(dataclasses.astuple(c))
+    if regs is not None:
+        per_warp = _ceil_div(regs * 32, 256) * 256
+        fits.append(gpu.regs_per_sm // per_warp // warps)
+    return max(1, min(fits))
+
+
+def dispatch_share(c: GemmConfig, in_bytes: int,
+                   gpu: hwmodel.GPUSpec = hwmodel.H100) -> float:
+    """Share of an SM's dispatch slots the resident warps keep busy. The
+    CUDA-core kernel's dependent FFMA waits 4 cycles (Table 4.1's FFMA:
+    ``hwmodel.VOLTA_INSTR_LATENCY``, 4 cycles on Hopper too), so each of
+    the SM's schedulers needs that many resident warps to dispatch every
+    cycle. The tensor-core kernel's ``wgmma`` runs asynchronously beside
+    its warps: 1."""
+    if in_bytes == 2:
+        return 1.0
+    warps = resident_ctas(c, in_bytes, gpu) * _ceil_div(
+        cta_threads(c, in_bytes), 32)
+    need = gpu.schedulers_per_sm * hwmodel.VOLTA_INSTR_LATENCY["FFMA"]
+    return min(1.0, warps / need)
+
+
 def tile_efficiency(p: GemmProblem, c: GemmConfig,
                     gpu: hwmodel.GPUSpec = hwmodel.H100) -> float:
-    """Useful share of the FFMA issue a tiling buys: the problem over its
-    padding to whole tiles in m, k and n, times the filled share of the
-    last wave of ``ceil(tiles / sms)`` (one output tile per SM a wave)."""
+    """Useful share of the engine's peak a tiling buys: the problem over
+    its padding to whole tiles in m, k and n, times the filled share of the
+    last wave (a wave: ``resident_ctas`` tiles on every SM), times the
+    resident warps' share of the dispatch slots (``dispatch_share``)."""
     pm, pk, pn = (_ceil_div(d, b) * b for d, b in ((p.m, c.bm), (p.k, c.bk),
                                                    (p.n, c.bn)))
     tiles = _ceil_div(p.m, c.bm) * _ceil_div(p.n, c.bn)
-    waves = _ceil_div(tiles, gpu.sms)
-    return (p.m * p.k * p.n) / (pm * pk * pn) * tiles / (waves * gpu.sms)
+    per_wave = gpu.sms * resident_ctas(c, p.in_bytes, gpu)
+    waves = _ceil_div(tiles, per_wave)
+    return ((p.m * p.k * p.n) / (pm * pk * pn) * tiles / (waves * per_wave)
+            * dispatch_share(c, p.in_bytes, gpu))
 
 
 def gemm_cost(p: GemmProblem, c: GemmConfig,
@@ -142,6 +245,747 @@ def tuning_gain(p: GemmProblem,
         "tuned": {"config": dataclasses.astuple(cfg), **terms},
         "speedup": t_naive / terms["time_s"],
     }
+
+
+# ----------------------------------------------------------------------------
+# Attention kernels: the tiles the port's kernels run.
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnProblem:
+    """One flash-attention launch: ``batch * n_heads`` independent rows of a
+    (sq x skv x head_dim) attention, causally masked or not.
+
+    For flash *decode* set ``sq`` to the GQA group size (queries per KV head)
+    and ``n_heads`` to ``n_kv_heads`` — that is exactly the row shape the
+    decode kernel runs per (slot, kv head) grid step.
+    """
+
+    sq: int
+    skv: int
+    n_heads: int
+    head_dim: int
+    batch: int = 1
+    causal: bool = True
+    in_bytes: int = 2          # bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnBlock:
+    """A kernel's tile: ``block_q`` query rows a CTA (or a query block of
+    the decode's CTA), ``block_k`` key rows a step."""
+
+    block_q: int
+    block_k: int
+
+
+def _attn_visited_blocks(p: AttnProblem, c: AttnBlock) -> int:
+    """Number of (q-block, k-block) grid steps the skipped-load causal grid
+    actually visits — the quantity the scalar-prefetch map shrinks."""
+    nq = _ceil_div(p.sq, c.block_q)
+    nk = _ceil_div(p.skv, c.block_k)
+    if not p.causal:
+        return nq * nk
+    off = p.skv - p.sq          # query i attends keys <= i + off
+    total = 0
+    for qi in range(nq):
+        last_row = min(qi * c.block_q + c.block_q - 1, p.sq - 1)
+        total += min(_ceil_div(last_row + off + 1, c.block_k), nk)
+    return total
+
+
+# The prefill body's tile (``prefill_mma_kernel`` and ``prefill_kernel``):
+# a CTA for each (64 query rows, q head, slot); 64-row key tiles, those past
+# the causal diagonal skipped.
+PREFILL_TILE = AttnBlock(_prefill_kernel.BLOCK_Q, _prefill_kernel.TILE_K)
+
+
+def decode_tile(in_bytes: int) -> AttnBlock:
+    """The split decode's tile (``decode_split_kernel``): a query block of
+    16 rows (bf16, ``mma.sync``) or 8 (fp32) of one kv head's group, each
+    warp scoring 16 key rows a step."""
+    return AttnBlock(_decode_kernel.QUERY_BLOCK[DTYPE_OF[in_bytes]],
+                     _decode_kernel.WARP_ROWS)
+
+
+def attn_cost(p: AttnProblem, c: AttnBlock,
+              gpu: hwmodel.GPUSpec = hwmodel.H100,
+              page_size: Optional[int] = None) -> Tuple[float, dict]:
+    """Modelled time (seconds) of the port's kernel running tile ``c`` on
+    problem ``p``, plus terms: the larger of the bytes over the memory rate
+    and the operations over the engine's peak (the tensor cores' bf16 rate,
+    or the CUDA cores' fp32 FFMA rate).
+
+    K/V tiles are read once a visited (query block, key tile) step of each
+    row: the prefill grid is flattened over *q* heads, so under GQA a kv
+    head's K/V are read once a q head; the decode's over kv heads. A query
+    block is padded to ``block_q`` rows, so its products cost the whole
+    tile (``tile_rows_used`` is the used share: 5 of 64 at the speculative
+    verify's width). With ``page_size``, ``page_lookups`` counts the
+    page-table entries the visited steps read (one a page a row), which
+    the serving models price at ``page_lookup_s``."""
+    rows = p.batch * p.n_heads
+    visited = _attn_visited_blocks(p, c)
+    bq = min(c.block_q, p.sq)
+    bk = min(c.block_k, p.skv)
+    flops = rows * visited * 4.0 * bq * bk * p.head_dim
+    used = bq / c.block_q
+    compute_s = flops / (peak_flops(p.in_bytes, gpu) * used)
+    qo_bytes = rows * 2 * p.sq * p.head_dim * p.in_bytes
+    kv_bytes = rows * visited * 2 * bk * p.head_dim * p.in_bytes
+    memory_s = (qo_bytes + kv_bytes) / gpu.hbm_bandwidth
+    lookups = rows * _attn_visited_blocks(
+        p, AttnBlock(c.block_q, page_size)) if page_size else 0
+    return max(compute_s, memory_s), {
+        "compute_s": compute_s, "memory_s": memory_s, "flops": flops,
+        "traffic_bytes": qo_bytes + kv_bytes, "visited_blocks": visited,
+        "tile_rows_used": used, "page_lookups": lookups}
+
+
+def _launch(parts: List[dict], gpu: hwmodel.GPUSpec) -> dict:
+    """One launch over several problems (the slots of a decode or verify
+    step): their operations and bytes summed, then the larger of the two
+    times."""
+    compute_s = sum(t["compute_s"] for t in parts)
+    memory_s = sum(t["memory_s"] for t in parts)
+    return {"time_s": max(compute_s, memory_s), "compute_s": compute_s,
+            "memory_s": memory_s,
+            "visited_blocks": sum(t["visited_blocks"] for t in parts),
+            "page_lookups": sum(t["page_lookups"] for t in parts)}
+
+
+def decode_launch(lengths: Iterable[int], n_heads: int, n_kv_heads: int,
+                  head_dim: int, page_size: Optional[int] = None,
+                  in_bytes: int = 2,
+                  gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """One launch of the split decode over slots of live context
+    ``lengths``: each slot's (kv head, query block) rows read the K/V rows
+    its length reaches (``page_lookups`` counts the table entries, on the
+    paged layout)."""
+    group = max(1, n_heads // n_kv_heads)
+    c = decode_tile(in_bytes)
+    return _launch([attn_cost(AttnProblem(
+        sq=group, skv=max(int(n), 1), n_heads=n_kv_heads, head_dim=head_dim,
+        causal=False, in_bytes=in_bytes), c, gpu, page_size)[1]
+        for n in lengths], gpu)
+
+
+def prefill_launch(starts: Iterable[int], sq: int, n_heads: int,
+                   head_dim: int, page_size: Optional[int] = None,
+                   in_bytes: int = 2,
+                   gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """One launch of the prefill body: ``sq`` query rows a slot written
+    from each slot's ``starts`` and attended causally (a chunk, or the
+    verify at sq = k + 1)."""
+    return _launch([attn_cost(AttnProblem(
+        sq=sq, skv=int(s) + sq, n_heads=n_heads, head_dim=head_dim,
+        causal=True, in_bytes=in_bytes), PREFILL_TILE, gpu, page_size)[1]
+        for s in starts], gpu)
+
+
+# ----------------------------------------------------------------------------
+# The tuning cache, and the serving path's constants: hand-set defaults and
+# calibrated values.
+# ----------------------------------------------------------------------------
+
+# The port's own file (under build/, which git ignores); the reference's
+# cache is the reference's. Every write replaces the file whole; a file that
+# does not parse is discarded.
+_REPO_ROOT = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", ".."))
+TUNING_CACHE_ENV = "REPRO_TORCH_TUNING_CACHE"
+TUNING_CACHE_PATH = os.environ.get(
+    TUNING_CACHE_ENV, os.path.join(_REPO_ROOT, "build", "tuning_cache.json"))
+_tuning_cache: Optional[dict] = None
+
+
+def _backend_key(backend: Optional[str] = None) -> str:
+    """``"cuda"`` or ``"cpu"``: the device type the constants were (or are
+    to be) measured on; None is the process's default device."""
+    if backend is not None:
+        return backend
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _mesh_key(mesh_shape=None) -> str:
+    """A cache-key token for the devices a measurement spans: None keys by
+    the visible CUDA device count (``dev1`` without CUDA); a string is
+    used as it is; an ``{axis: size}`` mapping or a shape names a mesh."""
+    if mesh_shape is None:
+        return f"dev{max(1, torch.cuda.device_count())}"
+    if isinstance(mesh_shape, str):
+        return mesh_shape
+    shape = getattr(mesh_shape, "shape", mesh_shape)
+    if hasattr(shape, "items"):
+        return "mesh(" + ",".join(
+            f"{a}={int(n)}" for a, n in sorted(dict(shape).items())) + ")"
+    return "mesh(" + ",".join(str(int(n)) for n in tuple(shape)) + ")"
+
+
+def _load_tuning_cache() -> dict:
+    global _tuning_cache
+    if _tuning_cache is None:
+        try:
+            with open(TUNING_CACHE_PATH) as f:
+                loaded = json.load(f)
+            if not isinstance(loaded, dict):
+                raise ValueError(
+                    f"cache root is {type(loaded).__name__}, not object")
+            _tuning_cache = loaded
+        except OSError:
+            # Missing or unreadable: leave the file alone.
+            _tuning_cache = {}
+        except ValueError:
+            # A torn write, a truncated file or a non-object root: discard
+            # it (the next write rebuilds it) and use the defaults.
+            _tuning_cache = {}
+            try:
+                os.remove(TUNING_CACHE_PATH)
+            except OSError:
+                pass
+    return _tuning_cache
+
+
+def _store_tuning_cache(key: str, entry: dict) -> None:
+    """Write-through of one entry: the whole cache to a temporary file in
+    the same directory, then an atomic replace."""
+    cache = _load_tuning_cache()
+    cache[key] = entry
+    try:
+        os.makedirs(os.path.dirname(TUNING_CACHE_PATH), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(TUNING_CACHE_PATH),
+                                   suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            json.dump(cache, f, indent=1, sort_keys=True)
+        os.replace(tmp, TUNING_CACHE_PATH)
+    except OSError:
+        pass                       # a read-only checkout: in memory only
+
+
+# Measured serving spans (``serve.telemetry.drift_report(persist=True)``)
+# share the cache under their own namespace: {"time_s", "modeled_s",
+# "ratio", "n", "source"}.
+SERVE_MEASURED_PREFIX = "serve_measured:"
+
+
+def record_serve_measurement(name: str, entry: dict) -> None:
+    """Persist one measured serving-span entry (keyed by component and
+    engine geometry) into the tuning cache."""
+    assert isinstance(entry.get("time_s"), float) and entry["time_s"] > 0, \
+        entry
+    _store_tuning_cache(SERVE_MEASURED_PREFIX + name, dict(entry))
+
+
+def load_serve_measurement(name: str) -> Optional[dict]:
+    return _load_tuning_cache().get(SERVE_MEASURED_PREFIX + name)
+
+
+def drift_ratio(measured_s: float, modeled_s: float) -> float:
+    """measured / modelled, with 0.0 for a missing or degenerate input (a
+    gate that wants the ratio finite and positive then fails, rather than
+    passing an inf or a NaN)."""
+    if not (math.isfinite(measured_s) and math.isfinite(modeled_s)):
+        return 0.0
+    if measured_s <= 0.0 or modeled_s <= 0.0:
+        return 0.0
+    return measured_s / modeled_s
+
+
+# Hand-set defaults: assumptions, each replaced by a measurement on the
+# device once ``core.calibrate`` has run there.
+#
+# Reading one page-table entry while a decode or prefill CTA walks a page of
+# K/V: one 4-byte load, staged with the rest of the CTA's span while the
+# launch's CTAs overlap; assumed half a nanosecond of launch time.
+PAGE_LOOKUP_S = 5e-10
+
+# Dispatching one prefill chunk step from the host: assumed one CUDA-graph
+# replay's launch, the fixed cost a small chunk pays more often.
+CHUNK_DISPATCH_S = 2e-5
+
+# Host cost of one prefix-index level: a blake2b digest of a page of
+# tokens and a dict probe (``serve.paged.PrefixIndex``).
+PREFIX_HASH_S = 2e-6
+
+# Host cost of one n-gram drafted token (a numpy scan of the slot's
+# history).
+NGRAM_DRAFT_S = 2e-6
+
+# Calibrated constants persist in the tuning cache, one schema-versioned
+# entry a (backend, devices, constant):
+#
+#   calibrated:cuda:dev1:page_lookup_s ->
+#     {"schema_version": 1, "value": ..., "n_trials": ..., "spread": ...,
+#      "backend": "cuda", "mesh": "dev1", "timestamp": ..., ...}
+#
+# ``resolve_constants`` reads them back constant by constant: a torn or
+# misversioned entry falls back to that constant's default alone.
+CALIBRATED_PREFIX = "calibrated:"
+CALIBRATION_SCHEMA_VERSION = 1
+
+# Set (to anything but "" or "0"), the hand-set defaults are used and every
+# ``calibrated:`` entry is skipped; the serve launcher's
+# ``--default-constants`` sets it.
+DEFAULT_CONSTANTS_ENV = "REPRO_DEFAULT_CONSTANTS"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConstants:
+    """One resolved set of serving-path cost constants.
+
+    ``source`` is ``"default"`` (the hand-set constants) or
+    ``"calibrated"`` (``core.calibrate``'s measurements, read back for this
+    backend and device count). ``hbm_bandwidth`` and ``dispatch_s`` are None
+    in the default set: the models then price streams at the spec's rate
+    and add no dispatch term of their own."""
+
+    page_lookup_s: float = PAGE_LOOKUP_S
+    chunk_dispatch_s: float = CHUNK_DISPATCH_S
+    prefix_hash_s: float = PREFIX_HASH_S
+    draft_token_s: float = NGRAM_DRAFT_S
+    dispatch_s: Optional[float] = None     # measured launch round trip
+    hbm_bandwidth: Optional[float] = None  # None -> the GPUSpec's rate
+    source: str = "default"                # "default" | "calibrated"
+    backend: str = ""
+    mesh: str = ""
+    timestamp: float = 0.0
+
+    def apply_gpu(self, gpu: hwmodel.GPUSpec) -> hwmodel.GPUSpec:
+        """The spec the models price streams with: the measured stream
+        rate when calibrated, the spec itself otherwise."""
+        if self.hbm_bandwidth is None:
+            return gpu
+        return dataclasses.replace(gpu, hbm_bandwidth=self.hbm_bandwidth)
+
+
+DEFAULT_CONSTANTS = ServeConstants()
+
+# Probe targets, in report order.
+CALIBRATED_NAMES = ("dispatch_s", "page_lookup_s", "hbm_bandwidth",
+                    "chunk_dispatch_s", "draft_token_s", "prefix_hash_s")
+
+
+def assumed_constants(gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """The hand-set value of each calibrated constant (the drift baseline).
+    ``dispatch_s`` has no model term; its baseline is the chunk dispatch,
+    which prices the same host launch."""
+    return {"dispatch_s": CHUNK_DISPATCH_S,
+            "page_lookup_s": PAGE_LOOKUP_S,
+            "hbm_bandwidth": gpu.hbm_bandwidth,
+            "chunk_dispatch_s": CHUNK_DISPATCH_S,
+            "draft_token_s": NGRAM_DRAFT_S,
+            "prefix_hash_s": PREFIX_HASH_S}
+
+
+def calibration_key(name: str, mesh_shape=None,
+                    backend: Optional[str] = None) -> str:
+    return (f"{CALIBRATED_PREFIX}{_backend_key(backend)}"
+            f":{_mesh_key(mesh_shape)}:{name}")
+
+
+def record_calibration(name: str, value: float, mesh_shape=None,
+                       backend: Optional[str] = None, **meta) -> None:
+    """Persist one probed constant under the ``calibrated:`` namespace."""
+    assert name in CALIBRATED_NAMES, name
+    value = float(value)
+    assert math.isfinite(value) and value > 0, (name, value)
+    entry = {"schema_version": CALIBRATION_SCHEMA_VERSION,
+             "value": value,
+             "backend": _backend_key(backend),
+             "mesh": _mesh_key(mesh_shape)}
+    entry.update(meta)
+    _store_tuning_cache(calibration_key(name, mesh_shape, backend), entry)
+
+
+def load_calibration(name: str, mesh_shape=None,
+                     backend: Optional[str] = None) -> Optional[dict]:
+    """One constant's valid cache entry, or None: a torn entry, another
+    schema version or a value that is not finite and positive reads as
+    None (that constant keeps its default), never as an exception."""
+    hit = _load_tuning_cache().get(
+        calibration_key(name, mesh_shape, backend))
+    if not isinstance(hit, dict):
+        return None
+    try:
+        if int(hit["schema_version"]) != CALIBRATION_SCHEMA_VERSION:
+            return None
+        v = float(hit["value"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    if not (math.isfinite(v) and v > 0):
+        return None
+    return hit
+
+
+def resolve_constants(mesh_shape=None,
+                      backend: Optional[str] = None) -> ServeConstants:
+    """The constants the serving engine prices its decisions with: each
+    calibrated one that has a valid entry for this backend and device
+    count, the hand-set default for the rest. With
+    ``REPRO_DEFAULT_CONSTANTS`` set, or no valid entry at all, exactly
+    ``DEFAULT_CONSTANTS``."""
+    if os.environ.get(DEFAULT_CONSTANTS_ENV, "").strip() not in ("", "0"):
+        return DEFAULT_CONSTANTS
+    found, ts = {}, 0.0
+    for name in CALIBRATED_NAMES:
+        hit = load_calibration(name, mesh_shape, backend)
+        if hit is not None:
+            found[name] = float(hit["value"])
+            try:
+                ts = max(ts, float(hit.get("timestamp", 0.0)))
+            except (TypeError, ValueError):
+                pass
+    if not found:
+        return DEFAULT_CONSTANTS
+    return dataclasses.replace(DEFAULT_CONSTANTS, source="calibrated",
+                               backend=_backend_key(backend),
+                               mesh=_mesh_key(mesh_shape),
+                               timestamp=ts, **found)
+
+
+def calibration_report(mesh_shape=None, backend: Optional[str] = None,
+                       gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """Measured against assumed, a constant a row: the measured value (None
+    when never calibrated), the hand-set one, their drift ratio (0.0 when
+    unmeasured) and the probe's n_trials, spread and timestamp."""
+    resolved = resolve_constants(mesh_shape, backend)
+    assumed = assumed_constants(gpu)
+    rows = {}
+    for name in CALIBRATED_NAMES:
+        hit = load_calibration(name, mesh_shape, backend)
+        measured = float(hit["value"]) if hit is not None else None
+        rows[name] = {
+            "assumed": assumed[name],
+            "measured": measured,
+            "drift_ratio": drift_ratio(measured, assumed[name])
+            if measured is not None else 0.0,
+            "n_trials": hit.get("n_trials") if hit else None,
+            "spread": hit.get("spread") if hit else None,
+            "timestamp": hit.get("timestamp") if hit else None,
+        }
+    return {"schema_version": CALIBRATION_SCHEMA_VERSION,
+            "source": resolved.source,
+            "backend": _backend_key(backend),
+            "mesh": _mesh_key(mesh_shape),
+            "timestamp": resolved.timestamp,
+            "constants": rows}
+
+
+# ----------------------------------------------------------------------------
+# Serving cost models and choosers (single device).
+# ----------------------------------------------------------------------------
+
+def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
+                       n_kv_heads: int, head_dim: int, page_size: int,
+                       in_bytes: int = 2,
+                       page_lookup_s: Optional[float] = None,
+                       constants: Optional[ServeConstants] = None,
+                       gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """Paged against contiguous decode attention for one engine tick (one
+    layer's launch of the split decode): the same work, a page-table
+    lookup for each page a (slot, kv head) reads, and a reservation that
+    drops from ``slots * max_len`` rows to the pages the live contexts
+    touch (and the null page). The paper's paging trade: finer pages waste
+    less capacity and pay more translation.
+
+    ``constants`` supplies the lookup cost and, calibrated, the measured
+    stream rate; None is the hand-set set. ``page_lookup_s`` overrides."""
+    from repro_torch.serve.paged import reservation
+
+    const = constants if constants is not None else DEFAULT_CONSTANTS
+    gpu = const.apply_gpu(gpu)
+    if page_lookup_s is None:
+        page_lookup_s = const.page_lookup_s
+    lengths = [int(n) for n in lengths]
+    slots = len(lengths)
+    launch = decode_launch(lengths, n_heads, n_kv_heads, head_dim,
+                           page_size, in_bytes, gpu)
+    contig_s = launch["time_s"]
+    paged_s = contig_s + launch["page_lookups"] * page_lookup_s
+    rows, n_splits = _decode_kernel.splits(max_len, page_size)
+    group = max(1, n_heads // n_kv_heads)
+    q_blocks = _ceil_div(group, decode_tile(in_bytes).block_q)
+
+    out = reservation(lengths, max_len, page_size)   # the one accounting
+    bytes_per_row = 2 * n_kv_heads * head_dim * in_bytes     # K + V
+    out.update({
+        "contig_s": contig_s,
+        "paged_s": paged_s,
+        "lookup_overhead_frac": (paged_s - contig_s) / contig_s
+        if contig_s else 0.0,
+        "visited_blocks": launch["page_lookups"],
+        "ctas": slots * n_kv_heads * q_blocks * n_splits,
+        "split_rows": rows,
+        "tokens_per_s_contig": slots / contig_s if contig_s else 0.0,
+        "tokens_per_s_paged": slots / paged_s if paged_s else 0.0,
+        "hbm_paged_bytes_per_layer": out["rows_resident"] * bytes_per_row,
+        "hbm_contig_bytes_per_layer":
+            out["rows_reserved_contig"] * bytes_per_row,
+    })
+    return out
+
+
+def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
+                        n_kv_heads: int, head_dim: int, page_size: int,
+                        in_bytes: int = 2,
+                        page_lookup_s: Optional[float] = None,
+                        cached_rows: int = 0,
+                        constants: Optional[ServeConstants] = None,
+                        gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """Chunked paged prefill of one ``prompt_len`` prompt at one chunk
+    size: each chunk's causal attention (one launch of the prefill body at
+    sq = chunk, written from the chunk's start: a padded last chunk runs
+    its whole width, as the engine's step does), a page-table lookup for
+    each page a CTA reads, and a dispatch cost a chunk.
+
+    Big chunks amortise dispatch and fill the query tiles but stall the
+    interleaved decode ticks for a whole chunk (``interleave_latency_s``,
+    the longest chunk); small chunks keep decode latency tight and pay
+    the fixed costs more often.
+
+    ``cached_rows`` prices a prefix-cache hit: prefill starts at the
+    cached cursor, every later chunk still attends the cached rows, and a
+    hash-probe term charges the index walk. ``n_kv_heads`` does not change
+    the traffic: the prefill grid is over *q* heads, so K/V are read once
+    a q head."""
+    const = constants if constants is not None else DEFAULT_CONSTANTS
+    gpu = const.apply_gpu(gpu)
+    if page_lookup_s is None:
+        page_lookup_s = const.page_lookup_s
+    dispatch_s = const.chunk_dispatch_s
+    del n_kv_heads
+    # A prompt cached whole still prefills its last row (its logit is
+    # sampled): the engine's clamp.
+    cached_rows = max(0, min(int(cached_rows), prompt_len - 1))
+    probe_s = _ceil_div(cached_rows, page_size) * const.prefix_hash_s
+    n_chunks = _ceil_div(prompt_len - cached_rows, chunk)
+    attn_s, lookup_s, visited_total, worst_chunk_s = 0.0, 0.0, 0, 0.0
+    for i in range(n_chunks):
+        launch = prefill_launch([cached_rows + i * chunk], chunk, n_heads,
+                                head_dim, page_size, in_bytes, gpu)
+        t, visited = launch["time_s"], launch["page_lookups"]
+        attn_s += t
+        lookup_s += visited * page_lookup_s
+        visited_total += visited
+        worst_chunk_s = max(worst_chunk_s,
+                            t + visited * page_lookup_s + dispatch_s)
+    total_s = attn_s + lookup_s + n_chunks * dispatch_s + probe_s
+    return {
+        "chunk": chunk,
+        "n_chunks": n_chunks,
+        "cached_rows": cached_rows,
+        "probe_s": probe_s,
+        "prefill_s": total_s,
+        "attn_s": attn_s,
+        "lookup_s": lookup_s,
+        "dispatch_s": n_chunks * dispatch_s,
+        "visited_blocks": visited_total,
+        "interleave_latency_s": worst_chunk_s,
+        "lookup_overhead_frac": lookup_s / attn_s if attn_s else 0.0,
+    }
+
+
+def choose_prefill_chunk(max_len: int, n_heads: int, n_kv_heads: int,
+                         head_dim: int, page_size: int,
+                         latency_weight: float = 4.0,
+                         in_bytes: int = 2,
+                         constants: Optional[ServeConstants] = None,
+                         gpu: hwmodel.GPUSpec = hwmodel.H100
+                         ) -> Tuple[int, dict]:
+    """The chunk size the serving engine prefills with when
+    ``ServeConfig.chunk_size`` is None. Candidates are ``page_size`` times
+    the powers of two up to ``max_len`` (and ``max_len``); the score is
+    the whole-prompt prefill time plus ``latency_weight`` times the
+    interleave latency (each decode slot waits out a chunk between its
+    tokens while a prompt streams)."""
+    assert 0 < page_size <= max_len, \
+        ("chunked prefill needs at least one page per chunk",
+         page_size, max_len)
+    cands = []
+    c = page_size
+    while c <= max_len:
+        cands.append(c)
+        c *= 2
+    if cands[-1] != max_len and max_len % page_size == 0:
+        cands.append(max_len)
+    best, best_score, best_terms = None, float("inf"), None
+    for cand in cands:
+        terms = prefill_chunk_model(max_len, cand, n_heads, n_kv_heads,
+                                    head_dim, page_size, in_bytes=in_bytes,
+                                    constants=constants, gpu=gpu)
+        score = terms["prefill_s"] \
+            + latency_weight * terms["interleave_latency_s"]
+        if score < best_score:
+            best, best_score, best_terms = cand, score, terms
+    return best, dict(best_terms, score_s=best_score,
+                      candidates=len(cands))
+
+
+def choose_prefix_cache(prompt_len: int, prefix_rows: int, hit_rate: float,
+                        n_heads: int, n_kv_heads: int, head_dim: int,
+                        page_size: int, chunk: Optional[int] = None,
+                        in_bytes: int = 2,
+                        constants: Optional[ServeConstants] = None,
+                        gpu: hwmodel.GPUSpec = hwmodel.H100
+                        ) -> Tuple[bool, dict]:
+    """On or off for ``ServeConfig.prefix_cache``, priced by hit rate: a hit
+    prefills the suffix past ``prefix_rows`` plus the probe and one
+    copy-on-write page split; a miss prefills everything plus the probe
+    that found nothing. The cache wins when that mixture beats the
+    uncached prefill; at ``hit_rate`` 0 the probe's tax makes "off" the
+    choice."""
+    assert 0.0 <= hit_rate <= 1.0, hit_rate
+    const = constants if constants is not None else DEFAULT_CONSTANTS
+    gpu = const.apply_gpu(gpu)
+    prefix_rows = max(0, min(int(prefix_rows), int(prompt_len)))
+    if chunk is None:
+        chunk, _ = choose_prefill_chunk(prompt_len, n_heads, n_kv_heads,
+                                        head_dim, page_size,
+                                        in_bytes=in_bytes,
+                                        constants=const, gpu=gpu)
+    full = prefill_chunk_model(prompt_len, chunk, n_heads, n_kv_heads,
+                               head_dim, page_size, in_bytes=in_bytes,
+                               constants=const, gpu=gpu)
+    hit = prefill_chunk_model(prompt_len, chunk, n_heads, n_kv_heads,
+                              head_dim, page_size, in_bytes=in_bytes,
+                              cached_rows=prefix_rows, constants=const,
+                              gpu=gpu)
+    # One copy-on-write split: a page of K and V rows read and written.
+    cow_s = 4 * page_size * n_kv_heads * head_dim * in_bytes \
+        / gpu.hbm_bandwidth
+    probe_s = _ceil_div(prompt_len, page_size) * const.prefix_hash_s
+    on_s = hit_rate * (hit["prefill_s"] + cow_s) \
+        + (1.0 - hit_rate) * (full["prefill_s"] + probe_s)
+    off_s = full["prefill_s"]
+    return on_s < off_s, {
+        "hit_rate": hit_rate,
+        "prefix_rows": prefix_rows,
+        "chunk": chunk,
+        "prefill_s_off": off_s,
+        "prefill_s_on": on_s,
+        "prefill_s_hit": hit["prefill_s"],
+        "cow_s": cow_s,
+        "probe_s": probe_s,
+        "speedup": off_s / on_s if on_s else float("inf"),
+        "ttft_frac_hit": hit["prefill_s"] / off_s if off_s else 0.0,
+    }
+
+
+def expected_spec_tokens(k: int, accept_rate: float) -> float:
+    """E[tokens emitted per verify tick] with per-draft accept probability
+    ``accept_rate``: the accepted prefix length plus the always-emitted
+    bonus/correction token, sum_{i=0..k} a^i. k=0 gives 1 (plain decode)."""
+    return sum(accept_rate ** i for i in range(k + 1))
+
+
+def spec_decode_model(lengths: Iterable[int], n_heads: int,
+                      n_kv_heads: int, head_dim: int, page_size: int,
+                      k: int, accept_rate: float, param_bytes: float,
+                      draft_bytes: float = 0.0,
+                      draft_token_s: Optional[float] = None,
+                      in_bytes: int = 2,
+                      page_lookup_s: Optional[float] = None,
+                      plain_tick_s: Optional[float] = None,
+                      constants: Optional[ServeConstants] = None,
+                      gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """One speculative verify tick against plain decode ticks: how much
+    parallel work (k drafted tokens scored in one pass) amortises the
+    fixed serial cost of a tick (streaming every weight once).
+
+    A tick, batch-wide (the reference's terms):
+
+    * ``weight_stream_s``: ``param_bytes`` over the memory rate, once a
+      tick whatever its width;
+    * attention: a plain tick is the split decode (one launch over the
+      slots); a verify of width k + 1 is the prefill body at sq = k + 1
+      from each slot's write position (its query tile padded to 64 rows,
+      K/V read once a q head), with the page-table term;
+    * dense operations for ``slots * (k + 1)`` tokens at the engine's peak;
+    * the chunk-dispatch constant, once a tick;
+    * drafting: ``slots * k`` draft weight streams (``draft_bytes``, 0 for
+      the n-gram drafter) and host lookups (``draft_token_s``).
+
+    Emitted tokens follow ``expected_spec_tokens``; ``speedup`` is spec
+    tokens/s over plain tokens/s."""
+    const = constants if constants is not None else DEFAULT_CONSTANTS
+    gpu = const.apply_gpu(gpu)
+    if page_lookup_s is None:
+        page_lookup_s = const.page_lookup_s
+    if draft_token_s is None:
+        draft_token_s = const.draft_token_s
+    lengths = [int(n) for n in lengths]
+    slots = len(lengths)
+    weight_stream_s = param_bytes / gpu.hbm_bandwidth
+    n_params = param_bytes / in_bytes
+
+    def tick_s(width: int) -> float:
+        if width == 1:
+            launch = decode_launch(lengths, n_heads, n_kv_heads, head_dim,
+                                   page_size, in_bytes, gpu)
+        else:
+            launch = prefill_launch([max(n, 1) - 1 for n in lengths], width,
+                                    n_heads, head_dim, page_size, in_bytes,
+                                    gpu)
+        attn = launch["time_s"] + launch["page_lookups"] * page_lookup_s
+        dense = 2.0 * n_params * slots * width / peak_flops(in_bytes, gpu)
+        return weight_stream_s + attn + dense + const.chunk_dispatch_s
+
+    # The width-1 tick does not depend on k: choose_spec_k computes it once.
+    plain_tick = plain_tick_s if plain_tick_s is not None else tick_s(1)
+    spec_tick = tick_s(k + 1) if k else plain_tick
+    draft_s = slots * k * (draft_bytes / gpu.hbm_bandwidth + draft_token_s)
+    spec_tick += draft_s
+    e_tokens = expected_spec_tokens(k, accept_rate)
+    tok_plain = slots / plain_tick
+    tok_spec = slots * e_tokens / spec_tick
+    return {
+        "k": k,
+        "accept_rate": accept_rate,
+        "expected_tokens_per_tick": e_tokens,
+        "weight_stream_s": weight_stream_s,
+        "plain_tick_s": plain_tick,
+        "spec_tick_s": spec_tick,
+        "draft_s": draft_s,
+        "verify_overhead_frac": spec_tick / plain_tick - 1.0,
+        "tokens_per_s_plain": tok_plain,
+        "tokens_per_s_spec": tok_spec,
+        "speedup": tok_spec / tok_plain,
+    }
+
+
+def choose_spec_k(lengths: Iterable[int], n_heads: int,
+                  n_kv_heads: int, head_dim: int, page_size: int,
+                  accept_rate: float, param_bytes: float,
+                  draft_bytes: float = 0.0,
+                  draft_token_s: Optional[float] = None,
+                  ks: Tuple[int, ...] = (1, 2, 3, 4, 6, 8),
+                  in_bytes: int = 2,
+                  constants: Optional[ServeConstants] = None,
+                  gpu: hwmodel.GPUSpec = hwmodel.H100
+                  ) -> Tuple[int, dict]:
+    """The verify width the engine speculates with: the candidate ``k`` of
+    the most modelled tokens/s, or 0 (plain decode) when none beats the
+    plain engine, as at a low accept rate or with a draft that costs more
+    than the tokens it lands. The terms are the best candidate's either
+    way."""
+    lengths = list(lengths)
+    best_k, best_terms, plain_tick_s = 0, None, None
+    for k in ks:
+        terms = spec_decode_model(lengths, n_heads, n_kv_heads,
+                                  head_dim, page_size, k, accept_rate,
+                                  param_bytes, draft_bytes=draft_bytes,
+                                  draft_token_s=draft_token_s,
+                                  in_bytes=in_bytes,
+                                  plain_tick_s=plain_tick_s,
+                                  constants=constants, gpu=gpu)
+        plain_tick_s = terms["plain_tick_s"]
+        if best_terms is None or \
+                terms["tokens_per_s_spec"] > best_terms["tokens_per_s_spec"]:
+            best_k, best_terms = k, terms
+    if best_terms["speedup"] <= 1.0:
+        best_k = 0
+    return best_k, dict(best_terms, chosen_k=best_k,
+                        candidates=len(list(ks)))
 
 
 # -- serving overload pressure ------------------------------------------------

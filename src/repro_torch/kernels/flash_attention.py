@@ -24,6 +24,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode import DTYPES
 
+# The body's tile (``kBlockQ``, ``kTileK`` in csrc/paged_attention.cu): a
+# CTA takes BLOCK_Q query rows (padded with zeros past sq) and walks the
+# keys TILE_K rows a step. ``core.autotune`` prices these tiles.
+BLOCK_Q = 64
+TILE_K = 64
+
 
 def paged_prefill(q, k_pages, v_pages, page_table, starts, out) -> None:
     """Launch on the current stream; raise if the launch fails."""

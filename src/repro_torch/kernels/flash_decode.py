@@ -27,6 +27,13 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128)
 SPLIT_ROWS = 256   # rows a split covers, rounded to whole pages
+# The split kernel's tile (csrc/paged_attention.cu): a CTA takes a query
+# block of QUERY_BLOCK[dtype] rows of one kv head's group (``G`` of
+# ``dispatch_decode``: 16 rows on the tensor cores, 8 on the CUDA cores;
+# padded past the group), and each warp scores WARP_ROWS key rows a step
+# (``kWarpRows``). ``core.autotune`` prices these tiles.
+QUERY_BLOCK = {torch.bfloat16: 16, torch.float32: 8}
+WARP_ROWS = 16
 
 
 def splits(max_rows: int, page_size: int = 1) -> Tuple[int, int]:

@@ -24,6 +24,14 @@ TILES = {torch.float32: ((64, 16, 64), (128, 16, 128)),
          torch.bfloat16: ((128, 64, 128), (128, 64, 256))}
 # Shared-memory stages of the bf16 kernel's ring (kTcStages in gemm.cu).
 TC_STAGES = 4
+# Threads of a bf16 CTA: two consumer warpgroups and the producer warp
+# (kTcThreads); an fp32 CTA has one thread an 8 x 8 register tile.
+TC_THREADS = 2 * 128 + 32
+# Registers a thread of each tile's kernel holds, as ptxas reports them for
+# sm_90a (``chip_smoke.py`` phase 1 prints them and fails if they differ):
+# the fp32 kernel with vector loads, the bf16 kernel (either loader).
+REGISTERS = {torch.float32: {(64, 16, 64): 165, (128, 16, 128): 129},
+             torch.bfloat16: {(128, 64, 128): 90, (128, 64, 256): 154}}
 # The engine and loader a launch ran, as the C entry point reports them.
 PATHS = ("cuda cores", "wgmma + TMA", "wgmma + element loads")
 last_path = None

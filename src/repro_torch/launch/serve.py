@@ -8,6 +8,8 @@ contiguous caches by default, a page pool with ``--paged``.
   python -m repro_torch.launch.serve --arch qwen3-4b --temperature 0.8
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --spec-k 4 \
       --prefix-cache
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged --spec-k 4 \
+      --spec-probe-every 4 --pool-frac 0.5
 
 Open-loop traffic (``--rate``) replaces the batch submit with the seeded
 arrival generator (``serve/traffic.py``), SLO-aware admission and the
@@ -19,6 +21,12 @@ operator report; ``--faults`` adds the canonical fault schedule:
       --degrade --faults --tenant "name=paid,priority=2,weight=1" \
       --tenant "name=free,weight=3,rate=2,burst=16,ttft=32" \
       --trace-out trace.json
+
+The chunk size (``--chunk-size`` unset) and the adaptive draft width are
+priced by the serving cost models with the constants
+``python -m repro_torch.launch.calibrate`` measured on this device type,
+or with the hand-set defaults (``--default-constants``, or nothing
+measured); the report's ``constants:`` line says which.
 
 Weights are random, drawn on the device from a ``torch.Generator`` seeded
 with ``--seed``, which also seeds the sampling keys at ``--temperature``
@@ -32,12 +40,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
+from repro_torch.core import autotune
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve import traffic
@@ -91,7 +101,8 @@ def _report(engine, arrivals, res, inj, dt, tcfg, process, rate) -> None:
           f"{s['shed_rate']:.2f}")
     print(f"  preemptions {s['preemptions']}, admission holds "
           f"{s['admission_holds']}, downshifts {s['downshifts']} "
-          f"({s['degraded_ticks']} degraded ticks)")
+          f"({s['degraded_ticks']} degraded ticks), spec probes "
+          f"{engine.spec_probes}")
     if "tick_wall_s_mean" in s:
         print(f"  wall-clock: tick mean/p99 {s['tick_wall_s_mean'] * 1e3:.2f}"
               f"/{s['tick_wall_s_p99'] * 1e3:.2f} ms, ttft p50 "
@@ -122,8 +133,13 @@ def main(argv=None):
                     help="K/V rows from a shared page pool (attention "
                          "stacks only); default: contiguous caches")
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--chunk-size", type=int, default=64,
-                    help="prefill chunk rows (paged; page-size multiple)")
+    ap.add_argument("--chunk-size", type=int, default=None,
+                    help="prefill chunk rows (paged; page-size multiple); "
+                         "default: the chunk cost model's choice")
+    ap.add_argument("--pool-frac", type=float, default=1.0,
+                    help="page pool as a fraction of the contiguous "
+                         "batch * max_len reservation (paged; >= 1.0 keeps "
+                         "the full, exhaustion-free pool)")
     ap.add_argument("--prefix-cache", default=False,
                     action=argparse.BooleanOptionalAction,
                     help="share full-page prompt prefixes across requests "
@@ -169,6 +185,12 @@ def main(argv=None):
     traf.add_argument("--degrade", action="store_true",
                       help="downshift under pressure (spec off, prefill "
                            "budget 1); recovers on its own")
+    traf.add_argument("--spec-probe-every", type=int, default=None,
+                      help="re-choose the draft width from the accept "
+                           "rate every this many verify ticks and, once "
+                           "it reaches 0, run a one-draft trial tick this "
+                           "often so speculation can re-open (needs "
+                           "--spec-k)")
     traf.add_argument("--faults", action="store_true",
                       help="run the canonical fault schedule (pool squeeze "
                            "-> accept collapse -> churn storm)")
@@ -181,7 +203,13 @@ def main(argv=None):
     obs.add_argument("--no-telemetry", action="store_true",
                      help="no event ring and no spans (the decision "
                           "counters stay exact)")
+    obs.add_argument("--default-constants", action="store_true",
+                     help="price choose_* decisions with the hand-set "
+                          "default constants, skipping any calibrated "
+                          "entry (see repro_torch.launch.calibrate)")
     args = ap.parse_args(argv)
+    if args.default_constants:
+        os.environ[autotune.DEFAULT_CONSTANTS_ENV] = "1"
     if args.rate is None and (args.tenant or args.faults):
         raise SystemExit("--tenant/--faults need --rate (traffic mode)")
     if args.trace_out and args.no_telemetry:
@@ -192,6 +220,8 @@ def main(argv=None):
     if args.prefix_cache and not args.paged:
         raise SystemExit("--prefix-cache needs --paged (sharing happens "
                          "through the page table)")
+    if args.spec_probe_every is not None and not args.spec_k:
+        raise SystemExit("--spec-probe-every needs --spec-k")
 
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke \
@@ -199,9 +229,15 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
     tenants = [_parse_tenant(s) for s in args.tenant]
+    n_pages = None
+    if args.paged and args.pool_frac < 1.0:
+        # At least the null page and one page: a tiny fraction gives a
+        # tiny pool, not an error.
+        n_pages = max(2, 1 + int(args.batch * args.max_len
+                                 // args.page_size * args.pool_frac))
     scfg = ServeConfig(max_len=args.max_len, batch=args.batch,
                        paged=args.paged, page_size=args.page_size,
-                       chunk_size=args.chunk_size,
+                       n_pages=n_pages, chunk_size=args.chunk_size,
                        temperature=args.temperature, seed=args.seed,
                        spec_k=args.spec_k, draft=args.draft,
                        prefix_cache=args.prefix_cache,
@@ -209,6 +245,8 @@ def main(argv=None):
                        max_queue=args.max_queue,
                        max_preemptions=args.max_preemptions,
                        degrade=args.degrade,
+                       spec_adapt_every=args.spec_probe_every,
+                       spec_probe_every=args.spec_probe_every,
                        telemetry=not args.no_telemetry)
     engine = ServingEngine(params, cfg, scfg, device=device)
     if args.rate is not None:
@@ -245,12 +283,26 @@ def main(argv=None):
         _report(engine, arrivals, res, inj, dt, tcfg, args.process,
                 args.rate)
     toks = sum(len(v) for v in finished.values())
+    # Which constants priced this run's choose_* decisions: an operator
+    # tells a stale calibration from a fresh one.
+    const = engine.constants
+    if const.source == "calibrated":
+        age_min = max(0.0, (time.time() - const.timestamp) / 60.0)
+        const_line = (f"  constants: calibrated [{const.backend}:"
+                      f"{const.mesh}] priced choose_* (measured "
+                      f"{age_min:.0f} min ago, ts={const.timestamp:.0f}; "
+                      f"--default-constants forces the hand-set defaults)")
+    else:
+        const_line = ("  constants: hand-set defaults priced choose_* (run "
+                      "python -m repro_torch.launch.calibrate to measure "
+                      "this device)")
     print(f"served {len(finished)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s) on {device}, "
           + (f"graphed (captured in {engine.capture_seconds:.2f}s)"
              if engine.graphed else "eager")
           + (f", sampled at temperature {args.temperature}"
              if args.temperature else ", greedy"))
+    print(const_line)
     if args.paged:
         occ = engine.pool.occupancy()
         print(f"  paged: {occ['high_water']}/{occ['capacity']} pages "
@@ -272,7 +324,9 @@ def main(argv=None):
             print(f"  spec: k={engine.spec_k} draft={args.draft} "
                   f"accepted/tick={engine.spec_accepted / ticks:.2f} "
                   f"emitted/tick={engine.spec_emitted / ticks:.2f} "
-                  f"({engine.verify_traces} verify step)")
+                  f"({engine.verify_traces} verify step)"
+                  + (f", k_live {engine.k_live}, {engine.spec_probes} "
+                     f"trial ticks" if args.spec_probe_every else ""))
     else:
         print(f"  contiguous: {engine.ticks} ticks, prefill buckets "
               f"{dict(sorted(engine.prefill_buckets.items()))} (bucket: "

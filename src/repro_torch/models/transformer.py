@@ -106,6 +106,31 @@ def param_count(params: Params) -> int:
     return walk(params)
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token reads, from the configuration alone (no weights
+    are made): every parameter ``init_params`` draws, as the port's stacks
+    have no mixture of experts. The serving cost models price the weight
+    stream with it (``serve.spec.rechoose_k``, ``telemetry.drift_report``)."""
+    d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
+                        cfg.d_ff)
+    total = 2 * cfg.vocab * d + d                     # embed, unembed, ln_f
+    for i in range(cfg.n_layers):
+        total += d                                     # ln1
+        if cfg.kind(i) == "attn":
+            total += d * (h + 2 * kvh) * hd + h * hd * d
+            total += (h + 2 * kvh) * hd if cfg.qkv_bias else 0
+            total += 2 * hd if cfg.qk_norm else 0
+        else:
+            m = cfg.mamba_cfg()
+            hm, p, n = m.n_heads, m.head_dim, m.d_state
+            total += (2 * d * hm * p + 2 * d * n + d * hm + 3 * hm
+                      + m.d_conv * hm * p + hm * p + hm * p * d)
+        if f > 0:
+            total += d + (3 * d * f if cfg.activation == "swiglu"
+                          else 2 * d * f + f)
+    return total
+
+
 # ----------------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------------

@@ -35,7 +35,18 @@ batched decode step for every decode-active slot. Two cache layouts:
     decode-active slot, and one verify step of width ``spec_k + 1``
     scores them with the pending token through the paged prefill kernel;
     the longest accepted prefix and the target's next token are emitted,
-    and the write positions roll back over the rejected rows.
+    and the write positions roll back over the rejected rows. With
+    ``spec_adapt_every`` the drafts a slot asks for (``k_live``, at most
+    ``spec_k``) are re-chosen from the measured accept rate every that
+    many verify ticks (``spec.rechoose_k``); at 0 the engine decodes, and
+    with ``spec_probe_every`` a one-draft trial tick every that many
+    plain ticks lets a recovered accept rate re-open speculation.
+
+**Cost models** (``core.autotune``): the engine resolves its constants
+once (``constants``: calibrated on this device type by ``core.calibrate``
+where the tuning cache holds them, the hand-set defaults otherwise), and
+prices with them the chunk size when ``chunk_size`` is None
+(``choose_prefill_chunk``) and the adaptive draft width.
 
 **Overload** (every knob off by default, as in the reference):
 
@@ -72,8 +83,10 @@ construction, while every slot is empty, and each tick replays it: the
 counterpart of the reference's jitted executables, counted in
 ``decode_traces``, ``verify_traces`` and ``prefill_traces`` at a step's
 first use, as the reference counts a trace (a speculative engine that
-never degrades never decodes: ``decode_traces`` stays 0). A speculative
-engine with ``degrade`` holds both the verify and the decode step.
+never decodes keeps ``decode_traces`` at 0). A speculative engine that
+can decode (with ``degrade``, or with ``spec_adapt_every``, whose
+``k_live`` may reach 0) holds both the verify and the decode step; the
+verify keeps its ``spec_k + 1`` width whatever ``k_live`` is.
 ``capture=False`` runs the same functions
 eagerly (the counterpart of ``jax.disable_jit``), as the CPU always does;
 on the card each step is still run once at construction, so that both
@@ -149,12 +162,20 @@ class ServeConfig:
     n_pages: Optional[int] = None  # pool incl. null page (paged); None ->
     # the contiguous equivalent, 1 + batch * max_len / page_size
     chunk_size: Optional[int] = None  # prefill chunk rows (paged; a
-    # page_size multiple). The reference's None (an autotuned choice) is
-    # not ported: paged mode requires it.
+    # page_size multiple); None: the chunk cost model's choice
+    # (``core.autotune.choose_prefill_chunk``)
     spec_k: int = 0              # drafted tokens a verify tick (paged); 0
-    # decodes one token a tick. The width stays fixed.
+    # decodes one token a tick. The verify step's width is spec_k + 1.
     draft: Any = None            # spec_k > 0: a draft source, or "ngram"
     # (None), "self", or an arch name (``spec.resolve_draft``)
+    spec_adapt_every: Optional[int] = None  # re-choose the drafts a slot
+    # asks for (``k_live`` <= spec_k) from the accept rate measured over
+    # this many verify ticks (``spec.rechoose_k``); 0 drafts decode. None
+    # keeps spec_k
+    spec_probe_every: Optional[int] = None  # while k_live is 0, a one-
+    # draft trial tick every this many plain ticks, feeding the same
+    # window, so speculation can re-open (needs spec_adapt_every). None
+    # keeps k_live at 0 once it gets there
     prefix_cache: bool = False   # paged: share full-page prompt prefixes
     # through the page table (``paged.PrefixIndex``)
     prefill_chunks_per_tick: Optional[int] = None  # paged: chunk budget a
@@ -261,6 +282,11 @@ class ServingEngine:
                  device=None, capture: bool = True):
         self.device = resolve_device(device)
         self.cfg, self.scfg, self.params = cfg, serve_cfg, params
+        # The constants every choose_* decision of this engine is priced
+        # with: calibrated on this device type where the tuning cache has
+        # them, the hand-set defaults otherwise.
+        self.constants = autotune.resolve_constants(
+            backend=self.device.type)
         max_len = serve_cfg.max_len
         # Bucketing pads the prompt on the right, which only attention
         # layers mask; SSM stacks carry state through every position, so
@@ -271,13 +297,14 @@ class ServingEngine:
                 raise ValueError("paged serving needs an attention-only "
                                  f"stack, not {cfg.pattern}")
             ps, chunk = serve_cfg.page_size, serve_cfg.chunk_size
-            if chunk is None:
-                raise NotImplementedError(
-                    "chunk_size=None (an autotuned chunk) is not ported; "
-                    "pass a chunk size")
             if max_len % ps:
                 raise ValueError(f"max_len {max_len} is not a multiple of "
                                  f"page_size {ps}")
+            if chunk is None:
+                chunk, _ = autotune.choose_prefill_chunk(
+                    max_len, cfg.n_heads, cfg.n_kv_heads, cfg.dhead, ps,
+                    in_bytes=cfg.dtype.itemsize,
+                    constants=self.constants)
             if chunk % ps or not 0 < chunk <= max_len:
                 raise ValueError(f"chunk_size {chunk} must be a page_size "
                                  f"multiple in (0, max_len]")
@@ -365,6 +392,25 @@ class ServingEngine:
                                             self.device) \
             if self.spec_k else None
         self.verify_steps = 0
+        # The adaptive width: drafts a slot asks for, and the window of
+        # verify ticks (and their drafts proposed and accepted) it is
+        # re-chosen from; plain ticks since the last trial tick.
+        self.k_live = self.spec_k
+        self._adapt_ticks = 0
+        self._adapt_proposed = 0
+        self._adapt_accepted = 0
+        self._probe_wait = 0
+        if serve_cfg.spec_adapt_every is not None and not (
+                serve_cfg.spec_adapt_every >= 1 and self.spec_k):
+            raise ValueError("spec_adapt_every needs spec_k > 0 and a "
+                             "window of at least 1")
+        if serve_cfg.spec_probe_every is not None and not (
+                serve_cfg.spec_probe_every >= 1 and self.spec_k
+                and serve_cfg.spec_adapt_every is not None):
+            # Trial ticks re-open speculation through the adaptation
+            # window, so probing needs it.
+            raise ValueError("spec_probe_every needs spec_k > 0, "
+                             "spec_adapt_every and a period of at least 1")
         # Prefix cache: each slot's publish chain (digest of its deepest
         # published page, pages published).
         self._chain: Dict[int, Tuple[bytes, int]] = {}
@@ -401,6 +447,8 @@ class ServingEngine:
         "cow_copy", "copy-on-write splits of shared pages")
     prefix_evictions = _counter_view(
         "prefix_evict", "LRU reclaims of cached-idle prefix runs")
+    spec_probes = _counter_view(
+        "probe_tick", "one-draft trial ticks while speculation is off")
 
     @property
     def shed_by_class(self) -> Dict[str, int]:
@@ -442,8 +490,10 @@ class ServingEngine:
             self._picks = torch.zeros((b, self.spec_k + 1), **ints)
             self._verify = steps["verify"] = graphs.Step(self._verify_fn(),
                                                          dev, capture)
-        if not self.spec_k or self.scfg.degrade:
-            # A speculative engine decodes only on its degraded ticks.
+        if not self.spec_k or self.scfg.degrade \
+                or self.scfg.spec_adapt_every is not None:
+            # A speculative engine decodes only on its degraded ticks and
+            # while its adaptive width is 0.
             self._decode = steps["decode"] = graphs.Step(self._decode_fn(),
                                                          dev, capture)
         if self.pool is not None:
@@ -1246,9 +1296,54 @@ class ServingEngine:
                                 pressure=self.last_pressure)
 
     def _spec_width(self) -> int:
-        """Drafts a slot this tick: ``spec_k``, or 0 (a plain decode tick)
-        without speculation or while degraded."""
-        return 0 if self.degraded else self.spec_k
+        """Drafts a slot this tick: ``k_live``; 0 (a plain decode tick)
+        without speculation or while degraded; and, while the adaptive
+        width is 0 and ``spec_probe_every`` is set, 1 on every
+        ``spec_probe_every``-th tick (a ``probe_tick``), whose accept
+        counts feed the adaptation window like any verify tick's, so a
+        recovered accept rate re-opens speculation."""
+        if not self.spec_k or self.degraded:
+            return 0
+        if self.k_live:
+            return self.k_live
+        if self.scfg.spec_probe_every is None:
+            return 0
+        self._probe_wait += 1
+        if self._probe_wait < self.scfg.spec_probe_every:
+            return 0
+        self._probe_wait = 0
+        self.telemetry.emit(self.ticks, "probe_tick")
+        return 1
+
+    def _maybe_adapt_k(self) -> None:
+        """Every ``spec_adapt_every`` verify ticks, re-choose ``k_live``
+        from the window's accept rate (``spec.rechoose_k`` against the
+        slots' context lengths, priced with the engine's constants). A
+        collapsed rate prices speculation below plain decode and sets it
+        to 0; only trial ticks (``spec_probe_every``) can then re-open it.
+        The verify step keeps its ``spec_k + 1`` width either way."""
+        every = self.scfg.spec_adapt_every
+        if every is None:
+            return
+        self._adapt_ticks += 1
+        if self._adapt_ticks < every:
+            return
+        rate = (self._adapt_accepted / self._adapt_proposed
+                if self._adapt_proposed else 0.0)
+        self.k_live, _ = spec_mod.rechoose_k(
+            self.cfg, self.scfg.page_size,
+            [max(1, n) for n in self.context_lengths()], rate, self.spec_k,
+            constants=self.constants)
+        self._adapt_ticks = 0
+        self._adapt_proposed = 0
+        self._adapt_accepted = 0
+
+    def context_lengths(self) -> np.ndarray:
+        """Each slot's write position, (batch,) int32: its live K/V rows
+        (prompt and tokens so far) when decode-active, the rows it drifted
+        through when free, the cursor when mid-prefill; the lengths the
+        decode kernel reads. A host copy: no device read."""
+        return self.index.astype(np.int32)
 
     def _decode_tick(self, active: List[int]) -> None:
         tel = self.telemetry
@@ -1285,12 +1380,14 @@ class ServingEngine:
         return np.concatenate([np.asarray(head, np.int32),
                                np.asarray(gen, np.int32)])
 
-    def _spec_tick(self, active: List[int]) -> None:
-        """One draft-and-verify step: up to ``spec_k`` drafts a
-        decode-active slot, scored with its pending token in the verify
-        step; the longest accepted prefix and the target's next token are
-        recorded (at least one token a slot, so a tick that accepts
-        nothing is a plain decode tick).
+    def _spec_tick(self, active: List[int], k: int) -> None:
+        """One draft-and-verify step: up to ``k`` drafts a decode-active
+        slot (``k_live``, or 1 on a trial tick), scored with its pending
+        token in the verify step of width ``spec_k + 1``; the longest
+        accepted prefix and the target's next token are recorded (at least
+        one token a slot, so a tick that accepts nothing is a plain decode
+        tick), and the drafts proposed and accepted feed the adaptation
+        window.
 
         The verify wrote ``spec_k + 1`` rows for every slot and advanced
         every write position by as many. The rows of the pending token and
@@ -1313,8 +1410,7 @@ class ServingEngine:
                 req = self.slots[i]
                 base_len[i] = self._effective_len(req) - 1  # write position
                 prop = np.asarray(self.draft.propose(
-                    self._draft_history(req), self.spec_k),
-                    np.int64).ravel()[:self.spec_k]
+                    self._draft_history(req), k), np.int64).ravel()[:k]
                 n_prop[i] = len(prop)
                 tokens[i, 1:1 + len(prop)] = np.clip(prop, 0,
                                                      self.cfg.vocab - 1)
@@ -1329,6 +1425,8 @@ class ServingEngine:
             # matched would inflate the accept count.
             accepted, emitted = spec_mod.longest_accept(
                 tokens[i, 1:1 + n_prop[i]], picks[i, :n_prop[i] + 1])
+            self._adapt_proposed += n_prop[i]
+            self._adapt_accepted += accepted
             done, n_rec = False, 0
             for tok in emitted:
                 n_rec += 1
@@ -1355,8 +1453,9 @@ class ServingEngine:
     @torch.no_grad()
     def tick(self) -> int:
         """Update the degrade latch, admit, advance prefill chunks
-        (paged), one decode step (or, with ``spec_k`` and not degraded,
-        one draft-and-verify step) for the decode-active slots; returns
+        (paged), one decode step (or, with drafts this tick: ``spec_k``,
+        not degraded and a live width, one draft-and-verify step) for the
+        decode-active slots; returns
         the number of slots making progress. The tick and its phases run
         under wall-clock spans; none adds a synchronisation."""
         tel = self.telemetry
@@ -1375,8 +1474,10 @@ class ServingEngine:
             tel.tick_done(self.ticks, t0)
             return len(self._prefilling)
         n = len(active) + len(self._prefilling)
-        if self._spec_width():
-            self._spec_tick(active)
+        k = self._spec_width()
+        if k:
+            self._spec_tick(active, k)
+            self._maybe_adapt_k()
         else:
             self._decode_tick(active)
         self._reset_prefill_positions()

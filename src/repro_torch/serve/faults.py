@@ -2,9 +2,9 @@
 ``repro/serve/faults.py``).
 
 A scheduled injector wraps a live engine and drives each failure mode on
-fixed tick windows, so that pool exhaustion, accept-rate collapse and
-preemption churn are exercised the same way in every run (same schedule
-and traffic, same engine decisions).
+fixed tick windows, so that pool exhaustion, accept-rate collapse, torn
+tuning-cache reads and preemption churn are exercised the same way in
+every run (same schedule and traffic, same engine decisions).
 
 Faults:
 
@@ -15,12 +15,16 @@ Faults:
   are the response.
 * ``ACCEPT_COLLAPSE`` — wrap the engine's draft source so every proposed
   token is off by one (``(tok + 1) % vocab``): drafts stop landing and
-  the accept rate collapses. Emitted tokens are untouched: the verify
-  step corrects every wrong draft.
-* ``CACHE_TORN`` — in the reference, a torn write of the autotune tuning
-  cache. The port has no tuning cache yet: the kind is valid, and arming
-  it raises ``NotImplementedError`` until the serving cost models are
-  ported (ROADMAP Queue 1 item 6).
+  the accept rate collapses, and the adaptive width
+  (``spec_adapt_every``) must turn speculation off (and, with
+  ``spec_probe_every``, back on once the window ends). Emitted tokens are
+  untouched: the verify step corrects every wrong draft.
+* ``CACHE_TORN`` — truncate the port's tuning-cache file
+  (``core.autotune.TUNING_CACHE_PATH``, or the injector's ``cache_path``)
+  in the middle of its JSON, as a torn concurrent write would.
+  ``autotune._load_tuning_cache`` must discard it and carry on with the
+  defaults, never crash; the window's end writes the original bytes
+  back.
 * ``SLOT_CHURN`` — preempt one victim slot a tick through the engine's
   own victim policy: a preemption storm that the storm guard
   (``preempt_cooldown``) and the cap (``max_preemptions``) must keep live
@@ -36,7 +40,8 @@ them.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import os
+from typing import List, Optional
 
 import numpy as np
 
@@ -98,11 +103,14 @@ class FaultInjector:
     CACHE_TORN = "cache_torn"
     SLOT_CHURN = "slot_churn"
 
-    def __init__(self, schedule: List[Fault]):
+    def __init__(self, schedule: List[Fault],
+                 cache_path: Optional[str] = None):
         self.schedule = list(schedule)
         self.injected = 0             # windows armed
         self.cleared = 0              # windows disarmed
         self._saved_draft = None
+        self._cache_path = cache_path
+        self._cache_bytes: Optional[bytes] = None
 
     # -- individual faults ----------------------------------------------------
 
@@ -135,6 +143,29 @@ class FaultInjector:
             engine.draft = self._saved_draft
             self._saved_draft = None
 
+    def _tear_cache(self) -> None:
+        from repro_torch.core import autotune
+        path = self._cache_path or autotune.TUNING_CACHE_PATH
+        if not os.path.exists(path):
+            return
+        with open(path, "rb") as f:
+            data = f.read()
+        if self._cache_bytes is None:
+            self._cache_bytes = data
+        with open(path, "wb") as f:
+            f.write(data[:max(1, len(data) // 2)])   # cut mid-JSON
+        # The parsed copy in memory would hide the torn file: re-read.
+        autotune._tuning_cache = None
+
+    def _heal_cache(self) -> None:
+        from repro_torch.core import autotune
+        path = self._cache_path or autotune.TUNING_CACHE_PATH
+        if self._cache_bytes is not None:
+            with open(path, "wb") as f:
+                f.write(self._cache_bytes)
+            self._cache_bytes = None
+            autotune._tuning_cache = None
+
     def _churn(self, engine, fault: Fault) -> None:
         for _ in range(fault.victims_per_tick):
             victims = [i for i, s in enumerate(engine.slots)
@@ -152,15 +183,12 @@ class FaultInjector:
         for fault in self.schedule:
             starting = fault.start <= t < fault.stop
             if starting and not fault.active:
-                if fault.kind == self.CACHE_TORN:
-                    raise NotImplementedError(
-                        "CACHE_TORN tears the serving tuning cache, which "
-                        "the port does not have until ROADMAP Queue 1 "
-                        "item 6 (serving cost models and calibration)")
                 fault.active = True
                 self.injected += 1
                 if fault.kind == self.ACCEPT_COLLAPSE:
                     self._corrupt_draft(engine)
+                elif fault.kind == self.CACHE_TORN:
+                    self._tear_cache()
             elif not starting and fault.active:
                 fault.active = False
                 self.cleared += 1
@@ -168,6 +196,8 @@ class FaultInjector:
                     self._release(engine)
                 elif fault.kind == self.ACCEPT_COLLAPSE:
                     self._restore_draft(engine)
+                elif fault.kind == self.CACHE_TORN:
+                    self._heal_cache()
             if fault.active:
                 # Per-tick actions: the squeeze re-takes pages freed by
                 # finishing slots; churn evicts fresh victims.
@@ -185,13 +215,15 @@ class FaultInjector:
                 self.cleared += 1
         self._release(engine)
         self._restore_draft(engine)
+        self._heal_cache()
 
 
 def canonical_schedule(t0: int = 6, dwell: int = 10,
                        gap: int = 8) -> List[Fault]:
     """Pool exhaustion, then accept collapse, then a churn storm:
     sequential windows with recovery gaps, so each fault's clearing is
-    exercised too."""
+    exercised too. (``CACHE_TORN`` is scheduled apart, by callers that own
+    a tuning cache of their own.)"""
     k = FaultInjector
     w = [(k.POOL_SQUEEZE, t0), (k.ACCEPT_COLLAPSE, t0 + dwell + gap),
          (k.SLOT_CHURN, t0 + 2 * (dwell + gap))]

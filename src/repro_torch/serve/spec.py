@@ -20,14 +20,15 @@ Draft sources have ``propose(history, k) -> at most k token ids``:
   stream, for tests.
 
 The per-row sampler and the key folds are ``serve.sampling``'s
-(``per_row_sampler`` is its ``sampler``). ``rechoose_k`` (the adaptive
-width) is not ported: it needs the serving cost models.
+(``per_row_sampler`` is its ``sampler``). ``rechoose_k`` feeds a measured
+accept rate back into the speculation cost model
+(``core.autotune.choose_spec_k``): the engine's adaptive width.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +42,8 @@ from repro_torch.serve.sampling import (fold_row_keys, fold_span_keys,
 per_row_sampler = sampler
 
 __all__ = ["NgramDraft", "ModelDraft", "ScriptedDraft", "longest_accept",
-           "resolve_draft", "per_row_sampler", "fold_row_keys",
-           "fold_span_keys"]
+           "rechoose_k", "resolve_draft", "per_row_sampler",
+           "fold_row_keys", "fold_span_keys"]
 
 
 def longest_accept(drafts: Sequence[int],
@@ -55,6 +56,29 @@ def longest_accept(drafts: Sequence[int],
     while a < len(drafts) and int(drafts[a]) == int(targets[a]):
         a += 1
     return a, [int(t) for t in drafts[:a]] + [int(targets[a])]
+
+
+def rechoose_k(cfg: ModelConfig, page_size: int, lengths,
+               accept_rate: float, k_max: int,
+               in_bytes: Optional[int] = None,
+               constants=None) -> Tuple[int, dict]:
+    """The draft width for a *measured* accept rate: the engine measures
+    accepted / proposed over a window of verify ticks and re-prices the
+    width against its slots' current lengths here, candidates 1..k_max
+    (the verify step's width is k_max + 1). 0 when no width beats plain
+    decode, the regime a collapsed accept rate lands in. ``in_bytes``
+    defaults to the model's compute type (the reference prices 4)."""
+    from repro_torch.core import autotune
+
+    if in_bytes is None:
+        in_bytes = cfg.dtype.itemsize
+    param_bytes = float(T.active_param_count(cfg)) * in_bytes
+    k, terms = autotune.choose_spec_k(
+        [int(n) for n in lengths], cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
+        page_size, float(accept_rate), param_bytes,
+        ks=tuple(range(1, k_max + 1)), in_bytes=in_bytes,
+        constants=constants)
+    return min(k, k_max), terms
 
 
 @dataclasses.dataclass

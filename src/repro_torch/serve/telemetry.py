@@ -25,9 +25,8 @@ Three surfaces, one bookkeeping home:
 * **Exporters** — ``chrome_trace()`` emits a Chrome-trace/Perfetto JSON
   timeline (one track per engine phase, one per slot); ``metrics()``
   flattens everything into one scalar dict.
-
-The reference's ``drift_report`` (cost models against measured spans)
-waits for the port of the serving cost models (ROADMAP Queue 1 item 6).
+* **Drift** — ``drift_report(engine)`` holds the serving cost models
+  (``core.autotune``) against the engine's measured spans.
 """
 
 from __future__ import annotations
@@ -320,5 +319,129 @@ class Telemetry:
                 tev.append({"name": "spec_k_live", "ph": "C", "pid": 0,
                             "ts": ts,
                             "args": {"k": payload.get("proposed", 0)}})
+            elif kind == "probe_tick":
+                tev.append({"name": "spec_k_live", "ph": "C", "pid": 0,
+                            "ts": ts, "args": {"k": 1}})
         return {"traceEvents": tev, "displayTimeUnit": "ms",
                 "otherData": {"schema_version": self.schema_version}}
+
+
+# -- model against measured ---------------------------------------------------
+
+
+def drift_report(engine, persist: bool = False) -> Dict[str, Any]:
+    """The serving cost models (``core.autotune``) against the execute
+    spans this paged engine measured, for its own configuration:
+
+    * ``decode`` — the mean decode span against ``paged_decode_model``'s
+      ``paged_s`` at the run's mean context length and active slots
+      (counted on the host each tick: no device read);
+    * ``prefill_chunk`` — the mean chunk span against one chunk of
+      ``prefill_chunk_model``;
+    * ``spec_verify`` — the mean verify span against
+      ``spec_decode_model``'s ``spec_tick_s`` at the measured accept rate.
+
+    A component is present when its spans were measured. Each has
+    ``measured_s``, ``modeled_s`` and ``ratio`` (``autotune.drift_ratio``)
+    under the constants the engine priced its decisions with
+    (``engine.constants``), and ``modeled_default_s``/``ratio_default``
+    under the hand-set defaults. The report also says which set was active
+    (``constants``) and carries ``autotune.calibration_report``. With
+    ``persist=True`` the measurements go into the tuning cache under the
+    ``serve_measured:`` namespace. On the card a decode or verify span
+    ends with the step's read of its picks (device time included); a
+    chunk span is the launch alone."""
+    from repro_torch.core import autotune
+    from repro_torch.models import transformer as T
+
+    assert engine.pool is not None, "drift_report needs a paged engine"
+    tel = engine.telemetry
+    cfg, scfg = engine.cfg, engine.scfg
+    stats = tel.span_stats()
+    c = tel.counters
+    in_bytes = cfg.dtype.itemsize
+
+    def mean_geom(rows_key: str, slots_key: str, n_spans: int):
+        slot_ticks = c.get(slots_key, 0)
+        rows = c.get(rows_key, 0)
+        mean_len = max(1, int(round(rows / max(1, slot_ticks))))
+        mean_slots = max(1, int(round(slot_ticks / max(1, n_spans))))
+        return mean_len, mean_slots
+
+    out: Dict[str, Any] = {"schema_version": TRACE_SCHEMA_VERSION}
+    geom = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.dhead, page_size=scfg.page_size,
+                in_bytes=in_bytes)
+    const = getattr(engine, "constants", None)
+    if const is None:
+        const = autotune.resolve_constants(backend=engine.device.type)
+
+    def cell(measured, model_fn):
+        """Measured against the model under the engine's constants (the
+        headline) and under the defaults."""
+        modeled = model_fn(constants=const)
+        modeled_default = modeled if const.source == "default" \
+            else model_fn(constants=autotune.DEFAULT_CONSTANTS)
+        return {
+            "measured_s": measured, "modeled_s": modeled,
+            "ratio": autotune.drift_ratio(measured, modeled),
+            "modeled_default_s": modeled_default,
+            "ratio_default": autotune.drift_ratio(measured,
+                                                  modeled_default)}
+
+    dec = stats.get("decode")
+    if dec and dec["execute_n"]:
+        mean_len, mean_slots = mean_geom(
+            "decode_context_rows", "decode_slot_ticks", dec["n"])
+        out["decode"] = dict(cell(
+            dec["execute_mean_s"],
+            lambda **kw: autotune.paged_decode_model(
+                scfg.max_len, [mean_len] * mean_slots, **geom,
+                **kw)["paged_s"]),
+            n_spans=dec["execute_n"], mean_context=mean_len,
+            mean_slots=mean_slots)
+
+    pc = stats.get("prefill_chunk")
+    if pc and pc["execute_n"]:
+        out["prefill_chunk"] = dict(cell(
+            pc["execute_mean_s"],
+            lambda **kw: autotune.prefill_chunk_model(
+                engine.chunk, engine.chunk, **geom, **kw)["prefill_s"]),
+            n_spans=pc["execute_n"], chunk=engine.chunk)
+
+    sv = stats.get("spec_verify")
+    if sv and sv["execute_n"] and engine.spec_k:
+        mean_len, mean_slots = mean_geom(
+            "verify_context_rows", "verify_slot_ticks", sv["n"])
+        proposed = c.get("spec_proposed", 0)
+        rate = c.get("spec_accepted", 0) / proposed if proposed else 0.0
+        out["spec_verify"] = dict(cell(
+            sv["execute_mean_s"],
+            lambda **kw: autotune.spec_decode_model(
+                [mean_len] * mean_slots, k=engine.spec_k,
+                accept_rate=rate,
+                param_bytes=T.active_param_count(cfg) * float(in_bytes),
+                **geom, **kw)["spec_tick_s"]),
+            n_spans=sv["execute_n"], spec_k=engine.spec_k,
+            accept_rate=rate)
+
+    out["constants"] = {"source": const.source, "backend": const.backend,
+                        "mesh": const.mesh, "timestamp": const.timestamp}
+    out["calibration"] = autotune.calibration_report(
+        backend=engine.device.type)
+
+    if persist:
+        ident = (f"{cfg.n_heads}h{cfg.n_kv_heads}kv{cfg.dhead}d"
+                 f":page{scfg.page_size}:chunk{engine.chunk}")
+        for comp in ("decode", "prefill_chunk", "spec_verify"):
+            row = out.get(comp)
+            if row is None:
+                continue
+            autotune.record_serve_measurement(f"{comp}:{ident}", {
+                "time_s": row["measured_s"],
+                "modeled_s": row["modeled_s"],
+                "ratio": row["ratio"],
+                "n": row["n_spans"],
+                "source": "serve.telemetry",
+            })
+    return out

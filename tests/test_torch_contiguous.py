@@ -155,9 +155,10 @@ def test_engine_refuses_what_is_not_ported():
     qcfg = configs.get_smoke("qwen3-4b")
     qparams = T.init_params(qcfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk_size"):
+    with pytest.raises(ValueError, match="chunk_size"):
         engine.ServingEngine(qparams, qcfg, engine.ServeConfig(
-            max_len=32, batch=2, paged=True, page_size=8), device="cpu")
+            max_len=32, batch=2, paged=True, page_size=8, chunk_size=12),
+            device="cpu")
     eng = engine.ServingEngine(qparams, qcfg, engine.ServeConfig(
         max_len=16, batch=2), device="cpu")
     eng.submit(engine.Request(rid=0, prompt=np.arange(2, 20, dtype=np.int32),

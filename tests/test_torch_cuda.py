@@ -691,3 +691,79 @@ def test_cuda_keys_and_bits_match_the_cpu(cuda_device):
     assert torch.equal(sampling.random_bits(card, (151936,)).cpu(), bits)
     u = sampling.uniform(cpu, (151936,))
     assert torch.equal(sampling.uniform(card, (151936,)).cpu(), u)
+
+
+def test_cuda_calibration_probes_launch_the_decode_kernels(cuda_device,
+                                                           tmp_path,
+                                                           monkeypatch):
+    """The page-lookup probe times both decode kernels on the card (device
+    time, both launched), the stream reads no faster than the data sheet,
+    and every constant is finite and positive and persists under
+    ``calibrated:cuda:...`` of a tmp cache."""
+    from repro_torch.core import autotune, calibrate, hwmodel
+
+    monkeypatch.setattr(autotune, "TUNING_CACHE_PATH",
+                        str(tmp_path / "cache.json"))
+    monkeypatch.setattr(autotune, "_tuning_cache", None)
+    monkeypatch.delenv(autotune.DEFAULT_CONSTANTS_ENV, raising=False)
+    results = calibrate.run_calibration(fast=True, device=cuda_device)
+    assert set(results) == set(autotune.CALIBRATED_NAMES)
+    for name, r in results.items():
+        assert np.isfinite(r.value) and r.value > 0, name
+    lookup = results["page_lookup_s"].detail
+    assert lookup["timing"] == "device"
+    assert min(lookup["launches"].values()) > 0
+    assert results["hbm_bandwidth"].value <= hwmodel.H100.hbm_bandwidth
+    assert results["chunk_dispatch_s"].detail["graphed"]
+    const = autotune.resolve_constants(backend="cuda")
+    assert const.source == "calibrated" and const.backend == "cuda"
+
+
+def test_cuda_adaptive_spec_engine_graphed_equals_eager(cuda_device):
+    """An adaptive speculative engine (``spec_adapt_every`` and
+    ``spec_probe_every``) holds both the verify and the decode graph, and
+    serves through an accept collapse as its eager twin does: the same
+    streams, ``k_live`` a tick, trial ticks, event trace and launches."""
+    from repro_torch.serve.faults import Fault
+
+    cfg = GRAPH_CFGS["attn"]
+    n = cfg.n_layers
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    scfg = ServeConfig(max_len=512, batch=4, paged=True, page_size=16,
+                       chunk_size=64, eos_id=-1, spec_k=3,
+                       spec_adapt_every=2, spec_probe_every=2,
+                       trace_capacity=1 << 16)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(2, cfg.vocab, size=m).astype(np.int32)
+               for m in (40, 90, 17, 150, 64)]
+    runs = []
+    for capture in (False, True):
+        eng = ServingEngine(params, cfg, scfg, device=cuda_device,
+                            capture=capture)
+        if capture:
+            assert eng.graph_nodes == {
+                "verify": {"flash_attention_paged": n},
+                "decode": {"flash_decode_paged": n},
+                "chunk": {"flash_attention_paged": n}}
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=40))
+        inj = FaultInjector([Fault(kind=FaultInjector.ACCEPT_COLLAPSE,
+                                   start=6, stop=14)])
+        ops.reset_launches()
+        traj = []
+        for _ in range(1000):
+            inj.step(eng)
+            eng.tick()
+            traj.append(eng.k_live)
+            if not eng.queue and all(s is None for s in eng.slots):
+                break
+        inj.finish(eng)
+        torch.cuda.synchronize()
+        assert eng.pool.pages_in_use == 0 and len(eng.finished) == 5
+        runs.append((eng.finished, traj, eng.spec_probes,
+                     [e[1:] for e in eng.telemetry.events],
+                     dict(ops.LAUNCHES), eng.decode_traces,
+                     eng.verify_traces))
+    assert runs[0] == runs[1]
+    assert 0 in runs[1][1]

@@ -47,7 +47,9 @@ def test_port_files_are_found():
                 ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
-                ("core", "hwmodel.py"), ("launch", "autotune_gemm.py"),
+                ("core", "hwmodel.py"), ("core", "calibrate.py"),
+                ("launch", "calibrate.py"), ("launch", "serve.py"),
+                ("launch", "autotune_gemm.py"),
                 ("launch", "latency.py"), ("launch", "train.py"),
                 ("train", "steps.py"), ("train", "trainer.py"),
                 ("optim", "adamw.py"), ("optim", "schedule.py"),

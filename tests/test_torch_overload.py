@@ -17,6 +17,7 @@ decoding (exact prefixes when force-finished).
 """
 
 import dataclasses
+import json
 import math
 
 import jax
@@ -500,19 +501,32 @@ def test_canonical_fault_schedule_end_to_end(model):
     assert s["done"] + s["forced"] + s["rejected"] == len(arr)
 
 
-def test_cache_torn_is_a_kind_that_raises_when_armed(model):
-    """The port has no tuning cache to tear until the serving cost models
-    are ported: the fault is valid to schedule and raises when armed."""
+def test_cache_torn_is_a_kind_that_raises_when_armed(model, tmp_path,
+                                                    monkeypatch):
+    """Armed, ``CACHE_TORN`` tears the port's tuning cache mid-JSON (it
+    raised ``NotImplementedError`` before the cache was ported): the
+    engine keeps serving, the torn file reads as empty and is discarded,
+    and the window's end writes the original bytes back."""
+    path = tmp_path / "cache.json"
+    good = {"k": {"value": 1.0}}
+    path.write_text(json.dumps(good))
+    original = path.read_bytes()
+    monkeypatch.setattr(autotune, "TUNING_CACHE_PATH", str(path))
+    monkeypatch.setattr(autotune, "_tuning_cache", None)
     fault = Fault(kind=FaultInjector.CACHE_TORN, start=1, stop=3)
     eng = _build(model, PORT)
     inj = FaultInjector([fault])
     inj.step(eng)                        # tick 0: not armed yet
     eng.tick()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        inj.step(eng)
-    assert inj.injected == 0 and not fault.active
+    inj.step(eng)                        # tick 1: torn
+    assert inj.injected == 1 and fault.active
+    assert path.read_bytes() != original
+    assert autotune._load_tuning_cache() == {}
+    eng.tick()
     inj.finish(eng)
-    assert inj.cleared == 0
+    assert inj.cleared == 1
+    assert path.read_bytes() == original
+    assert autotune._load_tuning_cache() == good
 
 
 def test_overload_knobs_off_change_nothing(model):

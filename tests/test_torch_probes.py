@@ -197,13 +197,27 @@ def test_traffic_formula_is_the_reference_one():
 
 
 def test_tile_efficiency_counts_padding_and_waves():
+    """Padding in m, k and n, and waves of the CTAs each SM holds at once
+    (from ptxas's registers, shared memory and thread slots), times the
+    share of the dispatch slots the resident warps fill: the fp32 (64, 16,
+    64) tile holds 6 CTAs of 2 warps an SM (12 of the 16 warps that hide
+    FFMA's 4-cycle latency on 4 schedulers), (128, 16, 128) one CTA of 8;
+    each bf16 tile one CTA (its shared memory), its wgmma asynchronous."""
     c = autotune.GemmConfig(64, 16, 64)
     eff = lambda m, k, n: autotune.tile_efficiency(   # noqa: E731
-        autotune.GemmProblem(m, k, n), c)
-    assert eff(64 * 132, 16, 64) == 1.0              # one full wave
-    assert eff(64 * 133, 16, 64) == pytest.approx(133 / 264)
-    assert eff(32 * 132, 16, 64) == pytest.approx(0.5)   # half-empty rows
-    assert eff(64 * 132, 8, 64) == pytest.approx(0.5)    # k padded to 16
+        autotune.GemmProblem(m, k, n, in_bytes=4), c)
+    wave = 132 * 6
+    assert eff(64 * wave, 16, 64) == pytest.approx(0.75)   # one full wave
+    assert eff(64 * (wave + 1), 16, 64) == pytest.approx(
+        (wave + 1) / (2 * wave) * 0.75)
+    assert eff(32 * wave, 16, 64) == pytest.approx(0.5 * 0.75)  # half a wave
+    assert eff(64 * wave, 8, 64) == pytest.approx(0.5 * 0.75)   # k padded
+    for in_bytes, tile, resident, share in (
+            (4, (64, 16, 64), 6, 0.75), (4, (128, 16, 128), 1, 0.5),
+            (2, (128, 64, 128), 1, 1.0), (2, (128, 64, 256), 1, 1.0)):
+        cfg = autotune.GemmConfig(*tile)
+        assert autotune.resident_ctas(cfg, in_bytes) == resident, tile
+        assert autotune.dispatch_share(cfg, in_bytes) == share, tile
     for dtype, in_bytes in ((torch.float32, 4), (torch.bfloat16, 2)):
         assert autotune.naive_block(in_bytes) == autotune.GemmConfig(
             *min(TILES[dtype]))
