@@ -26,7 +26,14 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    in each dim) and the qwen3-4b MLP shapes, logging the path each ran
    (fp32 on the CUDA cores; bf16 on the tensor cores, the MLP shapes
    through TMA), and the pointer chase (bit-equal) on a permutation, a
-   strided chain, past n, a line chain;
+   strided chain, past n, a line chain; the timed chase (``pchase_timed``,
+   ``ld.global.ca`` and ``.cg``) bit-equal to its plain version in the
+   offsets it visits on a permutation, a strided chain from an offset
+   start after untimed steps, a line chain, and on a chain of more than
+   8 GiB checked on the card (each offset the chain's entry at the one
+   before, in the order the addresses were laid out), its walk's total
+   cycles no fewer than its loads', and refusing an offset outside its
+   chain;
 4. times at the main path's shapes: kernel, plain version, one PyTorch
    library call where one computes the same function (a yardstick only;
    none computes an SSD scan or a pointer chase) and the card's bound for
@@ -39,7 +46,8 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    TFLOP/s, share of the bound and launch grid; the GEMM with every tile of its dtype at the qwen3-4b MLP shapes and the tiling example's, bf16 (tensor cores)
    and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
-   16 KiB to 512 MiB;
+   16 KiB to 512 MiB; the timed chase at one scan of phase 20's L2
+   search;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
    bf16, random weights from a seeded ``torch.Generator``): 12 requests,
    32 tokens each, launch counters read around the run; run eagerly and
@@ -146,7 +154,22 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     graph captured; the drift report's ratios finite and positive under
     the calibrated and the default constants, and ``choose_spec_k`` at
     the accept rate measured beside phase 16's measured spec-over-plain
-    ratio.
+    ratio;
+20. the paper's dissection on the card: ``core.card.dissect_card`` runs
+    the ch.3 detectors of ``core.pchase`` on the H100 through the timed
+    chase, launch counters read around it, and its Table 3.1 column is
+    logged beside the V100 device model's (``core.dissect``): the L1's
+    size, line and policy at the stated carveout (its ways and sets, and
+    the L2's policy, "not probed", the reasons among the cuts), its size at
+    the other carveouts (Table 3.3), the L2's size and line, the latency
+    classes in cycles and ns at the SM clock measured in the same run, the
+    footprint profile (near and far L2, device memory), the TLB levels or
+    "no step found within the bounds", and the phase's seconds; it fails
+    unless ``pchase_timed`` was launched, L1 < L2 < memory, the L1 lies
+    in (0, 256 KiB], the L2 between the L1 and twice the H100's 50 MB,
+    both lines are powers of two, and the V100 device model's report
+    matches its published column everywhere, as the reference's test
+    asserts.
 
 Phase 1 also holds the registers the GEMM tile chooser prices each tile
 with (``kernels.gemm.REGISTERS``) to this build's ptxas report.
@@ -197,6 +220,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:62"),
     "gemm": (CSRC + "gemm.cu", "src/repro/kernels/gemm.py:37"),
     "pchase": (CSRC + "pchase.cu", "src/repro/kernels/pchase_probe.py:31"),
+    "pchase_timed": (CSRC + "pchase.cu",
+                     "src/repro/kernels/pchase_probe.py:31"),
 }
 # Main-path shapes of the SSD scan: mamba2-370m (32 heads of 64, d_state
 # 128) prefilling a batch-1 prompt; the kernel's chunk is 128 rows.
@@ -531,6 +556,79 @@ def check_contiguous_kernels(dev, ops, ref, decode_mod) -> list:
         f"{'all zero' if not left else 'NOT ZERO'}")
     if left:
         failures.append(("ssd_scan tickets or counts left non-zero", left))
+    return failures
+
+
+# Phase 3: the timed chase's chain of more than 8 GiB (past int32 slot
+# indices' reach), visited at BIG_CHAIN_LOADS addresses spread over it.
+BIG_CHAIN_BYTES = 9 * 2**30
+BIG_CHAIN_LOADS = 4096
+
+
+def check_timed_chase(dev, ops, ref, simulator) -> list:
+    """``pchase_timed`` against its plain version: the offsets it visits
+    bit-equal, with ``ld.global.ca`` and ``.cg``; a chain of more than
+    8 GiB checked on the card; a bad offset refused. Returns failures."""
+    failures = []
+    rng = np.random.RandomState(7)
+    perm = rng.permutation(4096)
+    ring = np.zeros(4096, np.int64)
+    ring[perm] = np.roll(perm, -1) * 8
+    chains = [("4096-slot permutation", ring, 10_000, 0, 0),
+              ("stride 64 over 64 KiB, from 64 after 17 untimed",
+               simulator.make_chain(64 * 2**10, 64), 3000, 64, 17),
+              ("1 MiB line chain", simulator.make_chain(2**20, 128), 20_000,
+               0, 0)]
+    for label, chain, steps, start, warm in chains:
+        t = torch.from_numpy(chain).to(dev)
+        want = ref.pchase_timed(t, steps, start=start, warm=warm)
+        for cg in (False, True):
+            got, cycles, total = ops.pchase_timed(
+                t, steps, start=start, warm=warm, bypass_l1=cg)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            total, loads = int(total.item()), int(cycles.long().sum())
+            log(f"  pchase_timed {'.cg' if cg else '.ca'} {label}, {steps} "
+                f"steps: {'bit-equal' if same else 'FAIL: differs'}; cycles "
+                f"min {int(cycles.min())} median "
+                f"{int(cycles.median())} max {int(cycles.max())}; the "
+                f"walk's total {total}, the loads' windows "
+                f"{100 * loads / total:.1f} % of it")
+            if not same or int(cycles.min()) <= 0 or total < loads:
+                failures.append(("pchase_timed", label, cg))
+    # More than 8 GiB: the addresses in a random order over the whole
+    # chain, each laid out to name the next.
+    n_slots = BIG_CHAIN_BYTES // 8
+    gap = n_slots // BIG_CHAIN_LOADS
+    addrs = ((np.arange(BIG_CHAIN_LOADS) * gap
+              + rng.randint(0, gap, BIG_CHAIN_LOADS)) * 8)[
+        rng.permutation(BIG_CHAIN_LOADS)]
+    big = torch.zeros(n_slots, dtype=torch.int64, device=dev)
+    big[torch.from_numpy(addrs // 8).to(dev)] = torch.from_numpy(
+        np.roll(addrs, -1)).to(dev)
+    steps = 3 * BIG_CHAIN_LOADS
+    want = torch.from_numpy(np.resize(np.roll(addrs, -5), steps)).to(dev)
+    for cg in (False, True):
+        got, _, _ = ops.pchase_timed(big, steps, start=int(addrs[5]),
+                                     bypass_l1=cg)
+        follows = bool((big[got[:-1] // 8] == got[1:]).all())
+        same = torch.equal(got, want)
+        log(f"  pchase_timed {'.cg' if cg else '.ca'} over a "
+            f"{BIG_CHAIN_BYTES / 2**30:.0f} GiB chain, {steps} steps, "
+            f"offsets up to {int(got.max()) / 2**30:.2f} GiB: each the "
+            f"chain's entry at the one before "
+            f"{'yes' if follows else 'NO'}, the laid-out order "
+            f"{'yes' if same else 'NO'}")
+        if not (follows and same and int(got.max()) >= 2**33):
+            failures.append(("pchase_timed", "9 GiB chain", cg))
+    del big
+    bad = torch.full((16,), 3, dtype=torch.int64, device=dev)
+    try:
+        ops.pchase_timed(bad, 4)
+        failures.append(("pchase_timed", "bad offset not refused"))
+    except ValueError as e:
+        log(f"  pchase_timed refuses an unaligned offset: {e}")
+    torch.cuda.empty_cache()
     return failures
 
 
@@ -994,6 +1092,37 @@ def time_probe_kernels(dev, ops, ref, latency, autotune,
         f"chase is latency-bound by design), max_abs_err {err:g}")
     del chain
     return out
+
+
+# Phase 4 times the timed chase at one scan of phase 20's L2 search: a
+# line chain of 4 MiB at 128 bytes through ld.global.cg, offsets kept.
+TIMED_FOOTPRINT, TIMED_STRIDE = 4 * 2**20, 128
+
+
+def time_timed_chase(dev, ops, ref) -> dict:
+    """The timed chase beside its plain version (the offsets; the host
+    loop, the chain copied to the host), both at the host's pace: the
+    wrapper reads the kernel's status after each launch."""
+    n = TIMED_FOOTPRINT // TIMED_STRIDE
+    chain = np.zeros(TIMED_FOOTPRINT // 8, np.int64)
+    chain[::TIMED_STRIDE // 8] = np.roll(np.arange(n) * TIMED_STRIDE, -1)
+    t = torch.from_numpy(chain).to(dev)
+    got, _, _ = ops.pchase_timed(t, n, bypass_l1=True)
+    err = float((got - ref.pchase_timed(t, n)).abs().max())
+    ms = time_ms(lambda i: ops.pchase_timed(t, n, bypass_l1=True), 1,
+                 iters=10)
+    plain_ms = time_ms(lambda i: ref.pchase_timed(t, n), 1, iters=2)
+    # Bytes: each slot read once; each step's offset (8) and cycles (4)
+    # written, and the walk's total; no arithmetic worth a bound.
+    b_ms, b_by = bound(8 * n + 12 * n + 8, 0, torch.float32)
+    log(f"  pchase_timed [.cg, {TIMED_FOOTPRINT // 2**20} MiB at "
+        f"{TIMED_STRIDE} B, {n} steps]: kernel {ms:.4f} ms ({ms * 1e6 / n:.1f} "
+        f"ns a step), plain {plain_ms:.4f} ms, library none, bound "
+        f"{b_ms:.6f} ms ({b_by}; latency-bound by design), max_abs_err "
+        f"{err:g}")
+    return {"pchase_timed": dict(max_abs_err=err, ok=err == 0, ms=ms,
+                                 plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=b_ms, bound_by=b_by)}
 
 
 def check_flash_kernel(dev, ops, ref) -> list:
@@ -2324,6 +2453,86 @@ def run_costmodels(params, cfg, scfg, dev, ops, spec) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 20: the paper's dissection on the card
+# ----------------------------------------------------------------------------
+
+def column(rep, ns) -> dict:
+    """Table 3.1's rows of one report, for the log."""
+    kib = lambda b: f"{b / 2**10:.1f} KiB"          # noqa: E731
+    said = lambda v: "not probed" if v is None else v   # noqa: E731
+    out = {"L1 size": kib(rep.l1.size), "L1 line": f"{rep.l1.line} B",
+           "L1 ways": said(rep.l1.ways), "L1 sets": said(rep.l1.sets),
+           "L1 policy": rep.l1.policy,
+           "L1 hit": f"{rep.l1.hit_latency} cyc{ns(rep.l1.hit_latency)}",
+           "L2 size": kib(rep.l2.size), "L2 line": f"{rep.l2.line} B",
+           "L2 policy": said(rep.l2.policy),
+           "L2 hit": f"{rep.l2.hit_latency} cyc{ns(rep.l2.hit_latency)}"}
+    for i, t in enumerate(rep.tlbs, 1):
+        out[f"L{i} TLB"] = (f"{t.page_entry / 2**20:g} MiB pages, "
+                            f"{t.coverage / 2**20:g} MiB")
+    return out
+
+
+def run_dissection(dev, ops, card, dissect, hwmodel) -> dict:
+    """Phase 20; returns its summary and the launches it counted."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    rep = card.dissect_card(dev)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"  dissect_card: {rep.seconds:.1f} s, launches {launches}, "
+        f"flush (evict) {rep.evict_ms:.3f} ms each, SM clock "
+        f"{rep.sm_clock_mhz:.1f} MHz (clock64 cycles of one chase's whole "
+        f"timed walk over its CUDA-event time)")
+    v100 = dissect.dissect(hwmodel.V100)
+    ns = lambda c: f" ({rep.ns(c):.1f} ns)"                # noqa: E731
+    h, v = column(rep, ns), column(v100, lambda c: "")
+    log(f"  Table 3.1: H100 (this card, L1 at carveout {rep.carveout} %, "
+        f"nominal {rep.l1_nominal / 2**10:.0f} KiB) | V100 (device model)")
+    for row in dict.fromkeys([*h, *v]):
+        log(f"    {row:10s} {str(h.get(row, '-')):36s} | "
+            f"{v.get(row, '-')}")
+    log(f"    TLBs: {rep.tlb_note}")
+    log("  Table 3.3 on the card (carveout %: detected L1 / nominal): "
+        + ", ".join(f"{cv}: {d / 2**10:.1f}/{n / 2**10:.0f} KiB"
+                    for cv, (d, n) in rep.table_3_3.items()))
+    log(f"  Fig 3.2 cold scan (64 KiB, .ca): {rep.latency}; its classes "
+        f"{rep.cold_classes}")
+    log("  steady classes: " + ", ".join(f"{k} {c} cyc{ns(c)}"
+                                         for k, c in rep.steady.items()))
+    log("  footprint profile (.cg warm, median load): " + ", ".join(
+        f"{mib} MiB {c} cyc{ns(c)}" for mib, c in rep.profile.items()))
+    log(f"  every class made: {rep.classes}")
+    log(f"  bounds {rep.bounds}; cuts {rep.cuts}")
+    failed = []
+    if launches["pchase_timed"] <= 0:
+        failed.append(f"pchase_timed not launched: {launches}")
+    s = rep.steady
+    if not s["l1_hit"] < s["l2_hit"] < s["memory"]:
+        failed.append(f"latency classes do not rise: {s}")
+    if not 0 < rep.l1.size <= 256 * 2**10:
+        failed.append(f"L1 size {rep.l1.size} outside (0, 256 KiB]")
+    if not rep.l1.size < rep.l2.size <= 2 * hwmodel.H100.l2_bytes:
+        failed.append(f"L2 size {rep.l2.size} not between the L1's and "
+                      f"2 x {hwmodel.H100.l2_bytes}")
+    for name, line in (("L1", rep.l1.line), ("L2", rep.l2.line)):
+        if line <= 0 or line & (line - 1):
+            failed.append(f"{name} line {line} is not a power of two")
+    if not (all(v100.matches.values())
+            and v100.matches == dissect.compare_to_spec(v100, hwmodel.V100)):
+        failed.append(f"V100 device model off its column: {v100.matches}")
+    log(f"  V100 device model: {sum(v100.matches.values())}/"
+        f"{len(v100.matches)} of compare_to_spec true; phase 20 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return {"launches": launches["pchase_timed"], "seconds": rep.seconds,
+            "l1": rep.l1.size, "l2": rep.l2.size, "steady": rep.steady,
+            "tlbs": rep.tlb_note}
+
+
 def init_model(name, configs, T, dev):
     cfg = configs.get_config(name)
     t0 = time.perf_counter()
@@ -2422,7 +2631,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
     from repro_torch import configs
-    from repro_torch.core import autotune, latency
+    from repro_torch.core import autotune, card, dissect, hwmodel, latency
+    from repro_torch.core import simulator
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_decode as decode_mod
@@ -2459,6 +2669,7 @@ def main() -> None:
     failures += check_contiguous_kernels(dev, ops, ref, decode_mod)
     failures += check_decode_splits(dev, ops, ref, decode_mod)
     failures += check_probe_kernels(dev, ops, ref, latency, gemm_kernel)
+    failures += check_timed_chase(dev, ops, ref, simulator)
     if failures:
         raise RuntimeError(f"kernels disagree with plain versions: {failures}")
 
@@ -2467,6 +2678,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     timing.update(time_probe_kernels(dev, ops, ref, latency, autotune,
                                      gemm_kernel))
+    timing.update(time_timed_chase(dev, ops, ref))
     if not all(r["ok"] for r in timing.values()):
         raise RuntimeError("a timed kernel disagrees with its plain version")
     torch.cuda.empty_cache()
@@ -2715,6 +2927,11 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    log("== the paper's dissection on the card ==")
+    dissection = run_dissection(dev, ops, card, dissect, hwmodel)
+    main_launches["pchase_timed"] = dissection["launches"]
+    torch.cuda.empty_cache()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -2726,8 +2943,8 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
         f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
-        f"overload {overload}; cost models {costs}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"overload {overload}; cost models {costs}; dissection "
+        f"{dissection}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

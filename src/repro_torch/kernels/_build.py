@@ -24,8 +24,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t;
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures: (dtype, sizes..., pointers..., ints..., stream) -> cudaError_t
+# (_L: a 64-bit long long);
 # blocked_gemm also takes an int* it writes the path that ran to.
 SIGNATURES = {
     "paged_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -38,6 +39,7 @@ SIGNATURES = {
     "ssd_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "blocked_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pchase": [_P, _P, _I, _P],
+    "pchase_timed": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -2,7 +2,8 @@
 
 Same arguments and layouts as ``repro/kernels/ops.py``'s
 ``flash_attention`` / ``flash_decode_paged`` / ``flash_attention_paged`` /
-``flash_decode`` / ``ssd_scan`` / ``gemm`` / ``pchase``; block sizes are
+``flash_decode`` / ``ssd_scan`` / ``gemm`` / ``pchase``, and
+``pchase_timed``, the chase timed load by load; block sizes are
 the CUDA kernels' own constants, and ``gemm``'s tile one of those it
 instantiates. A tensor on the CPU goes to the plain version
 (``kernels.ref``); a CUDA tensor goes to the kernel, or the wrapper raises.
@@ -15,7 +16,8 @@ gradient is never silently cut at a kernel's output. Call them under
 ``torch.no_grad()``; training runs the plain ``sdpa``.
 
 ``LAUNCHES`` counts kernel launches, one per call that reached the kernel;
-the plain versions never touch it.
+the plain versions never touch it. ``pchase_timed`` counts under a key of
+its own, so a run of one chase path is not read as the other's.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "flash_decode": 0,
                             "ssd_scan": 0,
                             "gemm": 0,
-                            "pchase": 0}
+                            "pchase": 0,
+                            "pchase_timed": 0}
 
 
 def reset_launches() -> None:
@@ -337,3 +340,57 @@ def pchase(chain, steps: int):
     _pchase.pchase(chain, out)
     LAUNCHES["pchase"] += 1
     return out
+
+
+def _check_timed(chain, steps, start, warm, carveout) -> None:
+    """Raise on what ``pchase_timed`` does not take. The entries are not
+    read here: the kernel stops at an offset outside the chain and the
+    wrapper raises after it, so a multi-GB chain costs no host pass."""
+    if chain.dim() != 1 or chain.dtype != torch.int64 \
+            or not chain.is_contiguous() or chain.shape[0] == 0:
+        raise ValueError(f"pchase_timed takes a non-empty contiguous rank-1 "
+                         f"int64 chain, got {chain.dtype} of shape "
+                         f"{tuple(chain.shape)}")
+    if not 1 <= steps < 2**31:
+        raise ValueError(f"pchase_timed takes 1 to 2**31 - 1 steps, got "
+                         f"{steps}")
+    if warm < 0:
+        raise ValueError(f"pchase_timed takes warm >= 0, got {warm}")
+    if start % 8 or not 0 <= start < 8 * chain.shape[0]:
+        raise ValueError(f"start {start} is not an 8-byte slot of the chain")
+    if not 0 <= carveout <= 100:
+        raise ValueError(f"carveout is a percentage, got {carveout}")
+    if chain.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {chain.device}")
+
+
+def pchase_timed(chain, steps: int, start: int = 0, warm: int = 0,
+                 bypass_l1: bool = False, offsets: bool = True,
+                 carveout: int = 0):
+    """Walk the int64 byte-offset ``chain`` from ``start``: ``warm`` steps
+    untimed, then ``steps`` timed one by one. Returns ``(offsets, cycles,
+    total)``: the offsets the timed steps loaded ((steps,) int64, None
+    unless ``offsets``), each load's cycles ((steps,) int32, clock64
+    deltas), and the cycles of the whole timed walk, loads and the work
+    between them (a one-element int64). ``bypass_l1`` loads with
+    ``ld.global.cg``; ``carveout`` is the kernel's preferred shared-memory
+    carveout in percent (0: the largest L1). On the CPU the plain version
+    gives the offsets and ``cycles`` and ``total`` are None: there is no
+    clock to read."""
+    _check_timed(chain, steps, start, warm, carveout)
+    if chain.device.type == "cpu":
+        return (ref.pchase_timed(chain, steps, start, warm) if offsets
+                else None), None, None
+    dev = chain.device
+    out = (torch.empty(steps, dtype=torch.int64, device=dev) if offsets
+           else None)
+    cycles = torch.empty(steps, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    _pchase.pchase_timed(chain, start, warm, out, cycles, total, status,
+                         bypass_l1, carveout)
+    LAUNCHES["pchase_timed"] += 1
+    if int(status.item()):
+        raise ValueError("pchase_timed met an offset outside the chain, "
+                         "negative or not a multiple of 8")
+    return out, cycles, total

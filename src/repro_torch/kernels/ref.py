@@ -180,6 +180,34 @@ def pchase(chain, steps: int):
     return torch.from_numpy(out).to(chain.device)
 
 
+def pchase_timed(chain, steps: int, start: int = 0, warm: int = 0):
+    """The offsets ``pchase_timed`` visits: from byte offset ``start``
+    through the int64 byte-offset ``chain`` (slot ``pos // 8`` holds the
+    next offset), ``warm`` steps unrecorded, then ``steps`` recorded (int64,
+    on the chain's device). A loop on the host, as
+    ``simulator.MemoryHierarchy.chase`` walks; the kernel's cycles have no
+    plain counterpart. Raises, as the kernel's wrapper does, on an offset
+    outside the chain, negative or not a multiple of 8."""
+    nxt = chain.cpu().numpy()
+    n_bytes = 8 * nxt.size
+
+    def follow(pos: int) -> int:
+        v = int(nxt[pos // 8])
+        if not 0 <= v < n_bytes or v % 8:
+            raise ValueError("pchase_timed met an offset outside the chain, "
+                             "negative or not a multiple of 8")
+        return v
+
+    pos = start
+    for _ in range(warm):
+        pos = follow(pos)
+    out = np.empty(steps, dtype=np.int64)
+    for i in range(steps):
+        out[i] = pos
+        pos = follow(pos)
+    return torch.from_numpy(out).to(chain.device)
+
+
 # How far a kernel may sit from its plain version, per dtype, as
 # (atol, rtol): fp32 leaves only summation order (1e-4 absolute); bf16
 # output may also round to the neighbouring value, one bf16 step (2**-7

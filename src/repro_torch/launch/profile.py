@@ -54,6 +54,7 @@ FAMILIES = (((PORT + "decode_split_kernel<", "PagedLayout"),
             ((PORT + "gemm_kernel<",), "gemm"),
             ((PORT + "gemm_wgmma_kernel<",), "gemm"),
             ((PORT + "pchase_kernel(",), "pchase"),
+            ((PORT + "pchase_timed_kernel<",), "pchase_timed"),
             (("gemm",), "GEMM (cuBLAS)"), (("nvjet",), "GEMM (cuBLAS)"),
             (("xmma",), "GEMM (cuBLAS)"), (("cutlass",), "GEMM (cuBLAS)"),
             (("reduce",), "reductions"), (("index",), "indexing and scatter"),

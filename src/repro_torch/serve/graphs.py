@@ -47,7 +47,8 @@ KERNELS = ((("decode_split_kernel", "PagedLayout"), "flash_decode_paged"),
            (("ssd_scan_mma_kernel",), "ssd_scan"),
            (("gemm_kernel",), "gemm"),
            (("gemm_wgmma_kernel",), "gemm"),
-           (("pchase_kernel",), "pchase"))
+           (("pchase_kernel",), "pchase"),
+           (("pchase_timed_kernel",), "pchase_timed"))
 
 _KERNEL_NODE = 0          # CU_GRAPH_NODE_TYPE_KERNEL
 

@@ -5,7 +5,8 @@ one does not fail loudly: ctypes passes a 64-bit pointer declared as
 ``c_int`` as a 32-bit int and cuts it. So every ``extern "C"`` declaration
 in ``csrc/*.cu`` is parsed here and held against its entry: the same
 number of arguments, ``c_void_p`` for each pointer and the stream,
-``c_int`` for each int. Runs on the CPU: nothing is compiled.
+``c_int`` for each int, ``c_longlong`` for each long long. Runs on the
+CPU: nothing is compiled.
 """
 
 import ctypes
@@ -31,6 +32,8 @@ def _ctype(arg: str):
         return ctypes.c_void_p
     if re.fullmatch(r"(const )?int \w+", arg):
         return ctypes.c_int
+    if re.fullmatch(r"(const )?long long \w+", arg):
+        return ctypes.c_longlong
     raise AssertionError(f"no ctypes rule for argument {arg!r}")
 
 

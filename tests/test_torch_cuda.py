@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import latency
+from repro_torch.core import card, latency, pchase, simulator
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.kernels import flash_decode
 from repro_torch.kernels import gemm as gemm_kernel
@@ -71,7 +71,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
     assert ops.LAUNCHES == {"flash_attention": 0, "flash_decode_paged": 1,
                             "flash_attention_paged": 1,
                             "flash_decode": 0, "ssd_scan": 0,
-                            "gemm": 0, "pchase": 0}
+                            "gemm": 0, "pchase": 0,
+                            "pchase_timed": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -294,6 +295,63 @@ def test_cuda_pchase_matches_plain_version(cuda_device):
         ops.pchase(chain, 4)
     with pytest.raises(ValueError, match="int32"):
         ops.pchase(chain.long(), 4)
+
+
+@pytest.mark.parametrize("bypass_l1", [False, True])
+def test_cuda_pchase_timed_matches_plain_version(cuda_device, bypass_l1):
+    """The timed chase visits the plain version's offsets bit for bit
+    (a permutation, a strided chain from an offset start after untimed
+    steps), with a positive cycle count a load and a walk's total no less
+    than the loads' sum; one launch counted under ``pchase_timed``; an
+    offset outside the chain refused after the launch."""
+    rng = np.random.RandomState(3)
+    perm = rng.permutation(512)
+    ring = np.zeros(512, np.int64)
+    ring[perm] = np.roll(perm, -1) * 8
+    for chain, steps, start, warm in ((ring, 2000, 0, 0),
+                                      (simulator.make_chain(2**16, 64), 900,
+                                       128, 9)):
+        t = torch.from_numpy(chain).to(cuda_device)
+        want = ref.pchase_timed(t, steps, start=start, warm=warm)
+        ops.reset_launches()
+        got, cycles, total = ops.pchase_timed(t, steps, start=start,
+                                              warm=warm, bypass_l1=bypass_l1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert cycles.dtype == torch.int32 and int(cycles.min()) > 0
+        assert int(total.item()) >= int(cycles.long().sum())
+        assert ops.LAUNCHES == dict(dict.fromkeys(ops.LAUNCHES, 0),
+                                    pchase_timed=1)
+    bad = torch.full((16,), 3, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="outside the chain"):
+        ops.pchase_timed(bad, 4, bypass_l1=bypass_l1)
+
+
+def test_cuda_card_latency_classes_rise(cuda_device):
+    """Through ``CardHierarchy`` and the reference's detectors: an L1
+    hit, then an L2 hit (the L1 thrashed by four times 256 KiB), then
+    device memory (a warm footprint four times the L2) rise strictly."""
+    snapper = card.ClassSnapper()
+    h = card.CardHierarchy(cuda_device, snapper=snapper)
+    l1 = pchase.latency_classes(h, span=4 * 2**10).l1_hit
+    l2 = pchase.measure_next_level_latency(h, 256 * 2**10)
+    h.release()
+    g = card.CardHierarchy(cuda_device, bypass_l1=True, snapper=snapper,
+                           repeats=1)
+    memory = card.warm_class(g, 200 * 2**20, 128)
+    g.release()
+    assert 0 < l1 < l2 < memory, (l1, l2, memory)
+
+
+def test_cuda_card_chase_follows_a_make_chain_chain(cuda_device):
+    """``CardHierarchy.chase``, the simulator's ``chase`` on the card: a
+    4 KiB chain at 8 bytes from a flushed card reads the cold classes (an
+    L1 hit the fastest) and checks the offsets it visited."""
+    h = card.CardHierarchy(cuda_device)
+    lat = h.chase(simulator.make_chain(4 * 2**10, 8), steps=512, flush=True)
+    h.release()
+    assert lat.shape == (512,) and lat.dtype == np.int64
+    assert lat.min() > 0 and lat[0] > lat.min()
 
 
 @pytest.mark.parametrize("d", [64, 80, 128])

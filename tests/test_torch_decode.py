@@ -194,13 +194,14 @@ KERNEL_FAMILIES = {
     ("gemm_kernel", None): "gemm",
     ("gemm_wgmma_kernel", None): "gemm",
     ("pchase_kernel", None): "pchase",
+    ("pchase_timed_kernel", None): "pchase_timed",
 }
 GLOBAL = re.compile(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
                     r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?"
                     r"(\w+)\s*\(", re.S)
 ARG = {"typename T": "__nv_bfloat16", "int D": "80", "int G": "16",
        "int P": "64", "int N": "128", "int BM": "128", "int BN": "128",
-       "bool kVec": "true", "bool kTma": "true"}
+       "bool kVec": "true", "bool kTma": "true", "bool kBypassL1": "true"}
 
 
 def _demangled(name, params, layout):

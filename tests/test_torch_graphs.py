@@ -40,6 +40,8 @@ NAMES = [
      "ELb1EEEv14CUtensorMap_stS1_PK13__nv_bfloat16S4_PS2_iii", "gemm"),
     ("_ZN39_GLOBAL__N__78e2e4a0_9_pchase_cu_pchase13pchase_kernelEPKiPii",
      "pchase"),
+    ("_ZN39_GLOBAL__N__78e2e4a0_9_pchase_cu_pchase19pchase_timed_kernelILb1"
+     "EEEvPKxxxxiPxPjS3_S3_Pi", "pchase_timed"),
     # Library and PyTorch kernels: none of the port's.
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", None),
     ("nvjet_tst_128x64_64x8_2x1_v_bz_coopB_TNT", None),
@@ -62,7 +64,7 @@ def test_count_wrappers_counts_only_the_ports_kernels():
     names = [n for n, _ in NAMES] + [NAMES[0][0]] * 35
     want = {"flash_decode_paged": 37, "flash_decode": 2,
             "flash_attention_paged": 2, "flash_attention": 2,
-            "ssd_scan": 2, "gemm": 2, "pchase": 1}
+            "ssd_scan": 2, "gemm": 2, "pchase": 1, "pchase_timed": 1}
     assert graphs.count_wrappers(names) == want
     assert set(want) == set(ops.LAUNCHES)
 

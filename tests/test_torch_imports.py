@@ -48,6 +48,12 @@ def test_port_files_are_found():
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
                 ("core", "hwmodel.py"), ("core", "calibrate.py"),
+                ("core", "simulator.py"), ("core", "pchase.py"),
+                ("core", "dissect.py"), ("core", "regbank.py"),
+                ("core", "regremap.py"), ("core", "scheduler.py"),
+                ("core", "atomics.py"), ("core", "tensorcore.py"),
+                ("core", "isa.py"), ("core", "card.py"),
+                ("configs", "v100_microbench.py"), ("launch", "dissect.py"),
                 ("launch", "calibrate.py"), ("launch", "serve.py"),
                 ("launch", "autotune_gemm.py"),
                 ("launch", "latency.py"), ("launch", "train.py"),
@@ -94,3 +100,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         train.main(["--arch", "qwen3-4b", "--smoke", "--steps", "1",
                     "--ckpt", str(tmp_path)])
     assert not list(tmp_path.iterdir())
+    from repro_torch.core import card
+    from repro_torch.launch import dissect
+    with pytest.raises(RuntimeError, match="CUDA"):
+        card.CardHierarchy()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        card.dissect_card()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dissect.main([])

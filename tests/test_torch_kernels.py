@@ -71,7 +71,8 @@ def test_plain_paged_decode_matches_reference(group, case):
                                  _t(lengths)).numpy()
     assert set(ops.LAUNCHES) == {"flash_attention", "flash_decode_paged",
                                  "flash_attention_paged", "flash_decode",
-                                 "ssd_scan", "gemm", "pchase"}
+                                 "ssd_scan", "gemm", "pchase",
+                                 "pchase_timed"}
     assert not any(ops.LAUNCHES.values())
     assert got.shape == (b, h, d) and got.dtype == np.float32
     pallas = np.asarray(jops.flash_decode_paged(
