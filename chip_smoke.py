@@ -9,7 +9,7 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 1. the card's name and power limit (``nvidia-smi``) and the toolchain;
 2. build of the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version, fp32 and bf16: paged
-   decode and paged prefill and contiguous decode at head_dim 64/80/128
+   decode and paged prefill and contiguous decode at head_dim 64/80/96/128
    and the main path's head counts (ragged lengths with a 0 and max_len,
    shuffled page tables, chunks at start > 0 and past the table's end),
    and the paged prefill at the speculative verify's shape (8 slots of
@@ -19,9 +19,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    about their 256-row splits, with exact zeros for a zero length, the
    same bits from a second launch, and the merge's counters left at zero;
    the SSD scan at l 1/2/127/128/129/300/1031/1536 (batch 2) and
-   129/1024 (batch 1, the engine's) from a zero and a non-zero state, with
-   the same bits from a second launch and its hand-off's tickets and
-   counts left at zero,
+   129/1024 (batch 1, the engine's) from a zero and a non-zero state, at
+   mamba2-370m's head shape (h 32, p 64, n 128) and jamba-v0.1's (h 128,
+   p 64, n 16), with the same bits from a second launch and its hand-off's
+   tickets and counts left at zero,
    the GEMM with every tile of each dtype at ragged shapes (1, 127, 4097
    in each dim) and the qwen3-4b MLP shapes, logging the path each ran
    (fp32 on the CUDA cores; bf16 on the tensor cores, the MLP shapes
@@ -47,7 +48,10 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
    and fp32 (CUDA cores), beside the tile chooser's modelled speedup; the
    pointer chase's nanoseconds per dependent load over footprints from
    16 KiB to 512 MiB; the timed chase at one scan of phase 20's L2
-   search;
+   search; and the paged decode and a 256-row chunk at phi3-mini's
+   attention (MHA, head_dim 96) and the SSD scan at jamba-v0.1's shape
+   (l 1024, d_state 16), each with its device time, plain version, SDPA
+   (none for the scan) and bound;
 5. the paged serving engine at the full width of ``qwen3-4b`` (36 layers,
    bf16, random weights from a seeded ``torch.Generator``): 12 requests,
    32 tokens each, launch counters read around the run; run eagerly and
@@ -83,7 +87,7 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     method, dependent op chains as CUDA graphs, the pointer-chase sweep);
 12. the full-sequence attention kernel against its plain version, fp32
     and bf16, causal and not, lengths 1/127/300 against 1031/2048, head_dim
-    64/80/128, groups 1/4/7; then its time at the cache-less forward's
+    64/80/96/128, groups 1/4/7; then its time at the cache-less forward's
     shape beside the plain version, SDPA and the bound;
 13. the cache-less forward of ``qwen3-4b`` at full width (the weights of
     phase 5): ``loss_fn`` on a 2 x 2048-token batch of the synthetic data
@@ -169,7 +173,30 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     in (0, 256 KiB], the L2 between the L1 and twice the H100's 50 MB,
     both lines are powers of two, and the V100 device model's report
     matches its published column everywhere, as the reference's test
-    asserts.
+    asserts;
+21. the other model families at their published widths, bf16, random
+    weights from a seeded generator, one model on the card at a time with
+    its depth cut to fit (``FAMILIES``): granite-3-8b (40 of 40 layers)
+    and phi3-mini-3.8b (32 of 32), dbrx-132b (4 of 40; 16 experts, top-4)
+    and llama4-maverick (2 of 48: one dense and one MoE layer of 128
+    experts, top-1, and a shared expert) on the paged engine, and
+    jamba-v0.1 (8 of 32: one period of 7 Mamba layers at d_state 16, one
+    attention layer, 4 MoE layers) on the contiguous engine; MoE routing
+    by capacity inside the captured graphs. Each serves 8 requests of
+    64-512 tokens, 16 new tokens each, eager and then graphed as in phase
+    5 (equal schedule, launches and streams; the graphs one decode, and a
+    paged prefill, an attention layer); the launches equal attention
+    layers times steps (the SSD scan 7 an admission); tok/s eager and
+    graphed, peak memory, capture seconds, graph pool, active parameters
+    and the share of (token, expert) choices capacity dropped in the
+    eager run; then logits of a 300-token prompt's prefill and decode
+    step, kernel path against plain path with phase 7's planted faults,
+    in fp32 within FP32_LOGIT_TOL (granite, phi3 and dbrx at 2 layers,
+    llama4's and jamba's one period whole; jamba's decode step against
+    the SSD state's planted fault), and by the bf16 rule over the rows
+    whose router made the same choices in every path (a near-tie flips
+    one now and then); how many of the router's choices the paths share
+    is logged.
 
 Phase 1 also holds the registers the GEMM tile chooser prices each tile
 with (``kernels.gemm.REGISTERS``) to this build's ptxas report.
@@ -226,6 +253,13 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 # Main-path shapes of the SSD scan: mamba2-370m (32 heads of 64, d_state
 # 128) prefilling a batch-1 prompt; the kernel's chunk is 128 rows.
 SSD_H, SSD_P, SSD_N, SSD_L, SSD_CHUNK = 32, 64, 128, 1024, 128
+# The scan's head shapes (h, p, n): mamba2-370m's, and jamba-v0.1's 128
+# heads of 64 at d_state 16 (phase 21).
+SSD_SHAPES = ((SSD_H, SSD_P, SSD_N), (128, 64, 16))
+# Phases 3, 4 and 12: the head dims the attention kernels take, phi3-mini's
+# 96 among them, and phi3-mini's attention (MHA: 32 kv heads of 96).
+HEAD_DIMS = (64, 80, 96, 128)
+PHI3_H, PHI3_KVH, PHI3_D = 32, 32, 96
 # (bt, l) the scan is checked at: one row, one chunk and either side of it,
 # ragged lengths, the longest prompt; batch 1 as the engine prefills.
 SSD_CASES = ((2, 1), (2, 2), (2, 127), (2, 128), (2, 129), (2, 300),
@@ -272,6 +306,19 @@ FLASH_LENGTHS = ((1, 1), (127, 127), (300, 1031), (2048, 2048))
 # 40; the fresh run saves only at its end.
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "4", "--seq", "512",
               "--warmup", "40"]
+# Phase 21: the other model families at their published widths, bf16, one
+# model on the card at a time, the depth cut to fit 80 GB: arch -> (layers
+# served, layers of the fp32 logit check). The checks keep the weights in
+# bf16 and compute in fp32, so llama4's and jamba's one period (2 and 8
+# layers; 69 and 49 GiB were their weights in fp32) is checked whole.
+FAMILIES = {
+    "granite-3-8b": (40, 2),
+    "phi3-mini-3.8b": (32, 2),
+    "dbrx-132b": (4, 2),
+    "llama4-maverick-400b-a17b": (2, 2),
+    "jamba-v0.1-52b": (8, 8),
+}
+FAMILY_REQUESTS, FAMILY_NEW, FAMILY_LO, FAMILY_HI = 8, 16, 64, 512
 
 
 def log(msg: str) -> None:
@@ -369,7 +416,7 @@ def check_kernels(dev, ops, ref) -> list:
     max_pages = MAX_LEN // PS
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (64, 80, 128):
+        for d in HEAD_DIMS:
             rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
             kp, vp = rnd(N_PAGES, PS, KVH, d), rnd(N_PAGES, PS, KVH, d)
             lengths = [0, 1, 15, 16, 17, 700, 1201, 2048]
@@ -434,7 +481,7 @@ DECODE_HEADS = ((H, KVH), (2, 2), (8, 2), (14, 2))
 
 def check_decode_splits(dev, ops, ref, decode_mod) -> list:
     """Both decodes against their plain versions at DECODE_HEADS and
-    SPLIT_LENGTHS, fp32 and bf16, head_dim 64/80/128: within
+    SPLIT_LENGTHS, fp32 and bf16, head_dim 64/80/96/128: within
     ``ref.TOLERANCE``, exact zeros for a zero length, the same bits from
     a second launch on the same inputs, and the merge's counters left at
     zero; returns failures."""
@@ -447,7 +494,7 @@ def check_decode_splits(dev, ops, ref, decode_mod) -> list:
         for dtype in (torch.float32, torch.bfloat16):
             rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
             tol = ref.TOLERANCE[dtype]
-            for d in (64, 80, 128):
+            for d in HEAD_DIMS:
                 worst, bad = 0.0, []
                 for h, kvh in DECODE_HEADS:
                     for lengths in SPLIT_LENGTHS:
@@ -491,19 +538,21 @@ def check_decode_splits(dev, ops, ref, decode_mod) -> list:
     return failures
 
 
-def ssd_inputs(gen, dev, dtype, bt, l, h0=False):
-    """SSD scan inputs at the main path's head shape. The decays are the
-    model's: a = -softplus(N(0, 1)) * linspace(1, 16, h) (dt * A with the
-    reference's A_log initialisation). B and C are scaled by 0.3 so that
-    C.B is about 1 and y about 1, where an absolute tolerance means what
-    it says."""
+def ssd_inputs(gen, dev, dtype, bt, l, h0=False, shape=SSD_SHAPES[0]):
+    """SSD scan inputs at a head shape (h, p, n), the main path's by
+    default. The decays are the model's: a = -softplus(N(0, 1)) *
+    linspace(1, 16, h) (dt * A with the reference's A_log
+    initialisation). B and C are scaled by 0.3 (0.3 * (128 / n) ** 0.25
+    at a smaller d_state) so that C.B is about 1 and y about 1, where an
+    absolute tolerance means what it says."""
+    h, p, n = shape
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
-    x = rnd(bt, l, SSD_H, SSD_P).to(dtype)
-    a = -F.softplus(rnd(bt, l, SSD_H)) * torch.linspace(1, 16, SSD_H,
-                                                        device=dev)
-    b = (0.3 * rnd(bt, l, SSD_N)).to(dtype)
-    c = (0.3 * rnd(bt, l, SSD_N)).to(dtype)
-    return x, a, b, c, (0.5 * rnd(bt, SSD_H, SSD_P, SSD_N) if h0 else None)
+    x = rnd(bt, l, h, p).to(dtype)
+    a = -F.softplus(rnd(bt, l, h)) * torch.linspace(1, 16, h, device=dev)
+    scale = 0.3 * (SSD_N / n) ** 0.25
+    b = (scale * rnd(bt, l, n)).to(dtype)
+    c = (scale * rnd(bt, l, n)).to(dtype)
+    return x, a, b, c, (0.5 * rnd(bt, h, p, n) if h0 else None)
 
 
 def check_contiguous_kernels(dev, ops, ref, decode_mod) -> list:
@@ -515,7 +564,7 @@ def check_contiguous_kernels(dev, ops, ref, decode_mod) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         tol = ref.TOLERANCE[dtype]
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
-        for d in (64, 80, 128):
+        for d in HEAD_DIMS:
             k, v = rnd(B, MAX_LEN, KVH, d), rnd(B, MAX_LEN, KVH, d)
             lens = torch.tensor([0, 1, 63, 64, 65, 700, 1201, MAX_LEN],
                                 dtype=torch.int32, device=dev)
@@ -528,29 +577,32 @@ def check_contiguous_kernels(dev, ops, ref, decode_mod) -> list:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("flash_decode", dtype, d, err))
-        for bt, l in SSD_CASES:
-            for h0 in (False, True):
-                x, a, b, c, h = ssd_inputs(gen, dev, dtype, bt, l, h0)
-                y, st = ops.ssd_scan(x, a, b, c, h0=h)
-                y2, st2 = ops.ssd_scan(x, a, b, c, h0=h)
-                torch.cuda.synchronize()
-                wy, ws = ref.ssd_scan(x, a, b, c, h0=h, chunk=SSD_CHUNK)
-                (ok_y, err_y), (ok_s, err_s) = (
-                    ref.compare(y, wy, normwise=True),
-                    ref.compare(st, ws, normwise=True))
-                same = torch.equal(y, y2) and torch.equal(st, st2)
-                log(f"  ssd_scan {str(dtype):14s} bt={bt} l={l:4d} "
-                    f"h0={int(h0)}: max_abs_err y {err_y:.3e} state "
-                    f"{err_s:.3e} (max |y| {float(wy.float().abs().max()):.2f}"
-                    f", max |state| {float(ws.abs().max()):.2f}; tolerance "
-                    f"scaled by them) {'ok' if ok_y and ok_s else 'FAIL'}; "
-                    f"second launch {'bit-identical' if same else 'DIFFERS'}")
-                if not (ok_y and ok_s):
-                    failures.append(("ssd_scan", dtype, bt, l, h0, err_y,
-                                     err_s))
-                if not same:
-                    failures.append(("ssd_scan two launches differ", dtype,
-                                     bt, l, h0))
+        for shape in SSD_SHAPES:
+            for bt, l in SSD_CASES:
+                for h0 in (False, True):
+                    x, a, b, c, h = ssd_inputs(gen, dev, dtype, bt, l, h0,
+                                               shape)
+                    y, st = ops.ssd_scan(x, a, b, c, h0=h)
+                    y2, st2 = ops.ssd_scan(x, a, b, c, h0=h)
+                    torch.cuda.synchronize()
+                    wy, ws = ref.ssd_scan(x, a, b, c, h0=h, chunk=SSD_CHUNK)
+                    (ok_y, err_y), (ok_s, err_s) = (
+                        ref.compare(y, wy, normwise=True),
+                        ref.compare(st, ws, normwise=True))
+                    same = torch.equal(y, y2) and torch.equal(st, st2)
+                    log(f"  ssd_scan {str(dtype):14s} (h, p, n) {shape} "
+                        f"bt={bt} l={l:4d} h0={int(h0)}: max_abs_err y "
+                        f"{err_y:.3e} state {err_s:.3e} (max |y| "
+                        f"{float(wy.float().abs().max()):.2f}, max |state| "
+                        f"{float(ws.abs().max()):.2f}; tolerance scaled by "
+                        f"them) {'ok' if ok_y and ok_s else 'FAIL'}; second "
+                        f"launch {'bit-identical' if same else 'DIFFERS'}")
+                    if not (ok_y and ok_s):
+                        failures.append(("ssd_scan", dtype, shape, bt, l, h0,
+                                         err_y, err_s))
+                    if not same:
+                        failures.append(("ssd_scan two launches differ",
+                                         dtype, shape, bt, l, h0))
     left = [c for c in decode_mod._COUNTERS.values() if c.any()]
     log(f"  the hand-off's tickets and counts after these launches: "
         f"{'all zero' if not left else 'NOT ZERO'}")
@@ -750,24 +802,24 @@ def time_ms(fn, n_layers: int, iters: int = 50, spin: bool = False) -> float:
         cycles *= 4
 
 
-def ssd_work(l: int, esize: int) -> tuple:
-    """(bytes, flops) of a batch-1 SSD scan of l rows at the main path's
-    head shape, from a zero state: x read and y written, a_log, B and C
-    read, the fp32 state written. The flops are the useful ones per chunk
-    and head: the causal half of C.B^T (n each) and of the decayed scores
-    times x (p each), the carried state's term and the state update (p * n
-    each per row)."""
-    nbytes = (2 * l * SSD_H * SSD_P * esize + 4 * l * SSD_H
-              + 2 * l * SSD_N * esize + 4 * SSD_H * SSD_P * SSD_N)
+def ssd_work(l: int, esize: int, shape=SSD_SHAPES[0]) -> tuple:
+    """(bytes, flops) of a batch-1 SSD scan of l rows at a head shape (h,
+    p, n), the main path's by default, from a zero state: x read and y
+    written, a_log, B and C read, the fp32 state written. The flops are
+    the useful ones per chunk and head: the causal half of C.B^T (n each)
+    and of the decayed scores times x (p each), the carried state's term
+    and the state update (p * n each per row)."""
+    h, p, n = shape
+    nbytes = (2 * l * h * p * esize + 4 * l * h + 2 * l * n * esize
+              + 4 * h * p * n)
     tri = sum(min(SSD_CHUNK, l - t0) * (min(SSD_CHUNK, l - t0) + 1) // 2
               for t0 in range(0, l, SSD_CHUNK))
-    return nbytes, SSD_H * 2 * (tri * (SSD_N + SSD_P)
-                                + 2 * l * SSD_P * SSD_N)
+    return nbytes, h * 2 * (tri * (n + p) + 2 * l * p * n)
 
 
-def ssd_grid(bt: int, l: int) -> str:
+def ssd_grid(bt: int, l: int, shape=SSD_SHAPES[0]) -> str:
     from repro_torch.kernels import ssd_scan as ssd_mod
-    gx, gy, gz = ssd_mod.grid(bt, l, SSD_H, SSD_P)
+    gx, gy, gz = ssd_mod.grid(bt, l, shape[0], shape[1])
     return (f"({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs (head x p-block of "
             f"{ssd_mod.P_BLOCK}, chunk of {ssd_mod.CHUNK}, batch row)")
 
@@ -1015,6 +1067,116 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
     return out
 
 
+def time_family_shapes(dev, ops, ref, decode_mod) -> dict:
+    """The attention kernels at phi3-mini's shape (32 heads, MHA, head_dim
+    96: a paged decode of B slots over contexts of 512..2048 rows, one
+    256-row chunk at start 1024) and the SSD scan at jamba's (128 heads of
+    64, d_state 16, bt 1, l SSD_L), bf16: kernel (host-paced), device
+    time, plain version, SDPA (none for the scan) and the bound. Logged,
+    and returned for ``PERF.md``; the ``kernels`` line keeps the main
+    path's shapes."""
+    dtype, esize, n_layers = torch.bfloat16, 2, 4
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    h, kvh, d = PHI3_H, PHI3_KVH, PHI3_D
+    max_pages = MAX_LEN // PS
+    pools = [(rnd(N_PAGES, PS, kvh, d), rnd(N_PAGES, PS, kvh, d))
+             for _ in range(n_layers)]
+    out = {}
+    lengths = [int(x) for x in np.linspace(512, 2048, B)]
+    table = _tables(gen, dev, lengths, max_pages)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = rnd(B, h, d)
+    ok, err = ref.compare(ops.flash_decode_paged(q, *pools[0], table, lens),
+                          ref.flash_decode_paged(q, *pools[0], table, lens))
+    kv_rows = sum(lengths)
+    nbytes = (2 * q.numel() * esize + 2 * kv_rows * kvh * d * esize
+              + 4 * (sum(-(-n // PS) for n in lengths) + B))
+    views = [tuple(t.permute(0, 2, 1, 3).contiguous()
+                   for t in ref.gather_kv(kp, vp, table)) for kp, vp in pools]
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        q4, views[i][0], views[i][1], attn_mask=mask)
+    run = lambda i: ops.flash_decode_paged(q, *pools[i], table, lens)  # noqa: E731
+    out["flash_decode_paged"] = dict(
+        max_abs_err=err, ok=ok, ms=time_ms(run, n_layers),
+        device_ms=time_ms(run, n_layers, spin=True),
+        plain_ms=time_ms(lambda i: ref.flash_decode_paged(
+            q, *pools[i], table, lens), n_layers, iters=10),
+        library_ms=time_ms(sdpa, n_layers),
+        library_device_ms=time_ms(sdpa, n_layers, spin=True),
+        bytes=nbytes, ops=4 * kv_rows * h * d,
+        shape=f"b={B} h={h} kvh={kvh} d={d} page={PS} contexts "
+              f"{lengths[0]}..{lengths[-1]} (sum {kv_rows}); grid "
+              f"{decode_grid(decode_mod, lengths, MAX_LEN, PS)}")
+    del views
+    start = 1024
+    n_keys = start + CHUNK
+    table = _tables(gen, dev, [n_keys], max_pages)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    qc = rnd(1, CHUNK, h, d)
+    ok, err = ref.compare(
+        ops.flash_attention_paged(qc, *pools[0], table, st),
+        ref.flash_attention_paged(qc, *pools[0], table, st))
+    views = [tuple(t[:, :n_keys].permute(0, 2, 1, 3).contiguous()
+                   for t in ref.gather_kv(kp, vp, table)) for kp, vp in pools]
+    cmask = (torch.arange(n_keys, device=dev)[None, :]
+             <= start + torch.arange(CHUNK, device=dev)[:, None])
+    qt = qc.permute(0, 2, 1, 3).contiguous()
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        qt, views[i][0], views[i][1], attn_mask=cmask)
+    run = lambda i: ops.flash_attention_paged(qc, *pools[i], table, st)  # noqa: E731
+    out["flash_attention_paged"] = dict(
+        max_abs_err=err, ok=ok, ms=time_ms(run, n_layers),
+        device_ms=time_ms(run, n_layers, spin=True),
+        plain_ms=time_ms(lambda i: ref.flash_attention_paged(
+            qc, *pools[i], table, st), n_layers, iters=10),
+        library_ms=time_ms(sdpa, n_layers),
+        library_device_ms=time_ms(sdpa, n_layers, spin=True),
+        bytes=(2 * qc.numel() * esize + 2 * n_keys * kvh * d * esize
+               + 4 * (-(-n_keys // PS) + 1)),
+        ops=4 * sum(start + r + 1 for r in range(CHUNK)) * h * d,
+        shape=f"b=1 sq={CHUNK} start={start} h={h} kvh={kvh} d={d} "
+              f"page={PS}")
+    del views, pools
+    shape = SSD_SHAPES[1]
+    sets = [ssd_inputs(gen, dev, dtype, 1, SSD_L, shape=shape)[:4]
+            for _ in range(12)]
+    y, st = ops.ssd_scan(*sets[0])
+    wy, ws = ref.ssd_scan(*sets[0], chunk=SSD_CHUNK)
+    (ok_y, err_y), (ok_s, err_s) = (ref.compare(y, wy, normwise=True),
+                                    ref.compare(st, ws, normwise=True))
+    nbytes, ops_n = ssd_work(SSD_L, esize, shape)
+    run = lambda i: ops.ssd_scan(*sets[i])  # noqa: E731
+    out["ssd_scan"] = dict(
+        max_abs_err=max(err_y, err_s), ok=ok_y and ok_s,
+        ms=time_ms(run, len(sets)), device_ms=time_ms(run, len(sets),
+                                                      spin=True),
+        plain_ms=time_ms(lambda i: ref.ssd_scan(*sets[i], chunk=SSD_CHUNK),
+                         len(sets), iters=10),
+        library_ms=None, library_device_ms=None, bytes=nbytes, ops=ops_n,
+        shape=f"bt=1 l={SSD_L} (h, p, n)={shape} chunk={SSD_CHUNK}; grid "
+              f"{ssd_grid(1, SSD_L, shape)}")
+    del sets
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
+        lib = ("none (no PyTorch call computes it)"
+               if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms, device time "
+               f"{r['library_device_ms']:.4f} ms")
+        log(f"  {name} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms at the "
+            f"host's pace, device time {r['device_ms']:.4f} ms "
+            f"({tflops(r['ops'], r['device_ms']):.2f} TFLOP/s, "
+            f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of its bound), "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {lib}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
+            f"max_abs_err {r['max_abs_err']:.3e} {'ok' if r['ok'] else 'FAIL'}")
+    return out
+
+
 def time_probe_kernels(dev, ops, ref, latency, autotune,
                        gemm_kernel) -> dict:
     """GEMM times with every tile of the dtype (the naive and the tuned
@@ -1134,7 +1296,7 @@ def check_flash_kernel(dev, ops, ref) -> list:
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
         tol = ref.TOLERANCE[dtype]
         for causal in (True, False):
-            for d in (64, 80, 128):
+            for d in HEAD_DIMS:
                 worst = 0.0
                 for group in (1, 4, 7):
                     for sq, skv in FLASH_LENGTHS:
@@ -1251,11 +1413,12 @@ def make_requests(vocab: int, n: int, lo: int = 64, hi: int = 1536):
 
 
 def serve(params, cfg, scfg, prompts, max_new, dev, ops, capture=True,
-          stagger=False):
+          stagger=False, during=contextlib.nullcontext):
     """Drive the engine over ``prompts``; launch counts cover this run only,
     the wall time the run only (not the engine's construction, where a
     graphed engine captures its steps). ``stagger``: request 0 alone
-    until its prefill ends (its first token), then the rest."""
+    until its prefill ends (its first token), then the rest. ``during()``:
+    a context the run (not the construction) goes through."""
     from repro_torch.serve.engine import Request, ServingEngine
 
     eng = ServingEngine(params, cfg, scfg, device=dev, capture=capture)
@@ -1268,13 +1431,14 @@ def serve(params, cfg, scfg, prompts, max_new, dev, ops, capture=True,
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    if stagger:
-        while not reqs[0].generated:
-            eng.tick()
-        for req in reqs[1:]:
-            eng.submit(req)
-    finished = eng.run_until_drained()
-    torch.cuda.synchronize()
+    with during():
+        if stagger:
+            while not reqs[0].generated:
+                eng.tick()
+            for req in reqs[1:]:
+                eng.submit(req)
+        finished = eng.run_until_drained()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     return eng, finished, wall, launches
@@ -1383,7 +1547,7 @@ def max_diff(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def check_logits(f32, b16, parts, label) -> list:
+def check_logits(f32, b16, parts, label, rows=None) -> list:
     """Kernel path against plain path on the same weights; returns
     failures. ``parts``: (index into the logits pair, what it is, the
     planted fault that must show there).
@@ -1393,7 +1557,14 @@ def check_logits(f32, b16, parts, label) -> list:
     (FP32_LOGIT_TOL) separates right from wrong. bf16: the limit is twice
     the plain path's own bf16 error (plain bf16 against plain fp32, same
     weights): kernel and plain path each sit within about that of the
-    fp32 logits."""
+    fp32 logits. ``rows``: part -> a mask of the rows whose router made
+    the same choices in the kernel and plain bf16 paths and the plain
+    fp32 path (``routed_alike``); the bf16 rule then reads those rows
+    only. In bf16 a near-tie of the router flips a choice now and then,
+    which moves that row's MoE output (and, through a Mamba layer's state
+    or a later attention layer, the rows after it) as a fault would; the
+    fp32 comparison, where the paths choose alike, holds every row. At
+    least half of a part of several rows must be read."""
     failed = []
     for part, what, fault_name in parts:
         sound = max_diff(f32["kernel"][part], f32["plain"][part])
@@ -1408,11 +1579,25 @@ def check_logits(f32, b16, parts, label) -> list:
         if not fault > FP32_LOGIT_TOL:
             failed.append(f"{label} fp32 {what}: the planted fault went "
                           f"unseen")
-        sound = max_diff(b16["kernel"][part], b16["plain"][part])
-        noise = max_diff(b16["plain"][part], f32["plain"][part])
+        keep = None if rows is None else rows[part]
+        pick = (lambda t: t) if keep is None else (  # noqa: E731
+            lambda t: t[keep] if t.dim() > 1 else t[None][keep.reshape(1)])
         fault = max_diff(b16["kernel"][part], b16[fault_name][part])
         agree = float((b16["kernel"][part].argmax(-1)
                        == b16["plain"][part].argmax(-1)).float().mean())
+        if keep is not None:
+            n_all, n_kept = keep.numel(), int(keep.sum())
+            log(f"  {label} bf16 {what}: {n_all - n_kept} of {n_all} rows "
+                f"left out, a router choice differing between the paths "
+                f"(all-row kernel vs plain "
+                f"{max_diff(b16['kernel'][part], b16['plain'][part]):.4f})")
+            if n_all > 1 and 2 * n_kept < n_all:
+                failed.append(f"{label} bf16 {what}: the router's choices "
+                              f"differ on {n_all - n_kept} of {n_all} rows")
+            if not n_kept:
+                continue
+        sound = max_diff(pick(b16["kernel"][part]), pick(b16["plain"][part]))
+        noise = max_diff(pick(b16["plain"][part]), pick(f32["plain"][part]))
         log(f"  {label} bf16 {what}: max |logit diff| kernel vs plain "
             f"{sound:.4f}, plain bf16 vs fp32 {noise:.4f} (limit "
             f"{2 * noise:.4f}), planted fault {fault:.4f}, argmax agreement "
@@ -1481,14 +1666,15 @@ def prefix_line(eng) -> str:
 
 
 def run_engine(label, params, cfg, scfg, prompts, dev, ops, capture=True,
-               stagger=False):
-    """Serve ``prompts`` at MAX_NEW tokens each and report; returns the
+               stagger=False, max_new=MAX_NEW,
+               during=contextlib.nullcontext):
+    """Serve ``prompts`` at ``max_new`` tokens each and report; returns the
     engine, the launch counts, the streams and the tok/s of this run."""
     torch.cuda.reset_peak_memory_stats()
     eng, finished, wall, launches = serve(params, cfg, scfg, prompts,
-                                          MAX_NEW, dev, ops, capture,
-                                          stagger)
-    check_served(eng, finished, prompts, MAX_NEW, cfg.vocab)
+                                          max_new, dev, ops, capture,
+                                          stagger, during)
+    check_served(eng, finished, prompts, max_new, cfg.vocab)
     toks = sum(len(v) for v in finished.values())
     pools = ", ".join(f"{k} {v / 2**20:.1f}"
                       for k, v in eng.graph_pools.items())
@@ -1542,11 +1728,12 @@ def first_difference(a, b):
 
 def graph_kernels(cfg, scfg) -> dict:
     """The port's kernels each of the engine's graphs must hold a replay:
-    one decode (attention stacks) a layer, one paged prefill a layer (the
-    chunk step, and the verify step in place of the decode step)."""
+    one decode an attention layer, one paged prefill an attention layer
+    (the chunk step, and the verify step in place of the decode step).
+    A Mamba layer's decode step is plain PyTorch (the recurrence)."""
     if all(k != "attn" for k in cfg.pattern):
         return {"decode": {}}
-    n = cfg.n_layers
+    n = sum(cfg.kind(i) == "attn" for i in range(cfg.n_layers))
     if not scfg.paged:
         return {"decode": {"flash_decode": n}}
     if scfg.spec_k:
@@ -1557,21 +1744,24 @@ def graph_kernels(cfg, scfg) -> dict:
 
 
 def run_eager_and_graphed(label, params, cfg, scfg, prompts, dev, ops,
-                          stagger=False):
+                          stagger=False, max_new=MAX_NEW,
+                          eager_during=contextlib.nullcontext):
     """The engine run eagerly, then graphed, in the same call (both warmed
     up at construction): the same schedule, launches and streams, and
     graphs that hold the kernels the path needs, or a RuntimeError naming
-    what differs. Returns the graphed engine, its launches, streams and
+    what differs. ``eager_during()``: a context the eager run goes
+    through. Returns the graphed engine, its launches, streams and
     tok/s."""
     eager, e_launches, e_fin, _ = run_engine(label, params, cfg, scfg,
                                              prompts, dev, ops, capture=False,
-                                             stagger=stagger)
+                                             stagger=stagger, max_new=max_new,
+                                             during=eager_during)
     e_sched = schedule(eager, e_launches)
     del eager
     torch.cuda.empty_cache()
     eng, launches, fin, tok_s = run_engine(label, params, cfg, scfg,
                                            prompts, dev, ops, capture=True,
-                                           stagger=stagger)
+                                           stagger=stagger, max_new=max_new)
     if eng.graph_nodes != graph_kernels(cfg, scfg):
         raise RuntimeError(f"{label}: the graphs hold {eng.graph_nodes}, "
                            f"not {graph_kernels(cfg, scfg)}")
@@ -2533,8 +2723,13 @@ def run_dissection(dev, ops, card, dissect, hwmodel) -> dict:
             "tlbs": rep.tlb_note}
 
 
-def init_model(name, configs, T, dev):
+def init_model(name, configs, T, dev, n_layers=None):
+    """Random bf16 weights of ``name``'s full configuration from a seeded
+    generator on the card; ``n_layers`` cuts the depth (the widths stay
+    the published ones)."""
     cfg = configs.get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
@@ -2544,6 +2739,201 @@ def init_model(name, configs, T, dev):
         f"{cfg.d_model}, bf16, initialised in "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+@contextlib.contextmanager
+def counting_drops(moe_mod):
+    """``moe_apply`` wrapped to add up, on the card, the (token, expert)
+    choices each capacity call drops and the choices it routes (a chunk's
+    padded rows included): one more routing pass a MoE layer, no wait on
+    the host until the caller reads the sum."""
+    orig, acc = moe_mod.moe_apply, {"dropped": [], "choices": 0}
+
+    def counted(params, cfg, x):
+        if cfg.impl == "capacity":
+            acc["dropped"].append(moe_mod.dropped(params, cfg, x))
+            acc["choices"] += x.shape[0] * x.shape[1] * cfg.top_k
+        return orig(params, cfg, x)
+
+    moe_mod.moe_apply = counted
+    try:
+        yield acc
+    finally:
+        moe_mod.moe_apply = orig
+
+
+@contextlib.contextmanager
+def recording_routes(moe_mod):
+    """The router's choices of every MoE call, each token's sorted."""
+    orig, ids = moe_mod._route, []
+
+    def recorded(params, cfg, x):
+        out = orig(params, cfg, x)
+        ids.append(out[1].sort(dim=-1).values)
+        return out
+
+    moe_mod._route = recorded
+    try:
+        yield ids
+    finally:
+        moe_mod._route = orig
+
+
+def family_logits(params, cfg, T, dev, prompt, paged, paths, ops, moe_mod):
+    """Logits of a prefill and a decode step (``paged_logits`` or
+    ``contiguous_logits``) through the kernels and through each path, with
+    the router's choices of each run."""
+    fn = paged_logits if paged else contiguous_logits
+    out, routes = {}, {}
+    for name, override in [("kernel", {})] + list(paths.items()):
+        with kernel_ops(ops, **override), recording_routes(moe_mod) as ids:
+            out[name] = fn(params, cfg, T, dev, prompt)
+        routes[name] = ids
+    return out, routes
+
+
+def routed_alike(b16_routes, f32_routes, n_moe: int, n_rows: int) -> dict:
+    """Part -> mask of the logits rows whose router made the same choices
+    (every MoE layer) in the kernel and plain bf16 paths and the plain
+    fp32 path: part 0, the last prefill forward's first ``n_rows`` rows;
+    part 1, the decode step's row. The calls come ``n_moe`` a forward, in
+    order."""
+    paths = (b16_routes["kernel"], b16_routes["plain"], f32_routes["plain"])
+    masks = {}
+    for part, calls, n in ((0, slice(-2 * n_moe, -n_moe), n_rows),
+                           (1, slice(-n_moe, None), 1)):
+        same = None
+        for a, b in zip(paths, paths[1:]):
+            for x, y in zip(a[calls], b[calls]):
+                eq = (x[:n] == y[:n]).all(dim=-1)
+                same = eq if same is None else same & eq
+        masks[part] = same if part == 0 else same.reshape(())
+    return masks
+
+
+def route_agreement(routes) -> str:
+    """How many (token, expert) choices the kernel path's router makes as
+    the plain path's: a flip at a near-tie of the router moves a token's
+    MoE output, which the logits then show."""
+    if not routes["kernel"]:
+        return "no router"
+    same = sum(int((a == b).sum()) for a, b in zip(routes["kernel"],
+                                                   routes["plain"]))
+    total = sum(a.numel() for a in routes["kernel"])
+    return f"{same}/{total} (token, expert) choices agree"
+
+
+def run_families(dev, ops, ref, configs, T, moe_mod) -> dict:
+    """Phase 21: each model of FAMILIES at its published widths, bf16,
+    random weights from a seeded generator, at its cut depth; served
+    eagerly and then graphed (equal schedule, launches and streams; the
+    graphs one decode, and paged one prefill, an attention layer); the
+    launches per step; then logits of the kernel path against the plain
+    path. Returns per model its tok/s, memory and readings."""
+    from repro_torch.serve.engine import ServeConfig
+
+    summary = {}
+    for name, (depth, check_depth) in FAMILIES.items():
+        t_model = time.perf_counter()
+        cfg, params = init_model(name, configs, T, dev, n_layers=depth)
+        n_attn = T.n_attention_layers(cfg)
+        n_mamba = cfg.n_layers - n_attn
+        paged = n_mamba == 0
+        active = T.active_param_count(cfg)
+        log(f"  {name}: {depth} of {configs.get_config(name).n_layers} "
+            f"layers, {n_attn} attention, {n_mamba} Mamba, "
+            f"{sum(cfg.is_moe(i) for i in range(depth))} MoE "
+            f"({cfg.n_experts} experts, top-{cfg.top_k}, {cfg.moe_impl}); "
+            f"{active / 1e9:.3f} B active parameters a token; "
+            f"{'paged' if paged else 'contiguous'} engine")
+        prompts = make_requests(cfg.vocab, FAMILY_REQUESTS, lo=FAMILY_LO,
+                                hi=FAMILY_HI)
+        log(f"  prompt lengths: {[len(p) for p in prompts]}")
+        scfg = (ServeConfig(max_len=MAX_LEN, batch=B, paged=True,
+                            page_size=PS, chunk_size=CHUNK, eos_id=-1)
+                if paged else ServeConfig(max_len=MAX_LEN, batch=B,
+                                          eos_id=-1))
+        eager_acc = {}
+
+        @contextlib.contextmanager
+        def eager_during():
+            with counting_drops(moe_mod) as acc:
+                eager_acc["acc"] = acc
+                yield
+
+        eng, launches, _, tok_s = run_eager_and_graphed(
+            name, params, cfg, scfg, prompts, dev, ops, max_new=FAMILY_NEW,
+            eager_during=eager_during)
+        steps = eng.decode_steps
+        want = ({"flash_decode_paged": n_attn * steps,
+                 "flash_attention_paged": n_attn * eng.chunk_steps}
+                if paged else
+                {"flash_decode": n_attn * steps,
+                 "ssd_scan": n_mamba * sum(eng.prefill_buckets.values())})
+        if launches != dict(dict.fromkeys(launches, 0), **want):
+            raise RuntimeError(f"{name}: launches {launches}, want {want}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = dict(tok_s=tok_s, peak_gib=peak,
+                   capture_s=eng.capture_seconds,
+                   graph_mib=eng.graph_bytes / 2**20, active=active,
+                   launches={k: v for k, v in launches.items() if v})
+        acc = eager_acc["acc"]
+        if acc["choices"]:
+            n_dropped = int(sum(t.item() for t in acc["dropped"]))
+            row["dropped"] = n_dropped / acc["choices"]
+            log(f"  {name}: capacity dropped {n_dropped} of "
+                f"{acc['choices']} (token, expert) choices "
+                f"({100 * row['dropped']:.2f} %) in the eager run (a "
+                f"chunk's padded rows routed too)")
+        log(f"  {name}: launches {row['launches']} = {n_attn} attention "
+            f"layers x {steps} decode steps"
+            + (f", x {eng.chunk_steps} chunk steps" if paged else
+               f"; ssd_scan {n_mamba} x "
+               f"{sum(eng.prefill_buckets.values())} admissions"))
+        del eng
+        torch.cuda.empty_cache()
+
+        prompt = make_requests(cfg.vocab, 1, lo=300, hi=300)[0]
+        if paged:
+            paths = paged_paths(ops, ref)
+            parts = [(0, "prefill chunk", "prefill fault"),
+                     (1, "decode step", "decode fault")]
+        else:
+            # One attention layer in eight: the decode kernel's planted
+            # fault (one key of 300 dropped) moves these logits by less
+            # than the limit, so the decode step holds the SSD state's
+            # (phases 7 and 10 hold the decode kernel's).
+            paths = {k: v for k, v in contiguous_paths(ops, ref).items()
+                     if k in ("plain", "ssd fault", "ssd state fault")}
+            parts = [(0, "300-row prefill", "ssd fault"),
+                     (1, "decode step", "ssd state fault")]
+        n_check = check_depth
+        cut = dict(params, blocks=params["blocks"][:n_check])
+        b16cfg = dataclasses.replace(cfg, n_layers=n_check)
+        f32cfg = dataclasses.replace(b16cfg, compute_dtype="float32")
+        f32, f32_routes = family_logits(cut, f32cfg, T, dev, prompt, paged,
+                                        paths, ops, moe_mod)
+        b16, b16_routes = family_logits(cut, b16cfg, T, dev, prompt, paged,
+                                        paths, ops, moe_mod)
+        log(f"  {name} first {n_check} layers, router: fp32 "
+            f"{route_agreement(f32_routes)}, bf16 "
+            f"{route_agreement(b16_routes)} (kernel against plain path)")
+        n_moe = sum(b16cfg.is_moe(i) for i in range(n_check))
+        rows = (routed_alike(b16_routes, f32_routes, n_moe,
+                             b16["plain"][0].shape[0]) if n_moe else None)
+        failed = check_logits(f32, b16, parts,
+                              f"{name} first {n_check} layers", rows=rows)
+        row["fp32_logit_diff"] = max(max_diff(f32["kernel"][i],
+                                              f32["plain"][i])
+                                     for i, _, _ in parts)
+        del f32, b16, cut, params
+        torch.cuda.empty_cache()
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        row["seconds"] = time.perf_counter() - t_model
+        log(f"  {name}: {row['seconds']:.1f} s in all")
+        summary[name] = row
+    return summary
 
 
 def run_training(dev, ops, configs, T, steps) -> dict:
@@ -2639,6 +3029,7 @@ def main() -> None:
     from repro_torch.kernels import gemm as gemm_kernel
     from repro_torch.launch import autotune_gemm
     from repro_torch.launch import latency as latency_launch
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.serve import sampling
     from repro_torch.serve.engine import ServeConfig
@@ -2679,7 +3070,11 @@ def main() -> None:
     timing.update(time_probe_kernels(dev, ops, ref, latency, autotune,
                                      gemm_kernel))
     timing.update(time_timed_chase(dev, ops, ref))
-    if not all(r["ok"] for r in timing.values()):
+    torch.cuda.empty_cache()
+    log("  -- at phi3-mini's attention (head_dim 96, MHA) and jamba's SSD "
+        "shape (d_state 16) --")
+    family_timing = time_family_shapes(dev, ops, ref, decode_mod)
+    if not all(r["ok"] for r in [*timing.values(), *family_timing.values()]):
         raise RuntimeError("a timed kernel disagrees with its plain version")
     torch.cuda.empty_cache()
 
@@ -2932,6 +3327,11 @@ def main() -> None:
     main_launches["pchase_timed"] = dissection["launches"]
     torch.cuda.empty_cache()
 
+    log("== the other model families at full width, bf16 ==")
+    t0 = time.perf_counter()
+    families = run_families(dev, ops, ref, configs, T, moe_mod)
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -2944,7 +3344,8 @@ def main() -> None:
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
         f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
         f"overload {overload}; cost models {costs}; dissection "
-        f"{dissection}; total {time.perf_counter() - t_start:.1f} s")
+        f"{dissection}; families {families}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@ that, e.g. ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameter dict. This module imports neither JAX nor ``repro``.
 
 The reference stacks each pattern position's parameters over periods
-(``_stack_init``: leading dim = n_layers for a one-kind pattern); here
-that dim is unstacked into one dict per layer. The ported patterns are
-the dense ``("attn",)`` and the Mamba-2 ``("mamba",)``. Weight layouts are
-kept as they are (``wq``/``wk``/``wv`` (d, h, hd), ``wo`` (h, hd, d),
-``w_x``/``w_z`` (d, h, p), ``w_ssm_out`` (h, p, d)).
+(``_stack_init``: ``blocks[pos]`` has a leading dim of ``periods``); here
+they are unstacked into one dict per layer, layer i being pattern position
+``i % P``, period ``i // P`` (P the pattern's length). Any pattern of
+``"attn"`` and ``"mamba"`` layers is carried, with dense or
+mixture-of-experts MLPs. Weight layouts are kept as they are
+(``wq``/``wk``/``wv`` (d, h, hd), ``wo`` (h, hd, d), ``w_x``/``w_z``
+(d, h, p), ``w_ssm_out`` (h, p, d), ``expert_gate``/``expert_up``
+(e, d, f), ``expert_down`` (e, f, d)).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from repro_torch.configs import ModelConfig
 
 # Leaves kept in fp32 whatever the compute dtype (the reference applies
 # them in fp32 or casts them at use).
-FP32_LEAVES = {"scale", "b_q", "b_k", "b_v", "b_up", "dt_bias", "A_log", "D"}
-PORTED_PATTERNS = (("attn",), ("mamba",))
+FP32_LEAVES = {"scale", "b_q", "b_k", "b_v", "b_up", "dt_bias", "A_log", "D",
+               "router"}
+PORTED_KINDS = ("attn", "mamba")
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
@@ -49,17 +53,22 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         return out
 
     blocks_np = np_params["blocks"]
-    if tuple(cfg.pattern) not in PORTED_PATTERNS or len(blocks_np) != 1:
-        raise ValueError(f"pattern {cfg.pattern} is not ported; ported: "
-                         f"{PORTED_PATTERNS}")
-    stacked = blocks_np[0]
-    periods = np.asarray(stacked["ln1"]["scale"]).shape[0]
-    if periods != cfg.n_layers:
-        raise ValueError(f"{periods} stacked layers, config has "
-                         f"{cfg.n_layers}")
+    if any(k not in PORTED_KINDS for k in cfg.pattern):
+        raise ValueError(f"pattern {cfg.pattern} is not ported; ported "
+                         f"layer kinds: {PORTED_KINDS}")
+    n_pos = len(cfg.pattern)
+    if len(blocks_np) != n_pos:
+        raise ValueError(f"{len(blocks_np)} stacked pattern positions, the "
+                         f"config's pattern {cfg.pattern} has {n_pos}")
+    for pos, stacked in enumerate(blocks_np):
+        periods = np.asarray(stacked["ln1"]["scale"]).shape[0]
+        if periods != cfg.periods:
+            raise ValueError(f"position {pos}: {periods} stacked periods, "
+                             f"config has {cfg.periods}")
     return {
         "embed": convert(np_params["embed"]),
-        "blocks": [convert(stacked, period=i) for i in range(periods)],
+        "blocks": [convert(blocks_np[i % n_pos], period=i // n_pos)
+                   for i in range(cfg.n_layers)],
         "ln_f": convert(np_params["ln_f"]),
         "unembed": convert(np_params["unembed"]),
     }

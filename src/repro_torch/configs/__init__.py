@@ -1,5 +1,6 @@
 """Model configurations: the subset of the reference's ``ModelConfig``
-the port serves — dense GQA decoders and Mamba-2 stacks.
+the port serves — dense GQA decoders, mixtures of experts, Mamba-2
+stacks and hybrids of the two.
 
 ``get_config(name)`` returns the full configuration, ``get_smoke(name)``
 the reduced same-family one used by the CPU tests. Field values are the
@@ -17,6 +18,11 @@ import torch
 ALIASES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "granite-3-8b": "granite_3_8b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "dbrx-132b": "dbrx_132b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "mamba2-370m": "mamba2_370m",
 }
 
@@ -27,7 +33,10 @@ class ModelConfig:
     is named by ``pattern`` (repeated over the depth): ``"attn"`` (GQA
     attention with optional qk-norm / qkv-bias and half-split RoPE) or
     ``"mamba"`` (a Mamba-2 SSD mixer, ``models.mamba``); ``d_ff > 0`` adds
-    a SwiGLU or GELU MLP to every block.
+    a SwiGLU or GELU MLP to every block, which is a mixture of
+    ``n_experts`` SwiGLU experts (``models.moe``, top-``top_k`` routing,
+    ``n_shared_experts`` always on) at the pattern positions
+    ``moe_positions``.
 
     ``use_flash`` governs only the cache-less forward (``forward`` without
     caches: scoring, the loss): True runs its attention through the
@@ -52,6 +61,12 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: Optional[float] = 10000.0
     pattern: Tuple[str, ...] = ("attn",)
+    moe_positions: Tuple[int, ...] = ()      # pattern positions with MoE MLP
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_impl: str = "capacity"               # "capacity" | "dense_mask"
+    moe_capacity_factor: float = 1.25
     mamba_d_state: int = 128
     mamba_head_dim: int = 64
     mamba_expand: int = 2
@@ -74,6 +89,19 @@ class ModelConfig:
     def kind(self, layer: int) -> str:
         """The mixer of layer ``layer``: its position in the pattern."""
         return self.pattern[layer % len(self.pattern)]
+
+    def is_moe(self, layer: int) -> bool:
+        """Whether layer ``layer``'s MLP is a mixture of experts."""
+        return bool(self.n_experts) and \
+            layer % len(self.pattern) in self.moe_positions
+
+    def moe_cfg(self):
+        from repro_torch.models.moe import MoEConfig
+
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.n_experts, top_k=self.top_k,
+                         n_shared=self.n_shared_experts, impl=self.moe_impl,
+                         capacity_factor=self.moe_capacity_factor)
 
     def mamba_cfg(self):
         from repro_torch.models.mamba import MambaConfig

@@ -349,7 +349,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 // two bf16 steps of its output, past ref.TOLERANCE; so P goes in as a bf16
 // high part plus a bf16 residual, two products that keep 16 bits of each
 // weight. Shared-memory rows
-// are padded to D + 8 elements: at 144, 176 and 272 bytes the 8 row
+// are padded to D + 8 elements: at 144, 176, 208 and 272 bytes the 8 row
 // addresses of an ldmatrix fall on distinct banks.
 // ---------------------------------------------------------------------------
 
@@ -1116,7 +1116,11 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 }
 
 // Query blocks of 16 rows on the tensor cores (bf16), of 8 on the CUDA
-// cores (fp32).
+// cores (fp32). At a group of 1 (MHA: phi3-mini's 32 kv heads of 96) a
+// block holds one live row: 15 of the bf16 block's 16 rows are zeros that
+// the mma.sync multiplies all the same, and a CTA reads its kv head's rows
+// for one query. Right, not fast: the decode stays bound by the K/V bytes
+// it reads, which MHA does not share between query rows anyway.
 template <typename T, int D, typename Layout>
 cudaError_t dispatch_decode(const void* q, const void* k, const void* v,
                             Layout layout, const void* lengths, void* part,
@@ -1166,7 +1170,7 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim d in {64, 80, 128}. part:
+// dtype: 0 = float32, 1 = bfloat16. head_dim d in {64, 80, 96, 128}. part:
 // fp32 scratch of b * h * n_splits * (d + 2) floats; counters: b * h ints,
 // zeros, which each launch leaves at zero (one stream at a time); n_splits
 // runs of rows_per_split rows must cover the layout's reach. Returns the
@@ -1179,10 +1183,12 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
   if (dtype == 0) {                                                            \
     if (d == 64) DECODE(float, 64, LAYOUT);                                    \
     if (d == 80) DECODE(float, 80, LAYOUT);                                    \
+    if (d == 96) DECODE(float, 96, LAYOUT);                                    \
     if (d == 128) DECODE(float, 128, LAYOUT);                                  \
   } else if (dtype == 1) {                                                     \
     if (d == 64) DECODE(__nv_bfloat16, 64, LAYOUT);                            \
     if (d == 80) DECODE(__nv_bfloat16, 80, LAYOUT);                            \
+    if (d == 96) DECODE(__nv_bfloat16, 96, LAYOUT);                            \
     if (d == 128) DECODE(__nv_bfloat16, 128, LAYOUT);                          \
   }                                                                            \
   return repro::kUnsupported
@@ -1218,10 +1224,12 @@ extern "C" int contiguous_decode(int dtype, int d, const void* q,
   if (dtype == 0) {                                                            \
     if (d == 64) PREFILL(float, 64, LAYOUT, STARTS, OFFSET, CAUSAL);           \
     if (d == 80) PREFILL(float, 80, LAYOUT, STARTS, OFFSET, CAUSAL);           \
+    if (d == 96) PREFILL(float, 96, LAYOUT, STARTS, OFFSET, CAUSAL);           \
     if (d == 128) PREFILL(float, 128, LAYOUT, STARTS, OFFSET, CAUSAL);         \
   } else if (dtype == 1) { /* bf16: the tensor-core body */                  \
     if (d == 64) PREFILL_MMA(64, LAYOUT, STARTS, OFFSET, CAUSAL);              \
     if (d == 80) PREFILL_MMA(80, LAYOUT, STARTS, OFFSET, CAUSAL);              \
+    if (d == 96) PREFILL_MMA(96, LAYOUT, STARTS, OFFSET, CAUSAL);              \
     if (d == 128) PREFILL_MMA(128, LAYOUT, STARTS, OFFSET, CAUSAL);            \
   }                                                                            \
   return repro::kUnsupported

@@ -42,13 +42,14 @@
 //
 // bf16 (ssd_scan_mma_kernel): x, B and C are staged by cp.async in their
 // own dtype and all four products run on the tensor cores by mma.sync
-// m16n8k16 into fp32. C.B^T takes bf16 inputs, so its products are exact.
+// m16n8k16 into fp32 (at d_state 16, C.B^T and C.h^T are one k-step). C.B^T takes bf16 inputs, so its products are exact.
 // The three others carry an fp32 operand (the decayed scores, x weighted
 // by exp(a_cum[-1] - a_cum), the fp32 state), which goes in as a bf16 high
 // part plus a bf16 residual (16 bits, as the attention bodies' P.V): one
 // bf16 rounding of a decay-weighted operand (about 2e-3 relative) would
 // move the fp32 state past ref.TOLERANCE. Each of the 8 warps owns 16 rows
-// of the chunk for the scores and y, and a 16 x 32 block of S. C.B^T is
+// of the chunk for the scores and y, and a 16 x 32 block of S at d_state
+// 128 (at 16, two warps own 16 x 16 each). C.B^T is
 // recomputed by each p-block of each head (64 CTAs a chunk at h 32):
 // sharing it would take a second hand-off through device memory. The
 // scores' decays exp(a_cum[i] - a_cum[j]) go through the special-function
@@ -201,8 +202,8 @@ __device__ void chunk_cumsum(const float* __restrict__ a, int64_t stride,
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores. Shared-memory rows are padded by 8 elements: at
-// 272 bytes (C, B, the state) and 80 bytes (x) the 8 row addresses of an
-// ldmatrix fall on distinct banks.
+// 272 or 48 bytes (C, B, the state at d_state 128 or 16) and 80 bytes (x)
+// the 8 row addresses of an ldmatrix fall on distinct banks.
 // ---------------------------------------------------------------------------
 
 template <int N>
@@ -227,9 +228,17 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   constexpr int kRowN = S::kRowN;
   constexpr int kRowX = S::kRowX;
   constexpr int NB = kPBlock / 8;   // 8-column blocks of a y row block
-  // Each warp owns a 16 x SC block of S: 16 x 32 at a p-block of 32.
-  constexpr int SC = kPBlock / 16 * N / (kThreads / 32);
-  static_assert(P % kPBlock == 0 && SC % 16 == 0, "p and n tile the CTA");
+  // The warps that own S (kPBlock x N), a 16 x SC block each, SC a
+  // multiple of 16 (one ldmatrix.trans of B feeds two n8 products): at n
+  // 128 all 8 warps own 16 x 32; at n 16 (jamba) S is 32 x 16, two warps
+  // own 16 x 16 and the other six go straight to the hand-off's barrier.
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSTiles = kPBlock / 16 * N / 16;  // 16 x 16 tiles of S
+  constexpr int SW = kSTiles < kWarps ? kSTiles : kWarps;
+  constexpr int SC = kPBlock / 16 * N / SW;
+  static_assert(P % kPBlock == 0 && SC % 16 == 0 && SW % (kPBlock / 16) == 0,
+                "p and n tile the CTA");
+  static_assert(N % 16 == 0, "C.B^T and C.h^T step over n by 16");
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t c_s = smem_u32(smem);
   const uint32_t b_s = c_s + S::kCBytes;
@@ -283,7 +292,8 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   // ldmatrix.trans, weighted and split; B by ldmatrix.trans.
   const int mt = warp % (kPBlock / 16);
   const int ng = warp / (kPBlock / 16);
-  const int nk = (nv + 15) / 16;  // k-steps with live rows
+  const bool owns_s = warp < SW;
+  const int nk = owns_s ? (nv + 15) / 16 : 0;  // k-steps with live rows
   float st[SC / 8][4];
 #pragma unroll
   for (int j = 0; j < SC / 8; ++j)
@@ -324,32 +334,34 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   const int64_t sbase =
       (((int64_t)blockIdx.z * h + head) * P + p0) * N;
   float2 prev[SC / 8][2];
+  if (owns_s) {
 #pragma unroll
-  for (int nb = 0; nb < SC / 8; ++nb)
+    for (int nb = 0; nb < SC / 8; ++nb)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int64_t at = sbase + (int64_t)(mt * 16 + g + 8 * hf) * N +
-                         ng * SC + 8 * nb + 2 * t4;
-      prev[nb][hf] =
-          chunk > 0 ? __ldcg(reinterpret_cast<const float2*>(hout + at))
-          : h0 != nullptr ? *reinterpret_cast<const float2*>(h0 + at)
-                          : make_float2(0.f, 0.f);
-    }
+      for (int hf = 0; hf < 2; ++hf) {
+        const int64_t at = sbase + (int64_t)(mt * 16 + g + 8 * hf) * N +
+                           ng * SC + 8 * nb + 2 * t4;
+        prev[nb][hf] =
+            chunk > 0 ? __ldcg(reinterpret_cast<const float2*>(hout + at))
+            : h0 != nullptr ? *reinterpret_cast<const float2*>(h0 + at)
+                            : make_float2(0.f, 0.f);
+      }
 #pragma unroll
-  for (int nb = 0; nb < SC / 8; ++nb)
+    for (int nb = 0; nb < SC / 8; ++nb)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = mt * 16 + g + 8 * hf;
-      const int n = ng * SC + 8 * nb + 2 * t4;
-      const float2 pv = prev[nb][hf];
-      __stcg(reinterpret_cast<float2*>(hout + sbase + (int64_t)r * N + n),
-             make_float2(fmaf(decay, pv.x, st[nb][2 * hf]),
-                         fmaf(decay, pv.y, st[nb][2 * hf + 1])));
-      uint32_t vh, vl;
-      split_bf16(pv.x, pv.y, vh, vl);
-      *reinterpret_cast<uint32_t*>(hh + r * kRowN + n) = vh;
-      *reinterpret_cast<uint32_t*>(hl + r * kRowN + n) = vl;
-    }
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = mt * 16 + g + 8 * hf;
+        const int n = ng * SC + 8 * nb + 2 * t4;
+        const float2 pv = prev[nb][hf];
+        __stcg(reinterpret_cast<float2*>(hout + sbase + (int64_t)r * N + n),
+               make_float2(fmaf(decay, pv.x, st[nb][2 * hf]),
+                           fmaf(decay, pv.y, st[nb][2 * hf + 1])));
+        uint32_t vh, vl;
+        split_bf16(pv.x, pv.y, vh, vl);
+        *reinterpret_cast<uint32_t*>(hh + r * kRowN + n) = vh;
+        *reinterpret_cast<uint32_t*>(hl + r * kRowN + n) = vl;
+      }
+  }
   publish(done, chunk);  // its barrier also orders the hh/hl writes
 
   // y for this warp's 16 rows i0..: scores C.B^T over columns up to the
@@ -702,7 +714,8 @@ cudaError_t launch_ssd(int dtype, const void* x, const void* a_log,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); (p, n) = (64, 128).
+// dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); (p, n) = (64, 128)
+// (mamba2-370m) or (64, 16) (jamba-v0.1).
 // h0 may be null (a zero initial state). `sync` is 2 * bt * h * (p / 32)
 // zeroed ints, left zeroed. Returns the cudaError_t of the launch (0 on
 // success), or -1 for a dtype or shape this build does not instantiate.
@@ -711,8 +724,12 @@ extern "C" int ssd_scan(int dtype, int p, int n, const void* x,
                         const void* h0, void* y, void* hout, void* sync,
                         int bt, int l, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p == 64 && n == 128 && (dtype == 0 || dtype == 1))
+  if (dtype != 0 && dtype != 1) return repro::kUnsupported;
+  if (p == 64 && n == 128)
     return static_cast<int>(launch_ssd<64, 128>(dtype, x, a_log, b, c, h0, y,
                                                  hout, sync, bt, l, h, s));
+  if (p == 64 && n == 16)
+    return static_cast<int>(launch_ssd<64, 16>(dtype, x, a_log, b, c, h0, y,
+                                                hout, sync, bt, l, h, s));
   return repro::kUnsupported;
 }

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 SPLIT_ROWS = 256   # rows a split covers, rounded to whole pages
 # The split kernel's tile (csrc/paged_attention.cu): a CTA takes a query
 # block of QUERY_BLOCK[dtype] rows of one kv head's group (``G`` of

@@ -20,7 +20,8 @@ from repro_torch.kernels.flash_decode import DTYPES, _raise_on, zeroed_ints
 
 CHUNK = 128
 P_BLOCK = 32                # rows of p a CTA owns
-SHAPES = ((64, 128),)       # (head_dim p, d_state n) the build instantiates
+# (head_dim p, d_state n) the build instantiates: mamba2-370m's, jamba's.
+SHAPES = ((64, 128), (64, 16))
 GRID_YZ_LIMIT = 65535       # CUDA's bound on a grid's y and z
 
 

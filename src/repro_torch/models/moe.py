@@ -1,0 +1,205 @@
+"""Mixture-of-experts MLP with token-choice top-k routing (port of
+``repro/models/moe.py``).
+
+Two paths with the same math, held to each other and to the reference by
+the tests:
+
+* ``dense_mask``: every expert runs on every token, weighted by the
+  token's gate (zero where the expert was not chosen). Its work grows
+  with ``n_experts``: the small configurations' path.
+* ``capacity``: the (token, expert) choices are sorted by expert
+  (stably, as ``jnp.argsort``), each takes its rank within its expert,
+  and the first ``capacity`` of each expert are copied into an
+  (experts, capacity, d) buffer; the experts run as batched matrix
+  products over it, and each token sums its k weighted outputs. A choice
+  past its expert's capacity is dropped: it contributes nothing.
+
+The expert products are large matrix products outside any kernel of the
+reference (its ``einsum``s), so they are ``torch.bmm``/``torch.matmul``.
+
+The capacity path runs inside the engines' captured CUDA graphs, so it
+never waits on the host: ``capacity`` is computed in Python from the
+call's static token count, the expert counts of the auxiliary loss go
+through ``scatter_add_``, and a dropped choice is sent to one extra row of
+the buffer (``torch.where``), as the reference does, instead of being
+filtered by a boolean mask. Each token's k outputs are gathered back into
+(t, k, d) and summed over k, a fixed order, so an eager step and its
+graph give the same bits (a scatter-add by ``index_add_`` would use
+atomics).
+
+``moe_apply`` returns ``(out, aux)``: ``aux`` is the Switch-style
+load-balancing loss, which only training adds, and the port does not
+train mixtures of experts yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+Params = Dict[str, object]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                   # per-expert hidden dim
+    n_experts: int
+    top_k: int
+    n_shared: int = 0           # shared (always-on) experts
+    capacity_factor: float = 1.25
+    impl: str = "dense_mask"    # "dense_mask" | "capacity"
+
+    def shared_cfg(self) -> layers.MLPConfig:
+        return layers.MLPConfig(self.d_model, self.d_ff * self.n_shared,
+                                "swiglu")
+
+
+def capacity(cfg: MoEConfig, tokens: int) -> int:
+    """Rows of the buffer each expert gets for a call of ``tokens``
+    tokens: ceil(tokens * k / experts * factor), at least 4."""
+    return max(math.ceil(tokens * cfg.top_k / cfg.n_experts
+                         * cfg.capacity_factor), 4)
+
+
+def moe_init(generator: torch.Generator, cfg: MoEConfig, device,
+             dtype: torch.dtype) -> Params:
+    """The reference's distributions (``moe.moe_init``): the router a
+    standard normal times 0.02, kept in fp32 (the reference routes in
+    fp32); ``expert_gate``/``expert_up`` (e, d, f) times 1/sqrt(e), which
+    is ``layers._init``'s default scale 1/sqrt(shape[0]) (a fault of the
+    reference, copied so that the card sees its activations: ROADMAP Queue
+    3); ``expert_down`` (e, f, d) times 1/sqrt(f); the shared expert a
+    SwiGLU MLP of width ``f * n_shared``. The experts are drawn one at a
+    time into ``dtype`` tensors, so that no fp32 copy of a whole (e, d, f)
+    tensor is made."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def experts(shape, scale):
+        out = torch.empty((e,) + shape, device=device, dtype=dtype)
+        for i in range(e):
+            out[i] = normal(shape, scale)
+        return out
+
+    p = {
+        "router": normal((d, e), 0.02).float(),
+        "expert_gate": experts((d, f), 1.0 / math.sqrt(e)),
+        "expert_up": experts((d, f), 1.0 / math.sqrt(e)),
+        "expert_down": experts((f, d), 1.0 / math.sqrt(f)),
+    }
+    if cfg.n_shared:
+        fs = f * cfg.n_shared
+        p["shared"] = {"w_gate": normal((d, fs), 1.0 / math.sqrt(d)),
+                       "w_up": normal((d, fs), 1.0 / math.sqrt(d)),
+                       "w_down": normal((fs, d), 1.0 / math.sqrt(fs))}
+    return p
+
+
+def _route(params: Params, cfg: MoEConfig, x):
+    """Router in fp32 -> (weights (t, k) in x's dtype, ids (t, k), aux).
+    x: (t, d)."""
+    logits = x.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, cfg.top_k, dim=-1)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    # Switch-style load balance: E * sum_e f_e * p_e.
+    t = x.shape[0]
+    density = torch.zeros(cfg.n_experts, device=x.device).scatter_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), device=x.device)) / (
+        t * cfg.top_k)
+    aux = cfg.n_experts * torch.sum(density * probs.mean(dim=0))
+    return weights.to(x.dtype), ids, aux
+
+
+def _expert_ffn(params: Params, x_e):
+    """Batched per-expert SwiGLU. x_e: (E, C, d) -> (E, C, d)."""
+    dt = x_e.dtype
+    g = torch.bmm(x_e, params["expert_gate"].to(dt))
+    u = torch.bmm(x_e, params["expert_up"].to(dt))
+    return torch.bmm(F.silu(g) * u, params["expert_down"].to(dt))
+
+
+def _moe_dense_mask(params: Params, cfg: MoEConfig, x2):
+    """Every expert on every token, weighted by the token's gate."""
+    weights, ids, aux = _route(params, cfg, x2)
+    gates = torch.zeros((x2.shape[0], cfg.n_experts), dtype=x2.dtype,
+                        device=x2.device).scatter_add_(1, ids, weights)
+    out = torch.zeros_like(x2)
+    for e in range(cfg.n_experts):
+        g = x2 @ params["expert_gate"][e].to(x2.dtype)
+        u = x2 @ params["expert_up"][e].to(x2.dtype)
+        y = (F.silu(g) * u) @ params["expert_down"][e].to(x2.dtype)
+        out = out + gates[:, e:e + 1] * y
+    return out, aux
+
+
+def _moe_capacity(params: Params, cfg: MoEConfig, x2):
+    """Sort-based capacity dispatch; no step waits on the host."""
+    t, d = x2.shape
+    weights, ids, aux = _route(params, cfg, x2)
+    e, k = cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, t)
+    flat_ids = ids.reshape(-1)                                 # (t*k,)
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    # Rank within the expert: position minus the expert's first position.
+    first = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    rank = torch.arange(t * k, device=x2.device) - first
+    keep = rank < cap
+    dest = torch.where(keep, sorted_ids * cap + rank,
+                       torch.full_like(rank, e * cap))
+    src_token = order // k
+    buf = torch.zeros((e * cap + 1, d), dtype=x2.dtype, device=x2.device)
+    buf[dest] = x2[src_token]              # dropped choices: the extra row
+    y_flat = _expert_ffn(params, buf[:-1].reshape(e, cap, d)).reshape(
+        e * cap, d)
+    gathered = torch.where(keep[:, None], y_flat[dest.clamp(max=e * cap - 1)],
+                           torch.zeros((), dtype=x2.dtype, device=x2.device))
+    # Choice j of the flat (t*k) list sits at sorted position inv[j].
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=x2.device)
+    out = (gathered[inv] * weights.reshape(-1, 1)).reshape(t, k, d).sum(1)
+    return out, aux
+
+
+def moe_apply(params: Params, cfg: MoEConfig, x) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """x: (b, s, d) -> (out (b, s, d), aux loss). The capacity path's
+    buffer is sized by b * s, padded rows included, as the reference's."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    if cfg.impl == "capacity":
+        out, aux = _moe_capacity(params, cfg, x2)
+    elif cfg.impl == "dense_mask":
+        out, aux = _moe_dense_mask(params, cfg, x2)
+    else:
+        raise ValueError(f"moe_impl {cfg.impl!r}: want 'capacity' or "
+                         f"'dense_mask'")
+    if cfg.n_shared:
+        out = out + layers.mlp_apply(params["shared"], cfg.shared_cfg(), x2)
+    return out.reshape(b, s, d), aux
+
+
+def dropped(params: Params, cfg: MoEConfig, x) -> torch.Tensor:
+    """Choices the capacity path drops for x (b, s, d): those past their
+    expert's capacity, counted on x's device as a 0-d int64 tensor (no
+    wait on the host; the caller reads it when it likes). Of
+    ``b * s * top_k`` choices in all."""
+    _, ids, _ = _route(params, cfg, x.reshape(-1, x.shape[-1]))
+    flat = ids.reshape(-1)
+    counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                         device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    cap = capacity(cfg, x.shape[0] * x.shape[1])
+    return (counts - cap).clamp(min=0).sum()

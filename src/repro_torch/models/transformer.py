@@ -1,11 +1,13 @@
 """Decoder stack (port of ``repro/models/transformer.py`` for patterns of
-attention and Mamba-2 layers): a Python loop over layers in place of the
-reference's ``lax.scan`` over stacked periods.
+attention and Mamba-2 layers, with dense or mixture-of-experts MLPs): a
+Python loop over layers in place of the reference's ``lax.scan`` over
+stacked periods.
 
 Parameters: {"embed": {"embedding"}, "blocks": [per-layer dict, ...],
 "ln_f": {"scale"}, "unembed": {"lm_head"}}; each layer holds "ln1" and
-its mixer, "attn" or "mamba" (``cfg.kind(i)``), then "ln2" and "mlp" when
-``d_ff > 0``, with the reference's leaf names.
+its mixer, "attn" or "mamba" (``cfg.kind(i)``), then, when ``d_ff > 0``,
+"ln2" and "mlp", or "moe" where ``cfg.is_moe(i)``, with the reference's
+leaf names.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
-from repro_torch.models import layers, mamba
+from repro_torch.models import layers, mamba, moe
 
 Params = Dict[str, Any]
 
@@ -42,7 +44,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights from the reference's distributions (``layers._init``:
     a standard normal times 1/sqrt(fan_in), 1.0 for the embedding, zeros
-    for biases, ones for norm scales), drawn with ``generator``.
+    for biases, ones for norm scales; ``moe.moe_init`` for a mixture of
+    experts), drawn with ``generator``.
 
     Matmul weights and the embedding are stored in ``dtype`` (default: the
     config's compute dtype); norm scales and biases in fp32. ``generator``
@@ -81,7 +84,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                               device, dtype)
         else:
             raise ValueError(f"layer kind {cfg.kind(i)!r} is not ported")
-        if f > 0:
+        if f > 0 and cfg.is_moe(i):
+            block["ln2"] = ones(d)
+            block["moe"] = moe.moe_init(generator, cfg.moe_cfg(), device,
+                                        dtype)
+        elif f > 0:
             if cfg.activation == "swiglu":
                 mlp = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
                        "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
@@ -108,9 +115,18 @@ def param_count(params: Params) -> int:
 
 def active_param_count(cfg: ModelConfig) -> int:
     """Parameters a token reads, from the configuration alone (no weights
-    are made): every parameter ``init_params`` draws, as the port's stacks
-    have no mixture of experts. The serving cost models price the weight
-    stream with it (``serve.spec.rechoose_k``, ``telemetry.drift_report``)."""
+    are made): every parameter ``init_params`` draws, less the experts a
+    token is not routed to (a mixture of experts reads its router, its
+    top-k experts and its shared ones), as the reference counts. The
+    serving cost models price the weight stream with it
+    (``serve.spec.rechoose_k``, ``telemetry.drift_report``)."""
+    return param_count_of(cfg, active=True)
+
+
+def param_count_of(cfg: ModelConfig, active: bool = False) -> int:
+    """Parameters ``init_params`` draws for ``cfg``, from the
+    configuration alone; ``active`` counts only the top-k of each
+    mixture's experts."""
     d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
                         cfg.d_ff)
     total = 2 * cfg.vocab * d + d                     # embed, unembed, ln_f
@@ -125,10 +141,32 @@ def active_param_count(cfg: ModelConfig) -> int:
             hm, p, n = m.n_heads, m.head_dim, m.d_state
             total += (2 * d * hm * p + 2 * d * n + d * hm + 3 * hm
                       + m.d_conv * hm * p + hm * p + hm * p * d)
-        if f > 0:
+        if f > 0 and cfg.is_moe(i):
+            e = cfg.top_k if active else cfg.n_experts
+            total += d + d * cfg.n_experts + 3 * d * f * (
+                e + cfg.n_shared_experts)
+        elif f > 0:
             total += d + (3 * d * f if cfg.activation == "swiglu"
                           else 2 * d * f + f)
     return total
+
+
+def n_attention_layers(cfg: ModelConfig) -> int:
+    return sum(cfg.kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def model_flops(cfg: ModelConfig, batch: int, seq: int, mode: str = "train",
+                cache_len: int = 0) -> float:
+    """MODEL_FLOPS, the reference's count: 2 * active parameters per token
+    for inference (6 for training), plus the attention term 4 * tokens *
+    ctx * heads * head_dim per attention layer, ctx the cache length when
+    decoding and half the sequence for a causal prefill or training."""
+    tokens = batch * seq
+    fwd_bwd = 3.0 if mode == "train" else 1.0
+    total = 2.0 * fwd_bwd * active_param_count(cfg) * tokens
+    ctx = cache_len if cache_len else seq / 2.0
+    return total + fwd_bwd * 4.0 * tokens * ctx * cfg.n_heads * cfg.dhead \
+        * n_attention_layers(cfg)
 
 
 # ----------------------------------------------------------------------------
@@ -137,8 +175,10 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
                  cache=None):
-    """One pre-norm block: the mixer, then the MLP if it has one, each
-    with a residual."""
+    """One pre-norm block: the mixer, then the MLP (dense or a mixture of
+    experts) if it has one, each with a residual. The mixture's aux loss
+    is dropped: only training adds it, and the port does not train a
+    mixture of experts (ROADMAP)."""
     h = layers.rmsnorm(params["ln1"], x)
     if kind == "mamba":
         mix, new_cache = mamba.mamba_apply(params["mamba"], cfg.mamba_cfg(),
@@ -148,7 +188,10 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
             params["attn"], attn_cfg(cfg), h, cache=cache,
             use_flash=cfg.use_flash)
     x = x + mix
-    if "mlp" in params:
+    if "moe" in params:
+        h2 = layers.rmsnorm(params["ln2"], x)
+        x = x + moe.moe_apply(params["moe"], cfg.moe_cfg(), h2)[0]
+    elif "mlp" in params:
         h2 = layers.rmsnorm(params["ln2"], x)
         x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
     return x, new_cache
@@ -223,6 +266,19 @@ def set_cache_lengths(caches: List[Params], lengths) -> List[Params]:
     new = torch.as_tensor(lengths, dtype=idx.dtype,
                           device=idx.device).expand(idx.shape).clone()
     return [dict(c, index=new) for c in caches]
+
+
+def cache_hbm_rows(caches: List[Params]) -> int:
+    """K/V rows of device memory the caches hold: ``batch * max_len`` per
+    contiguous attention layer, ``n_pages * page_size`` per paged pool
+    (the reservation the paged layout shrinks); Mamba state holds none."""
+    total = 0
+    for c in caches:
+        if "kp" in c:
+            total += c["kp"].shape[0] * c["kp"].shape[1]
+        elif "k" in c:
+            total += c["k"].shape[0] * c["k"].shape[1]
+    return total
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -6,7 +6,8 @@ Gradients come from ``torch.autograd`` through the plain ``sdpa``: the
 kernels have no backward (their wrappers raise under grad mode), so a
 model trains with ``use_flash=False``, as the reference does. Only dense
 attention stacks train: the Mamba layers always run the SSD scan kernel,
-which has no backward either.
+which has no backward either, and a mixture of experts is refused until
+the router's aux loss is ported.
 
 The step updates the parameters and the optimizer moments in place (the
 reference jits a step over a donated state and returns new trees).
@@ -123,6 +124,12 @@ def make_train_step(cfg: ModelConfig,
     error_feedback=True)``."""
     if error_feedback and not compress_grads:
         raise ValueError("error_feedback rides on compress_grads")
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"training {cfg.name} (a mixture of experts) is not ported: "
+            f"the reference adds aux_weight times the router's "
+            f"load-balancing loss to the objective; MoE training with the "
+            f"aux loss is a later item (ROADMAP)")
     if tuple(cfg.pattern) not in TRAINABLE_PATTERNS:
         raise NotImplementedError(
             f"training {cfg.name} (pattern {cfg.pattern}) is not ported: "

@@ -40,7 +40,7 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
     """Each CUDA kernel against its plain version on the card, at the
     main path's head counts (h 32, kvh 8, page 16), within
@@ -76,7 +76,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_paged_prefill_at_the_verify_shape(cuda_device, dtype, d):
     """The speculative verify's attention: 8 slots of k + 1 rows (k 1, 2,
     4) from ragged starts: 0, across a page boundary, rows past the
@@ -103,7 +103,7 @@ def test_cuda_paged_prefill_at_the_verify_shape(cuda_device, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
     """The contiguous decode kernel against its plain version, lengths
     with a 0, max_len and past max_len (a drifting free slot)."""
@@ -131,7 +131,7 @@ SPLIT_LENGTHS = [0, 1, 255, 256, 257, 511, 512, 513, 767, 768, 769, 1023,
 
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_decodes_across_split_boundaries(cuda_device, paged, dtype, d):
     """Both decode kernels against their plain versions at groups 1, 4
     and 7 over kvh 2 (qwen2-0.5b's is 7) and the main path's 32 / 8, with
@@ -207,6 +207,45 @@ def test_cuda_ssd_scan_matches_plain_version(cuda_device, dtype, bt, l):
         assert torch.equal(y, y2) and torch.equal(state, state2)
         assert ops.LAUNCHES["ssd_scan"] == 2
     assert not any(c.any() for c in flash_decode._COUNTERS.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,l", SSD_CASES)
+def test_cuda_ssd_scan_at_jambas_shape_matches_plain_version(cuda_device,
+                                                             dtype, bt, l):
+    """The same at jamba-v0.1's head shape (h 128, p 64, n 16), where two
+    warps own the (32 x 16) state block of a CTA: within the tolerance,
+    the same bits from a second launch, the hand-off's ints at zero."""
+    g = torch.Generator(device=cuda_device).manual_seed(l + bt)
+    h, p, n = 128, 64, 16
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)   # noqa
+    x = mk(bt, l, h, p).to(dtype)
+    a = -mk(bt, l, h).abs() * 0.1
+    b, c = (mk(bt, l, n).mul(0.3).to(dtype) for _ in range(2))
+    for h0 in (None, mk(bt, h, p, n)):
+        y, state = ops.ssd_scan(x, a, b, c, h0=h0)
+        y2, state2 = ops.ssd_scan(x, a, b, c, h0=h0)
+        torch.cuda.synchronize()
+        wy, ws = ref.ssd_scan(x, a, b, c, h0=h0)
+        assert ref.compare(y, wy, normwise=True)[0]
+        assert ref.compare(state, ws, normwise=True)[0]
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+    assert not any(c.any() for c in flash_decode._COUNTERS.values())
+
+
+def test_cuda_kernels_refuse_shapes_they_do_not_build(cuda_device):
+    """A head_dim or an SSD (p, n) that no instance covers raises before a
+    launch; nothing falls back to a plain version."""
+    q = torch.zeros(2, 4, 112, device=cuda_device)
+    kv = torch.zeros(2, 64, 2, 112, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_decode(q, kv, kv, lens)
+    x = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    a = torch.zeros(1, 8, 2, device=cuda_device)
+    bc = torch.zeros(1, 8, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd_scan(x, a, bc, bc)
 
 
 # Ragged edges in every dim (1, 127, 4097), k or n off the 16-byte load
@@ -354,7 +393,7 @@ def test_cuda_card_chase_follows_a_make_chain_chain(cuda_device):
     assert lat.min() > 0 and lat[0] > lat.min()
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_paged_prefill_bf16_matches_plain_version(cuda_device, d):
     """The bf16 paged prefill (the tensor-core body) at the main path's
     chunk of 256 rows and head counts: chunks at start 0 and later, one
@@ -387,7 +426,7 @@ FLASH_LENGTHS = [(1, 1), (127, 127), (300, 1031), (2048, 2048)]
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_cuda_flash_attention_matches_plain_version(cuda_device, causal,
                                                     dtype, d):
     """The full-sequence kernel against its plain version at groups 1, 4
@@ -477,6 +516,17 @@ GRAPH_CFGS = {
     "mamba": dataclasses.replace(configs.get_smoke("mamba2-370m"),
                                  d_model=128, vocab=1000, mamba_d_state=128,
                                  mamba_head_dim=64,
+                                 compute_dtype="bfloat16"),
+    # A mixture of experts (16 experts, top-4, capacity routing) and the
+    # jamba hybrid (Mamba heads of 64 with d_state 16, attention at
+    # position 4, MoE every other layer), bf16.
+    "moe": dataclasses.replace(configs.get_smoke("dbrx-132b"), d_model=256,
+                               d_ff=128, vocab=1000, n_experts=16, top_k=4,
+                               moe_impl="capacity", compute_dtype="bfloat16"),
+    "jamba": dataclasses.replace(configs.get_smoke("jamba-v0.1-52b"),
+                                 d_model=256, d_ff=128, vocab=1000,
+                                 mamba_d_state=16, mamba_head_dim=64,
+                                 moe_impl="capacity",
                                  compute_dtype="bfloat16"),
 }
 
@@ -642,6 +692,36 @@ def test_cuda_graphed_engines_serve_the_eager_streams(cuda_device, arch,
                      dict(eng.prefill_buckets), dict(ops.LAUNCHES),
                      eng.decode_traces, dict(eng.prefill_traces)))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("arch,paged", [("moe", True), ("jamba", False)])
+def test_cuda_graphed_families_serve_the_eager_streams(cuda_device, arch,
+                                                       paged):
+    """A mixture of experts on the paged engine and the jamba hybrid on
+    the contiguous one: the capacity routing runs inside the captured
+    decode (and chunk) graphs without waiting on the host, and graphed
+    runs give the eager streams, ticks, steps and launches."""
+    cfg, engines = _graph_engines(cuda_device, arch, paged, 0.0)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 70, 130, 9, 200, 33)]
+    runs = []
+    for eng in engines:
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=12))
+        ops.reset_launches()
+        streams = eng.run_until_drained()
+        torch.cuda.synchronize()
+        runs.append((streams, eng.ticks, eng.chunk_steps, eng.decode_steps,
+                     dict(eng.prefill_buckets), dict(ops.LAUNCHES)))
+    assert runs[0] == runs[1]
+    n_attn = T.n_attention_layers(cfg)
+    want = ({"flash_decode_paged": n_attn} if paged
+            else {"flash_decode": n_attn})
+    assert engines[1].graph_nodes["decode"] == want
+    if not paged:
+        admissions = sum(engines[1].prefill_buckets.values())
+        assert runs[1][5]["ssd_scan"] == (cfg.n_layers - n_attn) * admissions
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])

@@ -43,7 +43,11 @@ def test_port_files_are_found():
                 ("serve", "graphs.py"), ("serve", "spec.py"),
                 ("serve", "paged.py"), ("serve", "telemetry.py"),
                 ("serve", "traffic.py"), ("serve", "faults.py"),
-                ("models", "mamba.py"),
+                ("models", "mamba.py"), ("models", "moe.py"),
+                ("configs", "granite_3_8b.py"), ("configs", "phi3_mini_3_8b.py"),
+                ("configs", "dbrx_132b.py"),
+                ("configs", "llama4_maverick_400b.py"),
+                ("configs", "jamba_v0_1_52b.py"),
                 ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),

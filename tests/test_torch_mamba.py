@@ -211,7 +211,7 @@ def test_bridge_and_init_keep_the_mamba_layout(bridged):
                                        blk_b["mamba"][name])
     jcfg_moe = dataclasses.replace(cfg, pattern=("mamba", "attn"),
                                    n_layers=2)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="stacked pattern positions"):
         params_from_jax(jax.tree.map(np.asarray, jparams), jcfg_moe,
                         device="cpu")
 
