@@ -197,6 +197,30 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
     whose router made the same choices in every path (a near-tie flips
     one now and then); how many of the router's choices the paths share
     is logged.
+22. the encoder-decoder and cross-attention families (``ENCDEC``), bf16,
+    random weights from a seeded generator with every leaf that starts at
+    zero set to a seeded value (each cross layer's gate near 0.5, the
+    qkv biases, the MLP's and LayerNorm's biases), one model on the card
+    at a time: first the contiguous decode at each model's decode shape
+    (checked in fp32 and bf16) and the full-sequence kernel at its
+    scoring shape, timed as in phase 4 beside SDPA and the bound; then
+    whisper-medium whole (24 encoder and 24 decoder layers) over 8
+    prompts of 256 tokens, each with 1,500 seeded audio frames, and
+    llama-3.2-vision-90b at 25 of its 100 layers (5 periods, about 45 GiB
+    of bf16 weights) over 4 prompts of 512 tokens, each with 1,601
+    seeded patch embeddings, through ``greedy_generate`` (a warm-up call,
+    then 32 and 16 new tokens: tok/s, peak memory, and the decode
+    launches, which must equal attention layers times decode steps);
+    whisper's ``encode`` over its 8 x 1,500 frames timed alone; fp32 and
+    bf16 logits of a 300-token prompt (the cache-less forward through
+    ``flash_attention`` and a decode step through ``flash_decode``, the
+    frontend given) kernel path against plain path with planted faults,
+    whisper at full depth and vision at one period (its 5 layers,
+    computed in fp32 over the bf16 weights); whisper's logits must not
+    move with another frontend (its pattern has no cross layer) and
+    vision's must; and whisper-medium trained through the launcher with
+    the frontend stub at batch 2 x 448 for 10 steps (finite losses, the
+    last below the first, no kernel launched).
 
 Phase 1 also holds the registers the GEMM tile chooser prices each tile
 with (``kernels.gemm.REGISTERS``) to this build's ptxas report.
@@ -319,6 +343,29 @@ FAMILIES = {
     "jamba-v0.1-52b": (8, 8),
 }
 FAMILY_REQUESTS, FAMILY_NEW, FAMILY_LO, FAMILY_HI = 8, 16, 64, 512
+# Phase 22: whisper-medium whole (8 prompts of 256 tokens, 1,500 audio
+# frames each, 32 new tokens) and llama-3.2-vision-90b at 5 of its 20
+# periods (25 of 100 layers, about 45 GiB of bf16 weights; 4 prompts of
+# 512 tokens, 1,601 patch embeddings each, 16 new tokens), served through
+# greedy_generate; whisper trained through the launcher at batch 2 x 448
+# (its decoder's context). The decode kernel is timed at each model's
+# decode shape, (b, h, kvh, d, first and last context), and the
+# full-sequence kernel at its scoring shape, (b, s, h, kvh, d).
+ENCDEC = {
+    "whisper-medium": dict(depth=None, check_depth=None, b=8, prompt=256,
+                           new=32),
+    "llama-3.2-vision-90b": dict(depth=25, check_depth=5, b=4, prompt=512,
+                                 new=16),
+}
+ENCDEC_DECODE = {"whisper-medium": (8, 16, 16, 64, 256, 288),
+                 "llama-3.2-vision-90b": (4, 64, 8, 128, 512, 528)}
+ENCDEC_SCORING = {"whisper-medium": (8, 256, 16, 16, 64),
+                  "llama-3.2-vision-90b": (4, 512, 64, 8, 128)}
+ENCDEC_CHECK_PROMPT = 300
+GATE, GATE_NOISE, BIAS_SCALE = 0.5, 0.1, 0.1
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium", "--batch", "2", "--seq",
+                      "448", "--steps", "10", "--warmup", "10",
+                      "--log-every", "1", "--ckpt-every", "10"]
 
 
 def log(msg: str) -> None:
@@ -3016,6 +3063,295 @@ def run_training(dev, ops, configs, T, steps) -> dict:
     return {k: out[k] for k in ("step_ms", "tokens_per_s", "peak_GiB")}
 
 
+def nonzero_leaves(params, seed: int) -> None:
+    """Set, in place and from a seeded generator, the leaves random init
+    leaves at zero, which would hide what they do: each cross layer's
+    gate to GATE plus noise (so the cross-attention reaches the logits),
+    the qkv biases, the MLP's b_up and LayerNorm's bias to BIAS_SCALE
+    times a standard normal."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, leaf in items:
+            if isinstance(leaf, (dict, list)):
+                walk(leaf)
+            elif key == "gate":
+                leaf.copy_(GATE + GATE_NOISE * torch.randn(
+                    leaf.shape, generator=gen))
+            elif key in ("bias", "b_q", "b_k", "b_v", "b_up"):
+                leaf.copy_(BIAS_SCALE * torch.randn(leaf.shape,
+                                                    generator=gen))
+
+    walk(params)
+
+
+def time_encdec_shapes(dev, ops, ref) -> dict:
+    """The contiguous decode at each phase-22 model's decode shape (its
+    greedy_generate's last step: b slots over contexts first..last of a
+    cache as long as the last) and the full-sequence kernel at its
+    scoring shape (the prompts, causal), bf16, beside their plain
+    versions, SDPA and the bound; the decode also checked in fp32.
+    Returns rows for PERF.md, keyed "<kernel> <model>"."""
+    dtype, esize, n_sets = torch.bfloat16, 2, 8
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    out = {}
+    for name, (b, h, kvh, d, lo, hi) in ENCDEC_DECODE.items():
+        lengths = [int(x) for x in np.linspace(lo, hi, b)]
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        sets = [(rnd(b, hi, kvh, d), rnd(b, hi, kvh, d))
+                for _ in range(n_sets)]
+        q = rnd(b, h, d)
+        ok, err = True, 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            args = (q.to(dt), sets[0][0].to(dt), sets[0][1].to(dt), lens)
+            got = ops.flash_decode(*args)
+            torch.cuda.synchronize()
+            o, e = ref.compare(got, ref.flash_decode(*args))
+            ok, err = ok and o, max(err, e)
+            log(f"  flash_decode at {name}'s decode shape, {dt}: "
+                f"max_abs_err {e:.3e} {'ok' if o else 'FAIL'}")
+        views = [tuple(t.transpose(1, 2).contiguous() for t in kv)
+                 for kv in sets]
+        mask = (torch.arange(hi, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            q4, *views[i], attn_mask=mask, enable_gqa=True)
+        run = lambda i: ops.flash_decode(q, *sets[i], lens)  # noqa: E731
+        kv_rows = sum(lengths)
+        out[f"flash_decode {name}"] = dict(
+            max_abs_err=err, ok=ok, ms=time_ms(run, n_sets),
+            device_ms=time_ms(run, n_sets, spin=True),
+            plain_ms=time_ms(lambda i: ref.flash_decode(q, *sets[i], lens),
+                             n_sets, iters=10),
+            library_ms=time_ms(sdpa, n_sets),
+            library_device_ms=time_ms(sdpa, n_sets, spin=True),
+            bytes=2 * q.numel() * esize + 2 * kv_rows * kvh * d * esize
+            + 4 * b,
+            ops=4 * kv_rows * h * d,
+            shape=f"b={b} h={h} kvh={kvh} d={d} max_len={hi} contexts "
+                  f"{lengths[0]}..{lengths[-1]} (sum {kv_rows})")
+        del sets, views
+    for name, (b, sq, h, kvh, d) in ENCDEC_SCORING.items():
+        sets = [(rnd(b, sq, h, d), rnd(b, sq, kvh, d), rnd(b, sq, kvh, d))
+                for _ in range(4)]
+        ok, err = ref.compare(ops.flash_attention(*sets[0]),
+                              ref.flash_attention(*sets[0]))
+        views = [tuple(t.transpose(1, 2).contiguous() for t in st)
+                 for st in sets]
+        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            *views[i], is_causal=True, enable_gqa=True)
+        run = lambda i: ops.flash_attention(*sets[i])  # noqa: E731
+        q, k = sets[0][:2]
+        out[f"flash_attention {name}"] = dict(
+            max_abs_err=err, ok=ok, ms=time_ms(run, 4),
+            device_ms=time_ms(run, 4, spin=True),
+            plain_ms=time_ms(lambda i: ref.flash_attention(*sets[i]), 4,
+                             iters=4),
+            library_ms=time_ms(sdpa, 4),
+            library_device_ms=time_ms(sdpa, 4, spin=True),
+            bytes=esize * (2 * q.numel() + 2 * k.numel()),
+            ops=4 * b * h * d * sq * (sq + 1) // 2,
+            shape=f"b={b} sq=skv={sq} h={h} kvh={kvh} d={d} causal")
+        del sets, views
+    for key, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
+        log(f"  {key} [{r['shape']}, bf16]: kernel {r['ms']:.4f} ms at the "
+            f"host's pace, device time {r['device_ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['device_ms']:.1f} % of its bound), "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"device time {r['library_device_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+            f"{r['bytes'] / 1e6:.2f} MB, {r['ops'] / 1e9:.3f} GFLOP), "
+            f"max_abs_err {r['max_abs_err']:.3e} "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+    return out
+
+
+def encdec_logits(params, cfg, T, dev, prompt, frontend):
+    """fp32 logits, with the frontend, of the cache-less forward of
+    ``prompt`` at use_flash (``flash_attention``) and of the decode step
+    of its last token after a cached prefill of the rest
+    (``flash_decode``), one position shared by the cache's rows as in
+    greedy_generate."""
+    toks = torch.from_numpy(prompt.astype(np.int64)).to(dev)[None]
+    caches = T.init_caches(cfg, 1, len(prompt), device=dev)
+    with torch.no_grad():
+        whole, _ = T.forward(params, dataclasses.replace(cfg, use_flash=True),
+                             toks, frontend_embeds=frontend)
+        _, caches = T.forward(params, cfg, toks[:, :-1], caches=caches,
+                              frontend_embeds=frontend)
+        step, _ = T.forward(params, cfg, toks[:, -1:], caches=caches,
+                            frontend_embeds=frontend)
+    return whole[0].float(), step[0, 0].float()
+
+
+def encdec_paths(ops, ref) -> dict:
+    """The plain versions of both kernels, and one planted fault each:
+    the decode given ``lengths - 1`` (the newest key dropped), the
+    full-sequence kernel's causal offset one key late."""
+    return dict(plain=dict(flash_decode=ref.flash_decode,
+                           flash_attention=ref.flash_attention),
+                **flash_paths(ops),
+                **{"decode fault": dict(flash_decode=lambda q, k, v, n:
+                                        ops.flash_decode(q, k, v, n - 1))})
+
+
+def run_encdec_model(name, spec, dev, ops, ref, configs, T, engine) -> dict:
+    """One phase-22 model: greedy_generate with seeded frontends (a
+    warm-up call, then the timed one), the decode launches it implies,
+    then the fp32 and bf16 logits of the kernel path against the plain
+    path with the planted faults, at ``check_depth`` layers."""
+    cfg, params = init_model(name, configs, T, dev, n_layers=spec["depth"])
+    nonzero_leaves(params, seed=22)
+    b, n_new = spec["b"], spec["new"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    frontend = torch.randn(b, cfg.n_frontend_tokens, cfg.d_model,
+                           generator=gen, device=dev).to(cfg.dtype)
+    prompts = make_requests(cfg.vocab, b, lo=spec["prompt"],
+                            hi=spec["prompt"])
+    tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+    engine.greedy_generate(params, cfg, tokens, 2, frontend_embeds=frontend)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ids = engine.greedy_generate(params, cfg, tokens, n_new,
+                                 frontend_embeds=frontend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    n_attn = T.n_attention_layers(cfg)
+    want = dict(dict.fromkeys(launches, 0), flash_decode=n_attn * (n_new - 1))
+    row = dict(tok_s=b * n_new / wall, wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches["flash_decode"],
+               active=T.active_param_count(cfg))
+    log(f"  {name}: greedy_generate of {b} x {spec['prompt']} tokens with "
+        f"{cfg.n_frontend_tokens} frontend tokens each, {n_new} new: "
+        f"{wall:.3f} s ({row['tok_s']:.1f} tok/s, prefill included), "
+        f"max_memory_allocated {row['peak_gib']:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} } = {n_attn} attention "
+        f"layers x {n_new - 1} decode steps")
+    if launches != want:
+        raise RuntimeError(f"{name}: launches {launches}, want {want}")
+    if tuple(ids.shape) != (b, n_new) or not (
+            0 <= int(ids.min()) and int(ids.max()) < cfg.vocab):
+        raise RuntimeError(f"{name}: ids of shape {tuple(ids.shape)} in "
+                           f"[{int(ids.min())}, {int(ids.max())}]")
+    if cfg.encoder is not None:
+        with torch.no_grad():
+            T.encode(params, cfg, frontend)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                T.encode(params, cfg, frontend)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        row["encode_ms"] = 1e3 * sorted(times)[1]
+        log(f"  {name}: encode over {b} x {cfg.n_frontend_tokens} frames "
+            f"({cfg.encoder.n_layers} layers, plain sdpa) "
+            f"{row['encode_ms']:.2f} ms (median of 3)")
+
+    depth = spec["check_depth"] or cfg.n_layers
+    cut = dict(params, blocks=params["blocks"][:depth])
+    b16cfg = dataclasses.replace(cfg, n_layers=depth)
+    f32cfg = dataclasses.replace(b16cfg, compute_dtype="float32")
+    prompt = make_requests(cfg.vocab, 1, lo=ENCDEC_CHECK_PROMPT,
+                           hi=ENCDEC_CHECK_PROMPT)[0]
+    fe1 = frontend[:1]
+    fe2 = torch.randn(fe1.shape, generator=gen, device=dev).to(cfg.dtype)
+    paths = encdec_paths(ops, ref)
+    f32 = compare_paths(lambda: encdec_logits(cut, f32cfg, T, dev, prompt,
+                                              fe1), paths, ops)
+    b16 = compare_paths(lambda: encdec_logits(cut, b16cfg, T, dev, prompt,
+                                              fe1), paths, ops)
+    label = f"{name} first {depth} layers"
+    failed = check_logits(
+        f32, b16, [(0, f"{ENCDEC_CHECK_PROMPT}-token cache-less forward",
+                    "flash fault"), (1, "decode step", "decode fault")],
+        label)
+    row["fp32_logit_diff"] = max(max_diff(f32["kernel"][i],
+                                          f32["plain"][i]) for i in (0, 1))
+    other = encdec_logits(cut, f32cfg, T, dev, prompt, fe2)
+    moved = max(max_diff(a, c) for a, c in zip(f32["kernel"], other))
+    log(f"  {label} fp32: another frontend moves the logits by {moved:.3e}")
+    # whisper's pattern reads no frontend (its encoder feeds no layer);
+    # vision's cross layers must.
+    if ("cross" in cfg.pattern) == (moved == 0.0):
+        failed.append(f"{name}: the logits move by {moved} with another "
+                      f"frontend")
+    del f32, b16, cut, params, other
+    torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return row
+
+
+def run_encdec_training(ops, configs, T) -> dict:
+    """whisper-medium trained through the launcher with the frontend stub
+    (batch 2 x 448, 10 steps, fp32 masters, bf16 compute); every step's
+    loss finite and the last below the first, no kernel launched."""
+    from repro_torch.launch import train as train_launch
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run = train_launch.main(WHISPER_TRAIN_ARGS + ["--ckpt", tmp])
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    losses = [m["loss"] for m in run["metrics"]]
+    step_s = sorted(m["dt"] for m in run["metrics"])[len(losses) // 2]
+    out = dict(step_ms=1e3 * step_s, tokens_per_s=2 * 448 / step_s,
+               peak_gib=peak, losses=losses, wall_s=wall,
+               params_B=T.param_count(run["state"]["params"]) / 1e9)
+    log(f"  whisper-medium training ({out['params_B']:.4f} B parameters, "
+        f"fp32 masters, bf16 compute), batch 2 x 448 with the frontend "
+        f"stub: losses {[round(x, 4) for x in losses]}; step "
+        f"{out['step_ms']:.1f} ms (median), {out['tokens_per_s']:.0f} "
+        f"tokens/s; max_memory_allocated {peak:.2f} GiB; {wall:.1f} s with "
+        f"its checkpoint; launches {launches}")
+    failed = []
+    if len(losses) != 10 or not all(math.isfinite(x) for x in losses):
+        failed.append(f"whisper-medium losses {losses}")
+    elif not losses[-1] < losses[0]:
+        failed.append(f"whisper-medium loss did not fall: {losses}")
+    if launches:
+        failed.append(f"training launched a kernel: {launches}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return {k: out[k] for k in ("step_ms", "tokens_per_s", "peak_gib")}
+
+
+def run_encdec(dev, ops, ref, configs, T, engine) -> dict:
+    """Phase 22: the kernels at both models' shapes, each model served
+    and checked (one on the card at a time), whisper trained."""
+    summary = {"kernels": time_encdec_shapes(dev, ops, ref)}
+    if not all(r["ok"] for r in summary["kernels"].values()):
+        raise RuntimeError("a phase-22 kernel disagrees with its plain "
+                           "version")
+    torch.cuda.empty_cache()
+    for name, spec in ENCDEC.items():
+        t0 = time.perf_counter()
+        summary[name] = run_encdec_model(name, spec, dev, ops, ref, configs,
+                                         T, engine)
+        torch.cuda.empty_cache()
+        summary[name]["seconds"] = time.perf_counter() - t0
+        log(f"  {name}: {summary[name]['seconds']:.1f} s in all")
+    for key in ("whisper-medium", "llama-3.2-vision-90b"):
+        summary["kernels"][f"flash_decode {key}"]["launches"] = \
+            summary[key]["launches"]
+    summary["whisper-medium training"] = run_encdec_training(ops, configs, T)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3031,7 +3367,7 @@ def main() -> None:
     from repro_torch.launch import latency as latency_launch
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
-    from repro_torch.serve import sampling
+    from repro_torch.serve import engine, sampling
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.train import steps
 
@@ -3331,6 +3667,12 @@ def main() -> None:
     t0 = time.perf_counter()
     families = run_families(dev, ops, ref, configs, T, moe_mod)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== the encoder-decoder and cross-attention families, bf16 ==")
+    t0 = time.perf_counter()
+    encdec = run_encdec(dev, ops, ref, configs, T, engine)
+    log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3344,7 +3686,8 @@ def main() -> None:
     log(f"  ticks: {ticks}; training: {train_summary}; sampled "
         f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
         f"overload {overload}; cost models {costs}; dissection "
-        f"{dissection}; families {families}; total "
+        f"{dissection}; families {families}; encoder-decoder "
+        f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

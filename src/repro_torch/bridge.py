@@ -9,8 +9,10 @@ The reference stacks each pattern position's parameters over periods
 (``_stack_init``: ``blocks[pos]`` has a leading dim of ``periods``); here
 they are unstacked into one dict per layer, layer i being pattern position
 ``i % P``, period ``i // P`` (P the pattern's length). Any pattern of
-``"attn"`` and ``"mamba"`` layers is carried, with dense or
-mixture-of-experts MLPs. Weight layouts are kept as they are
+``"attn"``, ``"cross"`` and ``"mamba"`` layers is carried, with dense or
+mixture-of-experts MLPs, and the encoder of an encoder-decoder (the
+reference's ``encoder.blocks[0]``, stacked over the encoder's layers,
+becomes one dict a layer). Weight layouts are kept as they are
 (``wq``/``wk``/``wv`` (d, h, hd), ``wo`` (h, hd, d), ``w_x``/``w_z``
 (d, h, p), ``w_ssm_out`` (h, p, d), ``expert_gate``/``expert_up``
 (e, d, f), ``expert_down`` (e, f, d)).
@@ -28,9 +30,9 @@ from repro_torch.configs import ModelConfig
 
 # Leaves kept in fp32 whatever the compute dtype (the reference applies
 # them in fp32 or casts them at use).
-FP32_LEAVES = {"scale", "b_q", "b_k", "b_v", "b_up", "dt_bias", "A_log", "D",
-               "router"}
-PORTED_KINDS = ("attn", "mamba")
+FP32_LEAVES = {"scale", "bias", "b_q", "b_k", "b_v", "b_up", "dt_bias",
+               "A_log", "D", "router", "gate"}
+PORTED_KINDS = ("attn", "cross", "mamba")
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
@@ -65,10 +67,20 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         if periods != cfg.periods:
             raise ValueError(f"position {pos}: {periods} stacked periods, "
                              f"config has {cfg.periods}")
-    return {
+    out = {
         "embed": convert(np_params["embed"]),
         "blocks": [convert(blocks_np[i % n_pos], period=i // n_pos)
                    for i in range(cfg.n_layers)],
         "ln_f": convert(np_params["ln_f"]),
         "unembed": convert(np_params["unembed"]),
     }
+    if ("encoder" in np_params) != (cfg.encoder is not None):
+        raise ValueError(f"{cfg.name}: the parameters and the config "
+                         f"disagree on having an encoder")
+    if cfg.encoder is not None:
+        (enc_np,) = np_params["encoder"]["blocks"]
+        out["encoder"] = {
+            "blocks": [convert(enc_np, period=i)
+                       for i in range(cfg.encoder.n_layers)],
+            "ln_f": convert(np_params["encoder"]["ln_f"])}
+    return out

@@ -1,6 +1,7 @@
-"""Model configurations: the subset of the reference's ``ModelConfig``
-the port serves — dense GQA decoders, mixtures of experts, Mamba-2
-stacks and hybrids of the two.
+"""Model configurations: the reference's ``ModelConfig`` as the port
+serves it — dense GQA decoders, mixtures of experts, Mamba-2 stacks and
+hybrids of the two, an encoder-decoder (whisper-medium) and a decoder
+with gated cross-attention layers (llama-3.2-vision-90b).
 
 ``get_config(name)`` returns the full configuration, ``get_smoke(name)``
 the reduced same-family one used by the CPU tests. Field values are the
@@ -24,19 +25,38 @@ ALIASES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "mamba2-370m": "mamba2_370m",
+    "whisper-medium": "whisper_medium",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """A non-causal, RoPE-less attention stack over the frontend's
+    embeddings (whisper's audio encoder): ``n_layers`` blocks of the
+    decoder's width over ``n_ctx`` frontend tokens."""
+
+    n_layers: int
+    n_ctx: int
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only stack of pre-norm RMSNorm blocks. Each layer's mixer
-    is named by ``pattern`` (repeated over the depth): ``"attn"`` (GQA
-    attention with optional qk-norm / qkv-bias and half-split RoPE) or
-    ``"mamba"`` (a Mamba-2 SSD mixer, ``models.mamba``); ``d_ff > 0`` adds
+    """A stack of pre-norm blocks (RMSNorm, or LayerNorm where ``norm`` is
+    "layer"). Each layer's mixer is named by ``pattern`` (repeated over
+    the depth): ``"attn"`` (GQA attention with optional qk-norm /
+    qkv-bias and half-split RoPE; without ``rope_theta`` the decoder adds
+    sinusoidal positions to its embeddings instead), ``"cross"`` (that
+    attention, then a tanh-gated cross-attention to the frontend's
+    tokens) or ``"mamba"`` (a Mamba-2 SSD mixer, ``models.mamba``);
+    ``d_ff > 0`` adds
     a SwiGLU or GELU MLP to every block, which is a mixture of
     ``n_experts`` SwiGLU experts (``models.moe``, top-``top_k`` routing,
     ``n_shared_experts`` always on) at the pattern positions
-    ``moe_positions``.
+    ``moe_positions``. ``encoder`` adds an encoder over the frontend's
+    embeddings (``n_frontend_tokens`` of them, width ``d_model``, made by
+    a stubbed audio or vision frontend), whose output the cross layers
+    read; without it the cross layers read the embeddings themselves.
 
     ``use_flash`` governs only the cache-less forward (``forward`` without
     caches: scoring, the loss): True runs its attention through the
@@ -56,6 +76,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0            # 0 -> d_model // n_heads
+    norm: str = "rms"            # "rms" | "layer"
     activation: str = "swiglu"   # "swiglu" | "gelu"
     qk_norm: bool = False
     qkv_bias: bool = False
@@ -70,6 +91,8 @@ class ModelConfig:
     mamba_d_state: int = 128
     mamba_head_dim: int = 64
     mamba_expand: int = 2
+    encoder: Optional[EncoderConfig] = None  # enc-dec (whisper)
+    n_frontend_tokens: int = 0               # vision/audio stub tokens
     compute_dtype: str = "float32"
     use_flash: bool = False
 
@@ -77,6 +100,9 @@ class ModelConfig:
         if self.n_layers % len(self.pattern):
             raise ValueError(f"{self.name}: {self.n_layers} layers is not "
                              f"a multiple of the pattern {self.pattern}")
+        if self.norm not in ("rms", "layer"):
+            raise ValueError(f"{self.name}: norm {self.norm!r} is not "
+                             f"'rms' or 'layer'")
 
     @property
     def dhead(self) -> int:

@@ -33,7 +33,10 @@ with ``--seed``, which also seeds the sampling keys at ``--temperature``
 above 0 and the traffic. Cached attention and the SSD scan run through
 the port's kernels (their plain versions on the CPU). On a card each
 decode (or, with ``--spec-k``, verify; both with ``--degrade``) and chunk
-step is one captured CUDA graph.
+step is one captured CUDA graph. An encoder-decoder or a config with a
+stubbed frontend (whisper-medium, llama-3.2-vision-90b) is refused, as
+the reference's launcher refuses it: ``serve.engine.greedy_generate``
+serves those with their frontend's embeddings.
 """
 
 from __future__ import annotations
@@ -226,6 +229,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
+    if cfg.encoder is not None or cfg.n_frontend_tokens:
+        raise SystemExit("serve launcher demo supports decoder-only archs")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
     tenants = [_parse_tenant(s) for s in args.tenant]

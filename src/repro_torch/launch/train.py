@@ -11,8 +11,12 @@ in the config's dtype; attention trains through the plain ``sdpa``.
 Running again with a higher ``--steps`` against the same ``--ckpt``
 resumes from its last checkpoint. ``--key=value`` pairs override
 ``ModelConfig`` fields (``--compute_dtype=float32``); booleans take true,
-false, 1 or 0. Only attention stacks train, on one device: ``--fsdp`` and
-``--mesh`` are not ported (ROADMAP Queue 1 item 13).
+false, 1 or 0. Attention stacks train (an encoder-decoder or cross
+layers included: a config with a stubbed frontend is fed zeros of shape
+(batch, n_frontend_tokens, d_model), as the reference's
+``frontend_stub``), on one device: ``--fsdp`` and ``--mesh`` are not
+ported (ROADMAP Queue 1 item 3). ``--log-every N`` keeps every Nth
+step's metrics (10 by default).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Any, Dict
+
+import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.configs import ModelConfig
@@ -73,6 +79,19 @@ def build(cfg: ModelConfig, args, device):
     return step, init_fn
 
 
+def frontend_stub(cfg: ModelConfig, device):
+    """batch size -> the frontend's stand-in, zeros (b, n_frontend_tokens,
+    d_model) in the compute dtype; None for a config without a frontend."""
+    if not cfg.n_frontend_tokens:
+        return None
+
+    def make(batch: int) -> torch.Tensor:
+        return torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
+                           dtype=cfg.dtype, device=device)
+
+    return make
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, choices=configs.list_archs())
@@ -87,6 +106,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", required=True, help="checkpoint directory")
     ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--fsdp", action="store_true", help="not ported")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--error-feedback", action="store_true",
@@ -99,7 +119,7 @@ def main(argv=None):
     if args.fsdp or args.mesh != "none":
         raise NotImplementedError(
             "--fsdp and --mesh are not ported: the port trains on one "
-            "device (ROADMAP Queue 1 item 13)")
+            "device (ROADMAP Queue 1 item 3)")
     bad = [a for a in extra if "=" not in a]
     if bad:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
@@ -119,8 +139,10 @@ def main(argv=None):
     step_fn, init_fn = build(cfg, args, device)
     trainer = Trainer(
         TrainerConfig(checkpoint_dir=args.ckpt, total_steps=args.steps,
-                      checkpoint_every=args.ckpt_every),
-        cfg, data, step_fn, init_fn, device=device)
+                      checkpoint_every=args.ckpt_every,
+                      log_every=args.log_every),
+        cfg, data, step_fn, init_fn, device=device,
+        frontend_fn=frontend_stub(cfg, device))
     result = trainer.run()
     for m in result["metrics"]:
         print(f"step {m['step']:5d} loss={m['loss']:.4f} "

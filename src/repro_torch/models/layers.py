@@ -1,5 +1,6 @@
-"""Core layers of the decoder, as plain functions over parameter dicts of
-tensors (port of ``repro/models/layers.py``, the RMSNorm/GQA/MLP subset).
+"""Core layers, as plain functions over parameter dicts of tensors (port
+of ``repro/models/layers.py``: RMSNorm and LayerNorm, GQA self-attention,
+gated cross-attention, the MLPs, embeddings and sinusoidal positions).
 
 Weight layouts are the reference's einsum layouts: ``wq``/``wk``/``wv``
 (d_model, heads, head_dim) and ``wo`` (heads, head_dim, d_model). The
@@ -15,6 +16,7 @@ import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +38,23 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(dtype)
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm in fp32 (population variance), scale and bias applied
+    before the cast back."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
+        + params["bias"]
+    return out.to(dtype)
+
+
+def norm(kind: str, params: Params, x: torch.Tensor):
+    """``rmsnorm`` for kind "rms", ``layernorm`` for "layer"."""
+    return rmsnorm(params, x) if kind == "rms" else layernorm(params, x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
@@ -233,6 +252,23 @@ def _paged_apply(params: Params, x, q, k, v, cache: Params):
     return _matmul_out(out, params["wo"]), new_cache
 
 
+def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
+    """Cross-attention: queries from x (b, s, d), keys and values from
+    ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
+    and no RoPE (as the reference), the output scaled by ``tanh(gate)``
+    where the layer has a gate (llama-3.2-vision)."""
+    q = _matmul_heads(x, params["wq"])
+    k = _matmul_heads(kv_src, params["wk"])
+    v = _matmul_heads(kv_src, params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    y = _matmul_out(sdpa(q, k, v), params["wo"])
+    if "gate" in params:
+        y = torch.tanh(params["gate"]).to(x.dtype) * y
+    return y
+
+
 # ----------------------------------------------------------------------------
 # MLP, embeddings
 # ----------------------------------------------------------------------------
@@ -262,3 +298,13 @@ def embed(params: Params, tokens, dtype=torch.float32):
 
 def unembed(params: Params, x):
     return x @ params["lm_head"].to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) fp32 absolute positions, sines then cosines, built in numpy
+    float64 and rounded once (the encoder's table, as the reference)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(out).to(device=device, dtype=torch.float32)

@@ -1,17 +1,23 @@
-"""Decoder stack (port of ``repro/models/transformer.py`` for patterns of
-attention and Mamba-2 layers, with dense or mixture-of-experts MLPs): a
-Python loop over layers in place of the reference's ``lax.scan`` over
-stacked periods.
+"""Transformer stacks (port of ``repro/models/transformer.py``): patterns
+of attention, cross-attention and Mamba-2 layers with dense or
+mixture-of-experts MLPs, and the encoder of an encoder-decoder; a Python
+loop over layers in place of the reference's ``lax.scan`` over stacked
+periods.
 
 Parameters: {"embed": {"embedding"}, "blocks": [per-layer dict, ...],
-"ln_f": {"scale"}, "unembed": {"lm_head"}}; each layer holds "ln1" and
-its mixer, "attn" or "mamba" (``cfg.kind(i)``), then, when ``d_ff > 0``,
-"ln2" and "mlp", or "moe" where ``cfg.is_moe(i)``, with the reference's
-leaf names.
+"ln_f", "unembed": {"lm_head"}} and, for a config with an encoder,
+"encoder": {"blocks": [per-layer dict, ...], "ln_f"}. Each decoder layer
+holds "ln1" and its mixer, "attn" or "mamba" (``cfg.kind(i)``); a
+``"cross"`` layer holds "attn", then "ln_x" and "xattn" (attention
+weights and a scalar fp32 "gate"); then, when ``d_ff > 0``, "ln2" and
+"mlp", or "moe" where ``cfg.is_moe(i)``. An encoder layer holds "ln1",
+"attn", "ln2" and "mlp". A norm is {"scale"} (RMSNorm) or {"scale",
+"bias"} (LayerNorm). Leaf names are the reference's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -24,12 +30,12 @@ from repro_torch.models import layers, mamba, moe
 Params = Dict[str, Any]
 
 
-def attn_cfg(cfg: ModelConfig) -> layers.AttnConfig:
+def attn_cfg(cfg: ModelConfig, causal: bool = True) -> layers.AttnConfig:
     return layers.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.dhead,
         qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta)
+        rope_theta=cfg.rope_theta, causal=causal)
 
 
 def mlp_cfg(cfg: ModelConfig) -> layers.MLPConfig:
@@ -44,12 +50,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights from the reference's distributions (``layers._init``:
     a standard normal times 1/sqrt(fan_in), 1.0 for the embedding, zeros
-    for biases, ones for norm scales; ``moe.moe_init`` for a mixture of
-    experts), drawn with ``generator``.
+    for biases and the cross-attention's gate, ones for norm scales;
+    ``moe.moe_init`` for a mixture of experts), drawn with ``generator``.
 
     Matmul weights and the embedding are stored in ``dtype`` (default: the
-    config's compute dtype); norm scales and biases in fp32. ``generator``
-    must live on ``device``; None seeds a fresh one with 0."""
+    config's compute dtype); norm scales and biases and the gate in fp32.
+    ``generator`` must live on ``device``; None seeds a fresh one with 0."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     if generator is None:
@@ -61,46 +67,68 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                         dtype=torch.float32)
         return (w * scale).to(dtype)
 
-    def ones(n):
-        return {"scale": torch.ones(n, device=device, dtype=torch.float32)}
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=torch.float32)
 
     d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
                         cfg.d_ff)
+
+    def norm():
+        p = {"scale": torch.ones(d, device=device, dtype=torch.float32)}
+        if cfg.norm == "layer":
+            p["bias"] = zeros(d)
+        return p
+
+    def attention():
+        attn = {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
+                "wv": normal((d, kvh, hd)),
+                "wo": normal((h, hd, d), scale=1.0 / math.sqrt(h * hd))}
+        if cfg.qkv_bias:
+            for name, heads in (("b_q", h), ("b_k", kvh), ("b_v", kvh)):
+                attn[name] = zeros(heads, hd)
+        if cfg.qk_norm:
+            attn["q_norm"], attn["k_norm"] = (
+                {"scale": torch.ones(hd, device=device)} for _ in range(2))
+        return attn
+
+    def mlp():
+        if cfg.activation == "swiglu":
+            return {"w_gate": normal((d, f)), "w_up": normal((d, f)),
+                    "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+        return {"w_up": normal((d, f)), "b_up": zeros(f),
+                "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
+
     blocks = []
     for i in range(cfg.n_layers):
-        block = {"ln1": ones(d)}
-        if cfg.kind(i) == "attn":
-            attn = {"wq": normal((d, h, hd)), "wk": normal((d, kvh, hd)),
-                    "wv": normal((d, kvh, hd)),
-                    "wo": normal((h, hd, d), scale=1.0 / math.sqrt(h * hd))}
-            if cfg.qkv_bias:
-                for name, heads in (("b_q", h), ("b_k", kvh), ("b_v", kvh)):
-                    attn[name] = torch.zeros((heads, hd), device=device)
-            if cfg.qk_norm:
-                attn["q_norm"], attn["k_norm"] = ones(hd), ones(hd)
-            block["attn"] = attn
-        elif cfg.kind(i) == "mamba":
+        block = {"ln1": norm()}
+        kind = cfg.kind(i)
+        if kind in ("attn", "cross"):
+            block["attn"] = attention()
+        elif kind == "mamba":
             block["mamba"] = mamba.mamba_init(generator, cfg.mamba_cfg(),
                                               device, dtype)
         else:
-            raise ValueError(f"layer kind {cfg.kind(i)!r} is not ported")
+            raise ValueError(f"layer kind {kind!r} is not ported")
+        if kind == "cross":
+            block["ln_x"] = norm()
+            block["xattn"] = dict(attention(), gate=zeros())
         if f > 0 and cfg.is_moe(i):
-            block["ln2"] = ones(d)
+            block["ln2"] = norm()
             block["moe"] = moe.moe_init(generator, cfg.moe_cfg(), device,
                                         dtype)
         elif f > 0:
-            if cfg.activation == "swiglu":
-                mlp = {"w_gate": normal((d, f)), "w_up": normal((d, f)),
-                       "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
-            else:
-                mlp = {"w_up": normal((d, f)),
-                       "b_up": torch.zeros(f, device=device),
-                       "w_down": normal((f, d), scale=1.0 / math.sqrt(f))}
-            block["ln2"], block["mlp"] = ones(d), mlp
+            block["ln2"], block["mlp"] = norm(), mlp()
         blocks.append(block)
-    return {"embed": {"embedding": normal((cfg.vocab, d), scale=1.0)},
-            "blocks": blocks, "ln_f": ones(d),
-            "unembed": {"lm_head": normal((d, cfg.vocab))}}
+    params = {"embed": {"embedding": normal((cfg.vocab, d), scale=1.0)},
+              "blocks": blocks, "ln_f": norm(),
+              "unembed": {"lm_head": normal((d, cfg.vocab))}}
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "blocks": [{"ln1": norm(), "attn": attention(), "ln2": norm(),
+                        "mlp": mlp()}
+                       for _ in range(cfg.encoder.n_layers)],
+            "ln_f": norm()}
+    return params
 
 
 def param_count(params: Params) -> int:
@@ -129,30 +157,39 @@ def param_count_of(cfg: ModelConfig, active: bool = False) -> int:
     mixture's experts."""
     d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
                         cfg.d_ff)
-    total = 2 * cfg.vocab * d + d                     # embed, unembed, ln_f
+    norm = 2 * d if cfg.norm == "layer" else d
+    attn = d * (h + 2 * kvh) * hd + h * hd * d
+    attn += (h + 2 * kvh) * hd if cfg.qkv_bias else 0
+    attn += 2 * hd if cfg.qk_norm else 0
+    mlp = 3 * d * f if cfg.activation == "swiglu" else 2 * d * f + f
+    total = 2 * cfg.vocab * d + norm                  # embed, unembed, ln_f
     for i in range(cfg.n_layers):
-        total += d                                     # ln1
-        if cfg.kind(i) == "attn":
-            total += d * (h + 2 * kvh) * hd + h * hd * d
-            total += (h + 2 * kvh) * hd if cfg.qkv_bias else 0
-            total += 2 * hd if cfg.qk_norm else 0
+        total += norm                                  # ln1
+        kind = cfg.kind(i)
+        if kind in ("attn", "cross"):
+            total += attn
         else:
             m = cfg.mamba_cfg()
             hm, p, n = m.n_heads, m.head_dim, m.d_state
             total += (2 * d * hm * p + 2 * d * n + d * hm + 3 * hm
                       + m.d_conv * hm * p + hm * p + hm * p * d)
+        if kind == "cross":
+            total += norm + attn + 1                   # ln_x, xattn, gate
         if f > 0 and cfg.is_moe(i):
             e = cfg.top_k if active else cfg.n_experts
-            total += d + d * cfg.n_experts + 3 * d * f * (
+            total += norm + d * cfg.n_experts + 3 * d * f * (
                 e + cfg.n_shared_experts)
         elif f > 0:
-            total += d + (3 * d * f if cfg.activation == "swiglu"
-                          else 2 * d * f + f)
+            total += norm + mlp
+    if cfg.encoder is not None:
+        total += cfg.encoder.n_layers * (2 * norm + attn + mlp) + norm
     return total
 
 
 def n_attention_layers(cfg: ModelConfig) -> int:
-    return sum(cfg.kind(i) == "attn" for i in range(cfg.n_layers))
+    """Decoder layers with self-attention (and so a K/V cache): the
+    ``"attn"`` and the ``"cross"`` layers."""
+    return sum(cfg.kind(i) in ("attn", "cross") for i in range(cfg.n_layers))
 
 
 def model_flops(cfg: ModelConfig, batch: int, seq: int, mode: str = "train",
@@ -174,12 +211,13 @@ def model_flops(cfg: ModelConfig, batch: int, seq: int, mode: str = "train",
 # ----------------------------------------------------------------------------
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
-                 cache=None):
-    """One pre-norm block: the mixer, then the MLP (dense or a mixture of
+                 cache=None, cross_kv=None):
+    """One pre-norm block: the mixer, then (a ``"cross"`` layer) the gated
+    cross-attention to ``cross_kv``, then the MLP (dense or a mixture of
     experts) if it has one, each with a residual. The mixture's aux loss
     is dropped: only training adds it, and the port does not train a
     mixture of experts (ROADMAP)."""
-    h = layers.rmsnorm(params["ln1"], x)
+    h = layers.norm(cfg.norm, params["ln1"], x)
     if kind == "mamba":
         mix, new_cache = mamba.mamba_apply(params["mamba"], cfg.mamba_cfg(),
                                            h, cache=cache)
@@ -188,17 +226,69 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
             params["attn"], attn_cfg(cfg), h, cache=cache,
             use_flash=cfg.use_flash)
     x = x + mix
+    if kind == "cross":
+        hx = layers.norm(cfg.norm, params["ln_x"], x)
+        x = x + layers.cross_attention_apply(
+            params["xattn"], attn_cfg(cfg, causal=False), hx,
+            cross_kv.to(x.dtype))
     if "moe" in params:
-        h2 = layers.rmsnorm(params["ln2"], x)
+        h2 = layers.norm(cfg.norm, params["ln2"], x)
         x = x + moe.moe_apply(params["moe"], cfg.moe_cfg(), h2)[0]
     elif "mlp" in params:
-        h2 = layers.rmsnorm(params["ln2"], x)
+        h2 = layers.norm(cfg.norm, params["ln2"], x)
         x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
     return x, new_cache
 
 
+def encode(params: Params, cfg: ModelConfig, frontend_embeds):
+    """The encoder over the frontend's embeddings (b, n, d_model): the
+    fp32 sinusoid table added, then blocks of non-causal, RoPE-less
+    attention through the plain ``sdpa`` and the dense MLP, then the
+    encoder's final norm. Returns (b, n, d_model) in the compute dtype."""
+    x = frontend_embeds.to(cfg.dtype)
+    pos = layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+    x = x + pos[None].to(x.dtype)
+    acfg = dataclasses.replace(attn_cfg(cfg, causal=False), rope_theta=None)
+    for block in params["encoder"]["blocks"]:
+        h = layers.norm(cfg.norm, block["ln1"], x)
+        x = x + layers.attention_apply(block["attn"], acfg, h)[0]
+        h2 = layers.norm(cfg.norm, block["ln2"], x)
+        x = x + layers.mlp_apply(block["mlp"], mlp_cfg(cfg), h2)
+    return layers.norm(cfg.norm, params["encoder"]["ln_f"], x)
+
+
+def cross_source(params: Params, cfg: ModelConfig, frontend_embeds):
+    """What the cross layers attend to, or None where no layer reads it:
+    the encoder's output for a config with an encoder, else the frontend's
+    embeddings in the compute dtype. whisper-medium's pattern has no cross
+    layer, so its encoder is not run (the reference runs it and drops the
+    output): its logits do not depend on ``frontend_embeds``."""
+    if "cross" not in cfg.pattern:
+        return None
+    if frontend_embeds is None:
+        raise ValueError(f"{cfg.name}: the cross layers need "
+                         f"frontend_embeds or cross_kv")
+    if cfg.encoder is not None:
+        return encode(params, cfg, frontend_embeds)
+    return frontend_embeds.to(cfg.dtype)
+
+
+def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d) sinusoidal positions computed in fp32 on the fly (the
+    decoder's recipe, not the encoder's float64 table), for integer
+    ``positions`` of any shape. The fp32 divisors 10000^(2i/d) are
+    rounded once from float64: fp32 ``pow`` differs by an ulp between
+    libraries (XLA's on the CPU is the rounded value at d 1024, torch's
+    is not), which moves a sine at position 1500 by 3e-5."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    div = torch.pow(10000.0, (2 * dim / d).double()).float()
+    angle = positions[..., None].float() / div
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def forward(params: Params, cfg: ModelConfig, tokens,
-            caches: Optional[List[Params]] = None
+            caches: Optional[List[Params]] = None, frontend_embeds=None,
+            cross_kv=None
             ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
     """tokens (b, s) -> (logits (b, s, vocab), new caches or None).
 
@@ -207,15 +297,33 @@ def forward(params: Params, cfg: ModelConfig, tokens,
     otherwise. With ``caches`` (``init_caches`` or ``init_paged_caches``)
     the new K/V rows are written into each attention layer's cache in
     place, each Mamba layer returns its new conv/SSM state, and every
-    returned cache has its write position advanced by s."""
+    returned cache has its write position advanced by s.
+
+    The cross layers attend to ``cross_kv`` (b, n, d_model) where it is
+    given (serving computes it once, ``cross_source``, so that decode
+    steps do not run the encoder again), else to
+    ``cross_source(frontend_embeds)``. A config without ``rope_theta``
+    adds sinusoidal positions to the embeddings, starting at each slot's
+    own cache position (the reference starts every slot at slot 0's)."""
     x = layers.embed(params["embed"], tokens, cfg.dtype)
+    if cross_kv is not None:
+        cross_kv = cross_kv.to(cfg.dtype)
+    else:
+        cross_kv = cross_source(params, cfg, frontend_embeds)
+    if cfg.rope_theta is None:
+        pos = torch.arange(tokens.shape[1], device=x.device)
+        if caches is not None:
+            idx = caches[0]["index"].long()
+            pos = pos + (idx[:, None] if idx.dim() == 1 else idx)
+        x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_caches = [] if caches is not None else None
     for i, block in enumerate(params["blocks"]):
         cache = caches[i] if caches is not None else None
-        x, nc = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache)
+        x, nc = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
+                             cross_kv=cross_kv)
         if caches is not None:
             new_caches.append(nc)
-    x = layers.rmsnorm(params["ln_f"], x)
+    x = layers.norm(cfg.norm, params["ln_f"], x)
     return layers.unembed(params["unembed"], x), new_caches
 
 
@@ -224,7 +332,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: Optional[torch.dtype] = None) -> List[Params]:
     """Contiguous decode caches, one per layer, in the compute dtype:
 
-    * attention: ``k``/``v`` (batch, max_len, kvh, dhead);
+    * attention (``"attn"`` and ``"cross"`` layers: the cross-attention
+      keeps no cache): ``k``/``v`` (batch, max_len, kvh, dhead);
     * mamba: ``conv`` (batch, d_conv - 1, h, p) and ``ssm`` (batch, h, p, n);
 
     each with an int32 ``index``: (batch,) per-slot write positions with
@@ -236,7 +345,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                         device=device)
     caches = []
     for i in range(cfg.n_layers):
-        if cfg.kind(i) == "attn":
+        if cfg.kind(i) in ("attn", "cross"):
             shape = (batch, max_len, cfg.n_kv_heads, cfg.dhead)
             c = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -293,6 +402,9 @@ def init_paged_caches(cfg: ModelConfig, batch: int, max_len: int,
       table for every layer, so all layers share the same two tensors.
     """
     device = resolve_device(device)
+    if any(k not in ("attn", "cross") for k in cfg.pattern):
+        raise ValueError(f"paged K/V caches need an attention-only "
+                         f"pattern, not {cfg.pattern}")
     if n_pages < 2:
         raise ValueError(f"n_pages {n_pages} < 2")
     dtype = dtype or cfg.dtype

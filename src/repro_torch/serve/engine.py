@@ -224,30 +224,39 @@ class Request:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, caches):
+def prefill(params, cfg: ModelConfig, tokens, caches, frontend_embeds=None,
+            cross_kv=None):
     """Run the prompt through the model, filling the caches. Returns the
-    last position's logits and the new caches."""
-    logits, caches = T.forward(params, cfg, tokens, caches=caches)
+    last position's logits and the new caches. ``frontend_embeds`` or
+    ``cross_kv``: what the cross layers read (``T.forward``)."""
+    logits, caches = T.forward(params, cfg, tokens, caches=caches,
+                               frontend_embeds=frontend_embeds,
+                               cross_kv=cross_kv)
     return logits[:, -1], caches
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, last_tokens, caches):
+def decode_step(params, cfg: ModelConfig, last_tokens, caches,
+                frontend_embeds=None, cross_kv=None):
     """One decode step: (b,) token ids -> (b, vocab) logits + new caches."""
     logits, caches = T.forward(params, cfg, last_tokens[:, None],
-                               caches=caches)
+                               caches=caches, frontend_embeds=frontend_embeds,
+                               cross_kv=cross_kv)
     return logits[:, -1], caches
 
 
 def make_serve_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
     """The decode step as a plain function (the reference jits it):
-    ``step(params, last_tokens, caches, key=None) -> (next ids, new
-    caches)``. One (2,) key draws the whole batch's noise, as the
-    reference's does; greedy reads no key."""
+    ``step(params, last_tokens, caches, key=None, frontend_embeds=None,
+    cross_kv=None) -> (next ids, new caches)``. One (2,) key draws the
+    whole batch's noise, as the reference's does; greedy reads no key."""
     pick = sampling.sampler(temperature)
 
-    def step(params, last_tokens, caches, key=None):
-        logits, caches = decode_step(params, cfg, last_tokens, caches)
+    def step(params, last_tokens, caches, key=None, frontend_embeds=None,
+             cross_kv=None):
+        logits, caches = decode_step(params, cfg, last_tokens, caches,
+                                     frontend_embeds=frontend_embeds,
+                                     cross_kv=cross_kv)
         return pick(logits, key), caches
 
     return step
@@ -255,19 +264,24 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
 
 @torch.no_grad()
 def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
-                    max_new: int, max_len: Optional[int] = None):
+                    max_new: int, max_len: Optional[int] = None,
+                    frontend_embeds=None):
     """The generation loop the engines are compared with: prompt (b, s)
     on the model's device -> (b, max_new) greedy ids, through contiguous
-    caches with one position shared by every row."""
+    caches with one position shared by every row. ``frontend_embeds``
+    (b, n, d_model) feeds the cross layers: what they read
+    (``T.cross_source``, the encoder's output where there is one) is
+    computed once and handed to the prefill and every decode step."""
     b, s = prompt.shape
     max_len = max_len or (s + max_new)
+    cross_kv = T.cross_source(params, cfg, frontend_embeds)
     caches = T.init_caches(cfg, b, max_len, device=prompt.device)
-    logits, caches = prefill(params, cfg, prompt, caches)
+    logits, caches = prefill(params, cfg, prompt, caches, cross_kv=cross_kv)
     tok = logits.argmax(-1)
     out = [tok]
     step = make_serve_step(cfg)
     for _ in range(max_new - 1):
-        tok, caches = step(params, tok, caches)
+        tok, caches = step(params, tok, caches, cross_kv=cross_kv)
         out.append(tok)
     return torch.stack(out, dim=1)
 
@@ -281,6 +295,11 @@ class ServingEngine:
     def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
                  device=None, capture: bool = True):
         self.device = resolve_device(device)
+        if cfg.encoder is not None or cfg.n_frontend_tokens:
+            # As the reference's engine: its requests carry no frontend.
+            raise ValueError(f"{cfg.name}: the serving engine supports "
+                             f"decoder-only archs (serve an encoder or a "
+                             f"frontend through greedy_generate)")
         self.cfg, self.scfg, self.params = cfg, serve_cfg, params
         # The constants every choose_* decision of this engine is priced
         # with: calibrated on this device type where the tuning cache has

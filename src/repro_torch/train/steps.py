@@ -4,10 +4,14 @@ accumulation and error-feedback gradient compression (port of
 
 Gradients come from ``torch.autograd`` through the plain ``sdpa``: the
 kernels have no backward (their wrappers raise under grad mode), so a
-model trains with ``use_flash=False``, as the reference does. Only dense
-attention stacks train: the Mamba layers always run the SSD scan kernel,
-which has no backward either, and a mixture of experts is refused until
-the router's aux loss is ported.
+model trains with ``use_flash=False``, as the reference does (an
+encoder and the cross-attention always run the plain ``sdpa``). Dense
+attention stacks train, with or without cross layers and an encoder: the
+Mamba layers always run the SSD scan kernel, which has no backward
+either, and a mixture of experts is refused until the router's aux loss
+is ported. A parameter no loss term reaches (whisper-medium's encoder,
+whose output no layer reads) gets a zero gradient, as
+``jax.value_and_grad`` gives it, so AdamW's weight decay still moves it.
 
 The step updates the parameters and the optimizer moments in place (the
 reference jits a step over a donated state and returns new trees).
@@ -27,7 +31,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-TRAINABLE_PATTERNS = (("attn",),)
+TRAINABLE_PATTERNS = (("attn",), ("cross", "attn", "attn", "attn", "attn"))
 
 
 @dataclasses.dataclass
@@ -49,28 +53,49 @@ class TrainState:
                    ef=t.get("ef"))
 
 
-def _stacked(tree):
-    """A parameter-shaped tree in the reference's layout: each block leaf
-    stacked over the layers (its ``lax.scan`` stack), a copy."""
-    return dict(tree, blocks=tree_map(lambda *ls: torch.stack(ls),
-                                      *tree["blocks"]))
+def _stack(blocks, n_pos):
+    """Per pattern position, its layers' dicts stacked leaf by leaf."""
+    return [tree_map(lambda *ls: torch.stack(ls), *blocks[pos::n_pos])
+            for pos in range(n_pos)]
+
+
+def _unstack(stacked):
+    n_pos = len(stacked)
+    periods = tree_leaves(stacked[0])[0].shape[0]
+    return [tree_map(lambda leaf: leaf[i // n_pos], stacked[i % n_pos])
+            for i in range(periods * n_pos)]
+
+
+def _stacked(tree, n_pos: int):
+    """A parameter-shaped tree in the reference's layout, a copy: each
+    pattern position's block leaves stacked over its periods (its
+    ``lax.scan`` stack), and the encoder's over its layers."""
+    out = dict(tree, blocks=_stack(tree["blocks"], n_pos))
+    if "encoder" in tree:
+        out["encoder"] = dict(tree["encoder"],
+                              blocks=_stack(tree["encoder"]["blocks"], 1))
+    return out
 
 
 def _unstacked(tree):
     """The port's layout (one dict per layer) of a ``_stacked`` tree."""
-    n = tree_leaves(tree["blocks"])[0].shape[0]
-    return dict(tree, blocks=[tree_map(lambda leaf: leaf[i], tree["blocks"])
-                              for i in range(n)])
+    out = dict(tree, blocks=_unstack(tree["blocks"]))
+    if "encoder" in tree:
+        out["encoder"] = dict(tree["encoder"],
+                              blocks=_unstack(tree["encoder"]["blocks"]))
+    return out
 
 
-def _compress(grads, ef):
+def _compress(grads, ef, n_pos: int):
     """The int8 round trip (with the error-feedback residual ``ef``, or
     None) over the reference's leaves: one scale for each block leaf
-    stacked over all layers, as its compressed all-reduce would carry."""
+    stacked over its pattern position's periods, as its compressed
+    all-reduce would carry."""
     if ef is None:
-        return _unstacked(compression.int8_roundtrip(_stacked(grads))), None
-    grads, ef = compression.ErrorFeedback.compress(_stacked(grads),
-                                                   _stacked(ef))
+        return _unstacked(compression.int8_roundtrip(
+            _stacked(grads, n_pos))), None
+    grads, ef = compression.ErrorFeedback.compress(_stacked(grads, n_pos),
+                                                   _stacked(ef, n_pos))
     return _unstacked(grads), _unstacked(ef)
 
 
@@ -99,9 +124,11 @@ def cross_entropy(logits, labels) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     """(nll + aux_weight * aux, {"nll", "aux"}) of ``batch`` ({"tokens",
-    "labels"} (b, s)) through the cache-less ``T.forward``. ``aux`` is 0:
-    the ported stacks have no MoE balance loss."""
-    logits, _ = T.forward(params, cfg, batch["tokens"])
+    "labels"} (b, s), and "frontend" (b, n, d_model) where the model
+    reads one) through the cache-less ``T.forward``. ``aux`` is 0: the
+    ported stacks have no MoE balance loss."""
+    logits, _ = T.forward(params, cfg, batch["tokens"],
+                          frontend_embeds=batch.get("frontend"))
     nll = cross_entropy(logits, batch["labels"])
     aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
@@ -141,11 +168,14 @@ def make_train_step(cfg: ModelConfig,
         # Leaves that share the parameters' storage and track gradients,
         # so the parameters themselves never require grad.
         tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(tracked)
         with torch.enable_grad():
             loss, parts = loss_fn(tracked, cfg, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(tracked))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, leaves)]
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-                tree_unflatten(params, list(grads)))
+                tree_unflatten(params, grads))
 
     def step(state_tree, batch):
         state = TrainState.from_tree(state_tree)
@@ -170,7 +200,8 @@ def make_train_step(cfg: ModelConfig,
             if error_feedback and ef is None:
                 raise ValueError("init_state(..., error_feedback=True) "
                                  "required")
-            grads, ef = _compress(grads, ef if error_feedback else None)
+            grads, ef = _compress(grads, ef if error_feedback else None,
+                                  len(cfg.pattern))
         grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
         lr = schedule.learning_rate(state.step, sched)
         params, opt = adamw.adamw_update(grads, state.opt, state.params, lr,

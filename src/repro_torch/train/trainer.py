@@ -40,11 +40,14 @@ class Trainer:
     """Drives ``step_fn(state_tree, batch) -> (state_tree, metrics)`` over
     ``data`` on ``device`` (cuda unless the caller passes cpu);
     ``init_state_fn()`` returns a fresh state tree, which also gives a
-    restore its structure."""
+    restore its structure. ``frontend_fn(batch_size)``, where given, makes
+    each batch's "frontend" (a stubbed audio or vision frontend's
+    embeddings)."""
 
     def __init__(self, cfg: TrainerConfig, model_cfg, data: SyntheticLMData,
                  step_fn: Callable, init_state_fn: Callable, device=None,
-                 fail_injector: Optional[Callable] = None):
+                 fail_injector: Optional[Callable] = None,
+                 frontend_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.data = data
@@ -52,6 +55,7 @@ class Trainer:
         self.init_state_fn = init_state_fn
         self.device = resolve_device(device)
         self.fail_injector = fail_injector
+        self.frontend_fn = frontend_fn
         self.ckpt = CheckpointManager(cfg.checkpoint_dir,
                                       keep=cfg.keep_checkpoints,
                                       async_save=cfg.async_checkpoint)
@@ -85,6 +89,8 @@ class Trainer:
             tokens, labels = self.data.batch_at(step)
             batch = {"tokens": torch.from_numpy(tokens).to(self.device),
                      "labels": torch.from_numpy(labels).to(self.device)}
+            if self.frontend_fn is not None:
+                batch["frontend"] = self.frontend_fn(tokens.shape[0])
             t0 = time.perf_counter()
             try:
                 if self.fail_injector is not None:

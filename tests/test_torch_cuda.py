@@ -122,6 +122,32 @@ def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
     assert not got[0].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 16, 64, 256, 288),
+                                   (4, 64, 8, 128, 512, 528)],
+                         ids=["whisper-medium", "llama-3.2-vision-90b"])
+def test_cuda_contiguous_decode_at_the_encdec_shapes(cuda_device, dtype,
+                                                     shape):
+    """The contiguous decode at whisper-medium's decode shape (MHA, 16
+    heads of 64: a bf16 query block of 16 rows holds one live row) and
+    llama-3.2-vision-90b's (64 heads of 128 over 8 kv heads, group 8),
+    contexts as greedy_generate's last steps reach them, against its
+    plain version."""
+    b, h, kvh, d, lo, hi = shape
+    g = torch.Generator(device=cuda_device).manual_seed(d + h)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    k, v, q = mk(b, hi, kvh, d), mk(b, hi, kvh, d), mk(b, h, d)
+    lengths = torch.tensor(np.linspace(lo, hi, b).astype(np.int32),
+                           device=cuda_device)
+    ops.reset_launches()
+    got = ops.flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    ok, err = ref.compare(got, ref.flash_decode(q, k, v, lengths))
+    assert ok, err
+    assert ops.LAUNCHES["flash_decode"] == 1
+
+
 # Lengths about the split decode's 256-row boundaries over a reach of 1024
 # rows (4 splits): 0 (every split empty), 1, each boundary and one row
 # either side, the reach, and past it (a drifting free slot).

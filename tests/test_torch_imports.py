@@ -48,6 +48,8 @@ def test_port_files_are_found():
                 ("configs", "dbrx_132b.py"),
                 ("configs", "llama4_maverick_400b.py"),
                 ("configs", "jamba_v0_1_52b.py"),
+                ("configs", "whisper_medium.py"),
+                ("configs", "llama_3_2_vision_90b.py"),
                 ("kernels", "ssd_scan.py"), ("configs", "mamba2_370m.py"),
                 ("kernels", "gemm.py"), ("kernels", "pchase_probe.py"),
                 ("core", "latency.py"), ("core", "autotune.py"),
