@@ -225,6 +225,18 @@ toolkit (``nvcc``). In order, and failing loudly on any phase:
 Phase 1 also holds the registers the GEMM tile chooser prices each tile
 with (``kernels.gemm.REGISTERS``) to this build's ptxas report.
 
+Phase 23 serves qwen3-4b at full width tensor-parallel over two ranks of
+a gloo group that share the card (``launch.mesh.run_ranks``; fp32 logits
+of a prefill and a decode step within 1e-3 of one rank's, every
+``flash_decode`` of the decode step at the gathered shape held to its
+plain version, a slot's pages on both ranks, n_pages / 2 a rank, fp32
+greedy streams equal to one rank's or different only at a near-tie,
+tok/s, peak memory, the gather's bytes, gloo's bandwidth curves, the
+launcher at ``--tp 2``), then trains every family: a step's gradients on
+the card against the CPU's (mamba2-370m whole, dbrx and jamba smoke) and
+mamba2-370m whole for a few steps. ``python3 chip_smoke.py --phase 23``
+runs the build and phase 23 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -366,6 +378,32 @@ GATE, GATE_NOISE, BIAS_SCALE = 0.5, 0.1, 0.1
 WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium", "--batch", "2", "--seq",
                       "448", "--steps", "10", "--warmup", "10",
                       "--log-every", "1", "--ckpt-every", "10"]
+# Phase 23 (a): qwen3-4b at full width served tensor-parallel by TP ranks
+# of a gloo group sharing the one card (NCCL refuses two ranks on one
+# device), eager (gloo's collectives cannot be captured in a CUDA graph):
+# TP_B requests of TP_LO..TP_HI tokens, TP_NEW new each, max_len
+# TP_MAX_LEN, so the view a decode step gathers is TP_B x 512 rows of 8 kv
+# heads a layer. The logit check writes a TP_CHECK_PROMPT-row prompt a
+# slot and decodes one step. A differing fp32 greedy token must sit at a
+# near-tie: its two candidates within NEAR_TIE of each other in the
+# one-rank fp32 logits. (b): every family trains: gradients of a step on
+# the card against the CPU's (GRAD_CHECK: arch -> smoke?, batch, seq),
+# within GRAD_TOL of each leaf's largest element or twice the CPU's own
+# spread (its gradient at one thread against its default threads),
+# whichever is larger: mamba2-370m's whole random 48-layer stack is
+# ill-conditioned in fp32 (the CPU against itself differed by 9.7 % of a
+# leaf's largest element; the card against the CPU by 10.4 %), and
+# mamba2-370m whole trained MAMBA_STEPS steps at batch 4 x 512.
+TP = 2
+TP_B, TP_MAX_LEN, TP_PS, TP_CHUNK, TP_NEW = 4, 512, 16, 128, 16
+TP_LO, TP_HI, TP_CHECK_PROMPT = 100, 400, 300
+TP_DEADLINE_S, TP_TIMEOUT_S = 420.0, 240.0
+TP_SIZES = [2 ** p for p in range(12, 27, 2)]          # 4 KiB .. 64 MiB
+NEAR_TIE = 1e-2
+GRAD_CHECK = {"mamba2-370m": (False, 1, 32), "dbrx-132b": (True, 2, 16),
+              "jamba-v0.1-52b": (True, 2, 16)}
+GRAD_TOL = 1e-3
+MAMBA_STEPS, MAMBA_BATCH, MAMBA_SEQ = 8, 4, 512
 
 
 def log(msg: str) -> None:
@@ -3352,6 +3390,477 @@ def run_encdec(dev, ops, ref, configs, T, engine) -> dict:
     return summary
 
 
+# ----------------------------------------------------------------------------
+# Phase 23: tensor-parallel serving over two ranks, and every family trains
+# ----------------------------------------------------------------------------
+
+def time_gathered_decode(dev, ops, ref, lengths) -> dict:
+    """``flash_decode`` at the shape a rank's decode step hands it under
+    phase 23's two-rank mesh: TP_B slots over the gathered view of
+    TP_MAX_LEN rows, the rank's 16 of qwen3-4b's 32 q heads over its 4 of
+    8 kv heads of 80, contexts ``lengths``; checked and timed in fp32 and
+    bf16 beside its plain version, SDPA and the bound."""
+    b, h, kvh, d, rows = TP_B, H // TP, KVH // TP, D, TP_MAX_LEN
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+        sets = [(rnd(b, rows, kvh, d), rnd(b, rows, kvh, d))
+                for _ in range(8)]
+        q = rnd(b, h, d)
+        ok, err = ref.compare(ops.flash_decode(q, *sets[0], lens),
+                              ref.flash_decode(q, *sets[0], lens))
+        views = [tuple(t.transpose(1, 2).contiguous() for t in kv)
+                 for kv in sets]
+        mask = (torch.arange(rows, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            q4, *views[i], attn_mask=mask, enable_gqa=True)
+        run = lambda i: ops.flash_decode(q, *sets[i], lens)  # noqa: E731
+        kv_rows = sum(lengths)
+        r = dict(max_abs_err=err, ok=ok, ms=time_ms(run, 8),
+                 device_ms=time_ms(run, 8, spin=True),
+                 plain_ms=time_ms(lambda i: ref.flash_decode(q, *sets[i],
+                                                             lens), 8,
+                                  iters=10),
+                 library_ms=time_ms(sdpa, 8),
+                 library_device_ms=time_ms(sdpa, 8, spin=True),
+                 bytes=2 * q.numel() * esize + 2 * kv_rows * kvh * d * esize
+                 + 4 * b, ops=4 * kv_rows * h * d)
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        log(f"  flash_decode at the gathered shape [b={b} h={h} kvh={kvh} "
+            f"d={d} rows={rows} contexts {lengths}, {name}]: kernel "
+            f"{r['ms']:.4f} ms at the host's pace, device time "
+            f"{r['device_ms']:.4f} ms ({100 * r['bound_ms'] / r['device_ms']:.1f}"
+            f" % of its bound), plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, device time "
+            f"{r['library_device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bytes'] / 1e6:.3f} MB, "
+            f"{r['ops'] / 1e9:.4f} GFLOP), max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        out[name] = r
+        del sets, views
+    return out
+
+
+def tp_rank(rank: int, world: int, prompts) -> dict:
+    """Phase 23 (a) on one rank of the group (``launch.mesh.run_ranks``
+    spawned it and joined it to the gloo group): the fp32 logits of a
+    prefill and a decode step on the two-rank mesh (rank 0 also computes
+    them on one rank), every ``flash_decode`` of that decode step held to
+    its plain version, the engine over ``prompts`` in fp32 then bf16, and
+    the gloo collectives' bandwidth curves. Returns plain values."""
+    from repro_torch import configs
+    from repro_torch.core import collectives
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import dist as serve_dist
+    from repro_torch.serve import paged
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    dev = mesh_lib.rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_serving_mesh(world)
+    rules = serve_dist.serve_ruleset(mesh)
+    cfg = configs.get_config("qwen3-4b")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    out = {"rank": rank}
+
+    # Logits: the check's table spans both ranks (least-loaded placement).
+    n_pages = 1 + TP_B * TP_MAX_LEN // TP_PS
+    n_pages += -n_pages % world
+    pool = paged.PageAllocator(n_pages, TP_PS, n_devices=world)
+    table = np.zeros((TP_B, TP_MAX_LEN // TP_PS), np.int32)
+    for i in range(TP_B):
+        got = pool.alloc(i, paged.pages_for(TP_CHECK_PROMPT + 1, TP_PS))
+        table[i, :len(got)] = got
+    out["check_spans"] = [sorted({pool.device_of(p)
+                                  for p in pool.slot_pages[i]})
+                          for i in range(TP_B)]
+    toks = torch.from_numpy(np.random.RandomState(23).randint(
+        2, cfg.vocab, size=(TP_B, TP_CHECK_PROMPT + 1))).to(dev)
+
+    def fresh():
+        caches = T.init_paged_caches(f32, TP_B, TP_MAX_LEN, TP_PS, n_pages,
+                                     device=dev)
+        caches[0]["pages"].copy_(torch.from_numpy(table))
+        return caches
+
+    def logits(p, caches, rs):
+        with torch.no_grad(), sharding.use_ruleset(rs):
+            pre, caches = T.forward(p, f32, toks[:, :-1], caches=caches)
+            step, _ = T.forward(p, f32, toks[:, -1:], caches=caches)
+        return pre.float(), step[:, -1].float()
+
+    real_decode = ops.flash_decode
+    seen = []
+
+    def checked(q, k, v, lengths):
+        got = real_decode(q, k, v, lengths)
+        ok, err = ref.compare(got, ref.flash_decode(q, k, v, lengths))
+        seen.append((list(q.shape), list(k.shape), ok, err))
+        return got
+
+    shard = serve_dist.shard_params(params, mesh, rules)
+    ops.reset_launches()
+    ops.flash_decode = checked
+    try:
+        tp_pre, tp_step = logits(shard, serve_dist.shard_caches(fresh(), mesh),
+                                 rules)
+    finally:
+        ops.flash_decode = real_decode
+    out["check_decode"] = seen
+    out["check_launches"] = ops.LAUNCHES["flash_decode"]
+    del shard
+    if rank == 0:
+        one_pre, one_step = logits(params, fresh(), None)
+        out["logit_diff"] = (float((tp_pre - one_pre).abs().max()),
+                             float((tp_step - one_step).abs().max()))
+        out["logit_scale"] = float(one_pre.abs().max())
+        del one_pre, one_step
+    del tp_pre, tp_step
+    torch.cuda.empty_cache()
+
+    # The engine, fp32 compute then bf16; the gather a decode step makes.
+    gathered = []
+    real_gather = serve_dist.gather_pages
+
+    def counting(kp, vp, pages, mesh_, axis):
+        if pages.shape[0] == TP_B:       # a decode step's (a chunk's is 1)
+            gathered.append(2 * pages.numel() * kp[0].numel()
+                            * kp.element_size())
+        return real_gather(kp, vp, pages, mesh_, axis)
+
+    scfg = ServeConfig(max_len=TP_MAX_LEN, batch=TP_B, paged=True,
+                       page_size=TP_PS, chunk_size=TP_CHUNK, eos_id=-1)
+    serve_dist.gather_pages = counting
+    try:
+        for label, c in (("fp32", f32), ("bf16", cfg)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            eng = ServingEngine(params, c, scfg, device=dev, capture=False,
+                                mesh=mesh)
+            for rid, p in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=p.copy(), max_new=TP_NEW))
+            spans = {}
+            gathered.clear()
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            while eng.queue or any(s is not None for s in eng.slots):
+                eng.tick()
+                for rid, pg in eng.pool.slot_pages.items():
+                    spans.setdefault(rid, set()).update(
+                        eng.pool.device_of(x) for x in pg)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            out[label] = dict(
+                streams={k: list(v) for k, v in eng.finished.items()},
+                wall=wall, tok_s=TP_B * TP_NEW / wall,
+                launches={k: v for k, v in ops.LAUNCHES.items() if v},
+                spans={k: sorted(v) for k, v in spans.items()},
+                decode_steps=eng.decode_steps, ticks=eng.ticks,
+                decode_traces=eng.decode_traces,
+                local_pages=int(eng.caches[0]["kp"].shape[0]),
+                n_pages=eng.pool.n_pages, graphed=eng.graphed,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                gather_bytes_per_step=sum(gathered) / max(1,
+                                                          eng.decode_steps))
+            del eng
+    finally:
+        serve_dist.gather_pages = real_gather
+    del params
+    torch.cuda.empty_cache()
+
+    out["curves"] = {
+        kind: [(r.payload_bytes, r.wire_bytes, r.measured_time_s,
+                r.measured_gbs, r.modeled_time_s)
+               for r in collectives.bandwidth_curve(
+                   mesh, kind, "model", TP_SIZES, dtype=torch.bfloat16,
+                   device=dev, repeats=3)]
+        for kind in ("all_reduce", "broadcast")}
+    return out
+
+
+def near_tie(params, cfg, T, dev, prompt, prefix, a: int, b: int) -> float:
+    """|logit(a) - logit(b)| at the next position after ``prompt`` and the
+    agreed ``prefix`` of a stream, one rank, fp32 compute, cache-less."""
+    toks = torch.tensor(np.concatenate([prompt, np.asarray(prefix, np.int64)
+                                        ]), device=dev)[None]
+    with torch.no_grad():
+        logits, _ = T.forward(params, cfg, toks)
+    last = logits[0, -1].float()
+    return float((last[a] - last[b]).abs())
+
+
+def run_tp(dev, ops, ref, configs, T) -> dict:
+    """Phase 23 (a): the gathered-shape kernel timed; the one-rank engine
+    served eager here; the two ranks spawned and checked; the launcher at
+    ``--tp 2``."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve.engine import ServeConfig
+
+    qcfg = configs.get_config("qwen3-4b")
+    prompts = make_requests(qcfg.vocab, TP_B, lo=TP_LO, hi=TP_HI)
+    log(f"  prompt lengths {[len(p) for p in prompts]}, {TP_NEW} new each, "
+        f"max_len {TP_MAX_LEN}, pages of {TP_PS}, chunks of {TP_CHUNK}")
+    summary = {"kernel": time_gathered_decode(
+        dev, ops, ref, [len(p) + TP_NEW // 2 for p in prompts])}
+    cfg, params = init_model("qwen3-4b", configs, T, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    scfg = ServeConfig(max_len=TP_MAX_LEN, batch=TP_B, paged=True,
+                       page_size=TP_PS, chunk_size=TP_CHUNK, eos_id=-1)
+    one = {}
+    for label, c in (("fp32", f32), ("bf16", cfg)):
+        eng, fin, wall, launches = serve(params, c, scfg, prompts, TP_NEW,
+                                         dev, ops, capture=False)
+        check_served(eng, fin, prompts, TP_NEW, cfg.vocab)
+        one[label] = dict(streams={k: list(v) for k, v in fin.items()},
+                          tok_s=TP_B * TP_NEW / wall, wall=wall)
+        del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_ranks(tp_rank, TP, args=(prompts,),
+                               deadline_s=TP_DEADLINE_S,
+                               timeout_s=TP_TIMEOUT_S, threads=1)
+    summary["ranks_s"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    failed = []
+    pre, step = r0["logit_diff"]
+    log(f"  two ranks against one, fp32 compute (bf16 weights), "
+        f"{TP_B} slots: {TP_CHECK_PROMPT}-row prefill max |logit diff| "
+        f"{pre:.3e}, decode step {step:.3e} (limit {FP32_LOGIT_TOL:g}; max "
+        f"|logit| {r0['logit_scale']:.3f}); the check's pages a slot on "
+        f"ranks {r0['check_spans']}")
+    if not (pre <= FP32_LOGIT_TOL and step <= FP32_LOGIT_TOL):
+        failed.append(f"two-rank fp32 logits differ from one rank's: "
+                      f"{pre:.3e} {step:.3e}")
+    want_shape = [[TP_B, H // TP, D], [TP_B, TP_MAX_LEN, KVH // TP, D]]
+    for r in ranks:
+        seen = r["check_decode"]
+        errs = [e for _, _, _, e in seen]
+        log(f"  rank {r['rank']}: flash_decode launched {r['check_launches']}"
+            f" times in the decode step, shapes "
+            f"{sorted({str(s[:2]) for s in seen})}, max_abs_err against its "
+            f"plain version {max(errs) if errs else float('nan'):.3e}")
+        if len(seen) != cfg.n_layers or r["check_launches"] != cfg.n_layers \
+                or not all(ok for _, _, ok, _ in seen) \
+                or any(list(s[:2]) != want_shape for s in seen):
+            failed.append(f"rank {r['rank']}: flash_decode at the gathered "
+                          f"shape: {seen[:2]} ... ({len(seen)} calls)")
+    for label in ("fp32", "bf16"):
+        runs = [r[label] for r in ranks]
+        a = runs[0]
+        span_both = [rid for rid, devs in a["spans"].items()
+                     if len(devs) == TP]
+        log(f"  {label}: two ranks {a['tok_s']:.2f} tok/s eager ({a['wall']:.2f}"
+            f" s, {a['ticks']} ticks, {a['decode_steps']} decode steps; "
+            f"rank 1 {runs[1]['tok_s']:.2f}) against one rank "
+            f"{one[label]['tok_s']:.2f} tok/s eager; peak memory a rank "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB; pages a rank "
+            f"{[r['local_pages'] for r in runs]} of {a['n_pages']}; slots "
+            f"spanning both ranks {span_both}; gather_pages per decode step "
+            f"{a['gather_bytes_per_step'] / 1e6:.2f} MB "
+            f"({a['gather_bytes_per_step'] / cfg.n_layers / 1e6:.3f} MB a "
+            f"layer); launches a rank {[r['launches'] for r in runs]}")
+        if any(r["streams"] != a["streams"] for r in runs):
+            failed.append(f"{label}: the ranks' streams differ")
+        if not span_both:
+            failed.append(f"{label}: no slot's pages spanned both ranks")
+        if any(2 * r["local_pages"] != a["n_pages"] for r in runs):
+            failed.append(f"{label}: a rank does not hold n_pages / 2")
+        if a["graphed"] or a["decode_traces"] != 1:
+            failed.append(f"{label}: graphed {a['graphed']}, decode_traces "
+                          f"{a['decode_traces']}")
+        for r in runs:
+            want = cfg.n_layers * r["decode_steps"]
+            if r["launches"].get("flash_decode") != want or set(
+                    r["launches"]) != {"flash_decode"}:
+                failed.append(f"{label} rank {runs.index(r)}: launches "
+                              f"{r['launches']}, want flash_decode {want}")
+        diffs = [(rid, next((j for j, (x, y) in enumerate(zip(
+            one[label]["streams"][rid], a["streams"][rid])) if x != y),
+            None)) for rid in sorted(a["streams"])]
+        diffs = [(rid, j) for rid, j in diffs if j is not None]
+        agree = sum(x == y for rid in a["streams"]
+                    for x, y in zip(a["streams"][rid],
+                                    one[label]["streams"][rid]))
+        log(f"  {label} greedy streams: {agree}/{TP_B * TP_NEW} tokens equal "
+            f"to one rank's; first differences (request, position) {diffs}")
+        if label == "fp32":
+            for rid, j in diffs:
+                x = one[label]["streams"][rid][j]
+                y = a["streams"][rid][j]
+                gap = near_tie(params, f32, T, dev, prompts[rid],
+                               one[label]["streams"][rid][:j], x, y)
+                log(f"    request {rid} position {j}: one rank {x}, two "
+                    f"ranks {y}, one-rank fp32 logit gap {gap:.3e} "
+                    f"(near-tie limit {NEAR_TIE:g})")
+                if not gap <= NEAR_TIE:
+                    failed.append(f"fp32 stream {rid} differs at {j} away "
+                                  f"from a near-tie ({gap:.3e})")
+    summary["tok_s"] = {k: (ranks[0][k]["tok_s"], one[k]["tok_s"])
+                        for k in ("fp32", "bf16")}
+    summary["peak_gib"] = [r["bf16"]["peak_gib"] for r in ranks]
+    summary["launches_per_rank"] = [r["fp32"]["launches"] for r in ranks]
+    summary["gather_mb_per_layer"] = \
+        ranks[0]["fp32"]["gather_bytes_per_step"] / cfg.n_layers / 1e6
+    del params
+    torch.cuda.empty_cache()
+    for kind, rows in r0["curves"].items():
+        log(f"  core.collectives.bandwidth_curve {kind}, bf16 over the gloo "
+            f"group of {TP} ranks on one card (gloo through the host, not "
+            f"NVLink): " + ", ".join(
+                f"{p / 2**10:.0f} KiB {t * 1e3:.3f} ms {g:.3f} GB/s "
+                f"(NVLink4 model {m * 1e3:.4f} ms)"
+                for p, _, t, g, m in rows))
+    summary["curves"] = {k: [(p, t) for p, _, t, _, _ in v]
+                         for k, v in r0["curves"].items()}
+    t0 = time.perf_counter()
+    finished = serve_launch.main(
+        ["--arch", "qwen3-4b", "--paged", "--tp", str(TP), "--max-len",
+         str(TP_MAX_LEN), "--page-size", str(TP_PS), "--chunk-size",
+         str(TP_CHUNK), "--requests", str(TP_B), "--max-new", "4"])
+    summary["launcher_s"] = time.perf_counter() - t0
+    log(f"  launch/serve.py --tp {TP}: {len(finished)} requests of 4 new "
+        f"tokens served in {summary['launcher_s']:.1f} s with its spawn")
+    if sorted(finished) != list(range(TP_B)) or any(
+            len(v) != 4 for v in finished.values()):
+        failed.append(f"the --tp launcher served {finished}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return summary
+
+
+def run_train_families(dev, ops, configs, T, steps) -> dict:
+    """Phase 23 (b): a step's loss and gradients on the card against the
+    CPU's for each of GRAD_CHECK (fp32 compute), then mamba2-370m whole
+    trained MAMBA_STEPS steps (fp32 masters, AdamW, bf16 compute) through
+    the plain chunked scan, and the MoE memory reckoning logged."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import schedule
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out, failed = {}, []
+    for arch, (smoke, b, s) in GRAD_CHECK.items():
+        cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+        params = steps.init_state(cfg, seed=0, device=dev).params
+        tokens, labels = SyntheticLMData(DataConfig(
+            vocab=cfg.vocab, seq_len=s, global_batch=b)).batch_at(0)
+
+        def grads(device, threads=None):
+            if threads is not None:
+                torch.set_num_threads(threads)
+            tracked = tree_map(lambda x: x.detach().to(device)
+                               .requires_grad_(), params)
+            batch = {"tokens": torch.from_numpy(tokens).to(device),
+                     "labels": torch.from_numpy(labels).to(device)}
+            loss, parts = steps.loss_fn(tracked, cfg, batch)
+            leaves = tree_leaves(tracked)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return float(loss.detach()), float(parts["aux"]), [
+                (torch.zeros_like(p) if g is None else g).detach().cpu()
+                for g, p in zip(gs, leaves)]
+
+        def worst(a, b):
+            return max(float((x - y).abs().max())
+                       / max(float(y.abs().max()), 1e-30)
+                       for x, y in zip(a, b))
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        gl, ga, gg = grads(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        threads = torch.get_num_threads()
+        t0 = time.perf_counter()
+        cl, ca, cg = grads("cpu")
+        cpu_s = time.perf_counter() - t0
+        _, _, c1 = grads("cpu", threads=1)
+        torch.set_num_threads(threads)
+        card, spread = worst(gg, cg), worst(c1, cg)
+        limit = max(GRAD_TOL, 2 * spread)
+        log(f"  {cfg.name} ({T.param_count(params) / 1e9:.4f} B parameters,"
+            f" fp32), batch {b} x {s}: loss card {gl:.6f} CPU {cl:.6f}, aux "
+            f"card {ga:.6f} CPU {ca:.6f}; gradients, worst leaf's |diff| / "
+            f"its max |CPU grad| over {len(gg)} leaves: card against the "
+            f"CPU {card:.3e}, the CPU at 1 thread against {threads} "
+            f"{spread:.3e} (limit {limit:.3e}: GRAD_TOL or twice the CPU's "
+            f"own spread); {card_s:.2f} s on the card, {cpu_s:.2f} s on "
+            f"the CPU; launches {launches}")
+        if not (abs(gl - cl) <= 1e-4 * abs(cl) and card <= limit):
+            failed.append(f"{cfg.name}: card and CPU gradients differ "
+                          f"({card:.3e}, limit {limit:.3e})")
+        if launches:
+            failed.append(f"{cfg.name}: training launched {launches}")
+        out[cfg.name] = card
+        del params, gg, cg, c1
+        torch.cuda.empty_cache()
+
+    cfg = configs.get_config("mamba2-370m")
+    sched = schedule.ScheduleConfig(warmup_steps=MAMBA_STEPS,
+                                    total_steps=MAMBA_STEPS)
+    state = steps.init_state(cfg, seed=0, device=dev).tree()
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state)) / 1e9
+    step = steps.make_train_step(cfg, sched=sched)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=MAMBA_SEQ,
+                                      global_batch=MAMBA_BATCH))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, times = [], []
+    for i in range(MAMBA_STEPS):
+        tokens, labels = data.batch_at(i)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    out["mamba2-370m"] = dict(
+        losses=losses, step_ms=1e3 * step_s, state_gb=state_gb,
+        tokens_per_s=MAMBA_BATCH * MAMBA_SEQ / step_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  mamba2-370m whole ({T.param_count(state['params']) / 1e9:.4f} B "
+        f"parameters; fp32 masters and both AdamW moments {state_gb:.2f} GB;"
+        f" bf16 compute, the plain chunked scan in fp32), batch "
+        f"{MAMBA_BATCH} x {MAMBA_SEQ}: losses {[round(x, 4) for x in losses]}"
+        f"; step {1e3 * step_s:.1f} ms (median of steps 2..), "
+        f"{MAMBA_BATCH * MAMBA_SEQ / step_s:.0f} tokens/s; "
+        f"max_memory_allocated {out['mamba2-370m']['peak_gib']:.2f} GiB; "
+        f"launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        failed.append(f"mamba2-370m loss did not fall: {losses}")
+    if launches:
+        failed.append(f"mamba2-370m training launched {launches}")
+    del state
+    torch.cuda.empty_cache()
+    dbrx = configs.get_config("dbrx-132b")
+    one = T.param_count_of(dataclasses.replace(dbrx, n_layers=1))
+    experts = dbrx.n_experts * 3 * dbrx.d_model * dbrx.d_ff
+    log(f"  full-width MoE training does not fit one 80 GB card: dbrx-132b "
+        f"cut to one layer holds {one / 1e9:.2f} B parameters "
+        f"({experts / 1e9:.2f} B of them experts); fp32 masters, gradients "
+        f"and both AdamW moments at 16 bytes a parameter: "
+        f"{16 * one / 1e9:.1f} GB before activations (FSDP over ranks is "
+        f"the next slice)")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3390,6 +3899,15 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "23"]:
+        # Phase 23 alone, after the build: for iterating on it; run
+        # without arguments, the script runs every phase.
+        t0 = time.perf_counter()
+        tp = run_tp(dev, ops, ref, configs, T)
+        tp["training"] = run_train_families(dev, ops, configs, T, steps)
+        log(f"  phase 23 alone: {tp}; {time.perf_counter() - t0:.1f} s")
+        return
 
     log("== kernels against their plain versions ==")
     failures = check_kernels(dev, ops, ref)
@@ -3673,6 +4191,15 @@ def main() -> None:
     t0 = time.perf_counter()
     encdec = run_encdec(dev, ops, ref, configs, T, engine)
     log(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log(f"== tensor-parallel serving: qwen3-4b at full width over {TP} ranks "
+        f"of a gloo group on this card ==")
+    t0 = time.perf_counter()
+    tp = run_tp(dev, ops, ref, configs, T)
+    log("== every family trains ==")
+    tp["training"] = run_train_families(dev, ops, configs, T, steps)
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3687,7 +4214,8 @@ def main() -> None:
         f"{sampled_tok_s:.1f} tok/s; spec {spec}; prefix {prefix}; "
         f"overload {overload}; cost models {costs}; dissection "
         f"{dissection}; families {families}; encoder-decoder "
-        f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; total "
+        f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
+        f"tensor-parallel {tp}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

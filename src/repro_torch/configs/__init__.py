@@ -64,8 +64,10 @@ class ModelConfig:
     the masked plain ``sdpa``, which is what training differentiates (the
     kernels have no backward). Cached attention always runs its kernels
     (paged prefill and decode, contiguous decode) whatever ``use_flash``
-    says, and the SSD scan always runs its kernel; softmax probabilities
-    are always fp32. The reference's ``use_ssd_kernel`` and
+    says; the SSD scan runs its kernel wherever a forward serves, and
+    the plain chunked scan where the training step asks for it
+    (``forward_aux(..., ssd_kernel=False)``); softmax probabilities are
+    always fp32. The reference's ``use_ssd_kernel`` and
     ``attn_probs_fp32`` have no field here."""
 
     name: str

@@ -672,13 +672,56 @@ def calibration_report(mesh_shape=None, backend: Optional[str] = None,
 
 
 # ----------------------------------------------------------------------------
-# Serving cost models and choosers (single device).
+# Serving cost models and choosers (one device, or tensor-parallel).
 # ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPServe:
+    """Tensor-parallel serving geometry for the cost models.
+
+    ``n_devices`` shards the weight stream, the dense operations and
+    (where the head count divides) the attention; each layer pays two
+    activation all-reduces (the output projection and the MLP's down
+    projection, the row-parallel cut) and the forward ends with one
+    all-gather of the logits' vocab columns."""
+    n_devices: int
+    d_model: int
+    n_layers: int
+
+
+def _tp_collective_s(tokens: float, tp: Optional[TPServe], in_bytes: int,
+                     link: hwmodel.LinkSpec = hwmodel.H100_NVLINK4
+                     ) -> float:
+    """Collective seconds of one forward of ``tokens`` query tokens under
+    ``tp``, priced on ``link``; 0 without it (the one-device models stay
+    as they are)."""
+    if tp is None or tp.n_devices <= 1:
+        return 0.0
+    from repro_torch.core import interconnect
+    payload = float(tokens) * tp.d_model * in_bytes
+    ar = interconnect.collective_time("all_reduce", payload,
+                                      tp.n_devices, link).time_s
+    ag = interconnect.collective_time("all_gather", payload,
+                                      tp.n_devices, link).time_s
+    return 2.0 * tp.n_layers * ar + ag
+
+
+def _tp_shard(tp: Optional[TPServe], heads: int) -> Tuple[int, int]:
+    """(dense shard factor, attention shard factor) under ``tp``: the
+    attention's is 1 where ``heads`` does not divide the devices, the
+    divisibility rule of ``dist.sharding``."""
+    if tp is None or tp.n_devices <= 1:
+        return 1, 1
+    d = tp.n_devices
+    return d, (d if heads % d == 0 else 1)
+
+
 
 def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
                        n_kv_heads: int, head_dim: int, page_size: int,
                        in_bytes: int = 2,
                        page_lookup_s: Optional[float] = None,
+                       tp: Optional[TPServe] = None,
                        constants: Optional[ServeConstants] = None,
                        gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
     """Paged against contiguous decode attention for one engine tick (one
@@ -687,6 +730,10 @@ def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
     drops from ``slots * max_len`` rows to the pages the live contexts
     touch (and the null page). The paper's paging trade: finer pages waste
     less capacity and pay more translation.
+
+    Under ``tp`` the attention shards over kv heads (where they divide
+    the devices) and both layouts pay the tick's activation collectives
+    (``collective_s``): paging and tensor parallelism compose.
 
     ``constants`` supplies the lookup cost and, calibrated, the measured
     stream rate; None is the hand-set set. ``page_lookup_s`` overrides."""
@@ -700,8 +747,11 @@ def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
     slots = len(lengths)
     launch = decode_launch(lengths, n_heads, n_kv_heads, head_dim,
                            page_size, in_bytes, gpu)
-    contig_s = launch["time_s"]
-    paged_s = contig_s + launch["page_lookups"] * page_lookup_s
+    _, attn_shard = _tp_shard(tp, n_kv_heads)
+    collective_s = _tp_collective_s(slots, tp, in_bytes)
+    contig_s = launch["time_s"] / attn_shard + collective_s
+    paged_s = (launch["time_s"] + launch["page_lookups"] * page_lookup_s) \
+        / attn_shard + collective_s
     rows, n_splits = _decode_kernel.splits(max_len, page_size)
     group = max(1, n_heads // n_kv_heads)
     q_blocks = _ceil_div(group, decode_tile(in_bytes).block_q)
@@ -709,6 +759,7 @@ def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
     out = reservation(lengths, max_len, page_size)   # the one accounting
     bytes_per_row = 2 * n_kv_heads * head_dim * in_bytes     # K + V
     out.update({
+        "collective_s": collective_s,
         "contig_s": contig_s,
         "paged_s": paged_s,
         "lookup_overhead_frac": (paged_s - contig_s) / contig_s
@@ -730,6 +781,7 @@ def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
                         in_bytes: int = 2,
                         page_lookup_s: Optional[float] = None,
                         cached_rows: int = 0,
+                        tp: Optional[TPServe] = None,
                         constants: Optional[ServeConstants] = None,
                         gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
     """Chunked paged prefill of one ``prompt_len`` prompt at one chunk
@@ -747,13 +799,17 @@ def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
     cached cursor, every later chunk still attends the cached rows, and a
     hash-probe term charges the index walk. ``n_kv_heads`` does not change
     the traffic: the prefill grid is over *q* heads, so K/V are read once
-    a q head."""
+    a q head. Under ``tp`` the attention shards over q heads where they
+    divide the devices, and every chunk pays the activation collectives
+    (a fixed cost a chunk, which small chunks amortise badly)."""
     const = constants if constants is not None else DEFAULT_CONSTANTS
     gpu = const.apply_gpu(gpu)
     if page_lookup_s is None:
         page_lookup_s = const.page_lookup_s
     dispatch_s = const.chunk_dispatch_s
     del n_kv_heads
+    _, attn_shard = _tp_shard(tp, n_heads)
+    coll_per_chunk = _tp_collective_s(chunk, tp, in_bytes)
     # A prompt cached whole still prefills its last row (its logit is
     # sampled): the engine's clamp.
     cached_rows = max(0, min(int(cached_rows), prompt_len - 1))
@@ -763,16 +819,19 @@ def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
     for i in range(n_chunks):
         launch = prefill_launch([cached_rows + i * chunk], chunk, n_heads,
                                 head_dim, page_size, in_bytes, gpu)
-        t, visited = launch["time_s"], launch["page_lookups"]
+        t, visited = launch["time_s"] / attn_shard, launch["page_lookups"]
         attn_s += t
         lookup_s += visited * page_lookup_s
         visited_total += visited
-        worst_chunk_s = max(worst_chunk_s,
-                            t + visited * page_lookup_s + dispatch_s)
-    total_s = attn_s + lookup_s + n_chunks * dispatch_s + probe_s
+        worst_chunk_s = max(worst_chunk_s, t + visited * page_lookup_s
+                            + dispatch_s + coll_per_chunk)
+    collective_s = n_chunks * coll_per_chunk
+    total_s = attn_s + lookup_s + n_chunks * dispatch_s + collective_s \
+        + probe_s
     return {
         "chunk": chunk,
         "n_chunks": n_chunks,
+        "collective_s": collective_s,
         "cached_rows": cached_rows,
         "probe_s": probe_s,
         "prefill_s": total_s,
@@ -886,6 +945,7 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
                       in_bytes: int = 2,
                       page_lookup_s: Optional[float] = None,
                       plain_tick_s: Optional[float] = None,
+                      tp: Optional[TPServe] = None,
                       constants: Optional[ServeConstants] = None,
                       gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
     """One speculative verify tick against plain decode ticks: how much
@@ -906,7 +966,10 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
       the n-gram drafter) and host lookups (``draft_token_s``).
 
     Emitted tokens follow ``expected_spec_tokens``; ``speedup`` is spec
-    tokens/s over plain tokens/s."""
+    tokens/s over plain tokens/s. Under ``tp`` each device streams its
+    shard of the weights and does its share of the dense operations and
+    (where the kv heads divide) of the attention, and the tick pays its
+    activation collectives."""
     const = constants if constants is not None else DEFAULT_CONSTANTS
     gpu = const.apply_gpu(gpu)
     if page_lookup_s is None:
@@ -915,7 +978,8 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
         draft_token_s = const.draft_token_s
     lengths = [int(n) for n in lengths]
     slots = len(lengths)
-    weight_stream_s = param_bytes / gpu.hbm_bandwidth
+    dense_shard, attn_shard = _tp_shard(tp, n_kv_heads)
+    weight_stream_s = param_bytes / gpu.hbm_bandwidth / dense_shard
     n_params = param_bytes / in_bytes
 
     def tick_s(width: int) -> float:
@@ -926,9 +990,12 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
             launch = prefill_launch([max(n, 1) - 1 for n in lengths], width,
                                     n_heads, head_dim, page_size, in_bytes,
                                     gpu)
-        attn = launch["time_s"] + launch["page_lookups"] * page_lookup_s
-        dense = 2.0 * n_params * slots * width / peak_flops(in_bytes, gpu)
-        return weight_stream_s + attn + dense + const.chunk_dispatch_s
+        attn = (launch["time_s"] + launch["page_lookups"] * page_lookup_s) \
+            / attn_shard
+        dense = 2.0 * n_params * slots * width \
+            / (dense_shard * peak_flops(in_bytes, gpu))
+        return weight_stream_s + attn + dense + const.chunk_dispatch_s \
+            + _tp_collective_s(slots * width, tp, in_bytes)
 
     # The width-1 tick does not depend on k: choose_spec_k computes it once.
     plain_tick = plain_tick_s if plain_tick_s is not None else tick_s(1)
@@ -960,6 +1027,7 @@ def choose_spec_k(lengths: Iterable[int], n_heads: int,
                   draft_token_s: Optional[float] = None,
                   ks: Tuple[int, ...] = (1, 2, 3, 4, 6, 8),
                   in_bytes: int = 2,
+                  tp: Optional[TPServe] = None,
                   constants: Optional[ServeConstants] = None,
                   gpu: hwmodel.GPUSpec = hwmodel.H100
                   ) -> Tuple[int, dict]:
@@ -976,7 +1044,7 @@ def choose_spec_k(lengths: Iterable[int], n_heads: int,
                                   param_bytes, draft_bytes=draft_bytes,
                                   draft_token_s=draft_token_s,
                                   in_bytes=in_bytes,
-                                  plain_tick_s=plain_tick_s,
+                                  plain_tick_s=plain_tick_s, tp=tp,
                                   constants=constants, gpu=gpu)
         plain_tick_s = terms["plain_tick_s"]
         if best_terms is None or \
@@ -1018,3 +1086,95 @@ def choose_degradation(pressure: float, degraded: bool,
     if degraded:
         return pressure > low
     return pressure >= high
+
+
+# ----------------------------------------------------------------------------
+# Tensor-parallel decode, and the layout of one matmul layer.
+# ----------------------------------------------------------------------------
+
+def tp_decode_model(lengths: Iterable[int], n_heads: int,
+                    n_kv_heads: int, head_dim: int, page_size: int,
+                    param_bytes: float, d_model: int, n_layers: int,
+                    n_devices: int, in_bytes: int = 2,
+                    page_lookup_s: Optional[float] = None,
+                    constants: Optional[ServeConstants] = None,
+                    gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """One paged decode tick on one device against tensor-parallel over
+    ``n_devices``: decode streams every weight once a tick, so sharding
+    each matrix divides the dominant term by the devices, and what is
+    left to pay is the layers' activation all-reduces and the logits'
+    gather (``collective_s``), small at decode widths since the payload
+    is slots x d_model. The other gain is capacity: the page pool is
+    sharded by pages, so the same memory a device holds n_devices times
+    the pages (``pool_capacity_ratio``)."""
+    lengths = [int(n) for n in lengths]
+    slots = len(lengths)
+    tp = TPServe(n_devices=n_devices, d_model=d_model, n_layers=n_layers)
+    common = dict(n_heads=n_heads, n_kv_heads=n_kv_heads,
+                  head_dim=head_dim, page_size=page_size,
+                  k=0, accept_rate=0.0, param_bytes=param_bytes,
+                  in_bytes=in_bytes, page_lookup_s=page_lookup_s,
+                  constants=constants, gpu=gpu)
+    base = spec_decode_model(lengths, **common)
+    shard = spec_decode_model(lengths, tp=tp, **common)
+    tick_1, tick_tp = base["plain_tick_s"], shard["plain_tick_s"]
+    collective_s = _tp_collective_s(slots, tp, in_bytes)
+    return {
+        "n_devices": n_devices,
+        "slots": slots,
+        "tick_1dev_s": tick_1,
+        "tick_tp_s": tick_tp,
+        "weight_stream_1dev_s": base["weight_stream_s"],
+        "weight_stream_tp_s": shard["weight_stream_s"],
+        "collective_s": collective_s,
+        "collective_frac": collective_s / tick_tp if tick_tp else 0.0,
+        "attn_sharded": n_kv_heads % max(1, n_devices) == 0,
+        "tokens_per_s_1dev": slots / tick_1 if tick_1 else 0.0,
+        "tokens_per_s_tp": slots / tick_tp if tick_tp else 0.0,
+        "speedup": tick_1 / tick_tp if tick_tp else float("inf"),
+        "pool_capacity_ratio": float(n_devices),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingChoice:
+    name: str                   # "dp", "tp_col", "tp_row"
+    time_s: float
+    compute_s: float
+    collective_s: float
+
+
+def choose_layer_sharding(batch_tokens: int, d_in: int, d_out: int,
+                          data_axis: int, model_axis: int,
+                          in_bytes: int = 2,
+                          gpu: hwmodel.GPUSpec = hwmodel.H100,
+                          link: hwmodel.LinkSpec = hwmodel.H100_NVLINK4
+                          ) -> List[ShardingChoice]:
+    """The standard layouts of out = x @ W ranked by modelled step time:
+
+    * dp: the batch sharded over the data axis, W replicated;
+    * tp_col: W split by columns, the output sharded (its gather is
+      charged here);
+    * tp_row: W split by rows, the partial outputs all-reduced."""
+    from repro_torch.core import interconnect
+
+    chips = data_axis * model_axis
+    flops = 2.0 * batch_tokens * d_in * d_out
+    peak = peak_flops(in_bytes, gpu)
+    out: List[ShardingChoice] = []
+
+    def add(name, shard_factor, coll_kind, coll_payload, axis):
+        comp = flops / (shard_factor * peak)
+        coll = interconnect.collective_time(coll_kind, coll_payload, axis,
+                                            link).time_s \
+            if coll_payload else 0.0
+        out.append(ShardingChoice(name, comp + coll, comp, coll))
+
+    tokens_local = batch_tokens / data_axis
+    add("dp", data_axis, None, 0, 1)
+    add("tp_col", chips, "all_gather",
+        tokens_local * d_out * in_bytes, model_axis)
+    add("tp_row", chips, "all_reduce",
+        tokens_local * d_out * in_bytes, model_axis)
+    out.sort(key=lambda c: c.time_s)
+    return out

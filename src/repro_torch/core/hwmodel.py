@@ -10,9 +10,13 @@ latency data, and ``V100``, ``P100``, ``P4``, ``M60`` and ``K80`` (in
 ``GPUS``) are the five columns: the published ground truth that the
 device-model dissection (``core.dissect``) must recover from its
 simulator (``core.simulator``). It is the reference's ``GPUSpec``, renamed
-here because ``GPUSpec`` below is the H100's limits record. The
-reference's TPU, link and host-bandwidth records have no user in the
-port and are not copied.
+here because ``GPUSpec`` below is the H100's limits record.
+
+``LinkSpec`` records are the paper's ch. 5 links (Table 5.1, measured,
+in ``LINKS``; Table 5.2's host rates in ``HOST_BANDWIDTH_MBS``) and the
+H100's NVLink, ``H100_NVLINK4``, which prices the port's collectives
+(``core.interconnect``) in place of the reference's TPU ICI record. The
+reference's TPU record is not copied.
 
 ``H100`` holds the published limits of the card the port runs on, which
 the GEMM tile chooser and the serving cost models (``core.autotune``)
@@ -305,3 +309,43 @@ H100 = GPUSpec(name="H100 SXM", sms=132, smem_per_block=232_448,
                regs_per_sm=65_536, l2_bytes=50 * 2**20,
                hbm_bandwidth=3.35e12, peak_bf16_flops=989e12,
                peak_fp32_flops=67e12)
+
+
+# ----------------------------------------------------------------------------
+# Interconnects (paper ch. 5)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LinkSpec:
+    name: str
+    unidir_gbs: float            # GB/s a link, one direction
+    latency_us: float
+    theoretical_gbs: Optional[float] = None
+    links: int = 1               # links of this kind a device has
+
+
+# Table 5.1: measured peer-to-peer rate and latency, with the theoretical
+# rate of one link direction.
+PCIE3 = LinkSpec("V100-PCIe", unidir_gbs=10.63, latency_us=7.21,
+                 theoretical_gbs=16.0)
+NVLINK1 = LinkSpec("P100-NVLink1", unidir_gbs=36.72, latency_us=9.47,
+                   theoretical_gbs=40.0)
+NVLINK2 = LinkSpec("V100-NVLink2", unidir_gbs=47.99, latency_us=8.55,
+                   theoretical_gbs=50.0)
+LINKS = {l.name: l for l in (PCIE3, NVLINK1, NVLINK2)}
+
+HOST_BANDWIDTH_MBS = {
+    # Table 5.2 (host-to-device, device-to-host) in MB/s.
+    "V100-PCIe": (12152.4, 12881.1),
+    "P100-NVLink1": (12135.9, 12845.9),
+    "V100-NVLink2": (12147.8, 12858.0),
+}
+
+# NVIDIA's H100 SXM data sheet: fourth-generation NVLink, 900 GB/s over 18
+# links in both directions together, so 25 GB/s a link each way. The data
+# sheet gives no latency: the paper's measured V100 NVLink2 latency (Table
+# 5.1) stands in for the alpha term until one is measured on the card.
+# Not a measurement, so not in ``LINKS``.
+H100_NVLINK4 = LinkSpec("H100-NVLink4", unidir_gbs=25.0,
+                        latency_us=NVLINK2.latency_us, theoretical_gbs=25.0,
+                        links=18)

@@ -37,11 +37,29 @@ step is one captured CUDA graph. An encoder-decoder or a config with a
 stubbed frontend (whisper-medium, llama-3.2-vision-90b) is refused, as
 the reference's launcher refuses it: ``serve.engine.greedy_generate``
 serves those with their frontend's embeddings.
+
+``--tp N`` (or ``--mesh model=N``; paged only) serves tensor-parallel over
+N ranks of a gloo process group (``serve.dist``): the launcher spawns one
+process a rank (``launch.mesh.run_ranks``), or, where ``RANK`` and
+``WORLD_SIZE`` are set (with ``MASTER_ADDR``/``MASTER_PORT``), joins that
+group as its rank. Every rank draws the same weights and keeps its
+shard; rank 0 prints the report. A rank that fails ends every rank, and
+the launcher exits non-zero. On a card two ranks may share it (gloo
+allows it; NCCL does not) and the engine runs eager, since gloo's
+collectives cannot be captured in a CUDA graph:
+
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged --tp 2 \
+      --max-len 512 --requests 4 --max-new 16
+  python -m repro_torch.launch.serve --arch qwen3-4b --paged --smoke \
+      --device cpu --max-len 64 --page-size 8 --chunk-size 8 --tp 2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
+import io
 import json
 import os
 import time
@@ -52,6 +70,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core import autotune
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.serve import traffic
 from repro_torch.serve.engine import (Request, ServeConfig, ServingEngine,
@@ -206,6 +225,13 @@ def main(argv=None):
     obs.add_argument("--no-telemetry", action="store_true",
                      help="no event ring and no spans (the decision "
                           "counters stay exact)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="serve tensor-parallel over this many ranks "
+                         "(paged only: weights split, the K/V page pool "
+                         "sharded by pages); 1 serves on one rank")
+    ap.add_argument("--mesh", default=None,
+                    help="the serving mesh as model=N, another spelling "
+                         "of --tp")
     obs.add_argument("--default-constants", action="store_true",
                      help="price choose_* decisions with the hand-set "
                           "default constants, skipping any calibrated "
@@ -225,8 +251,57 @@ def main(argv=None):
                          "through the page table)")
     if args.spec_probe_every is not None and not args.spec_k:
         raise SystemExit("--spec-probe-every needs --spec-k")
+    if args.tp is not None and args.mesh is not None:
+        raise SystemExit("--tp and --mesh are two spellings of one choice; "
+                         "pass one")
+    tp = args.tp
+    if args.mesh is not None:
+        axis, _, size = args.mesh.partition("=")
+        if axis != "model" or not size.isdigit():
+            raise SystemExit(f"--mesh wants model=N, got {args.mesh!r}")
+        tp = int(size)
+    if tp is not None and not args.paged:
+        raise SystemExit("--tp/--mesh need --paged (the shard unit of the "
+                         "distributed engine is the K/V page)")
+    if tp is not None and tp > 1:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+            if world != tp:
+                raise SystemExit(f"WORLD_SIZE {world} is not --tp {tp}")
+            torch.distributed.init_process_group(
+                "gloo", init_method="env://",
+                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+            try:
+                return _serve_rank(rank, world, args)
+            finally:
+                torch.distributed.destroy_process_group()
+        return mesh_lib.run_ranks(_serve_rank, tp, args=(args,),
+                                  deadline_s=RANK_DEADLINE_S,
+                                  timeout_s=RANK_TIMEOUT_S, threads=1)[0]
+    return _serve(args, resolve_device(args.device), None)
 
-    device = resolve_device(args.device)
+
+# A collective that waits this long raises; the whole run, this long.
+RANK_TIMEOUT_S = 300.0
+RANK_DEADLINE_S = 3000.0
+
+
+def _serve_rank(rank: int, world: int, args):
+    """One rank of ``--tp``: its device, the serving mesh over the group,
+    and the run; ranks other than 0 print nothing."""
+    device = mesh_lib.rank_device(rank, args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = mesh_lib.make_serving_mesh(world)
+    if rank == 0:
+        return _serve(args, device, mesh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _serve(args, device, mesh)
+
+
+def _serve(args, device, mesh):
+    """Build the engine (on ``mesh`` when given), serve and report."""
+    device = resolve_device(device)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     if cfg.encoder is not None or cfg.n_frontend_tokens:
@@ -253,7 +328,9 @@ def main(argv=None):
                        spec_adapt_every=args.spec_probe_every,
                        spec_probe_every=args.spec_probe_every,
                        telemetry=not args.no_telemetry)
-    engine = ServingEngine(params, cfg, scfg, device=device)
+    engine = ServingEngine(params, cfg, scfg, device=device,
+                           capture=mesh is None, mesh=mesh)
+    del params          # under a mesh the engine keeps only this rank's shard
     if args.rate is not None:
         tcfg = traffic.TrafficConfig(
             rate=args.rate, n_requests=args.requests, seed=args.seed,
@@ -305,6 +382,9 @@ def main(argv=None):
           f"({toks / dt:.1f} tok/s) on {device}, "
           + (f"graphed (captured in {engine.capture_seconds:.2f}s)"
              if engine.graphed else "eager")
+          + (f", tensor-parallel over {mesh_lib.describe(mesh)} (gloo; "
+             f"its collectives are not captured)" if mesh is not None
+             else "")
           + (f", sampled at temperature {args.temperature}"
              if args.temperature else ", greedy"))
     print(const_line)
@@ -315,6 +395,9 @@ def main(argv=None):
               f", {engine.chunk_steps} chunk steps, "
               f"{engine.admission_rejections} admission holds, "
               f"{engine.preemptions} preemptions, {engine.ticks} ticks")
+        if mesh is not None:
+            print(f"  pool sharded by pages over {engine.pool.n_devices} "
+                  f"ranks, {engine.pool.block} pages each")
         if engine.prefix is not None:
             probes = engine.prefix_hits + engine.prefix_misses
             print(f"  prefix cache: {occ['pages_shared']} shared / "

@@ -11,8 +11,9 @@ in the config's dtype; attention trains through the plain ``sdpa``.
 Running again with a higher ``--steps`` against the same ``--ckpt``
 resumes from its last checkpoint. ``--key=value`` pairs override
 ``ModelConfig`` fields (``--compute_dtype=float32``); booleans take true,
-false, 1 or 0. Attention stacks train (an encoder-decoder or cross
-layers included: a config with a stubbed frontend is fed zeros of shape
+false, 1 or 0. Every family trains (mixtures of experts with their aux
+loss, Mamba stacks through the plain chunked scan, an encoder-decoder or
+cross layers: a config with a stubbed frontend is fed zeros of shape
 (batch, n_frontend_tokens, d_model), as the reference's
 ``frontend_stub``), on one device: ``--fsdp`` and ``--mesh`` are not
 ported (ROADMAP Queue 1 item 3). ``--log-every N`` keeps every Nth

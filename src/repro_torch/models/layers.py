@@ -8,6 +8,18 @@ projections view them as 2-D matrices in one place, ``_matmul_heads`` and
 ``_matmul_out``. Matmul weights are stored in the compute dtype, which is
 the rounding the reference applies when it casts its fp32 weights at use;
 norm scales and biases stay fp32, as in the reference.
+
+**Tensor parallelism.** Under a serving ruleset with a pool mesh
+(``serve.dist.active_pool_mesh``; ``serve.engine.ServingEngine(...,
+mesh=...)`` installs it) each rank holds the blocks ``dist.sharding``'s
+rules give its weights: q/k/v and gate/up split by columns (heads, mlp),
+``wo``/``w_down`` by rows, the embedding and ``lm_head`` by vocab. The
+layers then run the collectives XLA inserts for the reference: an
+``all_reduce`` after each row-split product, the kv heads gathered
+before the pool (which holds every kv head of its pages), the page-table
+walk gathered over ranks, and the vocab gathers of the embedding and the
+logits. A dim that does not divide the ranks is replicated and needs no
+collective.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.serve import dist as serve_dist
 
 Params = Dict[str, object]
 
@@ -163,6 +176,12 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
         idx = cache["index"].long()
         positions = positions + (idx[:, None] if idx.dim() == 1 else idx)
     q, k, v = _project_qkv(params, cfg, x, positions)
+    if serve_dist.active_pool_mesh() is not None:
+        if cache is None or "kp" not in cache:
+            raise NotImplementedError(
+                "tensor-parallel attention is paged only (the reference's "
+                "mesh engine is paged-only)")
+        return _paged_apply_sharded(params, cfg, x, q, k, v, cache)
     if cache is not None:
         if "kp" in cache:
             return _paged_apply(params, x, q, k, v, cache)
@@ -252,6 +271,71 @@ def _paged_apply(params: Params, x, q, k, v, cache: Params):
     return _matmul_out(out, params["wo"]), new_cache
 
 
+def _local_kv_heads(ck, cv, n_heads: int, q_local: int, rank: int):
+    """The kv heads this rank's q heads read from the full (b, L, kvh, d)
+    views: q heads [rank * q_local, (rank + 1) * q_local) read kv heads
+    j // group, a contiguous slice when the rank's heads cover whole
+    groups or lie inside one (every registry config at 2, 4 and 8
+    ranks)."""
+    kvh = ck.shape[2]
+    group = n_heads // kvh
+    if q_local % group and group % q_local:
+        raise ValueError(f"{q_local} q heads a rank split the groups of "
+                         f"{group} q heads a kv head")
+    lo = rank * q_local // group
+    hi = ((rank + 1) * q_local - 1) // group + 1
+    return ck[:, :, lo:hi].contiguous(), cv[:, :, lo:hi].contiguous()
+
+
+def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
+                         cache: Params):
+    """Paged attention against a pool sharded over ranks by pages
+    (``serve.dist``), the port of the reference's
+    ``_paged_apply_sharded``. q/k/v hold this rank's heads where the
+    heads rule shards them; the pool holds every kv head of its pages,
+    so k/v are gathered over kv heads first (the move XLA makes between
+    the reference's head-sharded ``wk``/``wv`` and its pool). The rows
+    are scattered into the owning rank's pages, and the page-table walk
+    gathers the contiguous view on every rank; at s == 1 the contiguous
+    decode kernel (``kernels.ops.flash_decode``) attends it, at s > 1
+    the masked plain ``sdpa`` (as the reference). A head-sharded output
+    projection is summed over ranks."""
+    mesh, axis = serve_dist.active_pool_mesh()
+    s = x.shape[1]
+    idx = cache["index"].long()
+    kp, vp, pages = cache["kp"], cache["vp"], cache["pages"]
+    page_size, max_pages = kp.shape[1], pages.shape[1]
+    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
+    pj = pos.div(page_size, rounding_mode="floor").clamp(0, max_pages - 1)
+    page = torch.gather(pages.long(), 1, pj)
+    page = torch.where(pos < max_pages * page_size, page,
+                       torch.zeros_like(page))
+    row = pos % page_size
+    kv_heads = serve_dist.sharded("kv_heads", cfg.n_kv_heads)
+    if kv_heads is not None:
+        k = serve_dist.all_gather_dim(k, 2, *kv_heads)
+        v = serve_dist.all_gather_dim(v, 2, *kv_heads)
+    serve_dist.scatter_pages(kp, vp, k, v, page, row, mesh, axis)
+    new_cache = dict(cache, index=cache["index"] + s)
+    ck, cv = serve_dist.gather_pages(kp, vp, pages, mesh, axis)
+    heads = serve_dist.sharded("heads", cfg.n_heads)
+    if heads is not None:
+        ck, cv = _local_kv_heads(ck, cv, cfg.n_heads, q.shape[2],
+                                 heads[0].index(heads[1]))
+    ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    if s == 1:
+        out = kernel_ops.flash_decode(q[:, 0], ck, cv,
+                                      (cache["index"] + 1).int())[:, None]
+    else:
+        kj = torch.arange(ck.shape[1], device=x.device)[None, None, :]
+        mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
+        out = sdpa(q, ck, cv, mask=mask)
+    y = _matmul_out(out, params["wo"])
+    if heads is not None:
+        serve_dist.all_reduce(y, *heads)      # wo split by rows
+    return y, new_cache
+
+
 def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
     """Cross-attention: queries from x (b, s, d), keys and values from
     ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
@@ -289,14 +373,41 @@ def mlp_apply(params: Params, cfg: MLPConfig, x):
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(x @ params["w_up"].to(x.dtype)
                    + params["b_up"].to(x.dtype), approximate="tanh")
-    return h @ params["w_down"].to(x.dtype)
+    y = h @ params["w_down"].to(x.dtype)
+    tp = serve_dist.sharded("mlp", cfg.d_ff)
+    if tp is not None:
+        serve_dist.all_reduce(y, *tp)        # w_down split by rows
+    return y
 
 
-def embed(params: Params, tokens, dtype=torch.float32):
-    return params["embedding"].to(dtype)[tokens.long()]
+def embed(params: Params, tokens, dtype=torch.float32,
+          vocab: Optional[int] = None):
+    """The embedding rows of ``tokens``. Under a pool mesh whose vocab
+    rule shards the table (``vocab`` its global rows), each rank looks
+    up the tokens in its rows, zeros for the rest, and one
+    ``all_reduce`` assembles them (exact: one rank owns each token)."""
+    table = params["embedding"].to(dtype)
+    tp = None if vocab is None else serve_dist.sharded("vocab", vocab)
+    if tp is None:
+        return table[tokens.long()]
+    mesh, axis = tp
+    rows = table.shape[0]
+    local = tokens.long() - mesh.index(axis) * rows
+    owned = (local >= 0) & (local < rows)
+    out = table[torch.where(owned, local, torch.zeros_like(local))]
+    out = torch.where(owned[..., None], out,
+                      torch.zeros((), dtype=dtype, device=out.device))
+    return serve_dist.all_reduce(out, mesh, axis)
 
 
-def unembed(params: Params, x):
+def unembed(params: Params, x, vocab: Optional[int] = None):
+    """The logits ``x @ lm_head``; under a pool mesh whose vocab rule
+    shards ``lm_head`` (``vocab`` its global columns), through
+    ``dist.collective_matmul.serve_unembed``."""
+    tp = None if vocab is None else serve_dist.sharded("vocab", vocab)
+    if tp is not None:
+        from repro_torch.dist import collective_matmul
+        return collective_matmul.serve_unembed(*tp)(params, x)
     return x @ params["lm_head"].to(x.dtype)
 
 

@@ -6,7 +6,10 @@ algorithm of the Mamba-2 paper (arXiv:2405.21060, Listing 1) and
 ``ssd_reference`` the O(l) sequential recurrence, both plain fp32 PyTorch.
 On the serving path a prompt (l > 1) goes through the SSD scan kernel
 (``kernels.ops.ssd_scan``, its plain version on the CPU) and one decode
-step (l == 1 with a cache) through the exact recurrence.
+step (l == 1 with a cache) through the exact recurrence. Training passes
+``use_kernel=False`` (the kernel has no backward): the sequence then runs
+the differentiable ``ssd_chunked`` in fp32, as the reference's default
+path does.
 
 Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
 in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
@@ -164,14 +167,17 @@ def _causal_conv(x, w, cache_conv=None):
 
 
 def mamba_apply(params: Params, cfg: MambaConfig, x,
-                cache: Optional[Params] = None
+                cache: Optional[Params] = None, use_kernel: bool = True
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Mamba-2 mixer. x: (b, l, d_model) -> (b, l, d_model).
 
     With a cache, l == 1 runs the exact one-step recurrence from the
     cached state; l > 1 runs the SSD scan kernel from the cached state
     (the reference's kernel branch starts from zeros instead: a fault
-    recorded in ROADMAP Queue 3, not copied)."""
+    recorded in ROADMAP Queue 3, not copied). ``use_kernel=False`` runs
+    the sequence through ``ssd_chunked`` in fp32 instead, its chunk
+    halved from ``cfg.chunk`` until it divides l (the reference's
+    ``use_kernel=False`` branch): the path a gradient can pass."""
     b_, l, _ = x.shape
     h, p = cfg.n_heads, cfg.head_dim
     dtype = x.dtype
@@ -192,8 +198,15 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
         y, hn = ssd_reference(x_scaled.float(), a_log, bmat.float(),
                               cmat.float(), h0=h0)
         y = y.to(dtype)
-    else:
+    elif use_kernel:
         y, hn = kernel_ops.ssd_scan(x_scaled, a_log, bmat, cmat, h0=h0)
+    else:
+        chunk = min(cfg.chunk, l)
+        while l % chunk:
+            chunk //= 2
+        y, hn = ssd_chunked(x_scaled.float(), a_log, bmat.float(),
+                            cmat.float(), chunk, h0=h0)
+        y = y.to(dtype)
 
     y = y + xin * params["D"].to(dtype)[None, None, :, None]
     y = y * F.silu(z)

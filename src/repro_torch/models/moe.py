@@ -28,8 +28,8 @@ graph give the same bits (a scatter-add by ``index_add_`` would use
 atomics).
 
 ``moe_apply`` returns ``(out, aux)``: ``aux`` is the Switch-style
-load-balancing loss, which only training adds, and the port does not
-train mixtures of experts yet (ROADMAP).
+load-balancing loss, which only training adds (``train.steps.loss_fn``,
+weighted by ``aux_weight``).
 """
 
 from __future__ import annotations

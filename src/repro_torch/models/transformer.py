@@ -211,16 +211,19 @@ def model_flops(cfg: ModelConfig, batch: int, seq: int, mode: str = "train",
 # ----------------------------------------------------------------------------
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
-                 cache=None, cross_kv=None):
+                 cache=None, cross_kv=None, ssd_kernel: bool = True):
     """One pre-norm block: the mixer, then (a ``"cross"`` layer) the gated
     cross-attention to ``cross_kv``, then the MLP (dense or a mixture of
-    experts) if it has one, each with a residual. The mixture's aux loss
-    is dropped: only training adds it, and the port does not train a
-    mixture of experts (ROADMAP)."""
+    experts) if it has one, each with a residual. Returns (x, new cache,
+    aux): ``aux`` is the mixture's load-balancing loss, 0 for a dense
+    MLP. ``ssd_kernel`` False runs a Mamba mixer through the plain
+    chunked scan (``mamba.mamba_apply``'s ``use_kernel``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.norm(cfg.norm, params["ln1"], x)
     if kind == "mamba":
         mix, new_cache = mamba.mamba_apply(params["mamba"], cfg.mamba_cfg(),
-                                           h, cache=cache)
+                                           h, cache=cache,
+                                           use_kernel=ssd_kernel)
     else:
         mix, new_cache = layers.attention_apply(
             params["attn"], attn_cfg(cfg), h, cache=cache,
@@ -233,11 +236,12 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
             cross_kv.to(x.dtype))
     if "moe" in params:
         h2 = layers.norm(cfg.norm, params["ln2"], x)
-        x = x + moe.moe_apply(params["moe"], cfg.moe_cfg(), h2)[0]
+        y, aux = moe.moe_apply(params["moe"], cfg.moe_cfg(), h2)
+        x = x + y
     elif "mlp" in params:
         h2 = layers.norm(cfg.norm, params["ln2"], x)
         x = x + layers.mlp_apply(params["mlp"], mlp_cfg(cfg), h2)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def encode(params: Params, cfg: ModelConfig, frontend_embeds):
@@ -290,7 +294,8 @@ def forward(params: Params, cfg: ModelConfig, tokens,
             caches: Optional[List[Params]] = None, frontend_embeds=None,
             cross_kv=None
             ) -> Tuple[torch.Tensor, Optional[List[Params]]]:
-    """tokens (b, s) -> (logits (b, s, vocab), new caches or None).
+    """tokens (b, s) -> (logits (b, s, vocab), new caches or None): the
+    serving forward, ``forward_aux`` without its aux loss.
 
     Without ``caches`` attention is causal over the whole sequence: the
     full-sequence kernel under ``cfg.use_flash``, the plain ``sdpa``
@@ -305,7 +310,23 @@ def forward(params: Params, cfg: ModelConfig, tokens,
     ``cross_source(frontend_embeds)``. A config without ``rope_theta``
     adds sinusoidal positions to the embeddings, starting at each slot's
     own cache position (the reference starts every slot at slot 0's)."""
-    x = layers.embed(params["embed"], tokens, cfg.dtype)
+    logits, new_caches, _ = forward_aux(params, cfg, tokens, caches=caches,
+                                        frontend_embeds=frontend_embeds,
+                                        cross_kv=cross_kv)
+    return logits, new_caches
+
+
+def forward_aux(params: Params, cfg: ModelConfig, tokens,
+                caches: Optional[List[Params]] = None, frontend_embeds=None,
+                cross_kv=None, ssd_kernel: bool = True
+                ) -> Tuple[torch.Tensor, Optional[List[Params]],
+                           torch.Tensor]:
+    """``forward`` that also returns the mixtures' load-balancing loss
+    summed over layers (fp32, 0 without experts), as the reference's
+    ``forward`` does. ``ssd_kernel`` False runs the Mamba layers through
+    the plain chunked scan: the training step's choice, since the scan
+    kernel has no backward."""
+    x = layers.embed(params["embed"], tokens, cfg.dtype, vocab=cfg.vocab)
     if cross_kv is not None:
         cross_kv = cross_kv.to(cfg.dtype)
     else:
@@ -317,14 +338,17 @@ def forward(params: Params, cfg: ModelConfig, tokens,
             pos = pos + (idx[:, None] if idx.dim() == 1 else idx)
         x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_caches = [] if caches is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params["blocks"]):
         cache = caches[i] if caches is not None else None
-        x, nc = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
-                             cross_kv=cross_kv)
+        x, nc, a = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
+                                cross_kv=cross_kv, ssd_kernel=ssd_kernel)
+        aux = aux + a
         if caches is not None:
             new_caches.append(nc)
     x = layers.norm(cfg.norm, params["ln_f"], x)
-    return layers.unembed(params["unembed"], x), new_caches
+    return (layers.unembed(params["unembed"], x, vocab=cfg.vocab),
+            new_caches, aux)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

@@ -117,7 +117,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.core import autotune
+from repro_torch.dist import sharding
 from repro_torch.models import transformer as T
+from repro_torch.serve import dist as serve_dist
 from repro_torch.serve import graphs
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
@@ -290,10 +292,23 @@ class ServingEngine:
     """Slot-based continuous batching over a fixed decode batch.
 
     ``capture`` (the default) makes each repeating step one CUDA graph on
-    the card; it is not read on the CPU, where steps always run eagerly."""
+    the card; it is not read on the CPU, where steps always run eagerly.
+
+    ``mesh`` (``launch.mesh.make_serving_mesh``, a 1-D ``("model",)``
+    mesh over the ranks of an initialised process group) serves
+    tensor-parallel, paged only: every rank builds the engine with the
+    same full ``params`` and keeps its shard (``dist.sharding.param_spec``
+    under ``serve.dist.serve_ruleset``), the page pool is sharded by pages
+    over the ranks (``PageAllocator(n_devices=...)``, ``n_pages`` rounded
+    up to a multiple of the ranks), and the steps run under the ruleset,
+    so the layers run the collectives (``serve.dist``). The host side
+    (scheduling, tables, sampling) is the same on every rank and prices
+    the global pool, so the streams are those of one rank. The collectives
+    of a gloo group cannot be captured in a CUDA graph: on the card such
+    an engine needs ``capture=False``."""
 
     def __init__(self, params, cfg: ModelConfig, serve_cfg: ServeConfig,
-                 device=None, capture: bool = True):
+                 device=None, capture: bool = True, mesh=None):
         self.device = resolve_device(device)
         if cfg.encoder is not None or cfg.n_frontend_tokens:
             # As the reference's engine: its requests carry no frontend.
@@ -301,11 +316,22 @@ class ServingEngine:
                              f"decoder-only archs (serve an encoder or a "
                              f"frontend through greedy_generate)")
         self.cfg, self.scfg, self.params = cfg, serve_cfg, params
+        self.mesh = mesh
+        self._ruleset: Optional[sharding.Ruleset] = None
+        self._pool_axis: Optional[str] = None
+        self._n_dev = 1
+        if mesh is not None:
+            self._check_mesh(cfg, serve_cfg, capture)
+            self._ruleset = serve_dist.serve_ruleset(mesh)
+            self._pool_axis = self._ruleset._rule(serve_dist.POOL_RULE)
+            self._n_dev = int(mesh.shape.get(self._pool_axis, 1))
+            self.params = serve_dist.shard_params(params, mesh,
+                                                  self._ruleset)
         # The constants every choose_* decision of this engine is priced
-        # with: calibrated on this device type where the tuning cache has
-        # them, the hand-set defaults otherwise.
+        # with: calibrated on this device type (and mesh) where the tuning
+        # cache has them, the hand-set defaults otherwise.
         self.constants = autotune.resolve_constants(
-            backend=self.device.type)
+            mesh_shape=mesh, backend=self.device.type)
         max_len = serve_cfg.max_len
         # Bucketing pads the prompt on the right, which only attention
         # layers mask; SSM stacks carry state through every position, so
@@ -329,10 +355,16 @@ class ServingEngine:
                                  f"multiple in (0, max_len]")
             self.chunk: Optional[int] = chunk
             n_pages = serve_cfg.n_pages or 1 + serve_cfg.batch * max_len // ps
+            if n_pages % self._n_dev:
+                # Equal blocks a rank; rounding up only adds capacity.
+                n_pages += self._n_dev - n_pages % self._n_dev
             self.pool: Optional[paged_mod.PageAllocator] = \
-                paged_mod.PageAllocator(n_pages, ps)
+                paged_mod.PageAllocator(n_pages, ps, n_devices=self._n_dev)
             self.caches = T.init_paged_caches(cfg, serve_cfg.batch, max_len,
                                               ps, n_pages, device=self.device)
+            if mesh is not None:
+                self.caches = serve_dist.shard_caches(self.caches, mesh,
+                                                      self._pool_axis)
             self.max_pages = max_len // ps
             self.prefix: Optional[paged_mod.PrefixIndex] = \
                 paged_mod.PrefixIndex(self.pool) if serve_cfg.prefix_cache \
@@ -480,6 +512,29 @@ class ServingEngine:
         event."""
         return self.telemetry.preemption_log
 
+    # -- tensor parallelism ---------------------------------------------------
+
+    def _check_mesh(self, cfg: ModelConfig, scfg: ServeConfig,
+                    capture: bool) -> None:
+        """What a tensor-parallel engine refuses, each with its reason."""
+        if not scfg.paged:
+            raise ValueError("mesh serving is paged-only (as the "
+                             "reference's)")
+        if cfg.n_experts:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor-parallel serving of a mixture of "
+                f"experts (experts sharded over the mesh) is not ported")
+        if scfg.spec_k and scfg.draft not in (None, "ngram") \
+                and isinstance(scfg.draft, str):
+            raise NotImplementedError(
+                f"draft {scfg.draft!r}: a model draft under a mesh is not "
+                f"ported; the n-gram draft serves")
+        if self.device.type == "cuda" and capture:
+            raise ValueError(
+                "capture=True under a mesh: the collectives of a gloo "
+                "group run through the host and cannot be captured in a "
+                "CUDA graph; build the engine with capture=False")
+
     # -- device steps ---------------------------------------------------------
 
     @torch.no_grad()
@@ -569,9 +624,11 @@ class ServingEngine:
         tok, rids, ts, out, base = (self._tok, self._rids, self._ts,
                                     self._next, self._dev_key)
         sampled = self.scfg.temperature > 0
+        rules = self._ruleset
 
         def step() -> None:
-            logits, new = decode_step(params, cfg, tok, caches)
+            with sharding.use_ruleset(rules):
+                logits, new = decode_step(params, cfg, tok, caches)
             for c, n in zip(caches, new):
                 if "ssm" in c:
                     c["conv"].copy_(n["conv"])
@@ -593,9 +650,11 @@ class ServingEngine:
                                       self._picks, self._dev_key)
         width = self.spec_k + 1
         sampled = self.scfg.temperature > 0
+        rules = self._ruleset
 
         def step() -> None:
-            logits, _ = T.forward(params, cfg, toks, caches=caches)
+            with sharding.use_ruleset(rules):
+                logits, _ = T.forward(params, cfg, toks, caches=caches)
             keys = sampling.fold_span_keys(base, rids, t0s, width) \
                 if sampled else None
             out.copy_(pick(logits, keys))
@@ -610,9 +669,11 @@ class ServingEngine:
             self._chunk_caches, self._pick
         toks, last, key, out = self._ctok, self._clast, self._ckey, \
             self._cnext
+        rules = self._ruleset
 
         def step() -> None:
-            logits, _ = T.forward(params, cfg, toks, caches=caches)
+            with sharding.use_ruleset(rules):
+                logits, _ = T.forward(params, cfg, toks, caches=caches)
             out.copy_(pick(logits[0].index_select(0, last)[0], key))
 
         return step
@@ -773,9 +834,13 @@ class ServingEngine:
         old, new = self.pool.cow(slot, pos)
         self.telemetry.emit(self.ticks, "cow_copy", slot=slot, old=old,
                             new=new, pos=pos)
-        for c in self.caches:
-            c["kp"][new].copy_(c["kp"][old])
-            c["vp"][new].copy_(c["vp"][old])
+        if self.mesh is not None:
+            serve_dist.copy_page(self.caches, old, new, self.mesh,
+                                 self._pool_axis)
+        else:
+            for c in self.caches:
+                c["kp"][new].copy_(c["kp"][old])
+                c["vp"][new].copy_(c["vp"][old])
         self.pages[slot, pos] = new
 
     def _cow_range(self, slot: int, lo: int, hi: int) -> None:

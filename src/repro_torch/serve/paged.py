@@ -5,11 +5,12 @@ owns a page table. Page 0 is the **null page**: never allocated, it absorbs
 writes from freed or idle slots (whose table rows are zeroed) and writes
 past a table's reach.
 
-* ``PageAllocator`` — LIFO free list over page ids for one device, with
-  refcounts (pages shared by slots and held by the prefix index) and the
-  reference's conservation counters. Given the same operations it hands
-  out the same page ids as ``repro.serve.paged.PageAllocator`` with
-  ``n_devices=1``.
+* ``PageAllocator`` — LIFO free lists over page ids, one a device of a
+  pool sharded by pages (``n_devices``; global page p on device
+  p // block), with refcounts (pages shared by slots and held by the
+  prefix index) and the reference's conservation counters. Given the
+  same operations it hands out the same page ids as
+  ``repro.serve.paged.PageAllocator`` at the same ``n_devices``.
 * ``PrefixIndex`` — full-page token prefixes keyed by chained digests,
   mapped to the pages that hold their rows: prefix caching is sharing
   pages through the table, copy-on-write before a write into a shared
@@ -55,27 +56,43 @@ def chunk_page_need(cursor: int, chunk_rows: int, pages_held: int,
 
 @dataclasses.dataclass
 class PageAllocator:
-    """LIFO free list over the KV page pool of one device, with refcounts.
+    """LIFO free lists over the KV page pool, with refcounts.
 
-    ``n_pages`` counts the null page, so ``capacity`` is ``n_pages - 1``.
+    ``n_pages`` counts the null page, so ``capacity`` is ``n_pages - 1``
+    on any number of devices: sharding the pool over ``n_devices`` (equal
+    blocks of ``block`` pages; global page p on device p // block, local
+    page p % block) changes where a page lives, never what a request
+    costs. Each device has its own free list, and a page is taken from
+    the device with the most free pages (ties to the lowest index), so
+    slots stripe across devices and one context can span them.
+
     A live page is held by one or more slots (``alloc``, ``share``) and at
-    most once by the prefix index (``retain``); it returns to the free
-    list when its count drops to zero. Invariants: the null page is never
-    handed out, a live page is never handed out again, every live page
-    has a count >= 1, and ``pages_allocated - pages_freed ==
+    most once by the prefix index (``retain``); it returns to its device's
+    free list when its count drops to zero. Invariants: the null page is
+    never handed out, a live page is never handed out again, every live
+    page has a count >= 1, and ``pages_allocated - pages_freed ==
     pages_in_use`` (sharing moves neither)."""
 
     n_pages: int
     page_size: int
+    n_devices: int = 1
 
     def __post_init__(self):
         if self.n_pages < 2:
             raise ValueError("pool needs the null page + 1 real page")
         if self.page_size < 1:
             raise ValueError(f"page_size {self.page_size} < 1")
-        # Popped from the end: page 1 is handed out first, and a freed
-        # slot's pages are the next ones reused.
-        self._free: List[int] = list(range(self.n_pages - 1, NULL_PAGE, -1))
+        if self.n_devices < 1 or self.n_pages % self.n_devices:
+            raise ValueError(f"{self.n_pages} pages do not split over "
+                             f"{self.n_devices} devices")
+        self.block = self.n_pages // self.n_devices
+        # Popped from the end: each device hands out its lowest page
+        # first, and a freed page is the next one its device reuses. The
+        # null page (device 0, local 0) is in no list.
+        self._free_by_dev: List[List[int]] = [
+            list(range((d + 1) * self.block - 1, d * self.block - 1, -1))
+            for d in range(self.n_devices)]
+        self._free_by_dev[0] = list(range(self.block - 1, NULL_PAGE, -1))
         self.slot_pages: Dict[int, List[int]] = {}
         # Holds per live page (slots and the index): its keys are the live
         # pages. A page held by the index alone is cached idle, the class
@@ -89,6 +106,14 @@ class PageAllocator:
         self.index_retains = 0
         self.cow_count = 0
 
+    def device_of(self, page: int) -> int:
+        """The device holding global page ``page``."""
+        return int(page) // self.block
+
+    def local_of(self, page: int) -> int:
+        """Global page ``page``'s index in its device's block."""
+        return int(page) % self.block
+
     @property
     def capacity(self) -> int:
         """Allocatable pages: the pool minus the null page."""
@@ -96,7 +121,12 @@ class PageAllocator:
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free_by_dev)
+
+    @property
+    def _free(self) -> List[int]:
+        """Every device's free list, joined in device order."""
+        return [p for f in self._free_by_dev for p in f]
 
     @property
     def pages_in_use(self) -> int:
@@ -107,19 +137,24 @@ class PageAllocator:
 
     def alloc(self, slot: int, n: int = 1) -> List[int]:
         """Take ``n`` pages for ``slot``; raises ``PagePoolExhausted``
-        (allocating nothing) when the free list is short."""
+        (allocating nothing) when the free lists are short."""
         got = self._take(n, f"slot {slot}")
         self.slot_pages.setdefault(slot, []).extend(got)
         return got
 
     def _take(self, n: int, owner: str) -> List[int]:
         """``n`` fresh pages with one hold each, assigned to no slot
-        (``alloc`` and ``cow`` share it)."""
+        (``alloc`` and ``cow`` share it), each from the device with the
+        most free pages."""
         if self.free_pages < n:
             raise PagePoolExhausted(
                 f"need {n} pages for {owner}, {self.free_pages} free "
                 f"({self.pages_in_use}/{self.capacity} in use)")
-        got = [self._free.pop() for _ in range(n)]
+        got = []
+        for _ in range(n):
+            dev = max(range(self.n_devices),
+                      key=lambda d: (len(self._free_by_dev[d]), -d))
+            got.append(self._free_by_dev[dev].pop())
         for p in got:
             if p == NULL_PAGE or p in self._ref:
                 raise AssertionError(f"page {p} handed out twice")
@@ -168,7 +203,7 @@ class PageAllocator:
         if self._ref[page]:
             return False
         del self._ref[page]
-        self._free.append(page)
+        self._free_by_dev[self.device_of(page)].append(page)
         self.pages_freed += 1
         return True
 
@@ -200,6 +235,13 @@ class PageAllocator:
         """K/V rows the pool holds live, the null page included."""
         return (self.pages_in_use + 1) * self.page_size
 
+    def device_occupancy(self) -> List[int]:
+        """Live pages a device; sums to ``pages_in_use``."""
+        occ = [0] * self.n_devices
+        for p in self._ref:
+            occ[self.device_of(p)] += 1
+        return occ
+
     def page_classes(self) -> Dict[str, int]:
         """Live pages by sharing state: ``exclusive`` (one slot, no index
         hold), ``shared`` (two holds or more), ``cached_idle`` (the
@@ -221,6 +263,7 @@ class PageAllocator:
             "n_pages": self.n_pages,
             "page_size": self.page_size,
             "capacity": self.capacity,
+            "n_devices": self.n_devices,
             "pages_in_use": self.pages_in_use,
             "pages_free": self.free_pages,
             "high_water": self.high_water,
@@ -233,6 +276,8 @@ class PageAllocator:
             "cow_count": self.cow_count,
         }
         out.update(self.page_classes())
+        if self.n_devices > 1:
+            out["pages_in_use_by_device"] = self.device_occupancy()
         return out
 
 

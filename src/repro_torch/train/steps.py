@@ -5,13 +5,14 @@ accumulation and error-feedback gradient compression (port of
 Gradients come from ``torch.autograd`` through the plain ``sdpa``: the
 kernels have no backward (their wrappers raise under grad mode), so a
 model trains with ``use_flash=False``, as the reference does (an
-encoder and the cross-attention always run the plain ``sdpa``). Dense
-attention stacks train, with or without cross layers and an encoder: the
-Mamba layers always run the SSD scan kernel, which has no backward
-either, and a mixture of experts is refused until the router's aux loss
-is ported. A parameter no loss term reaches (whisper-medium's encoder,
-whose output no layer reads) gets a zero gradient, as
-``jax.value_and_grad`` gives it, so AdamW's weight decay still moves it.
+encoder and the cross-attention always run the plain ``sdpa``). Every
+family trains: the loss asks ``forward_aux`` for the plain chunked SSD
+scan in fp32 (``ssd_kernel=False``, the reference's default path), so
+the Mamba layers never reach the scan kernel, and it adds
+``aux_weight`` times the mixtures' load-balancing loss. A parameter no
+loss term reaches (whisper-medium's encoder, whose output no layer
+reads) gets a zero gradient, as ``jax.value_and_grad`` gives it, so
+AdamW's weight decay still moves it.
 
 The step updates the parameters and the optimizer moments in place (the
 reference jits a step over a donated state and returns new trees).
@@ -30,9 +31,6 @@ from repro_torch.dist import compression
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-
-TRAINABLE_PATTERNS = (("attn",), ("cross", "attn", "attn", "attn", "attn"))
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -125,12 +123,13 @@ def cross_entropy(logits, labels) -> torch.Tensor:
 def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     """(nll + aux_weight * aux, {"nll", "aux"}) of ``batch`` ({"tokens",
     "labels"} (b, s), and "frontend" (b, n, d_model) where the model
-    reads one) through the cache-less ``T.forward``. ``aux`` is 0: the
-    ported stacks have no MoE balance loss."""
-    logits, _ = T.forward(params, cfg, batch["tokens"],
-                          frontend_embeds=batch.get("frontend"))
+    reads one) through the cache-less ``T.forward_aux``, its Mamba layers
+    on the plain chunked scan. ``aux`` is the mixtures' load-balancing
+    loss summed over layers (0 without experts)."""
+    logits, _, aux = T.forward_aux(params, cfg, batch["tokens"],
+                                   frontend_embeds=batch.get("frontend"),
+                                   ssd_kernel=False)
     nll = cross_entropy(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -151,18 +150,6 @@ def make_train_step(cfg: ModelConfig,
     error_feedback=True)``."""
     if error_feedback and not compress_grads:
         raise ValueError("error_feedback rides on compress_grads")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"training {cfg.name} (a mixture of experts) is not ported: "
-            f"the reference adds aux_weight times the router's "
-            f"load-balancing loss to the objective; MoE training with the "
-            f"aux loss is a later item (ROADMAP)")
-    if tuple(cfg.pattern) not in TRAINABLE_PATTERNS:
-        raise NotImplementedError(
-            f"training {cfg.name} (pattern {cfg.pattern}) is not ported: "
-            f"the Mamba layers run the SSD scan kernel, which has no "
-            f"backward; Mamba training needs a differentiable scan path "
-            f"(ROADMAP)")
 
     def grads_of(params, batch):
         # Leaves that share the parameters' storage and track gradients,

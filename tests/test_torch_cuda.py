@@ -931,3 +931,97 @@ def test_cuda_adaptive_spec_engine_graphed_equals_eager(cuda_device):
                      eng.verify_traces))
     assert runs[0] == runs[1]
     assert 0 in runs[1][1]
+
+
+# ----------------------------------------------------------------------------
+# Tensor-parallel serving on the card (two gloo ranks sharing it)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_contiguous_decode_on_the_gathered_view(cuda_device, dtype):
+    """The contiguous decode at the shape a rank of a two-rank qwen3-4b
+    mesh hands it: the view ``serve.dist.gather_pages`` assembled (b 4 x
+    512 rows of 8 kv heads of 80), cut to the rank's 4 kv heads as
+    ``layers._local_kv_heads`` cuts it, with the rank's 16 q heads."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    ck, cv = mk(4, 512, 8, 80), mk(4, 512, 8, 80)
+    lengths = torch.tensor([108, 211, 330, 408], dtype=torch.int32,
+                           device=cuda_device)
+    for rank in (0, 1):
+        k, v = layers._local_kv_heads(ck, cv, 32, 16, rank)
+        assert k.shape == (4, 512, 4, 80) and k.is_contiguous()
+        q = mk(4, 16, 80)
+        ops.reset_launches()
+        got = ops.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, ref.flash_decode(q, k, v, lengths))
+        assert ok, err
+        assert ops.LAUNCHES["flash_decode"] == 1
+
+
+def _two_rank_logits(rank, world):
+    """A rank of the two-rank check: the qwen3-4b smoke config on the
+    card at head_dim 64 (a width the decode kernel builds), fp32, a
+    24-row prefill and a decode step through the sharded pool (its table
+    spanning both ranks); rank 0 also runs one rank."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import dist as serve_dist
+    from repro_torch.serve import paged
+
+    dev = mesh_lib.rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_serving_mesh(world)
+    rules = serve_dist.serve_ruleset(mesh)
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-4b"), head_dim=64)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    pool = paged.PageAllocator(16, 8, n_devices=world)
+    table = np.zeros((2, 8), np.int32)
+    for i in range(2):
+        got = pool.alloc(i, 4)
+        table[i, :4] = got
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        2, cfg.vocab, size=(2, 25))).to(dev)
+
+    def run(p, rs, shard):
+        caches = T.init_paged_caches(cfg, 2, 64, 8, 16, device=dev)
+        caches[0]["pages"].copy_(torch.from_numpy(table))
+        if shard:
+            caches = serve_dist.shard_caches(caches, mesh)
+        with torch.no_grad(), sharding.use_ruleset(rs):
+            pre, caches = T.forward(p, cfg, toks[:, :-1], caches=caches)
+            step, _ = T.forward(p, cfg, toks[:, -1:], caches=caches)
+        # numpy: a tensor through the result queue would be shared memory
+        # that dies with this process.
+        return pre.cpu().numpy(), step.cpu().numpy()
+
+    ops.reset_launches()
+    two = run(serve_dist.shard_params(params, mesh, rules), rules, True)
+    launched = ops.LAUNCHES["flash_decode"]
+    one = run(params, None, False) if rank == 0 else None
+    spans = [sorted({pool.device_of(p) for p in pool.slot_pages[i]})
+             for i in range(2)]
+    return two, one, launched, spans
+
+
+def test_cuda_two_rank_engine_logits_match_one_rank(cuda_device):
+    """Two gloo ranks sharing the card: the fp32 logits of a prefill and
+    a decode step through the sharded pool within 1e-3 of one rank's
+    (the row-parallel sums reorder fp32 additions), the decode step's
+    ``flash_decode`` launched once a layer on each rank."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    ranks = mesh_lib.run_ranks(_two_rank_logits, 2, deadline_s=240.0,
+                               timeout_s=120.0)
+    (two_pre, two_step), (one_pre, one_step), _, spans = ranks[0]
+    assert all(len(s) == 2 for s in spans)
+    assert float(np.abs(two_pre - one_pre).max()) <= 1e-3
+    assert float(np.abs(two_step - one_step).max()) <= 1e-3
+    n_layers = configs.get_smoke("qwen3-4b").n_layers
+    assert [r[2] for r in ranks] == [n_layers, n_layers]
+    assert np.array_equal(ranks[1][0][1], two_step)

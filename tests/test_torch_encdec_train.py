@@ -173,12 +173,22 @@ def test_launcher_names_the_distribution_item():
 
 
 def test_moe_and_mamba_patterns_still_refuse_to_train():
-    """The vision pattern trains; a Mamba stack and a mixture of experts
-    do not."""
-    steps.make_train_step(configs.get_smoke("llama-3.2-vision-90b"))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        steps.make_train_step(dataclasses.replace(
-            configs.get_smoke("jamba-v0.1-52b"), n_experts=0,
-            moe_positions=()))
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        steps.make_train_step(configs.get_smoke("dbrx-132b"))
+    """Every pattern trains now: the vision pattern, a Mamba stack (the
+    jamba hybrid without its experts) and a mixture of experts each take
+    a step to a finite loss (``tests/test_torch_train_families.py``
+    holds their gradients to the reference's)."""
+    for cfg in (configs.get_smoke("llama-3.2-vision-90b"),
+                dataclasses.replace(configs.get_smoke("jamba-v0.1-52b"),
+                                    n_experts=0, moe_positions=()),
+                configs.get_smoke("dbrx-132b")):
+        tokens, labels = SyntheticLMData(DataConfig(
+            vocab=cfg.vocab, seq_len=8, global_batch=2)).batch_at(0)
+        batch = {"tokens": torch.from_numpy(tokens),
+                 "labels": torch.from_numpy(labels)}
+        if cfg.n_frontend_tokens:
+            batch["frontend"] = launch.frontend_stub(cfg, "cpu")(2)
+        state, metrics = steps.make_train_step(cfg)(
+            steps.init_state(cfg, device="cpu").tree(), batch)
+        assert int(state["step"]) == 1, cfg.name
+        assert np.isfinite(float(metrics["loss"])), cfg.name
+        assert (float(metrics["aux"]) > 0) == bool(cfg.n_experts), cfg.name

@@ -13,7 +13,7 @@ attention at 7:1, MoE every other layer).
 * the plain attention at head_dim 96 and the plain SSD scan at jamba's
   (p, n) = (64, 16) against the reference's Pallas kernels in interpret
   mode;
-* training refuses a mixture of experts.
+* a mixture of experts trains: its loss and parts equal the reference's.
 
 Inputs and prompts are numpy arrays from seeds; the weights are the
 reference's ``init_params`` carried across through numpy. The reference
@@ -44,6 +44,7 @@ from repro_torch import configs
 from repro_torch.bridge import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
 from repro_torch.train import steps
 
 ATOL = RTOL = 1e-5
@@ -237,10 +238,35 @@ def test_plain_ssd_scan_at_jambas_shape_matches_reference():
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
                                   "jamba-v0.1-52b"])
 def test_training_refuses_a_mixture_of_experts(arch):
-    """The reference adds ``aux_weight * aux`` to the loss of a mixture of
-    experts; the port does not train one until that is ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.make_train_step(configs.get_smoke(arch))
+    """A mixture of experts trains: the loss adds ``aux_weight * aux``, and
+    its loss and parts equal the reference's ``loss_fn`` at rtol 1e-4
+    (``tests/test_torch_train_families.py`` holds the gradients)."""
+    from repro.train import steps as jsteps
+    from repro_torch.data import DataConfig, SyntheticLMData
+
+    jcfg, cfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    jparams = jax.tree.map(np.asarray, JT.init_params(
+        jax.random.PRNGKey(0), jcfg))
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=8, global_batch=2)).batch_at(0)
+    jloss, jparts = jsteps.loss_fn(jparams, jcfg, {
+        "tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+    params = params_from_jax(jparams, cfg, device="cpu",
+                             dtype=torch.float32)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(labels)}
+    loss, parts = steps.loss_fn(params, cfg, batch)
+    assert float(parts["aux"]) > 0
+    for got, want in ((loss, jloss), (parts["nll"], jparts["nll"]),
+                      (parts["aux"], jparts["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+    state, metrics = steps.make_train_step(cfg)(
+        steps.TrainState(params=params, opt=adamw.adamw_init(params),
+                         step=torch.zeros((), dtype=torch.int32)).tree(),
+        batch)
+    assert int(state["step"]) == 1
+    np.testing.assert_allclose(float(metrics["loss"]), float(jloss),
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "phi3-mini-3.8b"])

@@ -66,7 +66,10 @@ def test_port_files_are_found():
                 ("train", "steps.py"), ("train", "trainer.py"),
                 ("optim", "adamw.py"), ("optim", "schedule.py"),
                 ("data", "pipeline.py"), ("dist", "compression.py"),
-                ("checkpoint", "manager.py")):
+                ("checkpoint", "manager.py"), ("dist", "sharding.py"),
+                ("dist", "collective_matmul.py"), ("serve", "dist.py"),
+                ("launch", "mesh.py"), ("core", "interconnect.py"),
+                ("core", "collectives.py")):
         assert PORT.joinpath(*rel) in FILES
     assert (ROOT / "chip_smoke.py").exists()
 
