@@ -237,6 +237,15 @@ the card against the CPU's (mamba2-370m whole, dbrx and jamba smoke) and
 mamba2-370m whole for a few steps. ``python3 chip_smoke.py --phase 23``
 runs the build and phase 23 alone.
 
+Phase 24 trains over ranks: qwen2-0.5b whole in fp32 on two gloo ranks
+sharing the card, (data 2, model 1) under FSDP and (data 1, model 2),
+each against one rank's steps in the same call (losses within 1e-4,
+first-step gradients within GRAD_TOL, a planted skipped mean caught, a
+checkpoint saved under FSDP resumed on (1, 2) to the same step-3 loss),
+one bf16 step under FSDP, and GPipe over two stages of 12 blocks with
+``flash_attention`` launched in the ranks, against the sequential stack.
+``python3 chip_smoke.py --phase 24`` runs the build and phase 24 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -388,12 +397,9 @@ WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium", "--batch", "2", "--seq",
 # near-tie: its two candidates within NEAR_TIE of each other in the
 # one-rank fp32 logits. (b): every family trains: gradients of a step on
 # the card against the CPU's (GRAD_CHECK: arch -> smoke?, batch, seq),
-# within GRAD_TOL of each leaf's largest element or twice the CPU's own
-# spread (its gradient at one thread against its default threads),
-# whichever is larger: mamba2-370m's whole random 48-layer stack is
-# ill-conditioned in fp32 (the CPU against itself differed by 9.7 % of a
-# leaf's largest element; the card against the CPU by 10.4 %), and
-# mamba2-370m whole trained MAMBA_STEPS steps at batch 4 x 512.
+# within GRAD_TOL of each leaf's largest element (mamba2-370m whole in
+# float64, GRAD_F64), and mamba2-370m whole trained MAMBA_STEPS steps at
+# batch 4 x 512.
 TP = 2
 TP_B, TP_MAX_LEN, TP_PS, TP_CHUNK, TP_NEW = 4, 512, 16, 128, 16
 TP_LO, TP_HI, TP_CHECK_PROMPT = 100, 400, 300
@@ -403,7 +409,35 @@ NEAR_TIE = 1e-2
 GRAD_CHECK = {"mamba2-370m": (False, 1, 32), "dbrx-132b": (True, 2, 16),
               "jamba-v0.1-52b": (True, 2, 16)}
 GRAD_TOL = 1e-3
+# The configs whose gate runs in float64 on both sides: mamba2-370m's
+# random 48-layer stack is ill-conditioned in fp32 (the CPU against
+# itself, 1 thread against 8, differed by 9.7 % of a leaf's largest
+# element), well conditioned in float64 (``layers.wide``). Its fp32
+# reading is logged beside the CPU's own fp32 spread, not gated.
+GRAD_F64 = ("mamba2-370m",)
 MAMBA_STEPS, MAMBA_BATCH, MAMBA_SEQ = 8, 4, 512
+# Phase 24: training over ranks. (a) qwen2-0.5b whole (24 layers, d_model
+# 896, 14/2 heads of 64, d_ff 4,864, vocab 151,936, untied lm_head), fp32
+# compute and masters, DIST_B x DIST_S tokens a step, DIST_STEPS steps
+# from seed 0, on two gloo ranks sharing the card (NCCL refuses two ranks
+# on one device): each mesh of DIST_MESHES against one rank's steps in
+# the same call. Gates: every step's loss within DIST_LOSS_RTOL of one
+# rank's; the first step's averaged gradients, gathered whole, within
+# GRAD_TOL of each leaf's largest element; the data-axis mean skipped on
+# DIST_FAULT_LEAF must break that gate; a checkpoint saved at step 2 under
+# FSDP, restored onto (1, 2), takes step 3 to the uninterrupted run's
+# loss within DIST_LOSS_RTOL. (b) GPipe: the 24 blocks in GPIPE_STAGES
+# stages, GPIPE_MICRO microbatches of 1 x DIST_S, forward through
+# ``flash_attention`` (fp32), against the sequential stack on one rank
+# within GPIPE_TOL of the output's largest element.
+DIST_ARCH = "qwen2-0.5b"
+DIST_B, DIST_S, DIST_STEPS = 4, 512, 3
+DIST_MESHES = (("fsdp", (2, 1), True), ("model", (1, 2), False))
+DIST_LOSS_RTOL = 1e-4
+DIST_FAULT_LEAF = "ln_f/scale"
+DIST_LAYERS = 24
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_TOL = 2, 4, 1e-4
+DIST_DEADLINE_S, DIST_TIMEOUT_S = 900.0, 300.0
 
 
 def log(msg: str) -> None:
@@ -3741,7 +3775,8 @@ def run_tp(dev, ops, ref, configs, T) -> dict:
 
 def run_train_families(dev, ops, configs, T, steps) -> dict:
     """Phase 23 (b): a step's loss and gradients on the card against the
-    CPU's for each of GRAD_CHECK (fp32 compute), then mamba2-370m whole
+    CPU's for each of GRAD_CHECK (fp32 compute; float64 for GRAD_F64,
+    then fp32 logged), then mamba2-370m whole
     trained MAMBA_STEPS steps (fp32 masters, AdamW, bf16 compute) through
     the plain chunked scan, and the MoE memory reckoning logged."""
     from repro_torch.data import DataConfig, SyntheticLMData
@@ -3750,60 +3785,73 @@ def run_train_families(dev, ops, configs, T, steps) -> dict:
 
     out, failed = {}, []
     for arch, (smoke, b, s) in GRAD_CHECK.items():
-        cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
-        cfg = dataclasses.replace(cfg, compute_dtype="float32")
-        params = steps.init_state(cfg, seed=0, device=dev).params
+        base = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+        params = steps.init_state(base, seed=0, device=dev).params
         tokens, labels = SyntheticLMData(DataConfig(
-            vocab=cfg.vocab, seq_len=s, global_batch=b)).batch_at(0)
+            vocab=base.vocab, seq_len=s, global_batch=b)).batch_at(0)
+        # The gated run first: float64 where fp32 is ill-conditioned
+        # (GRAD_F64), whose fp32 reading follows, logged only.
+        computes = ("float64", "float32") if arch in GRAD_F64 \
+            else ("float32",)
+        for compute in computes:
+            cfg = dataclasses.replace(base, compute_dtype=compute)
 
-        def grads(device, threads=None):
-            if threads is not None:
+            def grads(device, threads=None):
+                if threads is not None:
+                    torch.set_num_threads(threads)
+                tracked = tree_map(lambda x: x.detach().to(device)
+                                   .requires_grad_(), params)
+                batch = {"tokens": torch.from_numpy(tokens).to(device),
+                         "labels": torch.from_numpy(labels).to(device)}
+                loss, parts = steps.loss_fn(tracked, cfg, batch)
+                leaves = tree_leaves(tracked)
+                gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+                return float(loss.detach()), float(parts["aux"]), [
+                    (torch.zeros_like(p) if g is None else g).detach().cpu()
+                    for g, p in zip(gs, leaves)]
+
+            def worst(a, b):
+                return max(float((x - y).abs().max())
+                           / max(float(y.abs().max()), 1e-30)
+                           for x, y in zip(a, b))
+
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            gl, ga, gg = grads(dev)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            threads = torch.get_num_threads()
+            t0 = time.perf_counter()
+            cl, ca, cg = grads("cpu")
+            cpu_s = time.perf_counter() - t0
+            card = worst(gg, cg)
+            gated = compute == computes[0]
+            if gated:
+                verdict = f"(limit GRAD_TOL {GRAD_TOL:g})"
+            else:
+                _, _, c1 = grads("cpu", threads=1)
                 torch.set_num_threads(threads)
-            tracked = tree_map(lambda x: x.detach().to(device)
-                               .requires_grad_(), params)
-            batch = {"tokens": torch.from_numpy(tokens).to(device),
-                     "labels": torch.from_numpy(labels).to(device)}
-            loss, parts = steps.loss_fn(tracked, cfg, batch)
-            leaves = tree_leaves(tracked)
-            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-            return float(loss.detach()), float(parts["aux"]), [
-                (torch.zeros_like(p) if g is None else g).detach().cpu()
-                for g, p in zip(gs, leaves)]
-
-        def worst(a, b):
-            return max(float((x - y).abs().max())
-                       / max(float(y.abs().max()), 1e-30)
-                       for x, y in zip(a, b))
-
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        gl, ga, gg = grads(dev)
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        threads = torch.get_num_threads()
-        t0 = time.perf_counter()
-        cl, ca, cg = grads("cpu")
-        cpu_s = time.perf_counter() - t0
-        _, _, c1 = grads("cpu", threads=1)
-        torch.set_num_threads(threads)
-        card, spread = worst(gg, cg), worst(c1, cg)
-        limit = max(GRAD_TOL, 2 * spread)
-        log(f"  {cfg.name} ({T.param_count(params) / 1e9:.4f} B parameters,"
-            f" fp32), batch {b} x {s}: loss card {gl:.6f} CPU {cl:.6f}, aux "
-            f"card {ga:.6f} CPU {ca:.6f}; gradients, worst leaf's |diff| / "
-            f"its max |CPU grad| over {len(gg)} leaves: card against the "
-            f"CPU {card:.3e}, the CPU at 1 thread against {threads} "
-            f"{spread:.3e} (limit {limit:.3e}: GRAD_TOL or twice the CPU's "
-            f"own spread); {card_s:.2f} s on the card, {cpu_s:.2f} s on "
-            f"the CPU; launches {launches}")
-        if not (abs(gl - cl) <= 1e-4 * abs(cl) and card <= limit):
-            failed.append(f"{cfg.name}: card and CPU gradients differ "
-                          f"({card:.3e}, limit {limit:.3e})")
-        if launches:
-            failed.append(f"{cfg.name}: training launched {launches}")
-        out[cfg.name] = card
-        del params, gg, cg, c1
+                verdict = (f"(logged only: the CPU at 1 thread against "
+                           f"{threads} {worst(c1, cg):.3e})")
+                del c1
+            log(f"  {cfg.name} ({T.param_count(params) / 1e9:.4f} B "
+                f"parameters, {compute} compute, fp32 masters), batch {b} x "
+                f"{s}: loss card {gl:.6f} CPU {cl:.6f}, aux card {ga:.6f} "
+                f"CPU {ca:.6f}; gradients, worst leaf's |diff| / its max "
+                f"|CPU grad| over {len(gg)} leaves: card against the CPU "
+                f"{card:.3e} {verdict}; {card_s:.2f} s on the card, "
+                f"{cpu_s:.2f} s on the CPU; launches {launches}")
+            if gated and not (abs(gl - cl) <= 1e-4 * abs(cl)
+                              and card <= GRAD_TOL):
+                failed.append(f"{cfg.name} ({compute}): card and CPU "
+                              f"gradients differ ({card:.3e}, limit "
+                              f"{GRAD_TOL:g})")
+            if launches:
+                failed.append(f"{cfg.name}: training launched {launches}")
+            out[f"{cfg.name} {compute}"] = card
+            del gg, cg
+        del params
         torch.cuda.empty_cache()
 
     cfg = configs.get_config("mamba2-370m")
@@ -3854,11 +3902,402 @@ def run_train_families(dev, ops, configs, T, steps) -> dict:
         f"cut to one layer holds {one / 1e9:.2f} B parameters "
         f"({experts / 1e9:.2f} B of them experts); fp32 masters, gradients "
         f"and both AdamW moments at 16 bytes a parameter: "
-        f"{16 * one / 1e9:.1f} GB before activations (FSDP over ranks is "
-        f"the next slice)")
+        f"{16 * one / 1e9:.1f} GB before activations (FSDP, phase 24, "
+        f"shards them over ranks, but ranks on one card share its memory)")
     if failed:
         raise RuntimeError("; ".join(failed))
     return out
+
+# ----------------------------------------------------------------------------
+# Phase 24: training over ranks
+# ----------------------------------------------------------------------------
+
+def time_gpipe_flash(dev, ops, ref) -> dict:
+    """``flash_attention`` at a GPipe stage's shape in phase 24 (one
+    microbatch of qwen2-0.5b: b 1, s DIST_S, 14/2 heads of 64, causal,
+    fp32) against its plain version, timed beside SDPA and the bound."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(DIST_ARCH)
+    h, kvh, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.dhead, DIST_S
+    dtype = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    n_sets = 8
+    sets = [(rnd(1, s, h, d), rnd(1, s, kvh, d), rnd(1, s, kvh, d))
+            for _ in range(n_sets)]
+    ok, err = ref.compare(ops.flash_attention(*sets[0]),
+                          ref.flash_attention(*sets[0]))
+    views = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]
+    pairs = s * (s + 1) // 2
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        *views[i], is_causal=True, enable_gqa=True)
+    run = lambda i: ops.flash_attention(*sets[i])  # noqa: E731
+    r = dict(max_abs_err=err, ok=ok, ms=time_ms(run, n_sets),
+             device_ms=time_ms(run, n_sets, spin=True),
+             plain_ms=time_ms(lambda i: ref.flash_attention(*sets[i]),
+                              n_sets, iters=10),
+             library_ms=time_ms(sdpa, n_sets),
+             library_device_ms=time_ms(sdpa, n_sets, spin=True),
+             bytes=4 * (2 * sets[0][0].numel() + 2 * sets[0][1].numel()),
+             ops=4 * h * d * pairs)
+    r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
+    log(f"  flash_attention at a GPipe stage's shape [b=1 sq=skv={s} h={h} "
+        f"kvh={kvh} d={d} causal, fp32]: kernel {r['ms']:.4f} ms at the "
+        f"host's pace, device time {r['device_ms']:.4f} ms "
+        f"({100 * r['bound_ms'] / r['device_ms']:.1f} % of its bound), "
+        f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+        f"device time {r['library_device_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.2f} "
+        f"MB, {r['ops'] / 1e9:.3f} GFLOP), max_abs_err {err:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    return r
+
+
+def dist_train_rank(rank: int, world: int, spec: dict) -> dict:
+    """Phase 24 on one rank of the group (``launch.mesh.run_ranks``
+    spawned it): rank 0 first takes the one-rank steps; then each mesh of
+    DIST_MESHES (its first gradient gathered whole against one rank's,
+    the planted skipped mean under FSDP, DIST_STEPS steps, the step-2
+    checkpoint under FSDP), the resume on (1, 2), one bf16 step under
+    FSDP, and GPipe against the sequential stack on rank 0. ``spec``:
+    arch, smoke, device, batch, seq, steps, ckpt (the checkpoint
+    directory). Returns plain values."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.dist import pipeline, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import schedule
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_items, tree_map
+
+    dev = mesh_lib.rank_device(rank, spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    base = configs.get_smoke(spec["arch"]) if spec["smoke"] \
+        else configs.get_config(spec["arch"])
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    n = spec["steps"]
+    sched = schedule.ScheduleConfig(warmup_steps=n, total_steps=n)
+    data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                      global_batch=spec["batch"]))
+    batches = []
+    for i in range(n):
+        tokens, labels = data.batch_at(i)
+        batches.append({"tokens": torch.from_numpy(tokens).to(dev),
+                        "labels": torch.from_numpy(labels).to(dev)})
+    out = {"rank": rank}
+
+    def run_steps(step, state, save=None):
+        losses, times, traffic = [], [], []
+        for i, b in enumerate(batches):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            sync()
+            times.append(time.perf_counter() - t0)
+            traffic.append(getattr(step, "traffic", None))
+            if save is not None and i + 1 == 2:
+                save(state)
+        return state, dict(losses=losses, step_ms=[1e3 * t for t in times],
+                           traffic=traffic)
+
+    def against_one(tree, spec_of, mesh, want):
+        """Each leaf gathered whole (every rank), held to ``want`` on rank
+        0: (worst |diff| / max |want|, its leaf, worst |diff|, the fault
+        leaf's ratio)."""
+        worst, key, worst_abs, fault = 0.0, None, 0.0, None
+        for path, leaf in tree_items(tree):
+            full = sharding.gather_leaf(leaf, spec_of[path], mesh)
+            if rank:
+                continue
+            diff = float((full - want[path]).abs().max())
+            ratio = diff / max(float(want[path].abs().max()), 1e-30)
+            worst_abs = max(worst_abs, diff)
+            if ratio > worst:
+                worst, key = ratio, path
+            if path == DIST_FAULT_LEAF:
+                fault = ratio
+            del full
+        return dict(worst=worst, leaf=key, worst_abs=worst_abs,
+                    fault_leaf=fault)
+
+    # One rank's steps, on rank 0 of the same call.
+    one_grads = one_params = None
+    if rank == 0:
+        reset_peak()
+        state = steps.init_state(cfg, 0, dev).tree()
+        g = steps.make_grad_fn(cfg)(state["params"], batches[0])[2]
+        one_grads = dict(tree_items(g))
+        del g
+        state, one = run_steps(steps.make_train_step(cfg, sched), state)
+        one_params = dict(tree_items(state["params"]))
+        one["peak_gib"] = peak_gib()
+        out["one"] = one
+        del state
+    dist.barrier()
+
+    ckpt = CheckpointManager(spec["ckpt"])
+    out["meshes"] = {}
+    for name, shape, fsdp in DIST_MESHES:
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        rs = sharding.Ruleset(mesh=mesh, fsdp=fsdp)
+        spec_of = sharding.leaf_specs(T.param_shapes(cfg), rs)
+        reset_peak()
+        state = steps.init_state(cfg, 0, dev, ruleset=rs).tree()
+        grads_fn = steps.make_grad_fn(cfg, 1, rs)
+        sync()
+        t0 = time.perf_counter()
+        _, _, g, tm = grads_fn(state["params"], batches[0])
+        sync()
+        r = {"grad_s": time.perf_counter() - t0,
+             "grad_traffic": dict(tm.traffic),
+             "grads": against_one(g, spec_of, mesh, one_grads)}
+        del g
+        if fsdp:
+            # The planted fault: the data-axis mean skipped on one leaf.
+            paths = [p for p, _ in tree_items(state["params"])]
+            k = paths.index(DIST_FAULT_LEAF)
+            average = steps._average_grads
+
+            def skipped(grads, specs, t):
+                out_ = average(grads, specs, t)
+                out_[k] = grads[k]
+                return out_
+
+            steps._average_grads = skipped
+            try:
+                g = grads_fn(state["params"], batches[0])[2]
+            finally:
+                steps._average_grads = average
+            r["fault"] = against_one(g, spec_of, mesh, one_grads)
+            del g
+
+        def save(st):
+            sync()
+            t0 = time.perf_counter()
+            ckpt.save(2, st, ruleset=rs, shapes=steps.state_shapes(cfg))
+            r["save_s"] = time.perf_counter() - t0
+
+        state, run = run_steps(steps.make_train_step(cfg, sched, ruleset=rs),
+                               state, save=save if fsdp else None)
+        r.update(run)
+        r["params"] = against_one(state["params"], spec_of, mesh,
+                                  one_params)
+        r["peak_gib"] = peak_gib()
+        r["local_params"] = sum(x.numel() for _, x in
+                                tree_items(state["params"]))
+        out["meshes"][name] = r
+        del state
+    one_grads = one_params = None
+    reset_peak()
+
+    # The checkpoint saved at step 2 under FSDP, restored onto (1, 2).
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    rs = sharding.Ruleset(mesh=mesh)
+    like = steps.init_state(cfg, 0, dev, ruleset=rs).tree()
+    sync()
+    t0 = time.perf_counter()
+    state, manifest = ckpt.restore(like, step=2, ruleset=rs)
+    sync()
+    restore_s = time.perf_counter() - t0
+    del like
+    _, m = steps.make_train_step(cfg, sched, ruleset=rs)(state, batches[2])
+    out["resume"] = dict(step=manifest["step"], loss=float(m["loss"]),
+                         restore_s=restore_s)
+    del state
+
+    # One bf16-compute step under FSDP (logged, not gated).
+    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+    rs = sharding.Ruleset(mesh=mesh, fsdp=True)
+    state = steps.init_state(base, 0, dev, ruleset=rs).tree()
+    step = steps.make_train_step(base, sched, ruleset=rs)
+    sync()
+    t0 = time.perf_counter()
+    _, m = step(state, batches[0])
+    loss = float(m["loss"])
+    sync()
+    out["bf16"] = dict(loss=loss, step_ms=1e3 * (time.perf_counter() - t0))
+    del state, step
+
+    # GPipe: the blocks in GPIPE_STAGES stages, forward through the kernel.
+    gcfg = dataclasses.replace(cfg, use_flash=True)
+    params = T.init_params(gcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.float32)
+    per = gcfg.n_layers // world
+    weights = [tree_map(lambda *ls: torch.stack(ls),
+                        *[params["blocks"][st * per + j]
+                          for st in range(world)]) for j in range(per)]
+
+    def stage(w, x):
+        for block in w:
+            x = T._layer_apply(block, gcfg, "attn", x)[0]
+        return x
+
+    mesh = mesh_lib.make_mesh((world,), ("stage",))
+    fn = pipeline.gpipe(stage, mesh, axis="stage")
+    with torch.no_grad():
+        x = layers.embed(params["embed"], batches[0]["tokens"][:GPIPE_MICRO],
+                         gcfg.dtype)[:, None]
+        ops.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        y = fn(weights, x)
+        sync()
+        gp = dict(ms=1e3 * (time.perf_counter() - t0),
+                  launches=ops.LAUNCHES["flash_attention"],
+                  bubble=pipeline.bubble_fraction(world, GPIPE_MICRO))
+        if rank == 0:
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            seq = torch.stack([stage(params["blocks"], x[m])
+                               for m in range(GPIPE_MICRO)])
+            sync()
+            gp.update(seq_ms=1e3 * (time.perf_counter() - t0),
+                      seq_launches=ops.LAUNCHES["flash_attention"],
+                      err=float((y - seq).abs().max())
+                      / float(seq.abs().max()))
+    out["gpipe"] = gp
+    return out
+
+
+def run_train_dist(dev, ops, ref) -> dict:
+    """Phase 24: the kernel at a GPipe stage's shape, then the ranks
+    (``dist_train_rank``); gates and logs their results."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    summary = {"kernel": time_gpipe_flash(dev, ops, ref)}
+    failed = [] if summary["kernel"]["ok"] else [
+        "flash_attention at the GPipe shape disagrees with its plain "
+        "version"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        spec = dict(arch=DIST_ARCH, smoke=False, device="cuda", batch=DIST_B,
+                    seq=DIST_S, steps=DIST_STEPS, ckpt=tmp)
+        t0 = time.perf_counter()
+        ranks = mesh_lib.run_ranks(dist_train_rank, 2, args=(spec,),
+                                   deadline_s=DIST_DEADLINE_S,
+                                   timeout_s=DIST_TIMEOUT_S, threads=1)
+        summary["ranks_s"] = time.perf_counter() - t0
+    failed += dist_verdicts(ranks, summary)
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return summary
+
+
+def dist_verdicts(ranks, summary) -> list:
+    """Phase 24's gates and log lines over the ranks' results; fills
+    ``summary``; returns the failures."""
+    failed = []
+    r0 = ranks[0]
+    one = r0["one"]
+    tokens = DIST_B * DIST_S
+    one_ms = sorted(one["step_ms"][1:] or one["step_ms"])[0]
+    log(f"  one rank: losses {one['losses']}, step {one['step_ms']} ms "
+        f"({tokens / one_ms * 1e3:.0f} tokens/s at the fastest), peak "
+        f"{one['peak_gib']:.2f} GiB")
+    summary["one"] = dict(step_ms=one_ms, tokens_per_s=tokens / one_ms * 1e3,
+                          peak_gib=one["peak_gib"])
+    for name, shape, fsdp in DIST_MESHES:
+        runs = [r["meshes"][name] for r in ranks]
+        a = runs[0]
+        ms = max(sorted(r["step_ms"][1:] or r["step_ms"])[0] for r in runs)
+        traffic = a["traffic"][-1]
+        rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                     one["losses"])]
+        g = a["grads"]
+        log(f"  {name} {dict(zip(('data', 'model'), shape))}: losses "
+            f"{a['losses']} (|diff| / one rank's: "
+            f"{[f'{x:.2e}' for x in rel]}, limit {DIST_LOSS_RTOL:g}); "
+            f"first-step gradients gathered whole, worst leaf "
+            f"{g['leaf']} {g['worst']:.3e} of its largest element (limit "
+            f"GRAD_TOL {GRAD_TOL:g}); step {[f'{x:.1f}' for x in a['step_ms']]}"
+            f" ms on rank 0 ({tokens / ms * 1e3:.0f} tokens/s at the slower "
+            f"rank's fastest, {one_ms / ms:.3f}x one rank); "
+            f"{traffic['collectives']} collectives and "
+            f"{traffic['bytes'] / 1e9:.3f} GB a step; peak a rank "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB; parameters a "
+            f"rank {a['local_params'] / 1e9:.4f} B; largest parameter "
+            f"difference from one rank after {DIST_STEPS} steps "
+            f"{a['params']['worst_abs']:.3e} ({a['params']['leaf']})")
+        if max(rel) > DIST_LOSS_RTOL:
+            failed.append(f"{name}: losses {a['losses']} against one rank's "
+                          f"{one['losses']}")
+        if not g["worst"] <= GRAD_TOL:
+            failed.append(f"{name}: first-step gradient {g['leaf']} "
+                          f"{g['worst']:.3e} off")
+        if any(r["losses"] != a["losses"] for r in runs):
+            failed.append(f"{name}: the ranks logged different losses")
+        if fsdp:
+            f = a["fault"]
+            log(f"  planted fault (the data-axis mean skipped on "
+                f"{DIST_FAULT_LEAF}): that leaf {f['fault_leaf']:.3e} of its "
+                f"largest element, worst {f['leaf']} {f['worst']:.3e} "
+                f"(must exceed GRAD_TOL); checkpoint at step 2 saved in "
+                f"{a['save_s']:.1f} s")
+            if not f["worst"] > GRAD_TOL:
+                failed.append(f"the planted skipped mean was not caught: "
+                              f"{f}")
+        summary[name] = dict(step_ms=ms, tokens_per_s=tokens / ms * 1e3,
+                             peak_gib=max(r["peak_gib"] for r in runs),
+                             collectives=traffic["collectives"],
+                             bytes=traffic["bytes"],
+                             grad_worst=g["worst"],
+                             param_diff=a["params"]["worst_abs"])
+    fresh = r0["meshes"]["fsdp"]["losses"][2]
+    res = r0["resume"]
+    rel = abs(res["loss"] - fresh) / abs(fresh)
+    log(f"  resumed: the step-{res['step']} checkpoint saved under FSDP "
+        f"restored onto (1, 2) in {res['restore_s']:.1f} s; step 3 loss "
+        f"{res['loss']:.6f} against the uninterrupted run's {fresh:.6f} "
+        f"({rel:.2e}, limit {DIST_LOSS_RTOL:g})")
+    if res["step"] != 2 or rel > DIST_LOSS_RTOL:
+        failed.append(f"resumed step 3 loss {res['loss']} against {fresh}")
+    summary["resume_rel"] = rel
+    log(f"  one bf16-compute step under FSDP (logged): loss "
+        f"{r0['bf16']['loss']:.6f} in {r0['bf16']['step_ms']:.1f} ms")
+    gp = r0["gpipe"]
+    want = GPIPE_MICRO * (DIST_LAYERS // GPIPE_STAGES)
+    log(f"  GPipe, {GPIPE_STAGES} stages x {DIST_LAYERS // GPIPE_STAGES} "
+        f"blocks, {GPIPE_MICRO} microbatches of 1 x {DIST_S}, fp32: "
+        f"{gp['ms']:.1f} ms a sweep against the sequential stack's "
+        f"{gp['seq_ms']:.1f} ms on one rank; bubble fraction "
+        f"{gp['bubble']:.3f}; |diff| / max |sequential| {gp['err']:.3e} "
+        f"(limit {GPIPE_TOL:g}); flash_attention launches a rank "
+        f"{[r['gpipe']['launches'] for r in ranks]} (the sequential "
+        f"stack {gp['seq_launches']})")
+    if not gp["err"] <= GPIPE_TOL:
+        failed.append(f"GPipe differs from the sequential stack: "
+                      f"{gp['err']:.3e}")
+    if any(r["gpipe"]["launches"] != want for r in ranks):
+        failed.append(f"GPipe ranks launched flash_attention "
+                      f"{[r['gpipe']['launches'] for r in ranks]} times, "
+                      f"want {want}")
+    summary["gpipe"] = dict(ms=gp["ms"], seq_ms=gp["seq_ms"], err=gp["err"],
+                            launches=gp["launches"])
+    return failed
 
 
 def main() -> None:
@@ -3899,6 +4338,13 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "24"]:
+        # Phase 24 alone, after the build.
+        t0 = time.perf_counter()
+        summary = run_train_dist(dev, ops, ref)
+        log(f"  phase 24 alone: {summary}; {time.perf_counter() - t0:.1f} s")
+        return
 
     if sys.argv[1:] == ["--phase", "23"]:
         # Phase 23 alone, after the build: for iterating on it; run
@@ -4201,6 +4647,12 @@ def main() -> None:
     tp["training"] = run_train_families(dev, ops, configs, T, steps)
     log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
 
+    log("== training over ranks: qwen2-0.5b whole on two gloo ranks of this "
+        "card, and GPipe ==")
+    t0 = time.perf_counter()
+    train_dist = run_train_dist(dev, ops, ref)
+    log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -4215,7 +4667,7 @@ def main() -> None:
         f"overload {overload}; cost models {costs}; dissection "
         f"{dissection}; families {families}; encoder-decoder "
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
-        f"tensor-parallel {tp}; total "
+        f"tensor-parallel {tp}; training over ranks {train_dist}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

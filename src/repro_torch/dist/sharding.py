@@ -14,9 +14,16 @@ Entry points:
 * ``ruleset.spec(names, shapes)``: the spec of an activation or batch;
 * ``param_spec(path, shape, ruleset)``: a parameter's spec from its leaf
   name (``_LEAF_NAMES``), with optional FSDP over the "data" axis;
-* ``use_ruleset`` / ``current_ruleset``: the ambient ruleset the layers
-  read (``serve.dist.active_pool_mesh``);
-* ``local_shard(x, spec, mesh)``: this rank's block of a full tensor.
+* ``use_ruleset`` / ``current_ruleset``: the ambient ruleset the
+  serving layers read (``serve.dist.active_pool_mesh``; a train step has
+  its own switch, ``train.dist.use_mesh``);
+* ``local_shard(x, spec, mesh)``: this rank's block of a full tensor,
+  and ``shard_tree`` the same for every leaf of a tree by its
+  ``param_spec``;
+* ``gather_leaf(x, spec, mesh)``: the full tensor back from the blocks
+  (exact: an ``all_reduce`` of this rank's block placed in zeros), and
+  ``gather_tree`` the same for a tree, given the specs of its leaves
+  (``leaf_specs``).
 
 A spec is a tuple with one entry a dimension: None (replicated), an axis
 name, or a tuple of axis names composed left to right (the reference's
@@ -38,6 +45,9 @@ import threading
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.tree import tree_items, tree_unflatten
 
 Spec = Tuple[Any, ...]
 
@@ -193,21 +203,90 @@ def param_spec(path: Sequence[Any], shape: Sequence[int],
     return tuple(parts)
 
 
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis ``spec`` shards over, in dim order."""
+    out = []
+    for axes in spec:
+        if axes is not None:
+            out.extend((axes,) if isinstance(axes, str) else axes)
+    return tuple(out)
+
+
+def _block(axes, mesh) -> Tuple[Tuple[str, ...], int, int]:
+    """(axes as a tuple, blocks over them, this rank's block): composed
+    row-major, the outermost axis slowest."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
+    return axes, n, i
+
+
 def local_shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the full tensor ``x`` under ``spec``: each
-    sharded dim cut into equal blocks over its axes (composed row-major,
-    the outermost axis slowest), block ``mesh.index(...)`` kept. A
-    contiguous copy, so the full tensor can be freed."""
+    sharded dim cut into equal blocks over its axes, block
+    ``mesh.index(...)`` kept. A contiguous copy, so the full tensor can be
+    freed."""
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        n, i = 1, 0
-        for a in axes:
-            n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
+        _, n, i = _block(axes, mesh)
         size = x.shape[dim] // n
         x = x.narrow(dim, i * size, size)
     return x.contiguous()
+
+
+def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full tensor whose block under ``spec`` this rank holds in
+    ``x``, on every rank: each sharded dim's block placed in zeros and
+    summed over its axes, exact (one rank contributes each element)."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes, n, i = _block(axes, mesh)
+        shape = list(x.shape)
+        size = shape[dim]
+        shape[dim] = n * size
+        out = x.new_zeros(shape)
+        out.narrow(dim, i * size, size).copy_(x)
+        for a in axes:
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group(a))
+        x = out
+    return x
+
+
+def leaf_name(path: str) -> str:
+    """The leaf name ``param_spec`` reads from a "/"-joined tree path: its
+    last key that is not a list index."""
+    keys = [k for k in path.split("/") if not k.isdigit()]
+    return keys[-1] if keys else ""
+
+
+def leaf_specs(like, ruleset: Ruleset) -> Dict[str, Spec]:
+    """The spec of each leaf of ``like`` (a tree of tensors of the
+    *global* shapes, meta tensors will do), keyed by its path (a tree of
+    the same leaves may hold its keys in another order)."""
+    return {path: param_spec((leaf_name(path),), tuple(leaf.shape), ruleset)
+            for path, leaf in tree_items(like)}
+
+
+def shard_tree(tree, mesh, ruleset: Ruleset):
+    """This rank's shard of the full ``tree``: each leaf cut by the spec
+    its name resolves to under ``ruleset`` (heads, mlp and vocab over the
+    model axis, large leaves over "data" under FSDP; norms and dims that
+    do not divide replicate). Optimizer mirrors ({"m": params, ...})
+    resolve as the parameters do."""
+    return tree_unflatten(tree, [
+        local_shard(leaf, param_spec((leaf_name(path),), tuple(leaf.shape),
+                                     ruleset), mesh)
+        for path, leaf in tree_items(tree)])
+
+
+def gather_tree(tree, specs: Dict[str, Spec], mesh):
+    """The full tree from this rank's shard (``specs``: each leaf's by
+    path, ``leaf_specs``), on every rank."""
+    return tree_unflatten(tree, [gather_leaf(x, specs[path], mesh)
+                                 for path, x in tree_items(tree)])
 
 
 # ----------------------------------------------------------------------------

@@ -96,6 +96,21 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
     return Mesh(tuple(shape), tuple(axes))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes over the initialised group:
+    (16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model") with ``multi_pod``. A group of another size raises, naming
+    the ranks the mesh needs."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def single_device_mesh() -> Mesh:
+    """A (1, 1) ("data", "model") mesh over a one-rank group."""
+    return make_mesh((1, 1), ("data", "model"))
+
+
 def make_serving_mesh(tp: Optional[int] = None) -> Optional[Mesh]:
     """The serving engine's 1-D tensor-parallel mesh, ``("model",)`` over
     ``tp`` ranks (default: the whole group). Serving has no data axis:
@@ -132,6 +147,22 @@ def init_group(rank: int, world: int, port: int, backend: str = "gloo",
     dist.init_process_group(
         backend, init_method=f"tcp://localhost:{port}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def maybe_init_distributed(timeout_s: float = 300.0) -> bool:
+    """Join the group that ``RANK`` and ``WORLD_SIZE`` name (with
+    ``MASTER_ADDR``/``MASTER_PORT``, gloo) unless one is initialised or
+    they are unset; True when this call joined it (the caller destroys
+    it). The counterpart of the reference launcher's
+    ``jax.distributed.initialize()``."""
+    if dist.is_initialized() or "RANK" not in os.environ \
+            or "WORLD_SIZE" not in os.environ:
+        return False
+    dist.init_process_group(
+        "gloo", init_method="env://", rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]),
+        timeout=datetime.timedelta(seconds=timeout_s))
+    return True
 
 
 def rank_device(rank: int, device: str) -> torch.device:

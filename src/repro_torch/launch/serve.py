@@ -58,7 +58,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import datetime
 import io
 import json
 import os
@@ -268,9 +267,7 @@ def main(argv=None):
             rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
             if world != tp:
                 raise SystemExit(f"WORLD_SIZE {world} is not --tp {tp}")
-            torch.distributed.init_process_group(
-                "gloo", init_method="env://",
-                timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+            mesh_lib.maybe_init_distributed(RANK_TIMEOUT_S)
             try:
                 return _serve_rank(rank, world, args)
             finally:

@@ -1,4 +1,5 @@
-"""Training launcher: the trainer over synthetic data on one device.
+"""Training launcher: the trainer over synthetic data, on one device or
+on a mesh of ranks.
 
   python -m repro_torch.launch.train --arch qwen2-0.5b --steps 30 \\
       --batch 4 --seq 512 --ckpt DIR
@@ -15,22 +16,45 @@ false, 1 or 0. Every family trains (mixtures of experts with their aux
 loss, Mamba stacks through the plain chunked scan, an encoder-decoder or
 cross layers: a config with a stubbed frontend is fed zeros of shape
 (batch, n_frontend_tokens, d_model), as the reference's
-``frontend_stub``), on one device: ``--fsdp`` and ``--mesh`` are not
-ported (ROADMAP Queue 1 item 3). ``--log-every N`` keeps every Nth
-step's metrics (10 by default).
+``frontend_stub``). ``--log-every N`` keeps every Nth step's metrics
+(10 by default).
+
+**Ranks.** ``--mesh single`` (16 x 16 over ("data", "model")) or
+``--mesh multi`` (2 x 16 x 16 over ("pod", "data", "model")) trains on
+the reference's production meshes, one process a rank, each started with
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set (a gloo
+group; a group of another size raises, naming the ranks the mesh
+needs), e.g. 256 of
+
+  RANK=$r WORLD_SIZE=256 MASTER_ADDR=host0 MASTER_PORT=29500 \
+      python -m repro_torch.launch.train --arch qwen2-0.5b --mesh single \
+      --fsdp --ckpt DIR
+
+Each rank runs on the card ``RANK`` modulo the cards it sees; rank 0
+prints. ``--fsdp`` also shards large leaves over "data"; without a mesh
+it does nothing, as in the reference. ``build(cfg, args, device, mesh)``
+takes any ``launch.mesh.Mesh`` (tests and ``chip_smoke.py`` phase 24 use
+(2, 1) and (1, 2) meshes over ``launch.mesh.run_ranks``). gloo runs only
+``all_reduce`` and ``broadcast`` on CUDA tensors, which is all the step
+uses; a mixture of experts, Mamba or cross layers train over the data
+axis only (``models.transformer.forward_aux``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-from typing import Any, Dict
+import io
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.data import DataConfig, SyntheticLMData
+from repro_torch.dist import sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.optim import schedule
 from repro_torch.train import steps as steps_mod
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -64,18 +88,30 @@ def apply_overrides(cfg: ModelConfig, overrides: Dict[str, str]) -> ModelConfig:
     return dataclasses.replace(cfg, **typed)
 
 
-def build(cfg: ModelConfig, args, device):
-    """(step function, fresh-state function) for the trainer."""
+def train_ruleset(mesh, fsdp: bool) -> Optional[sharding.Ruleset]:
+    """The sharding a train step runs under: None without a mesh (so
+    ``--fsdp`` alone does nothing, as in the reference)."""
+    return sharding.Ruleset(mesh=mesh, fsdp=fsdp) if mesh else None
+
+
+def build(cfg: ModelConfig, args, device, mesh=None):
+    """(step function, fresh-state function) for the trainer; on a
+    ``mesh`` (``launch.mesh.Mesh``), under ``train_ruleset(mesh,
+    args.fsdp)``: each rank's state is its shards of the seed's tree and
+    the step computes the single-device step's result."""
+    ruleset = train_ruleset(mesh, args.fsdp)
     sched = schedule.ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                                     total_steps=args.steps)
     step = steps_mod.make_train_step(cfg, sched=sched,
                                      accum_steps=args.accum,
                                      compress_grads=args.compress_grads,
-                                     error_feedback=args.error_feedback)
+                                     error_feedback=args.error_feedback,
+                                     ruleset=ruleset)
 
     def init_fn():
         return steps_mod.init_state(cfg, args.seed, device,
-                                    error_feedback=args.error_feedback).tree()
+                                    error_feedback=args.error_feedback,
+                                    ruleset=ruleset).tree()
 
     return step, init_fn
 
@@ -108,42 +144,61 @@ def main(argv=None):
     ap.add_argument("--ckpt", required=True, help="checkpoint directory")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--fsdp", action="store_true", help="not ported")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard large leaves over the data axis (with "
+                         "--mesh)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--error-feedback", action="store_true",
                     help="carry the int8 quantization residual in the "
                          "train state (EF-SGD); implies --compress-grads")
     ap.add_argument("--mesh", default="none",
-                    choices=["none", "single", "multi"], help="not ported")
+                    choices=["none", "single", "multi"],
+                    help="the reference's production mesh over the ranks "
+                         "that RANK/WORLD_SIZE name")
     ap.add_argument("--device", default="cuda")
     args, extra = ap.parse_known_args(argv)
-    if args.fsdp or args.mesh != "none":
-        raise NotImplementedError(
-            "--fsdp and --mesh are not ported: the port trains on one "
-            "device (ROADMAP Queue 1 item 3)")
     bad = [a for a in extra if "=" not in a]
     if bad:
         ap.error(f"unrecognized arguments: {' '.join(bad)}")
     if args.error_feedback:
         args.compress_grads = True
 
-    device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     overrides = dict(a.lstrip("-").split("=", 1) for a in extra)
     if overrides:
         cfg = apply_overrides(cfg, overrides)
 
+    joined = mesh_lib.maybe_init_distributed()
+    try:
+        mesh, device = None, resolve_device(args.device)
+        if args.mesh != "none":
+            mesh = mesh_lib.make_production_mesh(
+                multi_pod=args.mesh == "multi")
+            device = mesh_lib.rank_device(mesh.rank, args.device)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+        if mesh is not None and mesh.rank != 0:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _train(cfg, args, device, mesh)
+        return _train(cfg, args, device, mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(cfg: ModelConfig, args, device, mesh):
     data = SyntheticLMData(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                       global_batch=args.batch,
                                       seed=args.seed))
-    step_fn, init_fn = build(cfg, args, device)
+    step_fn, init_fn = build(cfg, args, device, mesh)
     trainer = Trainer(
         TrainerConfig(checkpoint_dir=args.ckpt, total_steps=args.steps,
                       checkpoint_every=args.ckpt_every,
                       log_every=args.log_every),
         cfg, data, step_fn, init_fn, device=device,
-        frontend_fn=frontend_stub(cfg, device))
+        frontend_fn=frontend_stub(cfg, device),
+        ruleset=train_ruleset(mesh, args.fsdp))
     result = trainer.run()
     for m in result["metrics"]:
         print(f"step {m['step']:5d} loss={m['loss']:.4f} "

@@ -20,6 +20,15 @@ before the pool (which holds every kv head of its pages), the page-table
 walk gathered over ranks, and the vocab gathers of the embedding and the
 logits. A dim that does not divide the ranks is replicated and needs no
 collective.
+
+**Training over a model axis.** Inside a train step on a mesh
+(``train.dist.use_mesh``; its own switch, which the serving paths never
+read) the cache-less attention, the MLP and the embeddings are split the
+same way (Megatron's layout, which is what GSPMD makes of the
+reference's rules): each column-parallel region takes its input through
+``copy`` and each row-parallel product leaves through ``reduce``; the
+unembedding leaves the logits vocab-sharded for the loss
+(``train.steps.cross_entropy``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve import dist as serve_dist
+from repro_torch.train import dist as train_dist
+from repro_torch.tree import tree_map
 
 Params = Dict[str, object]
 
@@ -44,20 +55,28 @@ NEG_INF = -1e30
 # Norms and rotary embeddings
 # ----------------------------------------------------------------------------
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the fp32 islands (norms, the loss, the Mamba scan) run
+    in: fp32, or float64 for a float64 input (a gradient check's
+    well-conditioned reference). fp32 and bf16 inputs get fp32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm in fp32, the scale applied before the cast back."""
+    """RMSNorm in fp32 (``wide``), the scale applied before the cast
+    back."""
     dtype = x.dtype
-    xf = x.float()
+    xf = x.to(wide(dtype))
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(dtype)
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5):
-    """LayerNorm in fp32 (population variance), scale and bias applied
-    before the cast back."""
+    """LayerNorm in fp32 (``wide``; population variance), scale and bias
+    applied before the cast back."""
     dtype = x.dtype
-    xf = x.float()
+    xf = x.to(wide(dtype))
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
@@ -175,6 +194,11 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
     if cache is not None:
         idx = cache["index"].long()
         positions = positions + (idx[:, None] if idx.dim() == 1 else idx)
+    if cache is None:
+        train = train_dist.sharded("heads", cfg.n_heads)
+        if train is not None:
+            return _attention_train(params, cfg, x, positions, use_flash,
+                                    *train), None
     q, k, v = _project_qkv(params, cfg, x, positions)
     if serve_dist.active_pool_mesh() is not None:
         if cache is None or "kp" not in cache:
@@ -192,6 +216,38 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
         mask = causal_mask(s, device=x.device) if cfg.causal else None
         out = sdpa(q, k, v, mask=mask)
     return _matmul_out(out, params["wo"]), None
+
+
+def _attention_train(params: Params, cfg: AttnConfig, x, positions,
+                     use_flash: bool, tm, axis: str):
+    """Cache-less attention under a train step's model axis: column-
+    parallel over this rank's q heads (``wq``, ``b_q``) and, where the kv
+    heads shard, its kv heads; row-parallel over ``wo``, whose product is
+    summed over the axis (``reduce``). Where the kv heads replicate (the
+    divisibility fallback) every rank projects them all and keeps those
+    its q heads read (``_local_kv_heads``). A weight replicated over the
+    axis but used inside the region gets a partial gradient on each
+    rank, so it enters through ``copy``: the qk-norm scales (shared by
+    every head) and, with the kv heads replicated, ``wk``/``wv``/``b_k``
+    /``b_v``."""
+    kv_sharded = tm.ruleset.sharded("kv_heads", cfg.n_kv_heads) is not None
+    partial = ("q_norm", "k_norm") if kv_sharded else (
+        "q_norm", "k_norm", "wk", "wv", "b_k", "b_v")
+    p = dict(params)
+    for name in partial:
+        if name in p:
+            p[name] = tree_map(lambda t: tm.copy(t, axis), p[name])
+    q, k, v = _project_qkv(p, cfg, tm.copy(x, axis), positions)
+    if not kv_sharded:
+        k, v = _local_kv_heads(k, v, cfg.n_heads, q.shape[2],
+                               tm.mesh.index(axis))
+    if use_flash:
+        out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        mask = causal_mask(x.shape[1], device=x.device) if cfg.causal \
+            else None
+        out = sdpa(q, k, v, mask=mask)
+    return tm.reduce(_matmul_out(out, params["wo"]), axis)
 
 
 def _contiguous_apply(params: Params, x, q, k, v, cache: Params):
@@ -273,7 +329,7 @@ def _paged_apply(params: Params, x, q, k, v, cache: Params):
 
 def _local_kv_heads(ck, cv, n_heads: int, q_local: int, rank: int):
     """The kv heads this rank's q heads read from the full (b, L, kvh, d)
-    views: q heads [rank * q_local, (rank + 1) * q_local) read kv heads
+    views (or a train step's (b, s, kvh, d) projections): q heads [rank * q_local, (rank + 1) * q_local) read kv heads
     j // group, a contiguous slice when the rank's heads cover whole
     groups or lie inside one (every registry config at 2, 4 and 8
     ranks)."""
@@ -364,7 +420,7 @@ class MLPConfig:
     activation: str = "swiglu"        # "swiglu" | "gelu"
 
 
-def mlp_apply(params: Params, cfg: MLPConfig, x):
+def _mlp(params: Params, cfg: MLPConfig, x):
     if cfg.activation == "swiglu":
         g = x @ params["w_gate"].to(x.dtype)
         u = x @ params["w_up"].to(x.dtype)
@@ -373,37 +429,69 @@ def mlp_apply(params: Params, cfg: MLPConfig, x):
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(x @ params["w_up"].to(x.dtype)
                    + params["b_up"].to(x.dtype), approximate="tanh")
-    y = h @ params["w_down"].to(x.dtype)
+    return h @ params["w_down"].to(x.dtype)
+
+
+def mlp_apply(params: Params, cfg: MLPConfig, x):
+    """The MLP; split by ``mlp`` columns (gate/up, ``b_up``) and
+    ``w_down`` rows under a serving pool mesh or a train step's model
+    axis, its output summed over the ranks."""
+    train = train_dist.sharded("mlp", cfg.d_ff)
+    if train is not None:
+        tm, axis = train
+        return tm.reduce(_mlp(params, cfg, tm.copy(x, axis)), axis)
+    y = _mlp(params, cfg, x)
     tp = serve_dist.sharded("mlp", cfg.d_ff)
     if tp is not None:
         serve_dist.all_reduce(y, *tp)        # w_down split by rows
     return y
 
 
+def _vocab_rows(table, tokens, first: int, dtype):
+    """The rows of ``tokens`` that a vocab-sharded ``table`` holds (its
+    first global row ``first``), zeros for the rest."""
+    local = tokens.long() - first
+    owned = (local >= 0) & (local < table.shape[0])
+    out = table[torch.where(owned, local, torch.zeros_like(local))]
+    return torch.where(owned[..., None], out,
+                       torch.zeros((), dtype=dtype, device=out.device))
+
+
 def embed(params: Params, tokens, dtype=torch.float32,
           vocab: Optional[int] = None):
-    """The embedding rows of ``tokens``. Under a pool mesh whose vocab
-    rule shards the table (``vocab`` its global rows), each rank looks
-    up the tokens in its rows, zeros for the rest, and one
-    ``all_reduce`` assembles them (exact: one rank owns each token)."""
+    """The embedding rows of ``tokens``. Under a pool mesh or a train
+    step's model axis whose vocab rule shards the table (``vocab`` its
+    global rows), each rank looks up the tokens in its rows, zeros for
+    the rest, and one ``all_reduce`` assembles them (exact: one rank owns
+    each token)."""
     table = params["embedding"].to(dtype)
+    if vocab is not None:
+        train = train_dist.sharded("vocab", vocab)
+        if train is not None:
+            tm, axis = train
+            out = _vocab_rows(table, tokens,
+                              tm.mesh.index(axis) * table.shape[0], dtype)
+            return tm.reduce(out, axis)
     tp = None if vocab is None else serve_dist.sharded("vocab", vocab)
     if tp is None:
         return table[tokens.long()]
     mesh, axis = tp
-    rows = table.shape[0]
-    local = tokens.long() - mesh.index(axis) * rows
-    owned = (local >= 0) & (local < rows)
-    out = table[torch.where(owned, local, torch.zeros_like(local))]
-    out = torch.where(owned[..., None], out,
-                      torch.zeros((), dtype=dtype, device=out.device))
+    out = _vocab_rows(table, tokens, mesh.index(axis) * table.shape[0],
+                      dtype)
     return serve_dist.all_reduce(out, mesh, axis)
 
 
 def unembed(params: Params, x, vocab: Optional[int] = None):
     """The logits ``x @ lm_head``; under a pool mesh whose vocab rule
     shards ``lm_head`` (``vocab`` its global columns), through
-    ``dist.collective_matmul.serve_unembed``."""
+    ``dist.collective_matmul.serve_unembed``; under a train step's model
+    axis, this rank's vocab columns of the logits (the loss is sharded
+    the same way)."""
+    if vocab is not None:
+        train = train_dist.sharded("vocab", vocab)
+        if train is not None:
+            tm, axis = train
+            return tm.copy(x, axis) @ params["lm_head"].to(x.dtype)
     tp = None if vocab is None else serve_dist.sharded("vocab", vocab)
     if tp is not None:
         from repro_torch.dist import collective_matmul

@@ -9,7 +9,7 @@ On the serving path a prompt (l > 1) goes through the SSD scan kernel
 step (l == 1 with a cache) through the exact recurrence. Training passes
 ``use_kernel=False`` (the kernel has no backward): the sequence then runs
 the differentiable ``ssd_chunked`` in fp32, as the reference's default
-path does.
+path does (in float64 for a float64 input: ``layers.wide``).
 
 Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
 in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
@@ -187,11 +187,12 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
     cmat = x @ params["w_C"].to(dtype)
     dt = F.softplus(x @ params["w_dt"].to(dtype)
                     + params["dt_bias"].to(dtype))               # (b,l,h)
-    a = -torch.exp(params["A_log"].float())                      # (h,)
+    wide = layers.wide(dtype)              # fp32, or float64 for float64
+    a = -torch.exp(params["A_log"].to(wide))                     # (h,)
 
     xin, new_conv = _causal_conv(xin, params["conv_w"],
                                  None if cache is None else cache["conv"])
-    a_log = dt.float() * a                                       # (b,l,h)
+    a_log = dt.to(wide) * a                                      # (b,l,h)
     x_scaled = xin * dt[..., None].to(dtype)
     h0 = None if cache is None else cache["ssm"].float()
     if cache is not None and l == 1:
@@ -204,8 +205,8 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
         chunk = min(cfg.chunk, l)
         while l % chunk:
             chunk //= 2
-        y, hn = ssd_chunked(x_scaled.float(), a_log, bmat.float(),
-                            cmat.float(), chunk, h0=h0)
+        y, hn = ssd_chunked(x_scaled.to(wide), a_log, bmat.to(wide),
+                            cmat.to(wide), chunk, h0=h0)
         y = y.to(dtype)
 
     y = y + xin * params["D"].to(dtype)[None, None, :, None]

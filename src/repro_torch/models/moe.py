@@ -30,6 +30,14 @@ atomics).
 ``moe_apply`` returns ``(out, aux)``: ``aux`` is the Switch-style
 load-balancing loss, which only training adds (``train.steps.loss_fn``,
 weighted by ``aux_weight``).
+
+**Over the data axis** (a train step on a mesh whose batch rows are
+split over ranks, ``train.dist``): the reference routes the whole global
+batch, so each rank does too. The capacity comes from the global token
+count; a choice's rank within its expert follows global token order, so
+each rank offsets its local ranks by the per-expert counts of the batch
+ranks before it (exact integer sums); the aux loss takes the global
+density and the global mean probability (``TrainMesh.batch_mean``).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.train import dist as train_dist
 
 Params = Dict[str, object]
 
@@ -106,19 +115,53 @@ def moe_init(generator: torch.Generator, cfg: MoEConfig, device,
     return p
 
 
+def _split():
+    """The train step's mesh when its batch rows are split over ranks
+    (routing must then span the ranks), else None."""
+    tm = train_dist.active()
+    return tm if tm is not None and tm.batch_axes else None
+
+
+def _counts(ids, n_experts: int):
+    """(choices of each expert in the ranks' batch blocks before this
+    one's, in the whole batch), int64 (e,): over the data axis through
+    one exact ``all_reduce``, else (zeros, this call's counts)."""
+    flat = ids.reshape(-1)
+    local = torch.zeros(n_experts, dtype=torch.int64,
+                        device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    tm = _split()
+    if tm is None:
+        return torch.zeros_like(local), local
+    every = tm.stack(local, tm.batch_axes)            # (ranks, e)
+    return every[:tm.index(tm.batch_axes)].sum(0), every.sum(0)
+
+
+def _global_tokens(t: int) -> int:
+    tm = _split()
+    return t if tm is None else t * tm.size(tm.batch_axes)
+
+
 def _route(params: Params, cfg: MoEConfig, x):
     """Router in fp32 -> (weights (t, k) in x's dtype, ids (t, k), aux).
-    x: (t, d)."""
+    x: (t, d). Over the data axis ``aux`` is the whole batch's."""
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.topk(probs, cfg.top_k, dim=-1)
     weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load balance: E * sum_e f_e * p_e.
     t = x.shape[0]
-    density = torch.zeros(cfg.n_experts, device=x.device).scatter_add_(
-        0, ids.reshape(-1), torch.ones(ids.numel(), device=x.device)) / (
-        t * cfg.top_k)
-    aux = cfg.n_experts * torch.sum(density * probs.mean(dim=0))
+    mean_prob = probs.mean(dim=0)
+    tm = _split()
+    if tm is None:
+        density = torch.zeros(cfg.n_experts, device=x.device).scatter_add_(
+            0, ids.reshape(-1), torch.ones(ids.numel(), device=x.device)) / (
+            t * cfg.top_k)
+    else:
+        density = _counts(ids, cfg.n_experts)[1].float() / (
+            _global_tokens(t) * cfg.top_k)
+        mean_prob = tm.batch_mean(mean_prob)
+    aux = cfg.n_experts * torch.sum(density * mean_prob)
     return weights.to(x.dtype), ids, aux
 
 
@@ -149,13 +192,16 @@ def _moe_capacity(params: Params, cfg: MoEConfig, x2):
     t, d = x2.shape
     weights, ids, aux = _route(params, cfg, x2)
     e, k = cfg.n_experts, cfg.top_k
-    cap = capacity(cfg, t)
+    cap = capacity(cfg, _global_tokens(t))
     flat_ids = ids.reshape(-1)                                 # (t*k,)
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
-    # Rank within the expert: position minus the expert's first position.
+    # Rank within the expert: position minus the expert's first position,
+    # after the expert's choices in the batch blocks before this one.
     first = torch.searchsorted(sorted_ids, sorted_ids, side="left")
     rank = torch.arange(t * k, device=x2.device) - first
+    if _split() is not None:
+        rank = rank + _counts(ids, e)[0][sorted_ids]
     keep = rank < cap
     dest = torch.where(keep, sorted_ids * cap + rank,
                        torch.full_like(rank, e * cap))
@@ -195,11 +241,9 @@ def dropped(params: Params, cfg: MoEConfig, x) -> torch.Tensor:
     """Choices the capacity path drops for x (b, s, d): those past their
     expert's capacity, counted on x's device as a 0-d int64 tensor (no
     wait on the host; the caller reads it when it likes). Of
-    ``b * s * top_k`` choices in all."""
+    ``b * s * top_k`` choices in all; over the data axis, the whole
+    batch's drops, on every rank."""
     _, ids, _ = _route(params, cfg, x.reshape(-1, x.shape[-1]))
-    flat = ids.reshape(-1)
-    counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
-                         device=x.device).scatter_add_(
-        0, flat, torch.ones_like(flat))
-    cap = capacity(cfg, x.shape[0] * x.shape[1])
+    counts = _counts(ids, cfg.n_experts)[1]
+    cap = capacity(cfg, _global_tokens(x.shape[0] * x.shape[1]))
     return (counts - cap).clamp(min=0).sum()

@@ -26,6 +26,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers, mamba, moe
+from repro_torch.train import dist as train_dist
 
 Params = Dict[str, Any]
 
@@ -55,8 +56,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     Matmul weights and the embedding are stored in ``dtype`` (default: the
     config's compute dtype); norm scales and biases and the gate in fp32.
-    ``generator`` must live on ``device``; None seeds a fresh one with 0."""
-    device = resolve_device(device)
+    ``generator`` must live on ``device``; None seeds a fresh one with 0.
+    On the ``meta`` device (``param_shapes``) no value is drawn."""
+    device = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     dtype = dtype or cfg.dtype
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -129,6 +132,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                        for _ in range(cfg.encoder.n_layers)],
             "ln_f": norm()}
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """``init_params``'s tree as fp32 meta tensors: every leaf's global
+    shape, with no memory allocated (what the sharding rules read)."""
+    return init_params(cfg, torch.Generator(), device="meta",
+                       dtype=torch.float32)
 
 
 def param_count(params: Params) -> int:
@@ -325,7 +335,24 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens,
     summed over layers (fp32, 0 without experts), as the reference's
     ``forward`` does. ``ssd_kernel`` False runs the Mamba layers through
     the plain chunked scan: the training step's choice, since the scan
-    kernel has no backward."""
+    kernel has no backward.
+
+    Inside a train step on a mesh (``train.dist.use_mesh``) the dense
+    layers split over its model axis (``models.layers``); a Mamba layer,
+    a mixture of experts, a cross layer or an encoder under a model axis
+    larger than 1 raises. Under the data axis alone every family runs,
+    the mixtures routing over the whole batch (``models.moe``)."""
+    tm = train_dist.active()
+    if tm is not None and tm.model_parallel:
+        bad = sorted({cfg.kind(i) for i in range(cfg.n_layers)} - {"attn"})
+        bad += ["moe"] if cfg.n_experts else []
+        bad += ["encoder"] if cfg.encoder is not None else []
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(bad)} layers do not train over a "
+                f"model axis (the model axis for experts, Mamba and "
+                f"cross/encoder layers is ROADMAP Queue 1 item 2); train "
+                f"them over the data axis")
     x = layers.embed(params["embed"], tokens, cfg.dtype, vocab=cfg.vocab)
     if cross_kv is not None:
         cross_kv = cross_kv.to(cfg.dtype)

@@ -5,13 +5,15 @@ the state is the reference's and a checkpoint stores it leaf by leaf).
 State: ``{"m", "v"}`` fp32 trees mirroring the parameters and an int32
 ``count``. Bias correction from ``count``, weight decay on every leaf, all
 arithmetic in fp32. ``adamw_update`` updates the parameters and moments
-**in place** (the reference returns new trees from a donated state).
+**in place** (the reference returns new trees from a donated state). On a
+mesh every leaf is a shard and AdamW, being elementwise, runs on the
+shards; only the global norm sums over ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,15 +35,31 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, leaf_axes: Optional[Sequence[tuple]] = None,
+                all_reduce: Optional[Callable] = None) -> torch.Tensor:
+    """The L2 norm over every leaf. For a tree of shards on a mesh,
+    ``leaf_axes`` names the axes each leaf (in ``tree_leaves`` order) is
+    sharded on and ``all_reduce(x, axes)`` sums over them: each group of
+    leaves sharded alike sums its squares over its axes, and a leaf
+    replicated on an axis counts its copy once."""
+    squares = [torch.sum(torch.square(leaf.float()))
+               for leaf in tree_leaves(tree)]
+    if leaf_axes is None:
+        return torch.sqrt(sum(squares))
+    groups: Dict[tuple, torch.Tensor] = {}
+    for sq, axes in zip(squares, leaf_axes):
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    return torch.sqrt(sum(all_reduce(v.clone(), axes) if axes else v
+                          for axes, v in groups.items()))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float,
+                        leaf_axes: Optional[Sequence[tuple]] = None,
+                        all_reduce: Optional[Callable] = None):
     """(grads scaled so their global norm is at most ``max_norm``, the
-    norm before clipping)."""
-    norm = global_norm(grads)
+    norm before clipping); ``leaf_axes``/``all_reduce`` as
+    ``global_norm``'s."""
+    norm = global_norm(grads, leaf_axes, all_reduce)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 

@@ -87,30 +87,16 @@ def all_gather_dim(x: torch.Tensor, dim: int, mesh, axis: str
     """The blocks of ``dim`` that the ranks of ``axis`` hold, joined in
     rank order on every rank: this rank's block placed in zeros and
     summed (``all_reduce``), exact since one rank contributes each
-    element."""
-    n, i = mesh.shape[axis], mesh.index(axis)
-    shape = list(x.shape)
-    size = shape[dim]
-    shape[dim] = n * size
-    out = x.new_zeros(shape)
-    out.narrow(dim, i * size, size).copy_(x)
-    return all_reduce(out, mesh, axis)
+    element (``sharding.gather_leaf`` of the one sharded dim)."""
+    return sharding.gather_leaf(x, (None,) * (dim % x.dim()) + (axis,),
+                                mesh)
 
 
 def shard_params(params, mesh, ruleset: sharding.Ruleset):
-    """This rank's shard of the full ``params`` tree: each leaf cut by the
-    spec its name resolves to under ``ruleset`` (heads, mlp and vocab
-    over the model axis; norms and dims that do not divide replicate)."""
-
-    def walk(tree, name=None):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, name) for v in tree)
-        spec = sharding.param_spec((name,), tree.shape, ruleset)
-        return sharding.local_shard(tree, spec, mesh)
-
-    return walk(params)
+    """This rank's shard of the full ``params`` tree
+    (``dist.sharding.shard_tree``: each leaf cut by the spec its name
+    resolves to under ``ruleset``)."""
+    return sharding.shard_tree(params, mesh, ruleset)
 
 
 def shard_caches(caches: List[dict], mesh, axis: str = "model"

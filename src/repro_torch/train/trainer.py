@@ -8,6 +8,13 @@
 * straggler watchdog: each step's wall time against the rolling median of
   the last 50; a step slower than ``straggler_factor`` times it fires
   ``on_straggler`` (here it logs and counts).
+
+On a mesh (``ruleset``: the build's, ``launch.train.build``) every rank
+runs this loop: the state is its shards, restored with the ruleset (the
+elastic restore) and saved whole by rank 0; every rank hands the step
+the global batch, whose block the step takes (``train.dist
+.batch_block``), and logs the global loss the step returns. The
+watchdog and ``SimulatedPreemption`` act on each rank as on one.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import SyntheticLMData
+from repro_torch.train import steps as steps_mod
 
 
 @dataclasses.dataclass
@@ -42,12 +50,12 @@ class Trainer:
     ``init_state_fn()`` returns a fresh state tree, which also gives a
     restore its structure. ``frontend_fn(batch_size)``, where given, makes
     each batch's "frontend" (a stubbed audio or vision frontend's
-    embeddings)."""
+    embeddings). ``ruleset``: the sharding of a state on a mesh."""
 
     def __init__(self, cfg: TrainerConfig, model_cfg, data: SyntheticLMData,
                  step_fn: Callable, init_state_fn: Callable, device=None,
                  fail_injector: Optional[Callable] = None,
-                 frontend_fn: Optional[Callable] = None):
+                 frontend_fn: Optional[Callable] = None, ruleset=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.data = data
@@ -56,6 +64,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.fail_injector = fail_injector
         self.frontend_fn = frontend_fn
+        self.ruleset = ruleset
+        self._shapes = None         # the state's global shapes, on a mesh
         self.ckpt = CheckpointManager(cfg.checkpoint_dir,
                                       keep=cfg.keep_checkpoints,
                                       async_save=cfg.async_checkpoint)
@@ -69,8 +79,12 @@ class Trainer:
     def _restore_or_init(self):
         state_tree = self.init_state_fn()
         last = self.ckpt.latest_step()
+        if self.ruleset is not None and self.ruleset.mesh is not None:
+            self._shapes = steps_mod.state_shapes(self.model_cfg,
+                                                  "ef" in state_tree)
         if last is not None:
-            state_tree, manifest = self.ckpt.restore(state_tree)
+            state_tree, manifest = self.ckpt.restore(state_tree,
+                                                     ruleset=self.ruleset)
             self.data.load_state_dict(manifest["extra"]["data"])
             self._saved_step = last
         return state_tree
@@ -78,7 +92,8 @@ class Trainer:
     def _save(self, state_tree) -> None:
         step = int(state_tree["step"])
         self.ckpt.save(step, state_tree,
-                       extra={"data": self.data.state_dict()})
+                       extra={"data": self.data.state_dict()},
+                       ruleset=self.ruleset, shapes=self._shapes)
         self._saved_step = step
 
     # -- loop --------------------------------------------------------------

@@ -69,7 +69,8 @@ def test_port_files_are_found():
                 ("checkpoint", "manager.py"), ("dist", "sharding.py"),
                 ("dist", "collective_matmul.py"), ("serve", "dist.py"),
                 ("launch", "mesh.py"), ("core", "interconnect.py"),
-                ("core", "collectives.py")):
+                ("core", "collectives.py"), ("dist", "pipeline.py"),
+                ("train", "dist.py")):
         assert PORT.joinpath(*rel) in FILES
     assert (ROOT / "chip_smoke.py").exists()
 

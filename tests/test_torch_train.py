@@ -46,6 +46,7 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     load_checkpoint, save_checkpoint)
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.dist import compression
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train as launch
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import steps
@@ -521,8 +522,8 @@ def test_launcher_compressed_runs(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--fsdp"], NotImplementedError),
-    (["--mesh", "single"], NotImplementedError),
+    (["--fsdp"], None),                        # without a mesh, a no-op
+    (["--mesh", "single"], ValueError),        # 256 ranks, the group has 1
     (["--arch", "mamba2-370m"], None),         # trains now
     (["--use_flash=true"], RuntimeError),      # the kernel has no backward
     (["--use_flash=yes"], ValueError),
@@ -531,12 +532,21 @@ def test_launcher_compressed_runs(tmp_path, flags):
     (["--stray"], SystemExit)])
 def test_launcher_refuses_what_is_not_ported(tmp_path, flags, error):
     """Each flag the port lacks raises; ``error`` None is a case that was
-    refused before and now runs to its end."""
+    refused before and now runs to its end. ``--mesh single`` runs in a
+    one-rank group and names the 256 ranks its mesh needs."""
     args = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--batch",
             "2", "--seq", "8", "--steps", "1", "--ckpt", str(tmp_path)]
     if error is None:
         result = launch.main(args + flags)
         assert int(result["state"]["step"]) == 1
+        return
+    if "--mesh" in flags:
+        mesh_lib.init_group(0, 1, mesh_lib.free_port())
+        try:
+            with pytest.raises(error, match="needs 256 ranks"):
+                launch.main(args + flags)
+        finally:
+            torch.distributed.destroy_process_group()
         return
     with pytest.raises(error):
         launch.main(args + flags)

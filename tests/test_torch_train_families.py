@@ -147,3 +147,42 @@ def test_launcher_trains_jamba_and_resumes(tmp_path):
                for m in first["metrics"])
     again = launch.main(base + ["--steps", "5"])
     assert [m["step"] for m in again["metrics"]] == [4, 5]
+
+
+def test_mamba_gradients_follow_a_float64_input():
+    """At ``compute_dtype`` float64 the Mamba path's fp32 islands (the
+    chunked scan, the norms, the loss: ``layers.wide``) run in float64,
+    so the mamba2-370m stack's gradients are well conditioned: one and
+    four threads agree to 1e-12 of each leaf's largest element, where
+    fp32 spreads by orders of magnitude more. fp32 and bf16 inputs keep
+    fp32 (``wide``), so no fp32 result moves."""
+    from repro_torch.models import layers
+
+    assert layers.wide(torch.float32) == torch.float32
+    assert layers.wide(torch.bfloat16) == torch.float32
+    assert layers.wide(torch.float64) == torch.float64
+    cfg = dataclasses.replace(configs.get_smoke("mamba2-370m"),
+                              compute_dtype="float64")
+    # float64 masters too, so that no gradient is rounded to fp32.
+    params = tree_map(lambda p: p.double(),
+                      steps.init_state(cfg, 0, "cpu").params)
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=2)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(labels)}
+
+    def grads(threads):
+        torch.set_num_threads(threads)
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = [p for _, p in tree_items(tracked)]
+        logits, _, _ = T.forward_aux(tracked, cfg, batch["tokens"],
+                                     ssd_kernel=False)
+        assert logits.dtype == torch.float64
+        loss, parts = steps.loss_fn(tracked, cfg, batch)
+        assert parts["nll"].dtype == torch.float64
+        return torch.autograd.grad(loss, leaves)
+
+    one, four = grads(1), grads(4)
+    for a, b in zip(one, four):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= 1e-12 * scale + 1e-30
