@@ -246,6 +246,19 @@ one bf16 step under FSDP, and GPipe over two stages of 12 blocks with
 ``flash_attention`` launched in the ranks, against the sequential stack.
 ``python3 chip_smoke.py --phase 24`` runs the build and phase 24 alone.
 
+Phase 25 puts every family on the model axis: dbrx-132b at its published
+widths (2 of 40 layers) served by two gloo ranks sharing the card with
+its 16 experts split 8 a rank, against one rank (streams, fp32 logits
+within 1e-3 with a planted missing reduce caught, the engine's drops
+equal one rank's, run twice, the decode kernel's launches); a "self"
+model draft on the two-rank qwen3-4b engine (streams equal the plain
+engines', drafts accepted, rank 0 alone drafting); mamba2-370m whole trained
+over (data 1, model 2) against one rank (float64 gradients within
+GRAD_TOL, three fp32 steps); one step of the dbrx, llama4, jamba and
+vision smokes and whisper smoke's ``encode`` over (1, 2) against one
+rank. ``python3 chip_smoke.py --phase 25`` runs the build and phase 25
+alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -438,6 +451,49 @@ DIST_FAULT_LEAF = "ln_f/scale"
 DIST_LAYERS = 24
 GPIPE_STAGES, GPIPE_MICRO, GPIPE_TOL = 2, 4, 1e-4
 DIST_DEADLINE_S, DIST_TIMEOUT_S = 900.0, 300.0
+# Phase 25: the model axis for every family, on EP gloo ranks sharing the
+# card, each against one rank in the same call. (a) dbrx-132b at its
+# published widths (d_model 6144, 48/8 heads of 128, 16 experts of d_ff
+# 10752, top-4, capacity routing, vocab 100352) cut to EP_LAYERS of 40
+# layers, both MoE: bf16 weights (15.5 GB whole, 7.8 GB a rank) and fp32
+# compute, the paged engine (capture off) over phase 23's requests (TP_B
+# slots of TP_LO..TP_HI tokens, TP_NEW new, max_len TP_MAX_LEN). Gates:
+# streams equal; fp32 logits of a prefill and a decode step within
+# FP32_LOGIT_TOL of one rank's, which a combine left unreduced on layer 0
+# must exceed, routed at capacity factor EP_CHECK_CAPACITY so that the
+# capacity path drops, and the drops equal; the engine's drops equal on
+# both ranks, one rank's, and one rank's again (a second engine over the
+# same requests: garbage rows, of freed slots and padded chunks, route
+# too, and read the null page, whose colliding writes keep the last);
+# ``flash_decode`` launched attention layers x decode steps a rank. (b) a
+# "self" model draft (``spec_k`` SPEC_K) on phase 23's two-rank qwen3-4b
+# engine, fp32 compute, TP_B prompts of EP_DRAFT_LO..EP_DRAFT_HI tokens
+# and EP_SPEC_NEW new: every context fits the draft's 32-token window,
+# so its positions are the target's and its drafts are accepted. Gates:
+# streams equal the two-rank plain engine's and one rank's, drafts
+# proposed and accepted equal on both ranks and one rank, some accepted,
+# and only rank 0 holding a draft. (c) mamba2-370m whole over (data 1, model EP): the first step's
+# gradients against one rank's in float64 (GRAD_F64) within GRAD_TOL, the
+# fp32 reading logged; then EP_TRAIN_STEPS fp32 steps at MAMBA_BATCH x
+# MAMBA_SEQ on both, logged. (d) one fp32 step of each of EP_SMOKES over
+# (1, EP) against one rank's: loss within EP_LOSS_RTOL, gradients within
+# EP_GRAD_TOL of each leaf's largest element (jamba EP_JAMBA_TOL, its
+# fp32 conditioning; a leaf whose gradient is zero up to rounding floored
+# at EP_ZERO_GRAD of the whole gradient's largest), the gate and biases
+# seeded; whisper smoke's ``encode`` within EP_GRAD_TOL. EP_TARGET_S is
+# the phase's budget, logged beside its seconds.
+EP = 2
+EP_ARCH, EP_LAYERS = "dbrx-132b", 2
+EP_SPEC_NEW = 8
+EP_DRAFT_LO, EP_DRAFT_HI = 12, 32 - EP_SPEC_NEW
+EP_TRAIN_STEPS = 3
+EP_SMOKES = (("dbrx-132b", {"moe_impl": "capacity"}),
+             ("dbrx-132b", {"moe_impl": "dense_mask"}),
+             ("llama4-maverick-400b-a17b", {}), ("jamba-v0.1-52b", {}),
+             ("llama-3.2-vision-90b", {}))
+EP_LOSS_RTOL, EP_GRAD_TOL, EP_ZERO_GRAD, EP_JAMBA_TOL = 1e-6, 1e-5, 1e-2, 2e-4
+EP_CHECK_CAPACITY = 0.5
+EP_DEADLINE_S, EP_TIMEOUT_S, EP_TARGET_S = 900.0, 300.0, 180.0
 
 
 def log(msg: str) -> None:
@@ -2886,8 +2942,8 @@ def recording_routes(moe_mod):
     """The router's choices of every MoE call, each token's sorted."""
     orig, ids = moe_mod._route, []
 
-    def recorded(params, cfg, x):
-        out = orig(params, cfg, x)
+    def recorded(params, cfg, x, *split):
+        out = orig(params, cfg, x, *split)
         ids.append(out[1].sort(dim=-1).values)
         return out
 
@@ -3428,15 +3484,17 @@ def run_encdec(dev, ops, ref, configs, T, engine) -> dict:
 # Phase 23: tensor-parallel serving over two ranks, and every family trains
 # ----------------------------------------------------------------------------
 
-def time_gathered_decode(dev, ops, ref, lengths) -> dict:
+def time_gathered_decode(dev, ops, ref, lengths, shape=None,
+                         seed: int = 23) -> dict:
     """``flash_decode`` at the shape a rank's decode step hands it under
     phase 23's two-rank mesh: TP_B slots over the gathered view of
     TP_MAX_LEN rows, the rank's 16 of qwen3-4b's 32 q heads over its 4 of
-    8 kv heads of 80, contexts ``lengths``; checked and timed in fp32 and
-    bf16 beside its plain version, SDPA and the bound."""
-    b, h, kvh, d, rows = TP_B, H // TP, KVH // TP, D, TP_MAX_LEN
+    8 kv heads of 80, contexts ``lengths`` (or ``shape``, (b, h, kvh, d,
+    rows), another model's); checked and timed in fp32 and bf16 beside
+    its plain version, SDPA and the bound."""
+    b, h, kvh, d, rows = shape or (TP_B, H // TP, KVH // TP, D, TP_MAX_LEN)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(23)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
     for dtype, esize in ((torch.float32, 4), (torch.bfloat16, 2)):
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
@@ -4300,6 +4358,624 @@ def dist_verdicts(ranks, summary) -> list:
     return failed
 
 
+# ----------------------------------------------------------------------------
+# Phase 25: the model axis for every family
+# ----------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Every ``all_reduce`` and ``broadcast`` this process issues through
+    ``torch.distributed`` counted with its bytes (the serving and
+    training collectives reach gloo only through these two)."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce, dist.broadcast
+    acc = {"collectives": 0, "bytes": 0}
+
+    def counted(fn):
+        def wrapped(t, *args, **kwargs):
+            acc["collectives"] += 1
+            acc["bytes"] += t.numel() * t.element_size()
+            return fn(t, *args, **kwargs)
+        return wrapped
+
+    dist.all_reduce, dist.broadcast = (counted(f) for f in real)
+    try:
+        yield acc
+    finally:
+        dist.all_reduce, dist.broadcast = real
+
+
+def ep_serve_rank(dev, mesh, prompts) -> dict:
+    """Phase 25 (a) on one rank: dbrx-132b at its published widths cut to
+    EP_LAYERS layers (bf16 weights, fp32 compute). Rank 0 first takes the
+    fp32 logits of a prefill and a decode step with the whole tree; the
+    engine is built from the whole tree (each rank keeps its shard of 8
+    experts), and its shard gives the same logits on the mesh (every
+    ``flash_decode`` held to its plain version, the decode step's
+    collectives counted), then with a combine left unreduced on layer 0
+    (the planted fault); then the engine serves ``prompts``."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import paged
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    rank, world = mesh.index("model"), mesh.shape["model"]
+    cfg = dataclasses.replace(configs.get_config(EP_ARCH),
+                              n_layers=EP_LAYERS)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # The logit check routes at a squeezed capacity, so that it drops.
+    squeezed = dataclasses.replace(f32,
+                                   moe_capacity_factor=EP_CHECK_CAPACITY)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    out = {}
+    n_pages = 1 + TP_B * TP_MAX_LEN // TP_PS
+    n_pages += -n_pages % world
+    pool = paged.PageAllocator(n_pages, TP_PS, n_devices=world)
+    table = np.zeros((TP_B, TP_MAX_LEN // TP_PS), np.int32)
+    for i in range(TP_B):
+        got = pool.alloc(i, paged.pages_for(TP_CHECK_PROMPT + 1, TP_PS))
+        table[i, :len(got)] = got
+    toks = torch.from_numpy(np.random.RandomState(25).randint(
+        2, cfg.vocab, size=(TP_B, TP_CHECK_PROMPT + 1))).to(dev)
+
+    def fresh():
+        caches = T.init_paged_caches(f32, TP_B, TP_MAX_LEN, TP_PS, n_pages,
+                                     device=dev)
+        caches[0]["pages"].copy_(torch.from_numpy(table))
+        return caches
+
+    def logits(p, caches, rs, during=contextlib.nullcontext):
+        with torch.no_grad(), sharding.use_ruleset(rs), \
+                counting_drops(moe_mod) as drops:
+            pre, caches = T.forward(p, squeezed, toks[:, :-1],
+                                    caches=caches)
+            with during() as step_traffic:
+                step, _ = T.forward(p, squeezed, toks[:, -1:],
+                                    caches=caches)
+        return (pre.float(), step[:, -1].float(),
+                sum(int(d) for d in drops["dropped"]), step_traffic)
+
+    if rank == 0:
+        one_pre, one_step, out["one_check_drops"], _ = logits(
+            params, fresh(), None)
+        out["logit_scale"] = float(one_pre.abs().max())
+    scfg = ServeConfig(max_len=TP_MAX_LEN, batch=TP_B, paged=True,
+                       page_size=TP_PS, chunk_size=TP_CHUNK, eos_id=-1)
+    eng = ServingEngine(params, f32, scfg, device=dev, capture=False,
+                        mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    # What the rank keeps once the whole tree is freed: its shard (and,
+    # on rank 0, one rank's check logits).
+    out["resident_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    shard = eng.params
+    out["local_experts"] = int(shard["blocks"][0]["moe"]["expert_gate"]
+                               .shape[0])
+    rules = eng._ruleset
+
+    real_decode, seen = ops.flash_decode, []
+
+    def checked(q, k, v, lengths):
+        got = real_decode(q, k, v, lengths)
+        ok, err = ref.compare(got, ref.flash_decode(q, k, v, lengths))
+        seen.append((list(q.shape), list(k.shape), ok, err))
+        return got
+
+    ops.flash_decode = checked
+    try:
+        tp_pre, tp_step, out["check_drops"], traffic = logits(
+            shard, fresh(), rules, counting_collectives)
+    finally:
+        ops.flash_decode = real_decode
+    out["check_decode"] = seen
+    out["decode_traffic"] = dict(traffic)
+
+    real_reduce, calls = moe_mod._ModelSplit.reduce, []
+
+    def unreduced_once(self, x):
+        calls.append(1)
+        return x if len(calls) == 1 else real_reduce(self, x)
+
+    moe_mod._ModelSplit.reduce = unreduced_once
+    try:
+        bad_pre, bad_step, _, _ = logits(shard, fresh(), rules)
+    finally:
+        moe_mod._ModelSplit.reduce = real_reduce
+    if rank == 0:
+        out["logit_diff"] = (float((tp_pre - one_pre).abs().max()),
+                             float((tp_step - one_step).abs().max()))
+        out["fault_diff"] = (float((bad_pre - one_pre).abs().max()),
+                             float((bad_step - one_step).abs().max()))
+        del one_pre, one_step
+    del tp_pre, tp_step, bad_pre, bad_step
+    torch.cuda.empty_cache()
+
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p.copy(), max_new=TP_NEW))
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with counting_drops(moe_mod) as drops, counting_collectives() as total:
+        eng.run_until_drained()
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    out["engine"] = dict(
+        streams={k: list(v) for k, v in eng.finished.items()},
+        wall=wall, tok_s=TP_B * TP_NEW / wall,
+        launches={k: v for k, v in ops.LAUNCHES.items() if v},
+        decode_steps=eng.decode_steps, ticks=eng.ticks,
+        drops=sum(int(d) for d in drops["dropped"]),
+        choices=drops["choices"], traffic=dict(total),
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del eng, shard
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_draft_rank(dev, mesh, prompts) -> dict:
+    """Phase 25 (b) on one rank: qwen3-4b at full width (bf16 weights,
+    fp32 compute) on the two-rank mesh, the plain engine and then the
+    speculative one with a ``"self"`` model draft (``SPEC_K``), each over
+    ``prompts`` for EP_SPEC_NEW tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    cfg = configs.get_config("qwen3-4b")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    base = ServeConfig(max_len=TP_MAX_LEN, batch=TP_B, paged=True,
+                       page_size=TP_PS, chunk_size=TP_CHUNK, eos_id=-1)
+    out = {}
+    for label, scfg in (("plain", base), ("spec", dataclasses.replace(
+            base, spec_k=SPEC_K, draft="self"))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ServingEngine(params, f32, scfg, device=dev, capture=False,
+                            mesh=mesh)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p.copy(),
+                               max_new=EP_SPEC_NEW))
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        out[label] = dict(
+            streams={k: list(v) for k, v in eng.finished.items()},
+            tok_s=TP_B * EP_SPEC_NEW / wall, wall=wall,
+            proposed=eng.spec_proposed, accepted=eng.spec_accepted,
+            verify_steps=eng.verify_steps, decode_steps=eng.decode_steps,
+            drafts_here=eng.draft is not None,
+            launches={k: v for k, v in ops.LAUNCHES.items() if v},
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def grads_against_one(tm_grads, spec_of, mesh, one, tol, floor_frac,
+                      rank) -> dict:
+    """The mesh's gradients gathered whole (every rank), held on rank 0
+    to ``one`` (the one-rank gradients by path): the worst leaf's
+    |diff| over its largest element (floored at ``floor_frac`` of the
+    whole gradient's largest) and whether every leaf is within ``tol``."""
+    from repro_torch.dist import sharding
+    from repro_torch.tree import tree_items
+
+    whole = {path: sharding.gather_leaf(g, spec_of[path], mesh)
+             for path, g in tree_items(tm_grads)}
+    if rank:
+        return {}
+    top = max(float(w.abs().max()) for w in one.values())
+    worst, leaf = 0.0, None
+    for path, w in one.items():
+        scale = max(float(w.abs().max()), floor_frac * top)
+        ratio = float((whole[path] - w).abs().max()) / max(scale, 1e-30)
+        if ratio > worst:
+            worst, leaf = ratio, path
+    return dict(worst=worst, leaf=leaf, ok=worst <= tol)
+
+
+def ep_train_rank(dev, rank) -> dict:
+    """Phase 25 (c) and (d) on one rank of a (data 1, model 2) mesh:
+    mamba2-370m whole (its first step's gradients against one rank's in
+    float64, then fp32; then EP_TRAIN_STEPS fp32 steps on one rank and on
+    the mesh) and one fp32 step of each of EP_SMOKES, and whisper
+    smoke's ``encode``, against one rank's. Rank 0 takes the one-rank
+    runs."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import schedule
+    from repro_torch.train import dist as train_dist
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_items
+
+    mesh = mesh_lib.make_mesh((1, EP), ("data", "model"))
+    rs = sharding.Ruleset(mesh=mesh)
+    out = {"grads": {}, "smokes": {}}
+
+    def batch_of(cfg, b, s, seed=0):
+        tokens, labels = SyntheticLMData(DataConfig(
+            vocab=cfg.vocab, seq_len=s, global_batch=b)).batch_at(seed)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        if cfg.n_frontend_tokens:
+            batch["frontend"] = torch.from_numpy(np.random.RandomState(
+                seed).randn(b, cfg.n_frontend_tokens, cfg.d_model).astype(
+                np.float32)).to(dev)
+        return batch
+
+    def step_pair(cfg, params, batch, tol, floor_frac):
+        """One rank's loss and gradients (rank 0), then the mesh's, held
+        to them."""
+        spec_of = sharding.leaf_specs(T.param_shapes(cfg), rs)
+        one = None
+        if rank == 0:
+            loss1, _, g1, _ = steps.make_grad_fn(cfg)(params, batch)
+            one = (float(loss1), {k: v for k, v in tree_items(g1)})
+        shard = sharding.shard_tree(params, mesh, rs)
+        with counting_collectives() as traffic:
+            loss2, _, g2, _ = steps.make_grad_fn(cfg, 1, rs)(shard, batch)
+        r = grads_against_one(g2, spec_of, mesh, one[1] if one else None,
+                              tol, floor_frac, rank)
+        if rank == 0:
+            r.update(loss_one=one[0], loss=float(loss2),
+                     loss_rel=abs(float(loss2) / one[0] - 1))
+        r["traffic"] = dict(traffic)
+        return r
+
+    # (c) mamba2-370m whole: float64 gated, fp32 logged (GRAD_CHECK's
+    # batch); then EP_TRAIN_STEPS fp32 steps at MAMBA_BATCH x MAMBA_SEQ.
+    base = configs.get_config("mamba2-370m")
+    smoke, b, s = GRAD_CHECK["mamba2-370m"]
+    for compute in ("float64", "float32"):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        params = steps.init_state(cfg, 0, dev).params
+        ops.reset_launches()
+        out["grads"][compute] = step_pair(cfg, params, batch_of(cfg, b, s),
+                                          GRAD_TOL, 0.0)
+        out["grads"][compute]["launches"] = {
+            k: v for k, v in ops.LAUNCHES.items() if v}
+        del params
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    sched = schedule.ScheduleConfig(warmup_steps=EP_TRAIN_STEPS,
+                                    total_steps=EP_TRAIN_STEPS)
+    batches = [batch_of(cfg, MAMBA_BATCH, MAMBA_SEQ, i)
+               for i in range(EP_TRAIN_STEPS)]
+
+    def run(ruleset):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = steps.init_state(cfg, 0, dev, ruleset=ruleset).tree()
+        step = steps.make_train_step(cfg, sched, ruleset=ruleset)
+        losses, ms = [], []
+        for batch in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        r = dict(losses=losses, step_ms=ms, traffic=step.traffic,
+                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 local_params=sum(x.numel() for _, x in
+                                  tree_items(state["params"])))
+        del state, step
+        torch.cuda.empty_cache()
+        return r
+
+    if rank == 0:
+        out["mamba_one"] = run(None)
+    out["mamba_mesh"] = run(rs)
+
+    # (d) the smoke families, fp32, one step against one rank's.
+    for arch, fields in EP_SMOKES:
+        cfg = dataclasses.replace(configs.get_smoke(arch), **fields)
+        params = steps.init_state(cfg, 0, dev).params
+        nonzero_leaves(params, seed=25)
+        tol = EP_JAMBA_TOL if arch == "jamba-v0.1-52b" else EP_GRAD_TOL
+        key = f"{cfg.name} {cfg.moe_impl}" if cfg.n_experts else cfg.name
+        out["smokes"][key] = step_pair(cfg, params, batch_of(cfg, 4, 16),
+                                       tol, EP_ZERO_GRAD)
+    cfg = configs.get_smoke("whisper-medium")
+    params = steps.init_state(cfg, 0, dev).params
+    nonzero_leaves(params, seed=25)
+    frontend = batch_of(cfg, 4, 16)["frontend"]
+    shard = sharding.shard_tree(params, mesh, rs)
+    with torch.no_grad():
+        with train_dist.use_mesh(train_dist.TrainMesh(rs)):
+            y = T.encode(shard, cfg, frontend)
+        if rank == 0:
+            want = T.encode(params, cfg, frontend)
+            out["encode"] = float((y - want).abs().max()) / float(
+                want.abs().max())
+    return out
+
+
+def ep_rank(rank: int, world: int, spec: dict) -> dict:
+    """Phase 25 on one rank of the group (``launch.mesh.run_ranks``):
+    (a) ``ep_serve_rank``, (b) ``ep_draft_rank``, then (c) and (d)
+    ``ep_train_rank``; seconds of each."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = mesh_lib.rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    mesh = mesh_lib.make_serving_mesh(world)
+    out, seconds = {"rank": rank}, {}
+    for name, fn in (("serve", lambda: ep_serve_rank(dev, mesh,
+                                                     spec["dbrx_prompts"])),
+                     ("draft", lambda: ep_draft_rank(dev, mesh,
+                                                     spec["qwen_prompts"])),
+                     ("train", lambda: ep_train_rank(dev, rank))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def run_ep(dev, ops, ref, configs, T, moe_mod) -> dict:
+    """Phase 25: ``flash_decode`` at dbrx's gathered per-rank shape; the
+    one-rank engines of (a) and (b) here, each freed before the next;
+    the ranks (``ep_rank``); gates and log lines (``ep_verdicts``)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.engine import ServeConfig
+
+    t_phase = time.perf_counter()
+    dcfg = dataclasses.replace(configs.get_config(EP_ARCH),
+                               n_layers=EP_LAYERS)
+    dbrx_prompts = make_requests(dcfg.vocab, TP_B, lo=TP_LO, hi=TP_HI)
+    qcfg = configs.get_config("qwen3-4b")
+    qwen_prompts = make_requests(qcfg.vocab, TP_B, lo=EP_DRAFT_LO,
+                                 hi=EP_DRAFT_HI)
+    log(f"  dbrx prompt lengths {[len(p) for p in dbrx_prompts]}, {TP_NEW} "
+        f"new each; qwen3-4b {[len(p) for p in qwen_prompts]}, "
+        f"{EP_SPEC_NEW} new each; max_len {TP_MAX_LEN}, pages of {TP_PS}, "
+        f"chunks of {TP_CHUNK}")
+    summary = {"kernel": time_gathered_decode(
+        dev, ops, ref, [len(p) + TP_NEW // 2 for p in dbrx_prompts],
+        shape=(TP_B, dcfg.n_heads // EP, dcfg.n_kv_heads // EP, dcfg.dhead,
+               TP_MAX_LEN), seed=25)}
+    scfg = ServeConfig(max_len=TP_MAX_LEN, batch=TP_B, paged=True,
+                       page_size=TP_PS, chunk_size=TP_CHUNK, eos_id=-1)
+    one, drops = {}, {}
+
+    @contextlib.contextmanager
+    def run_drops():
+        # The run's drops only: not the steps the engine's construction
+        # runs once on its empty slots.
+        with counting_drops(moe_mod) as acc:
+            drops["run"] = acc
+            yield
+
+    cfg, params = init_model(EP_ARCH, configs, T, dev, n_layers=EP_LAYERS)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # Twice, each a new engine: a drop count that moved between the two
+    # would be a race in the run, not a difference of the mesh.
+    for key in ("dbrx", "dbrx_again"):
+        torch.cuda.reset_peak_memory_stats()
+        eng, fin, wall, launches = serve(params, f32, scfg, dbrx_prompts,
+                                         TP_NEW, dev, ops, capture=False,
+                                         during=run_drops)
+        check_served(eng, fin, dbrx_prompts, TP_NEW, cfg.vocab)
+        one[key] = dict(streams={k: list(v) for k, v in fin.items()},
+                        tok_s=TP_B * TP_NEW / wall, wall=wall,
+                        drops=sum(int(d) for d in drops["run"]["dropped"]),
+                        choices=drops["run"]["choices"],
+                        launches={k: v for k, v in launches.items() if v},
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = init_model("qwen3-4b", configs, T, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for label, c in (("plain", scfg), ("spec", dataclasses.replace(
+            scfg, spec_k=SPEC_K, draft="self"))):
+        eng, fin, wall, _ = serve(params, f32, c, qwen_prompts, EP_SPEC_NEW,
+                                  dev, ops, capture=False)
+        check_served(eng, fin, qwen_prompts, EP_SPEC_NEW, cfg.vocab)
+        one[f"qwen_{label}"] = dict(
+            streams={k: list(v) for k, v in fin.items()},
+            tok_s=TP_B * EP_SPEC_NEW / wall, proposed=eng.spec_proposed,
+            accepted=eng.spec_accepted)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    summary["one_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ranks = mesh_lib.run_ranks(
+        ep_rank, EP, args=(dict(dbrx_prompts=dbrx_prompts,
+                                qwen_prompts=qwen_prompts),),
+        deadline_s=EP_DEADLINE_S, timeout_s=EP_TIMEOUT_S, threads=1)
+    summary["ranks_s"] = time.perf_counter() - t0
+    # flash_decode's (q, cache) shapes a rank: its q heads over the kv
+    # heads they read in the gathered view.
+    want_shape = [[TP_B, dcfg.n_heads // EP, dcfg.dhead],
+                  [TP_B, TP_MAX_LEN, dcfg.n_kv_heads // EP, dcfg.dhead]]
+    failed = ep_verdicts(ranks, one, summary, want_shape)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 25's seconds: {summary['phase_s']:.1f} (one-rank engines "
+        f"{summary['one_s']:.1f}, ranks {summary['ranks_s']:.1f}: "
+        f"{ranks[0]['seconds']}; target {EP_TARGET_S:g})")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return summary
+
+
+def ep_verdicts(ranks, one, summary, want_shape) -> list:
+    """Phase 25's gates and log lines over the ranks' results; fills
+    ``summary``; returns the failures."""
+    failed = []
+    k = summary["kernel"]
+    if not (k["fp32"]["ok"] and k["bf16"]["ok"]):
+        failed.append("flash_decode at dbrx's gathered shape disagrees "
+                      "with its plain version")
+    r0 = ranks[0]["serve"]
+    a = [r["serve"] for r in ranks]
+    pre, step = r0["logit_diff"]
+    fpre, fstep = r0["fault_diff"]
+    log(f"  (a) {EP_ARCH} at its published widths, {EP_LAYERS} of 40 layers,"
+        f" {r0['local_experts']} experts a rank: two ranks against one, fp32 "
+        f"compute (bf16 weights), {TP_B} slots: {TP_CHECK_PROMPT}-row "
+        f"prefill max |logit diff| {pre:.3e}, decode step {step:.3e} (limit "
+        f"{FP32_LOGIT_TOL:g}; max |logit| {r0['logit_scale']:.3f}); a "
+        f"combine left unreduced on layer 0: {fpre:.3e}, {fstep:.3e} (must "
+        f"exceed the limit); the check, routed at capacity factor "
+        f"{EP_CHECK_CAPACITY:g}, dropped {r0['check_drops']} choices, one "
+        f"rank {r0['one_check_drops']}")
+    if not (pre <= FP32_LOGIT_TOL and step <= FP32_LOGIT_TOL):
+        failed.append(f"(a) two-rank fp32 logits differ from one rank's: "
+                      f"{pre:.3e} {step:.3e}")
+    if not max(fpre, fstep) > FP32_LOGIT_TOL:
+        failed.append(f"(a) the unreduced combine was not caught: "
+                      f"{fpre:.3e} {fstep:.3e}")
+    if r0["check_drops"] != r0["one_check_drops"] or not r0["check_drops"]:
+        failed.append(f"(a) the check's drops: {r0['check_drops']} against "
+                      f"{r0['one_check_drops']}")
+    for r in a:
+        seen = r["check_decode"]
+        if len(seen) != EP_LAYERS or not all(ok for _, _, ok, _ in seen) \
+                or any(list(x[:2]) != want_shape for x in seen):
+            failed.append(f"(a) flash_decode at the gathered shape: {seen}")
+    e = [r["engine"] for r in a]
+    d, d2 = one["dbrx"], one["dbrx_again"]
+    traffic = r0["decode_traffic"]
+    log(f"  (a) engine: two ranks {e[0]['tok_s']:.2f} tok/s eager "
+        f"({e[0]['wall']:.2f} s, {e[0]['ticks']} ticks, "
+        f"{e[0]['decode_steps']} decode steps) against one rank "
+        f"{d['tok_s']:.2f} tok/s eager; drops two ranks "
+        f"{[x['drops'] for x in e]} of {e[0]['choices']} choices, one rank "
+        f"{d['drops']} of {d['choices']}, again {d2['drops']}; a decode "
+        f"step's collectives "
+        f"{traffic['collectives']} carrying {traffic['bytes'] / 1e6:.3f} MB "
+        f"(the whole run {e[0]['traffic']['collectives']}, "
+        f"{e[0]['traffic']['bytes'] / 1e9:.3f} GB); peak a rank "
+        f"{[round(x['peak_gib'], 2) for x in e]} GiB (one rank "
+        f"{d['peak_gib']:.2f} GiB), held once the whole tree is freed "
+        f"{[round(x['resident_gib'], 2) for x in a]} GiB; launches a rank "
+        f"{[x['launches'] for x in e]}, one rank {d['launches']}")
+    if (d2["drops"], d2["streams"]) != (d["drops"], d["streams"]):
+        failed.append(f"(a) one rank's engine run twice dropped "
+                      f"{d['drops']} and {d2['drops']}")
+    for i, x in enumerate(e):
+        if x["streams"] != d["streams"]:
+            failed.append(f"(a) rank {i}'s streams differ from one rank's")
+        if x["drops"] != d["drops"]:
+            failed.append(f"(a) rank {i} dropped {x['drops']}, one rank "
+                          f"{d['drops']}")
+        want = EP_LAYERS * x["decode_steps"]
+        if x["launches"] != {"flash_decode": want}:
+            failed.append(f"(a) rank {i} launched {x['launches']}, want "
+                          f"flash_decode {want}")
+    summary["dbrx"] = dict(
+        tok_s=(e[0]["tok_s"], d["tok_s"]), logit_diff=(pre, step),
+        fault_diff=(fpre, fstep),
+        drops=(e[0]["drops"], d["drops"], d2["drops"]),
+        decode_collectives=traffic["collectives"],
+        decode_bytes=traffic["bytes"],
+        peak_gib=[x["peak_gib"] for x in e], one_peak_gib=d["peak_gib"],
+        resident_gib=[x["resident_gib"] for x in a],
+        launches=e[0]["launches"])
+
+    b = [r["draft"] for r in ranks]
+    q, qs = one["qwen_plain"], one["qwen_spec"]
+    sp = b[0]["spec"]
+    rate = sp["accepted"] / max(sp["proposed"], 1)
+    log(f"  (b) qwen3-4b, a \"self\" model draft (spec_k {SPEC_K}) on two "
+        f"ranks: {sp['tok_s']:.2f} tok/s against the plain two-rank engine's "
+        f"{b[0]['plain']['tok_s']:.2f}, one rank's spec {qs['tok_s']:.2f} "
+        f"and plain {q['tok_s']:.2f} (eager, fp32); drafts "
+        f"proposed/accepted a rank "
+        f"{[(x['spec']['proposed'], x['spec']['accepted']) for x in b]}, "
+        f"one rank ({qs['proposed']}, {qs['accepted']}) (accept rate "
+        f"{rate:.3f}), {sp['verify_steps']} verify steps; peak a rank "
+        f"{[round(x['spec']['peak_gib'], 2) for x in b]} GiB; launches a "
+        f"rank {[x['spec']['launches'] for x in b]}")
+    for i, x in enumerate(b):
+        if not (x["spec"]["streams"] == x["plain"]["streams"]
+                == q["streams"] == qs["streams"]):
+            failed.append(f"(b) rank {i}: spec, plain two-rank and one-rank "
+                          f"streams differ")
+        if (x["spec"]["proposed"], x["spec"]["accepted"]) != (
+                qs["proposed"], qs["accepted"]):
+            failed.append(f"(b) rank {i}'s draft counters differ from one "
+                          f"rank's")
+    if not sp["accepted"]:
+        failed.append(f"(b) no draft was accepted ({sp['proposed']} "
+                      f"proposed)")
+    if [x["spec"]["drafts_here"] for x in b] != [i == 0 for i in range(EP)]:
+        failed.append("(b) a rank other than 0 holds a draft source")
+    summary["draft"] = dict(tok_s=sp["tok_s"], plain_tok_s=(
+        b[0]["plain"]["tok_s"], q["tok_s"]), one_spec_tok_s=qs["tok_s"],
+        accept_rate=rate)
+
+    t = ranks[0]["train"]
+    g64, g32 = t["grads"]["float64"], t["grads"]["float32"]
+    log(f"  (c) mamba2-370m whole over (data 1, model {EP}), 32 SSM heads, "
+        f"16 a rank: first-step gradients two ranks against one, float64: "
+        f"worst leaf {g64['leaf']} {g64['worst']:.3e} of its largest "
+        f"element (limit GRAD_TOL {GRAD_TOL:g}), loss rel "
+        f"{g64['loss_rel']:.2e}; fp32 (logged only) {g32['leaf']} "
+        f"{g32['worst']:.3e}, loss rel {g32['loss_rel']:.2e}; a step's "
+        f"collectives {g64['traffic']['collectives']}; launches "
+        f"{g64['launches']}")
+    if not g64["ok"]:
+        failed.append(f"(c) mamba2-370m float64 gradients {g64['leaf']} "
+                      f"{g64['worst']:.3e} off")
+    m1, m2 = t["mamba_one"], [r["train"]["mamba_mesh"] for r in ranks]
+    tokens = MAMBA_BATCH * MAMBA_SEQ
+    one_ms = min(m1["step_ms"][1:])
+    two_ms = max(min(x["step_ms"][1:]) for x in m2)
+    rel = [abs(x / y - 1) for x, y in zip(m2[0]["losses"], m1["losses"])]
+    tr = m2[0]["traffic"]
+    log(f"  (c) {EP_TRAIN_STEPS} fp32 steps at {MAMBA_BATCH} x {MAMBA_SEQ}:"
+        f" losses two ranks {[round(x, 5) for x in m2[0]['losses']]}, one "
+        f"rank {[round(x, 5) for x in m1['losses']]} (rel "
+        f"{[f'{x:.1e}' for x in rel]}); step {two_ms:.1f} ms two ranks "
+        f"({tokens / two_ms * 1e3:.0f} tokens/s) against {one_ms:.1f} ms "
+        f"one rank; {tr['collectives']} collectives, "
+        f"{tr['bytes'] / 1e9:.3f} GB a step; peak a rank "
+        f"{[round(x['peak_gib'], 2) for x in m2]} GiB (one rank "
+        f"{m1['peak_gib']:.2f}); parameters a rank "
+        f"{m2[0]['local_params'] / 1e6:.1f} M")
+    summary["mamba"] = dict(grad_f64=g64["worst"], grad_f32=g32["worst"],
+                            step_ms=(two_ms, one_ms),
+                            collectives=tr["collectives"],
+                            bytes=tr["bytes"],
+                            peak_gib=[x["peak_gib"] for x in m2],
+                            one_peak_gib=m1["peak_gib"])
+    for name, r in t["smokes"].items():
+        log(f"  (d) {name} over (1, {EP}), fp32: loss rel "
+            f"{r['loss_rel']:.2e} (limit {EP_LOSS_RTOL:g}); worst gradient "
+            f"leaf {r['leaf']} {r['worst']:.3e} of its largest element; "
+            f"{r['traffic']['collectives']} collectives")
+        if not (r["ok"] and r["loss_rel"] <= EP_LOSS_RTOL):
+            failed.append(f"(d) {name}: loss rel {r['loss_rel']:.2e}, "
+                          f"gradient {r['leaf']} {r['worst']:.3e}")
+    log(f"  (d) whisper-medium-smoke encode over (1, {EP}): |diff| / max "
+        f"{t['encode']:.3e} (limit {EP_GRAD_TOL:g})")
+    if not t["encode"] <= EP_GRAD_TOL:
+        failed.append(f"(d) whisper encode {t['encode']:.3e} off")
+    summary["smokes"] = {k: v["worst"] for k, v in t["smokes"].items()}
+    return failed
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4338,6 +5014,13 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "25"]:
+        # Phase 25 alone, after the build.
+        t0 = time.perf_counter()
+        summary = run_ep(dev, ops, ref, configs, T, moe_mod)
+        log(f"  phase 25 alone: {summary}; {time.perf_counter() - t0:.1f} s")
+        return
 
     if sys.argv[1:] == ["--phase", "24"]:
         # Phase 24 alone, after the build.
@@ -4653,6 +5336,14 @@ def main() -> None:
     train_dist = run_train_dist(dev, ops, ref)
     log(f"  phase 24 took {time.perf_counter() - t0:.1f} s")
 
+    log(f"== the model axis for every family: {EP_ARCH} at published widths "
+        f"served by {EP} gloo ranks of this card with its experts split, a "
+        f"model draft under the mesh, Mamba, hybrid, cross and encoder "
+        f"layers trained over (data 1, model {EP}) ==")
+    t0 = time.perf_counter()
+    model_axis = run_ep(dev, ops, ref, configs, T, moe_mod)
+    log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -4667,7 +5358,8 @@ def main() -> None:
         f"overload {overload}; cost models {costs}; dissection "
         f"{dissection}; families {families}; encoder-decoder "
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
-        f"tensor-parallel {tp}; training over ranks {train_dist}; total "
+        f"tensor-parallel {tp}; training over ranks {train_dist}; the "
+        f"model axis {model_axis}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -225,15 +225,20 @@ def _block(axes, mesh) -> Tuple[Tuple[str, ...], int, int]:
 def local_shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the full tensor ``x`` under ``spec``: each
     sharded dim cut into equal blocks over its axes, block
-    ``mesh.index(...)`` kept. A contiguous copy, so the full tensor can be
-    freed."""
+    ``mesh.index(...)`` kept. A copy wherever a dim is cut (a block of
+    the leading dim is contiguous already, and a view would keep the whole
+    tensor alive), so the full tensor can be freed; ``x`` itself where it
+    replicates."""
+    cut = False
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
         _, n, i = _block(axes, mesh)
         size = x.shape[dim] // n
         x = x.narrow(dim, i * size, size)
-    return x.contiguous()
+        cut = True
+    return x.clone(memory_format=torch.contiguous_format) if cut \
+        else x.contiguous()
 
 
 def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

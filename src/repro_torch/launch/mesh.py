@@ -12,7 +12,9 @@ each joining ``tcp://localhost:<port>`` (a free port from a socket bound
 to port 0) with its rank, the world size and a collective timeout, then
 running a function. The parent waits to a deadline; a rank that raises,
 dies or outlives the deadline ends every rank and the call raises, so no
-rank is left blocked in a collective.
+rank is left blocked in a collective. ``spawn_or_join`` is the launchers'
+choice between that and joining a group that ``RANK``/``WORLD_SIZE``
+name.
 """
 
 from __future__ import annotations
@@ -175,11 +177,12 @@ def rank_device(rank: int, device: str) -> torch.device:
 
 
 def _child(rank: int, world: int, port: int, backend: str,
-           timeout_s: float, threads: int, fn: Callable, args: Sequence,
+           timeout_s: float, threads: int, fn: Callable, inbox,
            out) -> None:
     try:
         if threads:
             torch.set_num_threads(threads)
+        args = inbox.get()
         init_group(rank, world, port, backend, timeout_s)
         try:
             value = fn(rank, world, *args)
@@ -204,13 +207,20 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (),
     shared memory that dies with its rank's process."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    # ``args`` travel through a queue, not the spawn's own pipe: a start
+    # blocks until its child has read that pipe, so large arguments there
+    # would start the ranks one after another.
+    inbox = ctx.Queue()
+    inbox.cancel_join_thread()
     port = free_port()
     procs = [ctx.Process(target=_child, args=(r, world, port, backend,
-                                              timeout_s, threads, fn, args,
+                                              timeout_s, threads, fn, inbox,
                                               out), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
+    for _ in procs:
+        inbox.put(args)
     results: Dict[int, Any] = {}
     errors: List[str] = []
     end = time.monotonic() + deadline_s
@@ -264,3 +274,30 @@ def run_ranks(fn: Callable, world: int, args: Sequence = (),
     if errors:
         raise RuntimeError("; ".join(errors))
     return [results[r] for r in range(world)]
+
+
+# A launcher's collective that waits this long raises; a spawned run,
+# this long.
+RANK_TIMEOUT_S = 300.0
+RANK_DEADLINE_S = 3000.0
+
+
+def spawn_or_join(fn: Callable, world: int, args: Sequence = ()) -> Any:
+    """``fn(rank, world, *args)`` on ``world`` ranks, as a launcher runs
+    a mesh: where ``RANK`` and ``WORLD_SIZE`` are set this process joins
+    that group (which must have ``world`` ranks; ``maybe_init_distributed``)
+    and returns its own value; else ``run_ranks`` spawns the ranks on
+    this host (one thread each) and rank 0's value is returned."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        if size != world:
+            raise SystemExit(f"WORLD_SIZE {size} is not the mesh's {world} "
+                             f"ranks")
+        joined = maybe_init_distributed(RANK_TIMEOUT_S)
+        try:
+            return fn(rank, world, *args)
+        finally:
+            if joined:
+                dist.destroy_process_group()
+    return run_ranks(fn, world, args=args, deadline_s=RANK_DEADLINE_S,
+                     timeout_s=RANK_TIMEOUT_S, threads=1)[0]

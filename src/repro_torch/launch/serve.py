@@ -52,6 +52,13 @@ collectives cannot be captured in a CUDA graph:
       --max-len 512 --requests 4 --max-new 16
   python -m repro_torch.launch.serve --arch qwen3-4b --paged --smoke \
       --device cpu --max-len 64 --page-size 8 --chunk-size 8 --tp 2
+
+A mixture of experts (dbrx-132b, llama4-maverick) serves with its experts
+split over the ranks, and ``--spec-k`` takes any draft under ``--tp``
+(rank 0's drafts are broadcast to every rank):
+
+  python -m repro_torch.launch.serve --arch dbrx-132b --smoke --paged \
+      --device cpu --max-len 64 --page-size 8 --chunk-size 8 --tp 2
 """
 
 from __future__ import annotations
@@ -263,24 +270,8 @@ def main(argv=None):
         raise SystemExit("--tp/--mesh need --paged (the shard unit of the "
                          "distributed engine is the K/V page)")
     if tp is not None and tp > 1:
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-            if world != tp:
-                raise SystemExit(f"WORLD_SIZE {world} is not --tp {tp}")
-            mesh_lib.maybe_init_distributed(RANK_TIMEOUT_S)
-            try:
-                return _serve_rank(rank, world, args)
-            finally:
-                torch.distributed.destroy_process_group()
-        return mesh_lib.run_ranks(_serve_rank, tp, args=(args,),
-                                  deadline_s=RANK_DEADLINE_S,
-                                  timeout_s=RANK_TIMEOUT_S, threads=1)[0]
+        return mesh_lib.spawn_or_join(_serve_rank, tp, (args,))
     return _serve(args, resolve_device(args.device), None)
-
-
-# A collective that waits this long raises; the whole run, this long.
-RANK_TIMEOUT_S = 300.0
-RANK_DEADLINE_S = 3000.0
 
 
 def _serve_rank(rank: int, world: int, args):

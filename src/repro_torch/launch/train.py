@@ -30,14 +30,26 @@ needs), e.g. 256 of
       python -m repro_torch.launch.train --arch qwen2-0.5b --mesh single \
       --fsdp --ckpt DIR
 
+``--mesh data=D,model=M`` (or ``pod=P,data=D,model=M``) trains on a
+mesh of that shape: the launcher spawns its ranks on this host
+(``launch.mesh.run_ranks``; on a card they share it), or joins the group
+that ``RANK``/``WORLD_SIZE`` name, which must have that many ranks. Every
+family trains over the model axis as over the data axis (the mixtures
+split by experts, Mamba mixers by ``ssm_heads``, cross and encoder
+layers by heads):
+
+  python -m repro_torch.launch.train --arch mamba2-370m --mesh \
+      data=1,model=2 --batch 4 --seq 512 --steps 3 --ckpt DIR
+  python -m repro_torch.launch.train --arch jamba-v0.1-52b --smoke \
+      --device cpu --mesh data=1,model=2 --steps 3 --ckpt DIR
+
 Each rank runs on the card ``RANK`` modulo the cards it sees; rank 0
 prints. ``--fsdp`` also shards large leaves over "data"; without a mesh
 it does nothing, as in the reference. ``build(cfg, args, device, mesh)``
-takes any ``launch.mesh.Mesh`` (tests and ``chip_smoke.py`` phase 24 use
-(2, 1) and (1, 2) meshes over ``launch.mesh.run_ranks``). gloo runs only
-``all_reduce`` and ``broadcast`` on CUDA tensors, which is all the step
-uses; a mixture of experts, Mamba or cross layers train over the data
-axis only (``models.transformer.forward_aux``).
+takes any ``launch.mesh.Mesh`` (tests and ``chip_smoke.py`` phases 24-25
+use (2, 1) and (1, 2) meshes over ``launch.mesh.run_ranks``). gloo runs
+only ``all_reduce`` and ``broadcast`` on CUDA tensors, which is all the
+step uses.
 """
 
 from __future__ import annotations
@@ -46,7 +58,9 @@ import argparse
 import contextlib
 import dataclasses
 import io
-from typing import Any, Dict, Optional
+import math
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -152,9 +166,11 @@ def main(argv=None):
                     help="carry the int8 quantization residual in the "
                          "train state (EF-SGD); implies --compress-grads")
     ap.add_argument("--mesh", default="none",
-                    choices=["none", "single", "multi"],
-                    help="the reference's production mesh over the ranks "
-                         "that RANK/WORLD_SIZE name")
+                    help="none; single or multi (the reference's "
+                         "production meshes over the ranks that "
+                         "RANK/WORLD_SIZE name); or a shape such as "
+                         "data=1,model=2 (ranks spawned here unless "
+                         "RANK/WORLD_SIZE name a group)")
     ap.add_argument("--device", default="cuda")
     args, extra = ap.parse_known_args(argv)
     bad = [a for a in extra if "=" not in a]
@@ -169,12 +185,21 @@ def main(argv=None):
     if overrides:
         cfg = apply_overrides(cfg, overrides)
 
+    shape = parse_mesh(args.mesh)
+    if shape is not None:
+        world = math.prod(shape[0])
+        if world == 1 and "RANK" not in os.environ:
+            return _train(cfg, args, resolve_device(args.device), None)
+        # Tensors do not outlive their rank's process: rank 0's logs come
+        # back, its state stays in the checkpoint.
+        return mesh_lib.spawn_or_join(_train_rank, world, (cfg, args, shape))
     joined = mesh_lib.maybe_init_distributed()
     try:
         mesh, device = None, resolve_device(args.device)
         if args.mesh != "none":
             mesh = mesh_lib.make_production_mesh(
                 multi_pod=args.mesh == "multi")
+        if mesh is not None:
             device = mesh_lib.rank_device(mesh.rank, args.device)
             if device.type == "cuda":
                 torch.cuda.set_device(device)
@@ -185,6 +210,47 @@ def main(argv=None):
     finally:
         if joined:
             torch.distributed.destroy_process_group()
+
+
+MESH_AXES = ("pod", "data", "model")
+
+
+def parse_mesh(spec: str) -> Optional[Tuple[Tuple[int, ...],
+                                            Tuple[str, ...]]]:
+    """``--mesh``'s shape form, e.g. ``data=1,model=2`` -> ((1, 2),
+    ("data", "model")): axes among pod, data and model in that order
+    (data and model always present, 1 where not named); None for
+    ``none``, ``single`` and ``multi``."""
+    if spec in ("none", "single", "multi"):
+        return None
+    sizes: Dict[str, int] = {}
+    for part in spec.split(","):
+        axis, _, size = part.partition("=")
+        if axis not in MESH_AXES or not size.isdigit() or int(size) < 1 \
+                or axis in sizes:
+            raise SystemExit(f"--mesh wants none, single, multi or "
+                             f"AXIS=N[,AXIS=N] over {MESH_AXES}, got "
+                             f"{spec!r}")
+        sizes[axis] = int(size)
+    axes = tuple(a for a in MESH_AXES if a != "pod" or a in sizes)
+    return tuple(sizes.get(a, 1) for a in axes), axes
+
+
+def _train_rank(rank: int, world: int, cfg: ModelConfig, args, shape):
+    """One spawned rank of ``--mesh AXIS=N``: its device, the mesh over the
+    group, the run; returns the logged metrics (rank 0 prints)."""
+    mesh = mesh_lib.make_mesh(*shape)
+    device = mesh_lib.rank_device(rank, args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    out = contextlib.nullcontext() if rank == 0 \
+        else contextlib.redirect_stdout(io.StringIO())
+    with out:
+        result = _train(cfg, args, device, mesh)
+    return {"metrics": [{k: float(v) for k, v in m.items()}
+                        for m in result["metrics"]],
+            "recoveries": result["recoveries"],
+            "stragglers": list(result["stragglers"])}
 
 
 def _train(cfg: ModelConfig, args, device, mesh):

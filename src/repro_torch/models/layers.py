@@ -23,8 +23,8 @@ collective.
 
 **Training over a model axis.** Inside a train step on a mesh
 (``train.dist.use_mesh``; its own switch, which the serving paths never
-read) the cache-less attention, the MLP and the embeddings are split the
-same way (Megatron's layout, which is what GSPMD makes of the
+read) the cache-less attention (an encoder's too), the gated
+cross-attention, the MLP and the embeddings are split the same way (Megatron's layout, which is what GSPMD makes of the
 reference's rules): each column-parallel region takes its input through
 ``copy`` and each row-parallel product leaves through ``reduce``; the
 unembedding leaves the logits vocab-sharded for the loss
@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve import dist as serve_dist
+from repro_torch.serve import paged
 from repro_torch.train import dist as train_dist
 from repro_torch.tree import tree_map
 
@@ -179,7 +180,8 @@ def causal_mask(sq: int, device=None):
 
 
 def attention_apply(params: Params, cfg: AttnConfig, x,
-                    cache: Optional[Params] = None, use_flash: bool = False
+                    cache: Optional[Params] = None, use_flash: bool = False,
+                    writes: Optional[tuple] = None
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Self-attention over the whole sequence (no cache; causal unless
     ``cfg.causal`` is False), or s new rows against a cache: a paged one
@@ -188,7 +190,8 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
     Without a cache, ``use_flash`` runs the full-sequence kernel
     (``kernels.ops.flash_attention``, fp32 softmax, no backward), else the
     masked plain ``sdpa``. With a cache it is not read: cached attention
-    always runs its kernels."""
+    always runs its kernels. ``writes``: a paged cache's ``paged_writes``
+    for this step, computed here where not given."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if cache is not None:
@@ -205,10 +208,12 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
             raise NotImplementedError(
                 "tensor-parallel attention is paged only (the reference's "
                 "mesh engine is paged-only)")
-        return _paged_apply_sharded(params, cfg, x, q, k, v, cache)
+        return _paged_apply_sharded(params, cfg, x, q, k, v, cache,
+                                    writes or paged_writes(cache, s))
     if cache is not None:
         if "kp" in cache:
-            return _paged_apply(params, x, q, k, v, cache)
+            return _paged_apply(params, x, q, k, v, cache,
+                                writes or paged_writes(cache, s))
         return _contiguous_apply(params, x, q, k, v, cache)
     if use_flash:
         out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
@@ -219,7 +224,7 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
 
 
 def _attention_train(params: Params, cfg: AttnConfig, x, positions,
-                     use_flash: bool, tm, axis: str):
+                     use_flash: bool, tm, axis: str, kv_src=None):
     """Cache-less attention under a train step's model axis: column-
     parallel over this rank's q heads (``wq``, ``b_q``) and, where the kv
     heads shard, its kv heads; row-parallel over ``wo``, whose product is
@@ -229,7 +234,9 @@ def _attention_train(params: Params, cfg: AttnConfig, x, positions,
     axis but used inside the region gets a partial gradient on each
     rank, so it enters through ``copy``: the qk-norm scales (shared by
     every head) and, with the kv heads replicated, ``wk``/``wv``/``b_k``
-    /``b_v``."""
+    /``b_v``. With ``kv_src`` it is the cross-attention's
+    (``_cross_qkv``), whose keys and values come from ``kv_src``, which
+    enters through ``copy`` too."""
     kv_sharded = tm.ruleset.sharded("kv_heads", cfg.n_kv_heads) is not None
     partial = ("q_norm", "k_norm") if kv_sharded else (
         "q_norm", "k_norm", "wk", "wv", "b_k", "b_v")
@@ -237,7 +244,11 @@ def _attention_train(params: Params, cfg: AttnConfig, x, positions,
     for name in partial:
         if name in p:
             p[name] = tree_map(lambda t: tm.copy(t, axis), p[name])
-    q, k, v = _project_qkv(p, cfg, tm.copy(x, axis), positions)
+    if kv_src is None:
+        q, k, v = _project_qkv(p, cfg, tm.copy(x, axis), positions)
+    else:
+        q, k, v = _cross_qkv(p, cfg, tm.copy(x, axis),
+                             tm.copy(kv_src, axis))
     if not kv_sharded:
         k, v = _local_kv_heads(k, v, cfg.n_heads, q.shape[2],
                                tm.mesh.index(axis))
@@ -290,7 +301,31 @@ def _contiguous_apply(params: Params, x, q, k, v, cache: Params):
     return _matmul_out(out, params["wo"]), new_cache
 
 
-def _paged_apply(params: Params, x, q, k, v, cache: Params):
+def paged_writes(cache: Params, s: int) -> tuple:
+    """Where a step's s new K/V rows a slot land in a paged pool (one
+    table serves every layer, so a forward computes this once): (pos,
+    page, row) (b, s), each row's position, global page id (0, the null
+    page, past the table's reach) and in-page row, and src (b * s,) the
+    write whose values each one carries (``serve.paged.last_writers``,
+    over the whole pool's rows where the ranks shard it)."""
+    idx = cache["index"].long()                        # (b,)
+    kp, pages = cache["kp"], cache["pages"]
+    page_size, max_pages = kp.shape[1], pages.shape[1]
+    pos = idx[:, None] + torch.arange(s, device=kp.device)[None, :]
+    pj = pos.div(page_size, rounding_mode="floor").clamp(0, max_pages - 1)
+    page = torch.gather(pages.long(), 1, pj)
+    page = torch.where(pos < max_pages * page_size, page,
+                       torch.zeros_like(page))
+    row = pos % page_size
+    pool_rows = kp.shape[0] * page_size
+    sharded = serve_dist.active_pool_mesh()
+    if sharded is not None:
+        pool_rows *= int(sharded[0].shape[sharded[1]])
+    return pos, page, row, paged.last_writers(page, row, page_size,
+                                              pool_rows)
+
+
+def _paged_apply(params: Params, x, q, k, v, cache: Params, writes: tuple):
     """Attention against a paged KV cache: single-token decode (s == 1)
     and in-place chunked prefill (s > 1) share one path.
 
@@ -304,17 +339,9 @@ def _paged_apply(params: Params, x, q, k, v, cache: Params):
     one of the two kernels (``kernels.ops``), whose wrappers send CPU
     tensors to their plain versions."""
     s = x.shape[1]
-    idx = cache["index"].long()                        # (b,)
     kp, vp, pages = cache["kp"], cache["vp"], cache["pages"]
-    page_size, max_pages = kp.shape[1], pages.shape[1]
-    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]  # (b, s)
-    pj = pos.div(page_size, rounding_mode="floor").clamp(0, max_pages - 1)
-    page = torch.gather(pages.long(), 1, pj)
-    page = torch.where(pos < max_pages * page_size, page,
-                       torch.zeros_like(page))
-    row = pos % page_size
-    kp[page, row] = k.to(kp.dtype)
-    vp[page, row] = v.to(vp.dtype)
+    _, page, row, src = writes
+    paged.write_rows(kp, vp, k, v, page, row, src)
     new_cache = dict(cache, index=cache["index"] + s)
     if s == 1:
         out = kernel_ops.flash_decode_paged(
@@ -344,7 +371,7 @@ def _local_kv_heads(ck, cv, n_heads: int, q_local: int, rank: int):
 
 
 def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
-                         cache: Params):
+                         cache: Params, writes: tuple):
     """Paged attention against a pool sharded over ranks by pages
     (``serve.dist``), the port of the reference's
     ``_paged_apply_sharded``. q/k/v hold this rank's heads where the
@@ -358,20 +385,13 @@ def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
     projection is summed over ranks."""
     mesh, axis = serve_dist.active_pool_mesh()
     s = x.shape[1]
-    idx = cache["index"].long()
     kp, vp, pages = cache["kp"], cache["vp"], cache["pages"]
-    page_size, max_pages = kp.shape[1], pages.shape[1]
-    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
-    pj = pos.div(page_size, rounding_mode="floor").clamp(0, max_pages - 1)
-    page = torch.gather(pages.long(), 1, pj)
-    page = torch.where(pos < max_pages * page_size, page,
-                       torch.zeros_like(page))
-    row = pos % page_size
+    pos, page, row, src = writes
     kv_heads = serve_dist.sharded("kv_heads", cfg.n_kv_heads)
     if kv_heads is not None:
         k = serve_dist.all_gather_dim(k, 2, *kv_heads)
         v = serve_dist.all_gather_dim(v, 2, *kv_heads)
-    serve_dist.scatter_pages(kp, vp, k, v, page, row, mesh, axis)
+    serve_dist.scatter_pages(kp, vp, k, v, page, row, mesh, axis, src)
     new_cache = dict(cache, index=cache["index"] + s)
     ck, cv = serve_dist.gather_pages(kp, vp, pages, mesh, axis)
     heads = serve_dist.sharded("heads", cfg.n_heads)
@@ -392,18 +412,31 @@ def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
     return y, new_cache
 
 
-def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
-    """Cross-attention: queries from x (b, s, d), keys and values from
-    ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
-    and no RoPE (as the reference), the output scaled by ``tanh(gate)``
-    where the layer has a gate (llama-3.2-vision)."""
+def _cross_qkv(params: Params, cfg: AttnConfig, x, kv_src):
     q = _matmul_heads(x, params["wq"])
     k = _matmul_heads(kv_src, params["wk"])
     v = _matmul_heads(kv_src, params["wv"])
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    y = _matmul_out(sdpa(q, k, v), params["wo"])
+    return q, k, v
+
+
+def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
+    """Cross-attention: queries from x (b, s, d), keys and values from
+    ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
+    and no RoPE (as the reference), the output scaled by ``tanh(gate)``
+    where the layer has a gate (llama-3.2-vision). Under a train step's
+    model axis it is split by heads as the self-attention is
+    (``_attention_train``), and the gate scales the summed output, so
+    that its gradient is whole on every rank."""
+    train = train_dist.sharded("heads", cfg.n_heads)
+    if train is not None:
+        y = _attention_train(params, cfg, x, None, False, *train,
+                             kv_src=kv_src)
+    else:
+        q, k, v = _cross_qkv(params, cfg, x, kv_src)
+        y = _matmul_out(sdpa(q, k, v), params["wo"])
     if "gate" in params:
         y = torch.tanh(params["gate"]).to(x.dtype) * y
     return y

@@ -11,6 +11,19 @@ step (l == 1 with a cache) through the exact recurrence. Training passes
 the differentiable ``ssd_chunked`` in fp32, as the reference's default
 path does (in float64 for a float64 input: ``layers.wide``).
 
+**Over a train step's model axis** (``train.dist``) the plain path is
+split by ``ssm_heads``: ``w_x``, ``w_z``, ``w_dt``, ``dt_bias``,
+``A_log``, ``D`` and ``conv_w`` column-parallel over this rank's heads,
+``w_ssm_out`` row-parallel and followed by a ``reduce``; ``w_B``,
+``w_C`` and the input, used by every head, enter through ``copy``. The
+gated RMSNorm normalises over all ``h * p`` channels: the sum of
+squares is summed over the axis both ways (``TrainMesh.all_sum``) and
+divided by the global width, and each rank reads its slice of the
+replicated scale (taken through ``copy``). Where ``ssm_heads`` does not
+divide the axis the mixer replicates and runs whole on every rank. The
+kernel path (no gradient) and the cached path (no mesh serves a Mamba
+layer) are never split.
+
 Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
 in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
 not write the cache in place).
@@ -27,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
+from repro_torch.train import dist as train_dist
 
 Params = Dict[str, object]
 
@@ -178,13 +192,20 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
     the sequence through ``ssd_chunked`` in fp32 instead, its chunk
     halved from ``cfg.chunk`` until it divides l (the reference's
     ``use_kernel=False`` branch): the path a gradient can pass."""
+    split = None if use_kernel or cache is not None else \
+        train_dist.sharded("ssm_heads", cfg.n_heads)
+    w_b, w_c = params["w_B"], params["w_C"]
+    if split is not None:
+        tm, axis = split
+        x = tm.copy(x, axis)
+        w_b, w_c = tm.copy(w_b, axis), tm.copy(w_c, axis)
     b_, l, _ = x.shape
-    h, p = cfg.n_heads, cfg.head_dim
+    h, p = params["w_x"].shape[1], cfg.head_dim       # this rank's heads
     dtype = x.dtype
     xin = layers._matmul_heads(x, params["w_x"])                # (b,l,h,p)
     z = layers._matmul_heads(x, params["w_z"])
-    bmat = x @ params["w_B"].to(dtype)                           # (b,l,n)
-    cmat = x @ params["w_C"].to(dtype)
+    bmat = x @ w_b.to(dtype)                                     # (b,l,n)
+    cmat = x @ w_c.to(dtype)
     dt = F.softplus(x @ params["w_dt"].to(dtype)
                     + params["dt_bias"].to(dtype))               # (b,l,h)
     wide = layers.wide(dtype)              # fp32, or float64 for float64
@@ -211,14 +232,35 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
 
     y = y + xin * params["D"].to(dtype)[None, None, :, None]
     y = y * F.silu(z)
-    y = layers.rmsnorm(params["norm"], y.reshape(b_, l, h * p))
+    if split is None:
+        y = layers.rmsnorm(params["norm"], y.reshape(b_, l, h * p))
+    else:
+        y = _split_rmsnorm(params["norm"], y.reshape(b_, l, h * p),
+                           cfg.n_heads * p, *split)
     out = layers._matmul_out(y.reshape(b_, l, h, p), params["w_ssm_out"])
+    if split is not None:
+        out = split[0].reduce(out, split[1])          # w_ssm_out's rows
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype),
                      "ssm": hn.to(cache["ssm"].dtype),
                      "index": cache["index"] + l}
     return out, new_cache
+
+
+def _split_rmsnorm(params: Params, y, width: int, tm, axis: str,
+                   eps: float = 1e-6):
+    """``layers.rmsnorm`` over ``width`` channels of which this rank holds
+    ``y``'s last dim (a block in rank order): the sum of squares summed
+    over the axis both ways, divided by the global ``width``; this rank's
+    slice of the replicated scale, whose gradient is partial here."""
+    dtype = y.dtype
+    yf = y.to(layers.wide(dtype))
+    var = tm.all_sum(yf.square().sum(dim=-1, keepdim=True), axis) / width
+    n = y.shape[-1]
+    scale = tm.copy(params["scale"], axis).narrow(
+        0, tm.mesh.index(axis) * n, n)
+    return (yf * torch.rsqrt(var + eps) * scale).to(dtype)
 
 
 def init_cache(cfg: MambaConfig, batch: int, device,

@@ -26,7 +26,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import layers, mamba, moe
-from repro_torch.train import dist as train_dist
 
 Params = Dict[str, Any]
 
@@ -221,13 +220,15 @@ def model_flops(cfg: ModelConfig, batch: int, seq: int, mode: str = "train",
 # ----------------------------------------------------------------------------
 
 def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
-                 cache=None, cross_kv=None, ssd_kernel: bool = True):
+                 cache=None, cross_kv=None, ssd_kernel: bool = True,
+                 writes=None):
     """One pre-norm block: the mixer, then (a ``"cross"`` layer) the gated
     cross-attention to ``cross_kv``, then the MLP (dense or a mixture of
     experts) if it has one, each with a residual. Returns (x, new cache,
     aux): ``aux`` is the mixture's load-balancing loss, 0 for a dense
     MLP. ``ssd_kernel`` False runs a Mamba mixer through the plain
-    chunked scan (``mamba.mamba_apply``'s ``use_kernel``)."""
+    chunked scan (``mamba.mamba_apply``'s ``use_kernel``); ``writes``
+    is a paged cache's ``layers.paged_writes`` for the step."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.norm(cfg.norm, params["ln1"], x)
     if kind == "mamba":
@@ -237,7 +238,7 @@ def _layer_apply(params: Params, cfg: ModelConfig, kind: str, x,
     else:
         mix, new_cache = layers.attention_apply(
             params["attn"], attn_cfg(cfg), h, cache=cache,
-            use_flash=cfg.use_flash)
+            use_flash=cfg.use_flash, writes=writes)
     x = x + mix
     if kind == "cross":
         hx = layers.norm(cfg.norm, params["ln_x"], x)
@@ -258,7 +259,9 @@ def encode(params: Params, cfg: ModelConfig, frontend_embeds):
     """The encoder over the frontend's embeddings (b, n, d_model): the
     fp32 sinusoid table added, then blocks of non-causal, RoPE-less
     attention through the plain ``sdpa`` and the dense MLP, then the
-    encoder's final norm. Returns (b, n, d_model) in the compute dtype."""
+    encoder's final norm. Returns (b, n, d_model) in the compute dtype.
+    Under a train step's model axis the blocks split as the decoder's
+    cache-less ones (``layers.attention_apply``, ``layers.mlp_apply``)."""
     x = frontend_embeds.to(cfg.dtype)
     pos = layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
     x = x + pos[None].to(x.dtype)
@@ -337,22 +340,12 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens,
     the plain chunked scan: the training step's choice, since the scan
     kernel has no backward.
 
-    Inside a train step on a mesh (``train.dist.use_mesh``) the dense
-    layers split over its model axis (``models.layers``); a Mamba layer,
-    a mixture of experts, a cross layer or an encoder under a model axis
-    larger than 1 raises. Under the data axis alone every family runs,
-    the mixtures routing over the whole batch (``models.moe``)."""
-    tm = train_dist.active()
-    if tm is not None and tm.model_parallel:
-        bad = sorted({cfg.kind(i) for i in range(cfg.n_layers)} - {"attn"})
-        bad += ["moe"] if cfg.n_experts else []
-        bad += ["encoder"] if cfg.encoder is not None else []
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(bad)} layers do not train over a "
-                f"model axis (the model axis for experts, Mamba and "
-                f"cross/encoder layers is ROADMAP Queue 1 item 2); train "
-                f"them over the data axis")
+    Inside a train step on a mesh (``train.dist.use_mesh``) every layer
+    splits over its model axis: the attention, cross-attention, encoder
+    blocks and MLPs by heads and ``mlp`` (``models.layers``), the
+    mixtures by experts (``models.moe``), the Mamba mixers by
+    ``ssm_heads`` (``models.mamba``); over the data axis the mixtures
+    route over the whole batch."""
     x = layers.embed(params["embed"], tokens, cfg.dtype, vocab=cfg.vocab)
     if cross_kv is not None:
         cross_kv = cross_kv.to(cfg.dtype)
@@ -365,11 +358,16 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens,
             pos = pos + (idx[:, None] if idx.dim() == 1 else idx)
         x = x + sinusoid_at(pos, cfg.d_model).to(x.dtype)
     new_caches = [] if caches is not None else None
+    # A paged pool's table and write positions are every layer's: where
+    # the step's rows land is worked out once.
+    writes = layers.paged_writes(caches[0], tokens.shape[1]) \
+        if caches is not None and "kp" in caches[0] else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params["blocks"]):
         cache = caches[i] if caches is not None else None
         x, nc, a = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
-                                cross_kv=cross_kv, ssd_kernel=ssd_kernel)
+                                cross_kv=cross_kv, ssd_kernel=ssd_kernel,
+                                writes=writes)
         aux = aux + a
         if caches is not None:
             new_caches.append(nc)

@@ -20,7 +20,9 @@ pool's kv heads replicate).
 
 Only ``broadcast`` and ``all_reduce`` are used (gloo runs those two on
 CUDA tensors): a gather is an ``all_reduce`` of a zero-padded tensor,
-exact for the same reason. ``all_reduce`` itself (the row-parallel sums
+exact for the same reason. ``broadcast`` hands the first rank's drafts
+to every rank once a speculative tick (``ServingEngine``), so that the
+ranks verify the same tokens whatever their draft sources propose. ``all_reduce`` itself (the row-parallel sums
 of ``wo`` and ``w_down``) reorders fp32 additions against one rank.
 
 The engine's host state (allocator, tables, positions) is the same on
@@ -37,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.dist import sharding
+from repro_torch.serve import paged
 
 # Logical name of the pool's page axis.
 POOL_RULE = "kv_pages"
@@ -79,6 +82,15 @@ def sharded(name: str, size: int) -> Optional[Tuple[Any, str]]:
 def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum ``x`` over ``axis`` in place on every rank; returns it."""
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return x
+
+
+def broadcast(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` as the first rank of this rank's ``axis`` line holds it, on
+    every rank of the line, in place; returns it."""
+    group = mesh.group(axis)
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.broadcast(x, src=src, group=group)
     return x
 
 
@@ -125,13 +137,22 @@ def _owned(page: torch.Tensor, block: int, mesh, axis: str):
     return local, (local >= 0) & (local < block)
 
 
-def scatter_pages(kp, vp, k, v, page, row, mesh, axis: str = "model"):
+def scatter_pages(kp, vp, k, v, page, row, mesh, axis: str = "model",
+                  src: Optional[torch.Tensor] = None):
     """Write rows (b, s) through the global table into this rank's block
     of the pool, in place, dropping the rows of pages it does not own.
     kp/vp: (block, page_size, kvh, hd) local; k/v: (b, s, kvh, hd) every
-    kv head; page/row: (b, s) global page id and in-page row."""
-    local, owned = _owned(page, kp.shape[0], mesh, axis)
-    lp, rw = local[owned], row[owned]
+    kv head; page/row: (b, s) global page id and in-page row; src: the
+    write whose values each one carries (``serve.paged.last_writers``
+    over the whole pool, computed here where not given), as
+    ``serve.paged.write_rows``."""
+    if src is None:
+        src = paged.last_writers(page, row, kp.shape[1], kp.shape[0]
+                                 * kp.shape[1] * int(mesh.shape[axis]))
+    k = k.reshape(-1, *k.shape[2:])[src]
+    v = v.reshape(-1, *v.shape[2:])[src]
+    local, owned = _owned(page.reshape(-1), kp.shape[0], mesh, axis)
+    lp, rw = local[owned], row.reshape(-1)[owned]
     kp[lp, rw] = k[owned].to(kp.dtype)
     vp[lp, rw] = v[owned].to(vp.dtype)
     return kp, vp

@@ -303,7 +303,12 @@ class ServingEngine:
     up to a multiple of the ranks), and the steps run under the ruleset,
     so the layers run the collectives (``serve.dist``). The host side
     (scheduling, tables, sampling) is the same on every rank and prices
-    the global pool, so the streams are those of one rank. The collectives
+    the global pool, so the streams are those of one rank. A mixture of
+    experts serves with its experts split over the mesh (``models.moe``).
+    A speculative engine's draft source (a model draft holds the whole
+    ``params`` and runs unsharded, ``spec.ModelDraft``) proposes on every
+    rank, and rank 0's drafts are broadcast, so every rank verifies the
+    same tokens. The collectives
     of a gloo group cannot be captured in a CUDA graph: on the card such
     an engine needs ``capture=False``."""
 
@@ -439,9 +444,12 @@ class ServingEngine:
         if serve_cfg.spec_k < 0:
             raise ValueError(f"spec_k {serve_cfg.spec_k} < 0")
         self.spec_k = serve_cfg.spec_k
+        # Under a mesh only the first rank of the pool's axis drafts; the
+        # others take its drafts (``_agree_on_drafts``) and hold no draft.
+        drafts_here = mesh is None or mesh.index(self._pool_axis) == 0
         self.draft = spec_mod.resolve_draft(serve_cfg.draft, cfg, params,
                                             self.device) \
-            if self.spec_k else None
+            if self.spec_k and drafts_here else None
         self.verify_steps = 0
         # The adaptive width: drafts a slot asks for, and the window of
         # verify ticks (and their drafts proposed and accepted) it is
@@ -520,15 +528,6 @@ class ServingEngine:
         if not scfg.paged:
             raise ValueError("mesh serving is paged-only (as the "
                              "reference's)")
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor-parallel serving of a mixture of "
-                f"experts (experts sharded over the mesh) is not ported")
-        if scfg.spec_k and scfg.draft not in (None, "ngram") \
-                and isinstance(scfg.draft, str):
-            raise NotImplementedError(
-                f"draft {scfg.draft!r}: a model draft under a mesh is not "
-                f"ported; the n-gram draft serves")
         if self.device.type == "cuda" and capture:
             raise ValueError(
                 "capture=True under a mesh: the collectives of a gloo "
@@ -1493,11 +1492,16 @@ class ServingEngine:
             for i in active:
                 req = self.slots[i]
                 base_len[i] = self._effective_len(req) - 1  # write position
+                if self.draft is None:         # a mesh rank that receives
+                    n_prop[i] = 0
+                    continue
                 prop = np.asarray(self.draft.propose(
                     self._draft_history(req), k), np.int64).ravel()[:k]
                 n_prop[i] = len(prop)
                 tokens[i, 1:1 + len(prop)] = np.clip(prop, 0,
                                                      self.cfg.vocab - 1)
+            if self.mesh is not None:
+                self._agree_on_drafts(tokens, n_prop, active)
         with tel.span("spec_verify", self.ticks) as sp:
             n0 = self.verify_traces
             picks = self._verify_step(tokens, active)
@@ -1526,6 +1530,25 @@ class ServingEngine:
                 self.index[i] = base_len[i] + n_rec
                 last[i] = emitted[n_rec - 1]
         self.last_tok = last
+
+    def _agree_on_drafts(self, tokens: np.ndarray, n_prop: Dict[int, int],
+                         active: List[int]) -> None:
+        """Rank 0's drafts on every rank (``tokens`` and ``n_prop`` in
+        place): one ``broadcast`` a verify tick of an int64 (slots,
+        ``spec_k``) tensor, -1 past each slot's proposals. Every rank must
+        verify the same drafts, or the ranks' collectives part ways; only
+        rank 0 drafts, so no rank's proposals need to agree."""
+        width = self.spec_k
+        drafts = torch.full((self.scfg.batch, width), -1, dtype=torch.int64)
+        for i in active:
+            drafts[i, :n_prop[i]] = torch.from_numpy(
+                tokens[i, 1:1 + n_prop[i]])
+        got = serve_dist.broadcast(drafts, self.mesh,
+                                   self._pool_axis).numpy()
+        for i in active:
+            n_prop[i] = int((got[i] >= 0).sum())
+            tokens[i, 1:] = 0
+            tokens[i, 1:1 + n_prop[i]] = got[i, :n_prop[i]]
 
     def _reset_prefill_positions(self) -> None:
         """The decode (verify) step advanced every slot's write position

@@ -16,7 +16,8 @@ past a table's reach.
   pages through the table, copy-on-write before a write into a shared
   page, and LRU eviction of pages only the index holds.
 * ``gather_kv`` — the plain page-table walk: materialises the contiguous
-  (b, max_pages * page_size, kvh, d) view of a pool.
+  (b, max_pages * page_size, kvh, d) view of a pool; ``write_rows`` the
+  write through the table, the last write winning where writes collide.
 * ``pages_for`` / ``chunk_page_need`` — the allocation units that
   admission and the chunked-prefill scheduler share; ``reservation`` the
   modelled rows paged against contiguous.
@@ -402,6 +403,39 @@ class PrefixIndex:
         freed = sum(self.pool.release(e.page) for e in self._entries.values())
         self._entries.clear()
         return freed
+
+
+def last_writers(page: torch.Tensor, row: torch.Tensor, page_size: int,
+                 pool_rows: int) -> torch.Tensor:
+    """For writes to pool rows (page, row) (any shape, int) of a pool of
+    ``pool_rows`` rows: the flat index of the last write to each one's
+    pool row (its own where no later write shares it). A max scattered
+    over the pool's rows, exact whatever order the atomics land in; no
+    step waits on the host, so a captured graph runs it."""
+    target = page.reshape(-1).long() * page_size + row.reshape(-1).long()
+    order = torch.arange(target.numel(), device=target.device)
+    last = torch.zeros(pool_rows, dtype=torch.long, device=target.device)
+    return last.scatter_reduce_(0, target, order, "amax")[target]
+
+
+def write_rows(kp: torch.Tensor, vp: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, page: torch.Tensor, row: torch.Tensor,
+               src: Optional[torch.Tensor] = None) -> None:
+    """Write K/V rows (b, s, kvh, d) into the pool (n_pages, page_size,
+    kvh, d) at (page, row) (b, s), in place. Writes that land on one pool
+    row (the null page's: free slots, padded chunk rows, rows past a
+    table's reach) all carry the last one's values (``src``, the
+    ``last_writers`` of (page, row), computed here where not given), so
+    the row holds the last write, as an in-order scatter leaves it, and
+    not whichever write a card's threads finish last: garbage rows read
+    it back, and their tokens route through a mixture's capacity ahead of
+    later slots' tokens."""
+    if src is None:
+        src = last_writers(page, row, kp.shape[1],
+                           kp.shape[0] * kp.shape[1])
+    page, row = page.reshape(-1), row.reshape(-1)
+    kp[page, row] = k.reshape(-1, *k.shape[2:])[src].to(kp.dtype)
+    vp[page, row] = v.reshape(-1, *v.shape[2:])[src].to(vp.dtype)
 
 
 def gather_kv(kp: torch.Tensor, vp: torch.Tensor, pages: torch.Tensor):

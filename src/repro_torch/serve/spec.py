@@ -35,6 +35,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import transformer as T
 from repro_torch.serve.sampling import (fold_row_keys, fold_span_keys,
                                         sampler)
@@ -136,6 +137,12 @@ class ModelDraft:
 
     @torch.no_grad()
     def propose(self, history: np.ndarray, k: int) -> np.ndarray:
+        # Whole weights on one rank: never the serving mesh's sharded
+        # layers, even when an engine on a mesh asks.
+        with sharding.use_ruleset(None):
+            return self._propose(history, k)
+
+    def _propose(self, history: np.ndarray, k: int) -> np.ndarray:
         h = np.asarray(history, np.int64).ravel()
         n = min(len(h), self.window)
         if n == 0 or k == 0:

@@ -8,7 +8,8 @@ over ``"data"`` under FSDP); GSPMD inserts every gather and reduction,
 and the step equals the single-device one. Here a ``TrainMesh`` (the
 step's ruleset, and the axes its batch is split over) is installed with
 ``use_mesh`` while the step's loss runs, and the layers read it through
-``sharded`` (``models.layers``, ``models.moe``, ``train.steps``). It is
+``sharded`` (``models.layers``, ``models.moe``, ``models.mamba``,
+``train.steps``). It is
 training's own switch: the serving layers read
 ``serve.dist.active_pool_mesh`` instead, which it leaves unset.
 
@@ -27,6 +28,16 @@ The collectives, each an ``autograd.Function`` over a mesh axis:
   (an ``all_reduce`` of the block placed in zeros: one rank contributes
   each element), and backward the full gradient summed over ``"data"``,
   this rank's block kept.
+* ``all_sum``: ``all_reduce`` forward and backward: a sum over the axis
+  of per-rank parts that every rank then reads in full and differentiates
+  in part (the Mamba norm's sum of squares over heads split across the
+  ranks: each rank's gradient of the sum is partial, and each part's
+  gradient is the whole of it). Neither ``copy`` nor ``reduce`` alone is
+  right there.
+* ``scale_grad``: identity forward, the gradient times a constant
+  backward: a term every rank of a region computes in full but whose
+  gradient a summing collective behind it would count once a rank (the
+  mixtures' aux loss under an expert-split model axis, ``models.moe``).
 * ``batch_mean``: the mean of a per-rank value over the batch's ranks
   forward, identity backward: the mixtures' global mean router
   probability. Each rank then takes the whole gradient of the global aux
@@ -127,6 +138,12 @@ class TrainMesh:
     def gather(self, x, dim: int, axis: str):
         return _Gather.apply(x, self, dim, axis)
 
+    def all_sum(self, x, axis: str):
+        return _AllSum.apply(x, self, axis)
+
+    def scale_grad(self, x, factor: float):
+        return _ScaleGrad.apply(x, factor)
+
     def batch_mean(self, x):
         return _BatchMean.apply(x, self, self.batch_axes)
 
@@ -151,6 +168,29 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tm, axis):
+        ctx.tm, ctx.axis = tm, axis
+        return tm.all_reduce(x.contiguous().clone(), (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tm.all_reduce(g.contiguous().clone(), (ctx.axis,)), \
+            None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
 
 
 class _Gather(torch.autograd.Function):

@@ -104,14 +104,15 @@ def train_case(case):
 
 def train_cases(rank, world, cases, refused):
     """``train_case`` for every case (their meshes have ``world``
-    ranks), and the refusals of a model axis for ``refused``."""
+    ranks), and what a model axis does with ``refused``."""
     sharding._FSDP_MIN_ELEMENTS = FSDP_MIN_ELEMENTS
     return {"cases": [train_case(c) for c in cases],
             "refusals": model_axis_refusals(world, refused)}
 
 
 def model_axis_refusals(world, archs):
-    """The message each config's step raises under a (1, world) mesh."""
+    """Each config's loss under a (1, world) mesh, or the message its
+    step raises: the configs a model axis used to refuse."""
     mesh = mesh_lib.make_mesh((1, world), AXES[2])
     ruleset = sharding.Ruleset(mesh=mesh)
     out = []
@@ -126,8 +127,8 @@ def model_axis_refusals(world, archs):
             batch["frontend"] = torch.zeros(2, cfg.n_frontend_tokens,
                                             cfg.d_model)
         try:
-            steps.make_grad_fn(cfg, 1, ruleset)(params, batch)
-            out.append(None)
+            out.append(float(steps.make_grad_fn(cfg, 1, ruleset)(
+                params, batch)[0]))
         except NotImplementedError as e:
             out.append(str(e))
     return out

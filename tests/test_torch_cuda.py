@@ -1025,3 +1025,24 @@ def test_cuda_two_rank_engine_logits_match_one_rank(cuda_device):
     n_layers = configs.get_smoke("qwen3-4b").n_layers
     assert [r[2] for r in ranks] == [n_layers, n_layers]
     assert np.array_equal(ranks[1][0][1], two_step)
+
+
+def test_cuda_paged_writes_keep_the_last_write(cuda_device):
+    """``serve.paged.write_rows`` on the card: 64 writes a pool row (the
+    null page's collisions), each row holding the last write's values in
+    every one of 20 repetitions (a plain duplicate-index assignment
+    leaves the winner to the card's threads)."""
+    from repro_torch.serve import paged
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    n, ps = 4096, 16
+    page = torch.zeros((n // 64, 64), dtype=torch.int64, device=cuda_device)
+    row = torch.arange(n, device=cuda_device).reshape(n // 64, 64) % ps
+    k = torch.randn(n // 64, 64, 8, 128, generator=g, device=cuda_device)
+    flat_k = k.reshape(n, 8, 128)
+    want = torch.stack([flat_k[n - ps + r] for r in range(ps)])
+    for _ in range(20):
+        kp = torch.zeros((2, ps, 8, 128), device=cuda_device)
+        vp = torch.zeros_like(kp)
+        paged.write_rows(kp, vp, k, k, page, row)
+        assert torch.equal(kp[0], want) and torch.equal(vp[0], want)

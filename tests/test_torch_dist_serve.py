@@ -20,6 +20,11 @@ kills every rank and fails. Each rank runs one intra-op thread.
   one decode (verify) step built, and the reference's pool capacity
   (its ``n_pages`` rounded up to a multiple of the ranks, as the
   reference's mesh engine rounds it).
+* Model drafts under the mesh (``"self"`` and an arch name, ``spec_k``
+  2) on 2 ranks serve the reference's plain single-device streams, with
+  the same drafts proposed and accepted on both ranks; only rank 0
+  holds a draft source and proposes (its drafts are broadcast each
+  verify tick), rank 1 never does.
 * The launcher at ``--tp 2`` serves the reference's launcher streams;
   its refusals; a failing rank fails the run.
 """
@@ -118,6 +123,36 @@ def test_engine_streams_equal_the_reference_single_device(reference, world):
         assert ranks[0]["prefix"][key] == want["prefix"][key] > 0, key
 
 
+DRAFTS = [("self", "self"), ("arch", "qwen2-0.5b")]
+
+
+def test_model_drafts_under_a_mesh_serve_the_plain_streams(reference):
+    """Speculative engines with a model draft on two ranks: the greedy
+    streams of the reference's plain engine, on both ranks, and equal
+    draft counters on both ranks; rank 0 alone holds a draft source and
+    proposes, and rank 1 verifies the drafts it broadcasts."""
+    import _torch_model_axis_workers as axis_workers
+
+    np_params, want = reference
+    name, kw, n_req, max_new, _ = SCENARIOS[0]
+    prompts = workers._prompts(128)[:n_req]
+    runs = [(label, "qwen3-4b", {}, np_params,
+             dict(kw, spec_k=2, draft=draft), prompts, max_new)
+            for label, draft in DRAFTS]
+    ranks = mesh_lib.run_ranks(axis_workers.serve_streams, 2,
+                               args=(runs,), deadline_s=DEADLINE_S)
+    for label, _ in DRAFTS:
+        got = [r[label] for r in ranks]
+        for r in got:
+            assert r["streams"] == want[name]["streams"], label
+            assert (r["proposed"], r["accepted"], r["verify_steps"]) == (
+                got[0]["proposed"], got[0]["accepted"],
+                got[0]["verify_steps"]), label
+        assert got[0]["proposed"] > 0 and got[0]["verify_steps"] > 0
+        assert got[0]["draft_calls"] > 0 and got[1]["draft_calls"] is None
+    assert ranks[0]["self"]["accepted"] > 0
+
+
 def test_a_two_by_two_mesh_has_a_group_a_line():
     got = mesh_lib.run_ranks(workers.mesh_lines, 4, deadline_s=DEADLINE_S)
     assert [c for c, _ in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
@@ -191,7 +226,9 @@ def test_capture_under_a_mesh_is_refused_on_the_card(monkeypatch):
     """A gloo group's collectives cannot be captured: the engine refuses
     ``capture=True`` on a card under a mesh, and never drops to eager on
     its own. (Checked on the refusal itself, which runs before any
-    tensor is made.)"""
+    tensor is made.) A mixture of experts and a model draft pass the
+    check (``tests/test_torch_expert_parallel.py`` and the draft cases
+    below serve them)."""
     from repro_torch import configs
     from repro_torch.serve.engine import ServeConfig, ServingEngine
 
@@ -207,7 +244,9 @@ def test_capture_under_a_mesh_is_refused_on_the_card(monkeypatch):
                         capture=True)
     with pytest.raises(ValueError, match="paged-only"):
         eng._check_mesh(cfg, ServeConfig(max_len=64, batch=2), capture=False)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        eng._check_mesh(configs.get_smoke("dbrx-132b"),
-                        ServeConfig(max_len=64, batch=2, paged=True),
-                        capture=False)
+    assert eng._check_mesh(configs.get_smoke("dbrx-132b"),
+                           ServeConfig(max_len=64, batch=2, paged=True),
+                           capture=False) is None
+    assert eng._check_mesh(cfg, ServeConfig(max_len=64, batch=2, paged=True,
+                                            spec_k=2, draft="self"),
+                           capture=False) is None

@@ -168,9 +168,8 @@ def test_launcher_trains_with_the_frontend_stub(arch, tmp_path):
 
 def test_launcher_names_the_distribution_item(tmp_path):
     """``--fsdp`` no longer raises: without a mesh it does nothing, as in
-    the reference, so whisper trains on one rank (a model axis refuses
-    an encoder, naming ROADMAP Queue 1 item 2:
-    ``tests/test_torch_train_dist.py``)."""
+    the reference, so whisper trains on one rank (over a model axis its
+    encoder splits by heads: ``tests/test_torch_model_axis_families.py``)."""
     result = launch.main(["--arch", "whisper-medium", "--smoke", "--device",
                           "cpu", "--fsdp", "--batch", "2", "--seq", "8",
                           "--steps", "1", "--ckpt", str(tmp_path)])

@@ -71,3 +71,29 @@ def test_gather_kv_matches_reference():
                                    torch.from_numpy(pages))
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_write_rows_keeps_the_last_write_like_the_reference(seed):
+    """Many writes to few pool rows (as free slots and padded chunk rows
+    all write the null page): each row holds the last write, as the
+    reference's ``.at[page, row].set`` leaves it."""
+    rng = np.random.RandomState(seed)
+    kp = rng.randn(3, 4, 2, 5).astype(np.float32)
+    vp = rng.randn(3, 4, 2, 5).astype(np.float32)
+    page = rng.randint(0, 2, size=(3, 16))
+    row = rng.randint(0, 4, size=(3, 16))
+    k = rng.randn(3, 16, 2, 5).astype(np.float32)
+    v = rng.randn(3, 16, 2, 5).astype(np.float32)
+    want_k = jnp.asarray(kp).at[page, row].set(jnp.asarray(k))
+    want_v = jnp.asarray(vp).at[page, row].set(jnp.asarray(v))
+    got_k, got_v = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    paged.write_rows(got_k, got_v, torch.from_numpy(k), torch.from_numpy(v),
+                     torch.from_numpy(page), torch.from_numpy(row))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    src = paged.last_writers(torch.from_numpy(page), torch.from_numpy(row),
+                             4, 12).numpy()
+    flat = page.reshape(-1) * 4 + row.reshape(-1)
+    assert all(src[i] == np.flatnonzero(flat == flat[i]).max()
+               for i in range(flat.size))

@@ -19,7 +19,10 @@ compression with error feedback under (2, 1) FSDP; ``accum`` 2 under
 (2, 1); dbrx-132b smoke routed by capacity at factor 0.5 (drops) under
 (2, 1) and (4, 1); jamba smoke (cut to a Mamba layer with experts and
 an attention layer) and whisper smoke under (2, 1) FSDP. A model
-axis of 2 refuses MoE, Mamba, cross and encoder layers.
+axis of 2 takes a step of MoE, Mamba, cross and encoder configs
+(``tests/test_torch_expert_parallel.py`` and
+``tests/test_torch_model_axis_families.py`` hold them to the
+reference).
 
 Tolerances. Losses (and the aux loss) within 1e-5 relative of the
 reference's: the ranks reorder fp32 sums. First-step gradients, gathered
@@ -268,10 +271,12 @@ def test_capacity_drops_span_the_whole_batch(runs, name):
 
 
 def test_a_model_axis_refuses_experts_mamba_and_cross_layers(runs):
+    """Nothing is refused any more: a (1, 2) step of each config that the
+    model axis used to refuse runs to a finite loss."""
     for r in runs[1]:
         assert len(r) == len(REFUSED)
-        for arch, msg in zip(REFUSED, r):
-            assert msg is not None and "Queue 1 item 2" in msg, (arch, msg)
+        for arch, got in zip(REFUSED, r):
+            assert isinstance(got, float) and math.isfinite(got), (arch, got)
 
 
 def test_collectives_are_counted(runs):
