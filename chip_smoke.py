@@ -259,6 +259,23 @@ vision smokes and whisper smoke's ``encode`` over (1, 2) against one
 rank. ``python3 chip_smoke.py --phase 25`` runs the build and phase 25
 alone.
 
+Phase 26 holds the dry run's accounting (``launch.dryrun``:
+``core.op_analysis`` traces, ``core.roofline``) to the card: qwen2-0.5b's
+fp32 train step at 4 x 512 and qwen3-4b's bf16 decode at b 8 against a
+full 2,048-row cache, traced on the card and on meta (census of the ops
+that move data and FLOPs equal, argument bytes within 1 % of what the
+build allocated, the measured time no less than 0.95 of the roofline's
+overlapped bound; argument + temp against ``max_memory_allocated``
+logged); the decode kernel's ``return_lse`` against its plain version
+and timed beside the default launch; jamba (one period, 8 of 32 layers,
+published widths) decoding over (data 1, model 2) and over (2, 1) with
+the cache's rows split over ``data``, and qwen3-4b over (1, 2), on two
+gloo ranks of the card, fp32 logits of a prefill and three decode steps
+within 1e-3 of one rank's (bf16 logged), each rank's census equal to its
+fake-group trace on meta; remat "full" and "dots" against none on
+qwen2-0.5b's gradients within 1e-6 (peak memory and time logged).
+``python3 chip_smoke.py --phase 26`` runs the build and phase 26 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -984,12 +1001,10 @@ def ssd_work(l: int, esize: int, shape=SSD_SHAPES[0]) -> tuple:
     the useful ones per chunk and head: the causal half of C.B^T (n each)
     and of the decayed scores times x (p each), the carried state's term
     and the state update (p * n each per row)."""
+    from repro_torch.kernels import cost
+
     h, p, n = shape
-    nbytes = (2 * l * h * p * esize + 4 * l * h + 2 * l * n * esize
-              + 4 * h * p * n)
-    tri = sum(min(SSD_CHUNK, l - t0) * (min(SSD_CHUNK, l - t0) + 1) // 2
-              for t0 in range(0, l, SSD_CHUNK))
-    return nbytes, h * 2 * (tri * (n + p) + 2 * l * p * n)
+    return cost.ssd_scan(1, l, h, p, n, esize, SSD_CHUNK)
 
 
 def ssd_grid(bt: int, l: int, shape=SSD_SHAPES[0]) -> str:
@@ -1010,6 +1025,8 @@ def decode_grid(decode_mod, lengths, max_rows: int, page_size: int) -> str:
 
 def time_kernels(dev, ops, ref, decode_mod) -> dict:
     """Kernel, plain and library times and the bound, bf16, main path."""
+    from repro_torch.kernels import cost
+
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(1)
     esize = 2
@@ -1160,7 +1177,7 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
               for _ in range(n_layers)]
     ok, err = ref.compare(ops.flash_decode(q, *caches[0], lens),
                           ref.flash_decode(q, *caches[0], lens))
-    nbytes = 2 * q.numel() * esize + 2 * kv_rows * KVH * D * esize + 4 * B
+    nbytes, decode_ops = cost.flash_decode(B, H, KVH, D, esize, kv_rows)
     # The library yardstick reads a (b, kvh, max_len, d) copy with a
     # length mask; the copy is not timed.
     views = [tuple(t.permute(0, 2, 1, 3).contiguous() for t in kv)
@@ -1180,7 +1197,7 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
             q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True),
             n_layers, spin=True),
         grid=decode_grid(decode_mod, lengths, MAX_LEN, 1),
-        bytes=nbytes, ops=4 * kv_rows * H * D,
+        bytes=nbytes, ops=decode_ops,
         shape=f"b={B} h={H} kvh={KVH} d={D} max_len={MAX_LEN} contexts "
               f"{lengths[0]}..{lengths[-1]} (sum {kv_rows})")
     del views, caches
@@ -1495,6 +1512,8 @@ def check_flash_kernel(dev, ops, ref) -> list:
 def time_flash_kernel(dev, ops, ref) -> dict:
     """The kernel at the cache-less forward's shape (qwen3-4b, 2 x 2048
     tokens, causal, bf16) beside its plain version, SDPA and the bound."""
+    from repro_torch.kernels import cost
+
     dtype = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(13)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
@@ -1506,7 +1525,8 @@ def time_flash_kernel(dev, ops, ref) -> dict:
                           ref.flash_attention(q, k, v))
     # SDPA reads (b, heads, s, d); the transposed copies are not timed.
     views = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    pairs = FLASH_S * (FLASH_S + 1) // 2
+    nbytes, flash_ops = cost.flash_attention(FLASH_B, FLASH_S, FLASH_S, H,
+                                             KVH, D, 2, True)
     r = dict(
         max_abs_err=err, ok=ok,
         ms=time_ms(lambda i: ops.flash_attention(*sets[i]), n_sets),
@@ -1514,8 +1534,7 @@ def time_flash_kernel(dev, ops, ref) -> dict:
                          iters=4),
         library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
             *views[i], is_causal=True, enable_gqa=True), n_sets),
-        bytes=2 * (2 * q.numel() + 2 * k.numel()),
-        ops=4 * FLASH_B * H * D * pairs)
+        bytes=nbytes, ops=flash_ops)
     r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], dtype)
     log(f"  flash_attention [b={FLASH_B} sq=skv={FLASH_S} h={H} kvh={KVH} "
         f"d={D} causal, bf16]: kernel {r['ms']:.4f} ms "
@@ -4976,6 +4995,543 @@ def ep_verdicts(ranks, one, summary, want_shape) -> list:
     return failed
 
 
+# ----------------------------------------------------------------------------
+# Phase 26: the dry run's accounting held to the card
+# ----------------------------------------------------------------------------
+
+# (a) The op trace of a real step on the card against its meta trace (the
+# dry run's): qwen2-0.5b's fp32 train step at DRY_TRAIN (phase 14's batch)
+# and qwen3-4b's bf16 decode at DRY_DECODE (b slots against a full cache
+# of that many rows, so the decode kernel reads every row the trace
+# counts). Gates: the census of the ops that move data and the FLOPs
+# equal; the trace's argument bytes within DRY_ARG_RTOL of what the
+# build allocated; the measured time at least DRY_BOUND_FLOOR of the
+# roofline's overlapped bound (a time under it means the count is
+# wrong). (b) DRY_MESHES on two gloo ranks sharing the card, each
+# against one rank's run of the same calls (a prefill of DRY_PROMPT and
+# DRY_STEPS decode steps): fp32 logits within FP32_LOGIT_TOL (bf16
+# logged); each rank's census equal to its fake-group trace on meta; the
+# decode kernel's log-sum-exp held to its plain version. jamba is cut to
+# one period (DRY_JAMBA_LAYERS of 32 layers) at its published widths; its
+# (2, 1) mesh splits the cache's rows over "data" (sequence-parallel
+# decode), the prompt long enough to fill both blocks. (c) Remat:
+# qwen2-0.5b's fp32 gradients with "full" and "dots" against none within
+# DRY_REMAT_TOL of each leaf's largest element; peak memory and time
+# logged.
+DRY_TRAIN_ARCH, DRY_TRAIN = "qwen2-0.5b", (4, 512)
+DRY_DECODE_ARCH, DRY_DECODE = "qwen3-4b", (8, 2048)
+DRY_JAMBA_LAYERS = 8
+DRY_MAX_LEN = 2048
+DRY_STEPS = 3
+DRY_PROMPT = {"jamba-v0.1-52b": (1, 1100), "qwen3-4b": (4, 300)}
+DRY_MESHES = (("jamba-v0.1-52b", (1, 2)), ("jamba-v0.1-52b", (2, 1)),
+              ("qwen3-4b", (1, 2)))
+DRY_ARG_RTOL = 0.01
+DRY_BOUND_FLOOR = 0.95
+DRY_REMAT_TOL = 1e-6
+DRY_DEADLINE_S, DRY_TIMEOUT_S = 600.0, 300.0
+
+
+def dry_cfg(arch: str, configs, smoke: bool = False, dtype="float32"):
+    """The phase's config of ``arch``: jamba cut to one period."""
+    cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    if arch == "jamba-v0.1-52b" and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=DRY_JAMBA_LAYERS)
+    return dataclasses.replace(cfg, compute_dtype=dtype)
+
+
+def census_diff(got: dict, want: dict) -> dict:
+    return {k: (got.get(k, 0), want.get(k, 0))
+            for k in sorted(set(got) | set(want))
+            if got.get(k, 0) != want.get(k, 0)}
+
+
+def traced(fn, *args, **kwargs):
+    """(output, trace) of ``fn`` under an ``OpTrace``."""
+    from repro_torch.core import op_analysis
+
+    trace = op_analysis.OpTrace()
+    return trace.run(fn, *args, **kwargs), trace
+
+
+def dry_decode_fn(T):
+    def fn(params, cfg, last, caches):
+        logits, new = T.forward(params, cfg, last[:, None], caches=caches)
+        return logits[:, -1].argmax(dim=-1).int(), new
+    return fn
+
+
+def dry_against_meta(label, real, meta, held, ms, mf, chips=1) -> tuple:
+    """Gates and log lines of one real trace against its meta trace:
+    returns (failures, summary)."""
+    from repro_torch.core import op_analysis, roofline
+
+    failed = []
+    got = op_analysis.op_census(real, include_free=False)
+    want = op_analysis.op_census(meta, include_free=False)
+    if got != want:
+        failed.append(f"{label}: the card's census differs from the meta "
+                      f"trace's: {census_diff(got, want)}")
+    f_real, f_meta = (op_analysis.trace_flops(t) for t in (real, meta))
+    if f_real != f_meta:
+        failed.append(f"{label}: FLOPs {f_real:.6e} on the card, "
+                      f"{f_meta:.6e} traced on meta")
+    mem = op_analysis.memory_analysis_bytes(meta)
+    arg = mem["argument_bytes"]
+    if abs(arg - held) > DRY_ARG_RTOL * held:
+        failed.append(f"{label}: argument bytes {arg:.6e} against "
+                      f"{held:.6e} allocated by the build")
+    terms = roofline.terms_from_trace(label, "", "1", chips, meta, mf)
+    bound_ms = terms.step_time_overlapped_s * 1e3
+    if ms < DRY_BOUND_FLOOR * bound_ms:
+        failed.append(f"{label}: {ms:.4f} ms measured, under "
+                      f"{DRY_BOUND_FLOOR} x its roofline bound "
+                      f"{bound_ms:.4f} ms: the count is wrong")
+    log(f"  {label}: {len(real.ops)} ops on the card, {len(meta.ops)} on "
+        f"meta; census of {sum(got.values())} data-moving ops "
+        f"{'equal' if got == want else 'DIFFERS'}; FLOPs {f_real:.6e} card "
+        f"/ {f_meta:.6e} meta; argument bytes {arg:.6e} traced / "
+        f"{held:.6e} allocated ({100 * (arg / held - 1):+.3f} %); "
+        f"measured {ms:.4f} ms against the roofline {bound_ms:.4f} ms "
+        f"({terms.dominant}: compute {terms.compute_s * 1e3:.4f}, memory "
+        f"{terms.memory_s * 1e3:.4f}, collective "
+        f"{terms.collective_s * 1e3:.4f} ms; traced bytes "
+        f"{op_analysis.trace_bytes(meta):.6e})")
+    return failed, dict(ops=len(real.ops), flops=f_real, argument=arg,
+                        held=held, temp=mem["temp_bytes"], ms=ms,
+                        bound_ms=bound_ms, dominant=terms.dominant)
+
+
+def dry_trace_train(dev, configs, T, steps) -> tuple:
+    """(a), the train step: real on the card, then on meta."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import adamw
+
+    cfg = dry_cfg(DRY_TRAIN_ARCH, configs)
+    b, s = DRY_TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = steps.init_state(cfg, seed=0, device=dev).tree()
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    step = steps.make_train_step(cfg)
+    step(state, batch)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, real = traced(step, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # One step a spin: the host issues about 15,000 ops a step.
+    ms = time_ms(lambda i: step(state, batch), 1, iters=1, spin=True)
+    del state, batch
+    torch.cuda.empty_cache()
+    meta = torch.device("meta")
+    params = T.param_shapes(cfg)
+    mstate = steps.TrainState(params=params, opt=adamw.adamw_init(params),
+                              step=torch.zeros((), dtype=torch.int32,
+                                               device=meta)).tree()
+    mbatch = {k: torch.zeros((b, s), dtype=torch.int32, device=meta)
+              for k in ("tokens", "labels")}
+    _, mtrace = traced(steps.make_train_step(cfg), mstate, mbatch)
+    mf = T.model_flops(cfg, b, s, mode="train")
+    failed, summary = dry_against_meta(
+        f"{cfg.name} fp32 train step {b} x {s}", real, mtrace, held, ms, mf)
+    summary["peak"] = peak
+    log(f"    argument + temp traced {(summary['argument'] + summary['temp']) / 2**30:.2f} "
+        f"GiB against max_memory_allocated {peak / 2**30:.2f} GiB (logged)")
+    return failed, summary
+
+
+def dry_trace_decode(dev, configs, T) -> tuple:
+    """(a), the decode step: real on the card, then on meta."""
+    cfg = dry_cfg(DRY_DECODE_ARCH, configs, dtype="bfloat16")
+    b, rows = DRY_DECODE
+    fn = dry_decode_fn(T)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    caches = T.init_caches(cfg, b, rows, device=dev)
+    caches[0]["index"].fill_(rows - 1)      # every row read, as on meta
+    last = torch.zeros((b,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    with torch.no_grad():
+        fn(params, cfg, last, caches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, real = traced(fn, params, cfg, last, caches)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # Two steps a spin: the host issues about 5,000 ops a step (some
+        # 76 ms), and two fit under the longest spin time_ms tries.
+        ms = time_ms(lambda i: fn(params, cfg, last, caches), 1, iters=2,
+                     spin=True)
+    del params, caches
+    torch.cuda.empty_cache()
+    meta = torch.device("meta")
+    with torch.no_grad():
+        _, mtrace = traced(
+            fn, T.init_params(cfg, torch.Generator(), device=meta), cfg,
+            torch.zeros((b,), dtype=torch.int32, device=meta),
+            T.init_caches(cfg, b, rows, device=meta))
+    mf = T.model_flops(cfg, b, 1, mode="inference", cache_len=rows)
+    failed, summary = dry_against_meta(
+        f"{cfg.name} bf16 decode b {b} against {rows} rows", real, mtrace,
+        held, ms, mf)
+    summary["peak"] = peak
+    log(f"    argument + temp traced {(summary['argument'] + summary['temp']) / 2**30:.2f} "
+        f"GiB against max_memory_allocated {peak / 2**30:.2f} GiB (logged)")
+    return failed, summary
+
+
+def dry_calls(T, params, cfg, prompt, steps_, caches):
+    """A prefill of ``prompt`` and one decode step a row of ``steps_``;
+    the last position's logits of each call, on the device."""
+    out = []
+    logits, caches = T.forward(params, cfg, prompt, caches=caches)
+    out.append(logits[:, -1])
+    for tok in steps_:
+        logits, caches = T.forward(params, cfg, tok[:, None], caches=caches)
+        out.append(logits[:, -1])
+    return out
+
+
+def host(logits) -> list:
+    return [x.float().cpu().numpy() for x in logits]
+
+
+def dry_inputs(cfg, arch):
+    b, s = DRY_PROMPT[arch]
+    rng = np.random.RandomState(26)
+    prompt = rng.randint(0, cfg.vocab, (b, s)).astype(np.int64)
+    steps_ = rng.randint(0, cfg.vocab, (DRY_STEPS, b)).astype(np.int64)
+    return prompt, steps_
+
+
+def dry_rank(rank: int, world: int, spec: dict) -> dict:
+    """Phase 26 (b) on one rank (``launch.mesh.run_ranks`` spawned it):
+    each case of DRY_MESHES on its mesh, this rank's shard of the bf16
+    weights (built one rank at a time from the same seed, so that one
+    card holds a whole copy once) and of the contiguous caches, its slots
+    of the prompt: the calls in fp32 compute under an ``OpTrace``, then
+    in bf16. Returns each case's rows, logits and census."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import op_analysis
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+
+    dev = mesh_lib.rank_device(rank, spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = []
+    for arch, shape in spec["meshes"]:
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        ruleset = sharding.Ruleset(mesh=mesh, rules={"cache_seq": "data"})
+        cfg = dry_cfg(arch, configs, spec["smoke"])
+        local = None
+        for turn in range(world):
+            if turn == rank:
+                full = T.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev, dtype=torch.bfloat16)
+                local = sharding.shard_tree(full, mesh, ruleset)
+                del full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        prompt, steps_ = dry_inputs(cfg, arch)
+        b = prompt.shape[0]
+        (rows,), (spec_b,) = sharding.local_shape(ruleset, ("batch",), (b,))
+        r0 = 0 if spec_b is None else sharding._block(spec_b, mesh)[2] * rows
+        p = torch.from_numpy(prompt[r0:r0 + rows]).to(dev)
+        st = torch.from_numpy(steps_[:, r0:r0 + rows]).to(dev)
+        case = {"rows": (r0, rows), "spec": list(T.cache_spec(
+            ruleset, "k", (b, DRY_MAX_LEN, cfg.n_kv_heads, cfg.dhead)))}
+        # bf16 first, untraced: it also sizes the kernels' zeroed
+        # counters, so the traced fp32 calls allocate none.
+        ops.reset_launches()
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            caches = T.init_caches(c, b, DRY_MAX_LEN, device=dev,
+                                   ruleset=ruleset)
+            with torch.no_grad(), sharding.use_ruleset(ruleset):
+                if dtype == "float32":
+                    logits, trace = traced(dry_calls, T, local, c, p, st,
+                                           caches)
+                    case["census"] = op_analysis.op_census(
+                        trace, include_free=False)
+                    case["flops"] = op_analysis.trace_flops(trace)
+                else:
+                    logits = dry_calls(T, local, c, p, st, caches)
+            case[dtype] = host(logits)
+            del caches, logits
+        case["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        out.append(case)
+        del local
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def dry_fake_census(arch, shape, rank, world, smoke, configs, T) -> tuple:
+    """The fake-group trace of rank ``rank``'s calls on meta: (census of
+    the ops that move data, FLOPs)."""
+    from repro_torch.core import op_analysis
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    meta = torch.device("meta")
+    with mesh_lib.fake_group(world, rank=rank):
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        ruleset = sharding.Ruleset(mesh=mesh, rules={"cache_seq": "data"})
+        cfg = dry_cfg(arch, configs, smoke)
+        local = sharding.shard_tree(T.init_params(
+            cfg, torch.Generator(), device=meta, dtype=torch.bfloat16),
+            mesh, ruleset)
+        b, s = DRY_PROMPT[arch]
+        rows = sharding.local_shape(ruleset, ("batch",), (b,))[0][0]
+        caches = T.init_caches(cfg, b, DRY_MAX_LEN, device=meta,
+                               ruleset=ruleset)
+        p = torch.zeros((rows, s), dtype=torch.int64, device=meta)
+        st = torch.zeros((DRY_STEPS, rows), dtype=torch.int64, device=meta)
+        with torch.no_grad(), sharding.use_ruleset(ruleset):
+            _, trace = traced(dry_calls, T, local, cfg, p, st, caches)
+    return (op_analysis.op_census(trace, include_free=False),
+            op_analysis.trace_flops(trace))
+
+
+def dry_one_rank(dev, configs, T) -> dict:
+    """One rank's logits of each arch of DRY_MESHES, fp32 and bf16
+    compute over the same bf16 weights, before the ranks start."""
+    want = {}
+    for arch in dict(DRY_MESHES):
+        cfg = dry_cfg(arch, configs)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev, dtype=torch.bfloat16)
+        prompt, steps_ = dry_inputs(cfg, arch)
+        p, st = (torch.from_numpy(x).to(dev) for x in (prompt, steps_))
+        want[arch] = {}
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            with torch.no_grad():
+                want[arch][dtype] = host(dry_calls(
+                    T, params, c, p, st, T.init_caches(
+                        c, prompt.shape[0], DRY_MAX_LEN, device=dev)))
+        del params
+        torch.cuda.empty_cache()
+    return want
+
+
+def dry_lse(dev, ops, ref, cost) -> tuple:
+    """The decode kernel's ``return_lse`` against its plain version, fp32
+    and bf16, ragged lengths with a 0; its time at (a)'s decode shape
+    (qwen3-4b's attention, b 8 against 2,048 rows, every row live) beside
+    the default launch, SDPA and the bound."""
+    failed, out = [], {}
+    gen = torch.Generator(device=dev).manual_seed(26)
+    b, rows = DRY_DECODE
+    for dtype in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+        q, k, v = rnd(b, H, D), rnd(b, rows, KVH, D), rnd(b, rows, KVH, D)
+        lens = torch.tensor([0, 1, 255, 256, 700, 1500, rows - 1, rows],
+                            dtype=torch.int32, device=dev)
+        o, lse = ops.flash_decode(q, k, v, lens, return_lse=True)
+        wo, wl = ref.flash_decode(q, k, v, lens, return_lse=True)
+        ok_o, err_o = ref.compare(o, wo)
+        live = lens > 0
+        ok_l, err_l = ref.compare(lse[live], wl[live])
+        zero = bool(torch.isneginf(lse[~live]).all())
+        same = torch.equal(o, ops.flash_decode(q, k, v, lens))
+        if not (ok_o and ok_l and zero and same):
+            failed.append(f"flash_decode return_lse {dtype}: out err "
+                          f"{err_o:.3e}, lse err {err_l:.3e}, zero-length "
+                          f"lse -inf {zero}, output equal to the default "
+                          f"launch's {same}")
+        log(f"  flash_decode(return_lse=True) [{dtype}]: out max_abs_err "
+            f"{err_o:.3e}, lse max_abs_err {err_l:.3e} (ref.TOLERANCE "
+            f"{ref.TOLERANCE[dtype]}), -inf at length 0 {zero}, output "
+            f"bit-equal to the default launch {same}")
+        out[str(dtype)] = max(err_o, err_l)
+    dtype = torch.bfloat16
+    n_sets = 4
+    sets = [tuple(torch.randn(*s, generator=gen, device=dev).to(dtype)
+                  for s in ((b, H, D), (b, rows, KVH, D), (b, rows, KVH, D)))
+            for _ in range(n_sets)]
+    full = torch.full((b,), rows, dtype=torch.int32, device=dev)
+    views = [(s[0][:, :, None, :],) + tuple(t.permute(0, 2, 1, 3).contiguous()
+                                          for t in s[1:]) for s in sets]
+    r = dict(
+        ms=time_ms(lambda i: ops.flash_decode(*sets[i], full,
+                                              return_lse=True), n_sets),
+        default_ms=time_ms(lambda i: ops.flash_decode(*sets[i], full),
+                           n_sets),
+        device_ms=time_ms(lambda i: ops.flash_decode(
+            *sets[i], full, return_lse=True), n_sets, spin=True),
+        default_device_ms=time_ms(lambda i: ops.flash_decode(*sets[i], full),
+                                  n_sets, spin=True),
+        plain_ms=time_ms(lambda i: ref.flash_decode(*sets[i], full,
+                                                    return_lse=True),
+                         n_sets, iters=10),
+        library_ms=time_ms(lambda i: F.scaled_dot_product_attention(
+            *views[i], enable_gqa=True), n_sets))
+    nbytes, flops = cost.flash_decode(b, H, KVH, D, 2, b * rows, lse=True)
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops, dtype)
+    log(f"  flash_decode(return_lse=True) [b={b} h={H} kvh={KVH} d={D} "
+        f"rows={rows}, every row live, bf16]: kernel {r['ms']:.4f} ms "
+        f"(default launch {r['default_ms']:.4f} ms); device time "
+        f"{r['device_ms']:.4f} ms (default {r['default_device_ms']:.4f} ms);"
+        f" plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    out["timing"] = r
+    return failed, out
+
+
+def dry_remat(dev, configs, steps) -> tuple:
+    """(c): qwen2-0.5b's fp32 gradients with each remat policy against
+    none, the same weights and batch; peak memory and time logged."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_items
+
+    cfg = dry_cfg(DRY_TRAIN_ARCH, configs)
+    b, s = DRY_TRAIN
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.float32)
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    runs, failed = {}, []
+    # Each policy twice, in turns; the second reading is kept.
+    for name, upd in 2 * (("none", {}), ("full", {"remat": True}),
+                          ("dots", {"remat": True,
+                                    "remat_policy": "dots"})):
+        fn = steps.make_grad_fn(dataclasses.replace(cfg, **upd))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, grads, _ = fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        runs[name] = (float(loss), dict(tree_items(grads)), ms, peak)
+        log(f"  remat {name}: loss {float(loss):.8f}, {ms:.1f} ms for the "
+            f"loss and gradients, peak {peak / 2**30:.2f} GiB above the "
+            f"weights")
+    loss0, g0 = runs["none"][:2]
+    for name in ("full", "dots"):
+        loss, g = runs[name][:2]
+        worst = max(float((g[k] - g0[k]).abs().max())
+                    / max(float(g0[k].abs().max()), 1e-30) for k in g0)
+        rel = abs(loss - loss0) / abs(loss0)
+        if rel > DRY_REMAT_TOL or worst > DRY_REMAT_TOL:
+            failed.append(f"remat {name}: loss off by {rel:.3e}, a gradient "
+                          f"by {worst:.3e} of its leaf's largest element")
+        log(f"  remat {name} against none: loss {rel:.3e} relative, "
+            f"gradients {worst:.3e} of each leaf's largest at worst "
+            f"(gate {DRY_REMAT_TOL})")
+    del params, batch, runs
+    torch.cuda.empty_cache()
+    return failed, {}
+
+
+def run_dry(dev, ops, ref, configs, T, steps) -> dict:
+    """Phase 26."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch import mesh as mesh_lib
+
+    from repro_torch.core import hwmodel
+
+    summary, failed = {}, []
+    t0 = time.perf_counter()
+    summary["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    log(f"  total_memory {summary['total_memory']} B "
+        f"({summary['total_memory'] / 2**30:.2f} GiB) against the data "
+        f"sheet's {hwmodel.H100.hbm_bytes} B (hwmodel.H100.hbm_bytes)")
+    f, summary["train"] = dry_trace_train(dev, configs, T, steps)
+    failed += f
+    f, summary["decode"] = dry_trace_decode(dev, configs, T)
+    failed += f
+    f, summary["lse"] = dry_lse(dev, ops, ref, cost)
+    failed += f
+    f, _ = dry_remat(dev, configs, steps)
+    failed += f
+    want = dry_one_rank(dev, configs, T)
+    torch.cuda.empty_cache()
+    spec = dict(device="cuda", smoke=False, meshes=DRY_MESHES)
+    t1 = time.perf_counter()
+    ranks = mesh_lib.run_ranks(dry_rank, 2, args=(spec,),
+                               deadline_s=DRY_DEADLINE_S,
+                               timeout_s=DRY_TIMEOUT_S, threads=1)
+    summary["ranks_s"] = time.perf_counter() - t1
+    failed += dry_mesh_verdicts(ranks, want, configs, T, summary)
+    summary["s"] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return summary
+
+
+def dry_mesh_verdicts(ranks, want, configs, T, summary,
+                      smoke: bool = False) -> list:
+    """(b)'s gates over the ranks' results."""
+    failed = []
+    for j, (arch, shape) in enumerate(DRY_MESHES):
+        label = f"{arch} over {shape}"
+        for rank, got in enumerate(r[j] for r in ranks):
+            r0, n = got["rows"]
+            for dtype in ("float32", "bfloat16"):
+                errs = [float(np.abs(g - w[r0:r0 + n]).max()) for g, w in
+                        zip(got[dtype], want[arch][dtype])]
+                if dtype == "float32" and max(errs) > FP32_LOGIT_TOL:
+                    failed.append(f"{label} rank {rank}: fp32 logits "
+                                  f"{max(errs):.3e} from one rank's")
+                log(f"  {label} rank {rank} rows [{r0}, {r0 + n}) cache "
+                    f"spec {got['spec']}: {dtype} logits of the prefill "
+                    f"and {DRY_STEPS} decode steps against one rank's, max "
+                    f"|diff| {', '.join(f'{e:.3e}' for e in errs)}"
+                    + (f" (gate {FP32_LOGIT_TOL})" if dtype == "float32"
+                       else " (logged)"))
+            cfg = dry_cfg(arch, configs, smoke)
+            kinds = [cfg.kind(i) for i in range(cfg.n_layers)]
+            want_launches = {k: v for k, v in {
+                "flash_decode": 2 * DRY_STEPS * sum(
+                    k in ("attn", "cross") for k in kinds),
+                "ssd_scan": 2 * kinds.count("mamba")}.items() if v}
+            if not smoke and got["launches"] != want_launches:
+                failed.append(f"{label} rank {rank}: launches "
+                              f"{got['launches']}, want {want_launches}")
+            log(f"  {label} rank {rank}: launches {got['launches']} in the "
+                f"bf16 and fp32 calls (want {want_launches})")
+            census, flops = dry_fake_census(arch, shape, rank,
+                                            len(ranks), smoke, configs, T)
+            if census != got["census"] or flops != got["flops"]:
+                failed.append(f"{label} rank {rank}: the card's census "
+                              f"differs from its fake-group trace: "
+                              f"{census_diff(got['census'], census)}, FLOPs "
+                              f"{got['flops']:.6e} / {flops:.6e}")
+            log(f"  {label} rank {rank}: census of "
+                f"{sum(got['census'].values())} data-moving ops and "
+                f"{got['flops']:.6e} FLOPs on the card, "
+                f"{'equal to' if census == got['census'] else 'NOT'} its "
+                f"fake-group trace on meta ({flops:.6e} FLOPs)")
+    return failed
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5014,6 +5570,12 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "26"]:
+        # Phase 26 alone, after the build.
+        summary = run_dry(dev, ops, ref, configs, T, steps)
+        log(f"  phase 26 alone: {summary}")
+        return
 
     if sys.argv[1:] == ["--phase", "25"]:
         # Phase 25 alone, after the build.
@@ -5343,6 +5905,12 @@ def main() -> None:
     t0 = time.perf_counter()
     model_axis = run_ep(dev, ops, ref, configs, T, moe_mod)
     log(f"  phase 25 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("== the dry run's accounting on the card: op traces against their "
+        "meta traces, the cached forward over two gloo ranks, remat ==")
+    dry = run_dry(dev, ops, ref, configs, T, steps)
+    log(f"  phase 26 took {dry['s']:.1f} s")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5359,7 +5927,7 @@ def main() -> None:
         f"{dissection}; families {families}; encoder-decoder "
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
         f"tensor-parallel {tp}; training over ranks {train_dist}; the "
-        f"model axis {model_axis}; total "
+        f"model axis {model_axis}; the dry run's accounting {dry}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

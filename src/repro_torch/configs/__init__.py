@@ -68,7 +68,13 @@ class ModelConfig:
     the plain chunked scan where the training step asks for it
     (``forward_aux(..., ssd_kernel=False)``); softmax probabilities are
     always fp32. The reference's ``use_ssd_kernel`` and
-    ``attn_probs_fp32`` have no field here."""
+    ``attn_probs_fp32`` have no field here.
+
+    ``remat`` recomputes each period's activations (the pattern's
+    layers) in the backward pass instead of keeping them
+    (``T.forward_aux``): ``remat_policy`` "full" keeps only the period's
+    input, "dots" also the outputs of its matrix products (the
+    reference's ``dots_saveable``)."""
 
     name: str
     n_layers: int
@@ -97,6 +103,8 @@ class ModelConfig:
     n_frontend_tokens: int = 0               # vision/audio stub tokens
     compute_dtype: str = "float32"
     use_flash: bool = False
+    remat: bool = False
+    remat_policy: str = "full"   # "full" | "dots" (save matmul outputs)
 
     def __post_init__(self):
         if self.n_layers % len(self.pattern):
@@ -105,6 +113,10 @@ class ModelConfig:
         if self.norm not in ("rms", "layer"):
             raise ValueError(f"{self.name}: norm {self.norm!r} is not "
                              f"'rms' or 'layer'")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"{self.name}: remat_policy "
+                             f"{self.remat_policy!r} is not 'full' or "
+                             f"'dots'")
 
     @property
     def dhead(self) -> int:
@@ -158,3 +170,13 @@ def get_smoke(name: str) -> ModelConfig:
 
 def list_archs():
     return list(ALIASES)
+
+
+def canonical_id(name: str) -> str:
+    """The registry's name (``list_archs``) of ``name``, which may be
+    that name, its module's or an alias of either; anything else comes
+    back as it is."""
+    for cli, mod in ALIASES.items():
+        if mod == ALIASES.get(name, name).replace("-", "_").replace(".", "_"):
+            return cli
+    return name

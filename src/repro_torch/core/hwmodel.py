@@ -294,6 +294,7 @@ class GPUSpec:
     hbm_bandwidth: float        # bytes/s
     peak_bf16_flops: float      # tensor cores, dense
     peak_fp32_flops: float      # CUDA cores (FFMA)
+    hbm_bytes: int = 0          # device memory
     smem_per_sm: int = 233_472  # bytes of shared memory the SM's blocks share
     smem_per_cta_reserved: int = 1024  # bytes the system keeps a block
     max_threads_per_sm: int = 2048
@@ -304,11 +305,12 @@ class GPUSpec:
 # NVIDIA's H100 SXM data sheet and the Hopper white paper (compute
 # capability 9.0): 227 KB of the SM's 256 KB of shared memory and L1 to one
 # block (dynamic, opted in), 228 KB to all of an SM's blocks, 1 KB of it
-# kept by the system for each block; 2048 threads and 32 blocks an SM.
+# kept by the system for each block; 2048 threads and 32 blocks an SM; 80 GB
+# of HBM3.
 H100 = GPUSpec(name="H100 SXM", sms=132, smem_per_block=232_448,
                regs_per_sm=65_536, l2_bytes=50 * 2**20,
                hbm_bandwidth=3.35e12, peak_bf16_flops=989e12,
-               peak_fp32_flops=67e12)
+               peak_fp32_flops=67e12, hbm_bytes=80 * 10**9)
 
 
 # ----------------------------------------------------------------------------

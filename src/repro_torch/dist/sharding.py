@@ -19,7 +19,7 @@ Entry points:
   its own switch, ``train.dist.use_mesh``);
 * ``local_shard(x, spec, mesh)``: this rank's block of a full tensor,
   and ``shard_tree`` the same for every leaf of a tree by its
-  ``param_spec``;
+  ``param_spec``; ``local_shape`` the block's shape alone;
 * ``gather_leaf(x, spec, mesh)``: the full tensor back from the blocks
   (exact: an ``all_reduce`` of this rank's block placed in zeros), and
   ``gather_tree`` the same for a tree, given the specs of its leaves
@@ -220,6 +220,15 @@ def _block(axes, mesh) -> Tuple[Tuple[str, ...], int, int]:
     for a in axes:
         n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
     return axes, n, i
+
+
+def local_shape(ruleset: Ruleset, names: Sequence[Optional[str]],
+                shape: Sequence[int]) -> Tuple[Tuple[int, ...], Spec]:
+    """(this rank's block's shape, the spec) of a tensor of global
+    ``shape`` whose dims carry logical ``names`` (``Ruleset.spec``)."""
+    spec = ruleset.spec(names, shape)
+    return tuple(d // _block(a, ruleset.mesh)[1] if a is not None else d
+                 for d, a in zip(shape, spec)), spec
 
 
 def local_shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

@@ -888,6 +888,8 @@ struct WarpDecode<bf16, D, G> {
 
 // Merge the first n_live splits' partials of one (slot, head) row in split
 // order, and round once to T: one warp, each lane its columns lane + 32k.
+// Where lse is not null, lane 0 also writes the row's log-sum-exp of its
+// scaled scores, m + log(l), in natural-log units.
 // acc: (n_splits, D) and ml: (n_splits, 2) of the row. Other CTAs wrote
 // them, so they are read through L2 (ld.global.cg), past this SM's L1; the
 // loads of the first kAhead splits are all issued before any is used, so
@@ -896,7 +898,8 @@ struct WarpDecode<bf16, D, G> {
 template <typename T, int D>
 __device__ void merge_splits(const float* __restrict__ acc,
                              const float* __restrict__ ml, int n_live,
-                             T* __restrict__ orow, int lane) {
+                             T* __restrict__ orow, float* __restrict__ lse,
+                             int lane) {
   constexpr int kCols = (D + 31) / 32;
   constexpr int kAhead = 8;
   float m_a[kAhead], l_a[kAhead], a[kAhead][kCols];
@@ -942,19 +945,22 @@ __device__ void merge_splits(const float* __restrict__ acc,
     const int c = lane + 32 * k;
     if (c < D) orow[c] = Elem<T>::store(o[k] / lsum);
   }
+  if (lse != nullptr && lane == 0) *lse = mx + logf(lsum);
 }
 
 // part: fp32 scratch, acc (b, h, n_splits, D) then (m, l) (b, h, n_splits,
 // 2); counters: int (b, h), zeros (the last CTA of a slot's query block
-// resets its own). Query block gb of kv head hk holds the group's rows
+// resets its own); lse: fp32 (b, h) or null, each row's log-sum-exp (-inf
+// for a zero-length slot). Query block gb of kv head hk holds the group's rows
 // gb * G onwards; blockIdx.x = hk * n_gb + gb < h.
 template <typename T, int D, int G, typename Layout>
 __global__ void __launch_bounds__(kDecThreads, (DecodeTile<T, D>::kPerSm))
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, Layout layout,
                     const int* __restrict__ lengths, float* __restrict__ part,
-                    int* __restrict__ counters, T* __restrict__ out, int h,
-                    int kvh, int rows_per_split, float scale) {
+                    int* __restrict__ counters, T* __restrict__ out,
+                    float* __restrict__ lse, int h, int kvh,
+                    int rows_per_split, float scale) {
   using Tile = DecodeTile<T, D>;
   using Warp = WarpDecode<T, D, G>;
   static_assert(Tile::kRing >= G * (D + 2) * 4, "a ring holds its warp's partial");
@@ -984,6 +990,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       T* og = out + ((int64_t)slot * h + head0) * D;
       for (int e = threadIdx.x; e < gc * D; e += kDecThreads)
         og[e] = Elem<T>::store(0.f);
+      if (lse != nullptr)
+        for (int g = threadIdx.x; g < gc; g += kDecThreads)
+          lse[(int64_t)slot * h + head0 + g] = __int_as_float(0xff800000);
     }
     return;
   }
@@ -1089,15 +1098,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int g = warp; g < gc; g += kDecWarps) {
     const int64_t r = (int64_t)slot * h + head0 + g;
     merge_splits<T, D>(part + r * n_splits * D, part_ml + r * n_splits * 2,
-                       n_live, out + r * D, lane);
+                       n_live, out + r * D,
+                       lse == nullptr ? nullptr : lse + r, lane);
   }
 }
 
 template <typename T, int D, int G, typename Layout>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           Layout layout, const void* lengths, void* part,
-                          void* counters, void* out, int b, int h, int kvh,
-                          int rows_per_split, int n_splits,
+                          void* counters, void* out, void* lse, int b, int h,
+                          int kvh, int rows_per_split, int n_splits,
                           cudaStream_t stream) {
   using Tile = DecodeTile<T, D>;
   const size_t smem = kDecWarps * Tile::kRing + WarpDecode<T, D, G>::kQBytes +
@@ -1110,7 +1120,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), layout, static_cast<const int*>(lengths),
       static_cast<float*>(part), static_cast<int*>(counters),
-      static_cast<T*>(out), h, kvh, rows_per_split,
+      static_cast<T*>(out), static_cast<float*>(lse), h, kvh, rows_per_split,
       1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -1124,12 +1134,13 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 template <typename T, int D, typename Layout>
 cudaError_t dispatch_decode(const void* q, const void* k, const void* v,
                             Layout layout, const void* lengths, void* part,
-                            void* counters, void* out, int b, int h, int kvh,
-                            int rows_per_split, int n_splits,
+                            void* counters, void* out, void* lse, int b, int h,
+                            int kvh, int rows_per_split, int n_splits,
                             cudaStream_t stream) {
   constexpr int G = std::is_same<T, bf16>::value ? 16 : 8;
   return launch_decode<T, D, G>(q, k, v, layout, lengths, part, counters, out,
-                                b, h, kvh, rows_per_split, n_splits, stream);
+                                lse, b, h, kvh, rows_per_split, n_splits,
+                                stream);
 }
 
 template <int D, typename Layout>
@@ -1172,7 +1183,9 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim d in {64, 80, 96, 128}. part:
 // fp32 scratch of b * h * n_splits * (d + 2) floats; counters: b * h ints,
-// zeros, which each launch leaves at zero (one stream at a time); n_splits
+// zeros, which each launch leaves at zero (one stream at a time); lse (the
+// contiguous decode's): null, or b * h floats for each row's log-sum-exp;
+// n_splits
 // runs of rows_per_split rows must cover the layout's reach. Returns the
 // cudaError_t of the launches (0 on success), or -1 for a dtype, head_dim
 // or split this build does not take.
@@ -1194,7 +1207,7 @@ cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
   return repro::kUnsupported
 #define DECODE(T, D, LAYOUT)                                                   \
   return static_cast<int>(dispatch_decode<T, D>(                               \
-      q, k, v, LAYOUT, lengths, part, counters, out, b, h, kvh,                \
+      q, k, v, LAYOUT, lengths, part, counters, out, lse, b, h, kvh,           \
       rows_per_split, n_splits, static_cast<cudaStream_t>(stream)))
 
 extern "C" int paged_decode(int dtype, int d, const void* q, const void* k,
@@ -1205,15 +1218,17 @@ extern "C" int paged_decode(int dtype, int d, const void* q, const void* k,
                             void* stream) {
   if (page_size <= 0) return repro::kUnsupported;
   const PagedLayout layout{static_cast<const int*>(table), page_size, max_pages};
+  void* const lse = nullptr;
   DISPATCH_DECODE(layout, (int64_t)max_pages * page_size);
 }
 
 extern "C" int contiguous_decode(int dtype, int d, const void* q,
                                  const void* k, const void* v,
                                  const void* lengths, void* part,
-                                 void* counters, void* out, int b, int h,
-                                 int kvh, int max_len, int rows_per_split,
-                                 int n_splits, void* stream) {
+                                 void* counters, void* out, void* lse, int b,
+                                 int h, int kvh, int max_len,
+                                 int rows_per_split, int n_splits,
+                                 void* stream) {
   const ContiguousLayout layout{max_len};
   DISPATCH_DECODE(layout, (int64_t)max_len);
 }

@@ -11,8 +11,11 @@ One kernel body, two ways to find a slot's K/V rows:
 Single-token GQA decode, flash-decoding's design: each slot's context is
 cut into splits of ``rows_per_split`` rows, one CTA per (kv head, slot,
 split), and the last of a slot's splits to finish merges their fp32
-partials in split order. ``splits`` sizes the grid from the cache's shape
-alone, so a launch reads nothing of ``lengths`` on the host. ``kernels.ops``
+partials in split order; the contiguous decode's merge can also write
+each query row's log-sum-exp (``lse``: the sequence-parallel decode
+combines ranks' partial attention with it). ``splits`` sizes the grid
+from the cache's shape alone, so a launch reads nothing of ``lengths``
+on the host. ``kernels.ops``
 checks the arguments and counts launches; call that, not these.
 """
 
@@ -107,8 +110,10 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, out) -> None:
         page_size, max_pages, rows, n_splits, stream), "paged_decode")
 
 
-def contiguous_decode(q, k, v, lengths, out) -> None:
-    """Launch on the current stream; raise if the launch fails."""
+def contiguous_decode(q, k, v, lengths, out, lse=None) -> None:
+    """Launch on the current stream; raise if the launch fails. ``lse``:
+    None, or an fp32 (b, h) tensor the merge writes each row's
+    log-sum-exp into."""
     lib = _build.load()
     b, h, d = q.shape
     _, max_len, kvh, _ = k.shape
@@ -118,5 +123,5 @@ def contiguous_decode(q, k, v, lengths, out) -> None:
     _raise_on(lib.contiguous_decode(
         DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr(), part.data_ptr(), counters.data_ptr(),
-        out.data_ptr(), b, h, kvh, max_len, rows, n_splits, stream),
-        "contiguous_decode")
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, kvh,
+        max_len, rows, n_splits, stream), "contiguous_decode")

@@ -18,6 +18,16 @@ gradient is never silently cut at a kernel's output. Call them under
 ``LAUNCHES`` counts kernel launches, one per call that reached the kernel;
 the plain versions never touch it. ``pchase_timed`` counts under a key of
 its own, so a run of one chase path is not read as the other's.
+
+The three kernels the dry run reaches (``flash_decode``, ``ssd_scan``,
+``flash_attention``) take meta tensors too: they return empty outputs
+of the kernel's shapes and record one op under the kernel's name, with
+its bytes and FLOPs (``kernels.cost``), in the op traces that are
+recording (``core.op_analysis``). Neither the kernel nor its plain
+version runs, and no launch is counted. A launch of one of them on the
+card records the same op, so a traced run on the card and its meta
+trace have one census. Every other wrapper refuses a
+meta tensor, as it refuses any device but the CPU and CUDA.
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core import autotune
+from repro_torch.core import autotune, op_analysis
+from repro_torch.kernels import cost
 from repro_torch.kernels import flash_attention as _prefill
 from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import gemm as _gemm
@@ -60,14 +71,15 @@ def _check_no_grad(tensors) -> None:
             "goes through the plain sdpa, use_flash=False)")
 
 
-def _check_device(tensors, dtype) -> bool:
+def _check_device(tensors, dtype, meta: bool = False) -> bool:
     """Common device checks; True when the tensors lie on the CPU (the
-    plain path), after which only the kernels' own limits remain."""
+    plain path), or on the meta device where ``meta`` allows it (the
+    cost branch), after which only the kernels' own limits remain."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"arguments on several devices: {devs}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type == "cpu" or (meta and dev.type == "meta"):
         return True
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -81,7 +93,8 @@ def _check_device(tensors, dtype) -> bool:
     return False
 
 
-def _check(q, k, v, lens, q_rank: int, page_table=None) -> None:
+def _check(q, k, v, lens, q_rank: int, page_table=None,
+           meta: bool = False) -> None:
     """Raise on anything the attention kernels do not take. Shared by both
     paths, so the CPU tests exercise the same contract the card enforces.
     ``k``/``v`` are a page pool (n_pages, page_size, kvh, d) walked through
@@ -111,7 +124,7 @@ def _check(q, k, v, lens, q_rank: int, page_table=None) -> None:
         raise TypeError(f"cache dtype {k.dtype} != q dtype {q.dtype}")
     _check_no_grad([q, k, v])
     ints = [lens] + ([] if page_table is None else [page_table])
-    if _check_device([q, k, v, *ints], q.dtype):
+    if _check_device([q, k, v, *ints], q.dtype, meta):
         return
     if d not in _decode.HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_decode.HEAD_DIMS}, "
@@ -142,7 +155,7 @@ def _check_flash(q, k, v, causal: bool) -> None:
         raise TypeError(f"k/v dtype {k.dtype}/{v.dtype} != q dtype "
                         f"{q.dtype}")
     _check_no_grad([q, k, v])
-    if _check_device([q, k, v], q.dtype):
+    if _check_device([q, k, v], q.dtype, meta=True):
         return
     if d not in _decode.HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_decode.HEAD_DIMS}, "
@@ -160,10 +173,15 @@ def flash_attention(q, k, v, causal: bool = True):
     _check_flash(q, k, v, causal)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
+    b, sq, h, d = q.shape
     out = torch.empty_like(q)
     if out.numel():
-        _prefill.flash_attention(q, k, v, causal, out)
-        LAUNCHES["flash_attention"] += 1
+        if q.device.type == "cuda":
+            _prefill.flash_attention(q, k, v, causal, out)
+            LAUNCHES["flash_attention"] += 1
+        _record("flash_attention", [q, k, v], [out],
+                lambda: cost.flash_attention(b, sq, k.shape[1], h, k.shape[2],
+                                             d, q.element_size(), causal))
     return out
 
 
@@ -197,18 +215,42 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
     return out
 
 
-def flash_decode(q, k, v, lengths):
+def flash_decode(q, k, v, lengths, return_lse: bool = False):
     """Contiguous GQA decode: q (b, h, d) vs a ragged (b, max_len, kvh, d)
     cache in q's dtype; slot i attends its first ``min(lengths[i],
-    max_len)`` rows (0 gives zeros). Returns (b, h, d)."""
-    _check(q, k, v, lengths, 3)
+    max_len)`` rows (0 gives zeros). Returns (b, h, d), and with
+    ``return_lse`` also each row's log-sum-exp of its scaled scores,
+    fp32 (b, h), -inf for a zero-length slot. On meta tensors the rows
+    are counted at the cache's full length (the dry run's static
+    shapes)."""
+    _check(q, k, v, lengths, 3, meta=True)
     if q.device.type == "cpu":
-        return ref.flash_decode(q, k, v, lengths)
+        return ref.flash_decode(q, k, v, lengths, return_lse=return_lse)
+    b, h, d = q.shape
     out = torch.empty_like(q)
-    if q.shape[0]:
-        _decode.contiguous_decode(q, k, v, lengths, out)
-        LAUNCHES["flash_decode"] += 1
-    return out
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if b:
+        if q.device.type == "cuda":
+            _decode.contiguous_decode(q, k, v, lengths, out, lse)
+            LAUNCHES["flash_decode"] += 1
+        _record("flash_decode", [q, k, v, lengths],
+                [out] + ([lse] if return_lse else []),
+                lambda: cost.flash_decode(b, h, k.shape[2], d,
+                                          q.element_size(), b * k.shape[1],
+                                          return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _record(name: str, inputs, outputs, work) -> None:
+    """A meta call's or a launch's one op, in every op trace that is
+    recording (``core.op_analysis``), with ``work()``'s (bytes, FLOPs):
+    counted at the shapes alone, every row of a cache, as on meta, and
+    only while a trace records."""
+    if op_analysis.recording():
+        nbytes, flops = work()
+        op_analysis.record_kernel(name, inputs, outputs, flops=flops,
+                                  nbytes=nbytes)
 
 
 def _check_ssd(x, a_log, b, c, h0) -> None:
@@ -234,7 +276,7 @@ def _check_ssd(x, a_log, b, c, h0) -> None:
         raise ValueError("ssd_scan needs at least one row")
     _check_no_grad([x, a_log, b, c, h0])
     if _check_device([x, a_log, b, c] + ([] if h0 is None else [h0]),
-                     x.dtype):
+                     x.dtype, meta=True):
         return
     if (p, n) not in _ssd.SHAPES:
         raise ValueError(f"kernel takes (head_dim, d_state) in "
@@ -256,8 +298,14 @@ def ssd_scan(x, a_log, b, c, h0=None):
     state = torch.empty((bt, h, p, b.shape[-1]), dtype=torch.float32,
                         device=x.device)
     if bt and h:
-        _ssd.ssd_scan(x, a_log, b, c, h0, y, state)
-        LAUNCHES["ssd_scan"] += 1
+        if x.device.type == "cuda":
+            _ssd.ssd_scan(x, a_log, b, c, h0, y, state)
+            LAUNCHES["ssd_scan"] += 1
+        _record("ssd_scan", [x, a_log, b, c] + ([] if h0 is None else [h0]),
+                [y, state],
+                lambda: cost.ssd_scan(bt, l, h, p, b.shape[-1],
+                                      x.element_size(), _ssd.CHUNK,
+                                      h0 is not None))
     return y, state
 
 

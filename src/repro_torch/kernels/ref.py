@@ -42,12 +42,13 @@ def flash_attention(q, k, v, causal: bool = True):
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-def flash_decode(q, k, v, lengths):
+def flash_decode(q, k, v, lengths, return_lse: bool = False):
     """Ragged single-token GQA decode: q (b, h, d) vs k/v (b, skv, kvh, d).
 
     Slot i attends its first ``lengths[i]`` rows; a zero-length slot gives
     zeros (a freed engine slot). Port of ``repro.kernels.ref.flash_decode``.
-    """
+    ``return_lse`` also returns each row's log-sum-exp of its scaled
+    scores, fp32 (b, h), -inf for a zero-length slot."""
     b, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -58,9 +59,14 @@ def flash_decode(q, k, v, lengths):
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    out = torch.where((lengths > 0)[:, None, None, None], out,
-                      torch.zeros_like(out))
-    return out.reshape(b, h, d).to(q.dtype)
+    live = (lengths > 0)[:, None, None]
+    out = torch.where(live[..., None], out, torch.zeros_like(out))
+    out = out.reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(live, torch.logsumexp(s, dim=-1),
+                      torch.full_like(s[..., 0], -math.inf))
+    return out, lse.reshape(b, h)
 
 
 def flash_decode_split(q, k, v, lengths, rows_per_split: int):

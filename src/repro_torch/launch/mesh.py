@@ -14,11 +14,13 @@ running a function. The parent waits to a deadline; a rank that raises,
 dies or outlives the deadline ends every rank and the call raises, so no
 rank is left blocked in a collective. ``spawn_or_join`` is the launchers'
 choice between that and joining a group that ``RANK``/``WORLD_SIZE``
-name.
+name. ``fake_group`` is the dry run's group of 256 or 512 ranks that
+does no communication.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -133,6 +135,29 @@ def describe(mesh) -> str:
 # ----------------------------------------------------------------------------
 # Process groups on this host
 # ----------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """A process group of ``world`` ranks that does no communication,
+    joined as ``rank`` (0: the dry run's; torch's ``"fake"`` backend over
+    its ``FakeStore``, ``torch.testing._internal.distributed.fake_pg``):
+    its collectives return at once and leave their tensors as they are.
+    For the dry run only (``launch.dryrun``, which traces rank 0's step
+    on meta tensors, and ``chip_smoke.py``'s check of it); no launcher
+    that serves or trains reaches it. Raises if a group is already
+    initialised; destroys the group on exit."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "dry run's fake group needs a process of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
 
 def free_port() -> int:
     """A port no socket holds now: the one the OS gives a socket bound to

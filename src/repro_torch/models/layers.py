@@ -21,6 +21,15 @@ walk gathered over ranks, and the vocab gathers of the embedding and the
 logits. A dim that does not divide the ranks is replicated and needs no
 collective.
 
+**Contiguous caches under a serving mesh** (``serve.dist.active_mesh``,
+any of (pod, data, model)): each rank holds its slots of the batch, and
+the cache's kv heads and rows where its ``spec`` splits them
+(``transformer.init_caches(..., ruleset=)``). The heads split as in
+training, the row-parallel ``wo`` sum is an ``all_reduce``, and a cache
+whose rows are split over an axis (``cache_seq``: sequence parallelism)
+is attended rank by rank, each part with its log-sum-exp, and combined
+by ``all_reduce``s (``_contiguous_apply``).
+
 **Training over a model axis.** Inside a train step on a mesh
 (``train.dist.use_mesh``; its own switch, which the serving paths never
 read) the cache-less attention (an encoder's too), the gated
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.serve import dist as serve_dist
 from repro_torch.serve import paged
@@ -203,18 +213,18 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
             return _attention_train(params, cfg, x, positions, use_flash,
                                     *train), None
     q, k, v = _project_qkv(params, cfg, x, positions)
+    if cache is not None and "k" in cache:
+        return _contiguous_apply(params, cfg, x, q, k, v, cache)
     if serve_dist.active_pool_mesh() is not None:
-        if cache is None or "kp" not in cache:
+        if cache is None:
             raise NotImplementedError(
-                "tensor-parallel attention is paged only (the reference's "
-                "mesh engine is paged-only)")
+                "cache-less attention under a serving mesh: the serving "
+                "paths attend a cache (paged or contiguous)")
         return _paged_apply_sharded(params, cfg, x, q, k, v, cache,
                                     writes or paged_writes(cache, s))
     if cache is not None:
-        if "kp" in cache:
-            return _paged_apply(params, x, q, k, v, cache,
-                                writes or paged_writes(cache, s))
-        return _contiguous_apply(params, x, q, k, v, cache)
+        return _paged_apply(params, x, q, k, v, cache,
+                            writes or paged_writes(cache, s))
     if use_flash:
         out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
     else:
@@ -261,44 +271,151 @@ def _attention_train(params: Params, cfg: AttnConfig, x, positions,
     return tm.reduce(_matmul_out(out, params["wo"]), axis)
 
 
-def _contiguous_apply(params: Params, x, q, k, v, cache: Params):
-    """Attention against a contiguous KV cache.
+def _write_rows(ck, cv, k, v, local):
+    """Write the (b, s) new rows of k/v at this rank's cache rows
+    ``local`` (b, s), in place, dropping those outside [0, L) (past the
+    cache's end, or in another rank's block of it), with no host read:
+    each row is written at ``local mod L`` with its new value where it is
+    kept and the value already there where it is dropped. Within a piece
+    of at most L consecutive rows those targets are distinct, so no two
+    writes meet; pieces run in order, each reading what the last left."""
+    b, s = local.shape
+    rows = ck.shape[1]
+    slots = torch.arange(b, device=k.device)[:, None].expand(b, s)
+    for a in range(0, s, rows):
+        p, sl = local[:, a:a + rows], slots[:, a:a + rows]
+        kept = ((p >= 0) & (p < rows))[..., None, None]
+        t = p.remainder(rows)
+        ck[sl, t] = torch.where(kept, k[:, a:a + rows].to(ck.dtype),
+                                ck[sl, t])
+        cv[sl, t] = torch.where(kept, v[:, a:a + rows].to(cv.dtype),
+                                cv[sl, t])
+
+
+def _partial_attention(q, k, v, mask):
+    """The plain masked attention of q (b, sq, h, d) over k/v (b, skv,
+    kvh, d) in fp32, and each row's log-sum-exp of its scaled scores
+    (b, sq, h): one rank's part of attention over a cache whose rows the
+    ranks share out (``_combine_seq``). A row with no key left by the
+    mask has a log-sum-exp near ``NEG_INF``, which weighs nothing."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
+    scores = scores + mask[:, None, None]
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    lse = (m + torch.log(l))[..., 0].permute(0, 3, 1, 2)   # (b, q, kvh, g)
+    return out.reshape(b, sq, h, d), lse.reshape(b, sq, h)
+
+
+def _combine_seq(out, lse, mesh, axes):
+    """Attention over the whole cache from each rank's part over its
+    rows: out (..., h, d) and lse (..., h) fp32, combined over ``axes``
+    by an ``all_reduce(MAX)`` of lse, then an ``all_reduce(SUM)`` of
+    ``exp(lse - m) * out`` and of ``exp(lse - m)``. A rank with no row
+    (lse -inf) weighs nothing."""
+    m = lse.clone()
+    for a in axes:
+        serve_dist.all_reduce(m, mesh, a, op=torch.distributed.ReduceOp.MAX)
+    w = torch.exp(lse - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    num = out.float() * w[..., None]
+    for a in axes:
+        serve_dist.all_reduce(num, mesh, a)
+        serve_dist.all_reduce(w, mesh, a)
+    w = torch.where(w > 0, w, torch.ones_like(w))
+    return (num / w[..., None]).to(out.dtype)
+
+
+def _contiguous_apply(params: Params, cfg: AttnConfig, x, q, k, v,
+                      cache: Params):
+    """Attention against a contiguous KV cache, on one rank or sharded by
+    the serving mesh (``serve.dist.active_mesh``).
 
     cache = {"k"/"v": (b, max_len, kvh, hd) in the compute dtype, "index":
-    (b,) per-slot write position, or a scalar one shared by every slot}.
-    The s new K/V rows are written at ``index`` first, **in place** (the
-    reference returns a new cache); rows past ``max_len`` are dropped, as
-    the reference's scatter drops them. The returned cache carries the
+    (b,) per-slot write positions, or a scalar one shared by every slot,
+    and under a mesh the k/v ``spec``}. The s new K/V rows are written at
+    ``index`` first, **in place** (the reference returns a new cache);
+    rows past ``max_len`` are dropped, as the reference's scatter drops
+    them (``_write_rows``, no host sync). The returned cache carries the
     advanced ``index``. At s == 1 (decode) attention is the contiguous
     decode kernel (``kernels.ops.flash_decode``) over each slot's first
     ``index + 1`` rows; at s > 1 (prefill) it is the reference's plain
     causal ``sdpa`` over the whole cache, query r of slot i seeing rows
-    ``<= index[i] + r``."""
+    ``<= index[i] + r``.
+
+    Under a mesh this rank holds its slots of the batch, and its kv heads
+    and block of rows where the cache's ``spec``
+    (``transformer.init_caches(..., ruleset=)``: (batch, cache_seq,
+    kv_heads, None)) splits them. q/k/v hold this rank's heads where the
+    heads rules split the weights (as ``_attention_train`` splits them in
+    training); k/v are gathered over kv heads where the weights split
+    them and the cache does not. The new rows go to the rank whose block
+    holds their positions. Where the rows are split (``cache_seq`` mapped
+    to an axis: sequence parallelism), each rank's attention is partial,
+    with its log-sum-exp (``return_lse``, ``_partial_attention``), and
+    the ranks combine it (``_combine_seq``); where the heads split over
+    that same axis, q is gathered over heads first and each rank keeps
+    its heads of the combined rows. A head-split output projection is
+    summed over ranks."""
+    mesh = serve_dist.active_mesh()
+    spec = cache.get("spec", (None,) * 4)
     b, s = x.shape[:2]
     ck, cv = cache["k"], cache["v"]
-    max_len = ck.shape[1]
-    idx = cache["index"].long().expand(b)                      # (b,)
-    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]  # (b, s)
-    slots = torch.arange(b, device=x.device)[:, None].expand(b, s)
-    keep = pos < max_len
-    k, v = k.to(ck.dtype), v.to(cv.dtype)
-    if s == 1:
-        # One row a slot, so no two writes meet: a slot past the end
-        # rewrites its last row with itself (no host sync, unlike a mask).
-        last = pos.clamp(max=max_len - 1)
-        kept = keep[..., None, None]
-        ck[slots, last] = torch.where(kept, k, ck[slots, last])
-        cv[slots, last] = torch.where(kept, v, cv[slots, last])
-        out = kernel_ops.flash_decode(q[:, 0], ck, cv,
-                                      (idx + 1).int())[:, None]
-    else:
-        ck[slots[keep], pos[keep]] = k[keep]
-        cv[slots[keep], pos[keep]] = v[keep]
-        kj = torch.arange(max_len, device=x.device)[None, None, :]
-        mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
-        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask)
+    rows = ck.shape[1]
+    kv_w = serve_dist.sharded("kv_heads", cfg.n_kv_heads)
+    if kv_w is not None and spec[2] is None:
+        k = serve_dist.all_gather_dim(k, 2, *kv_w)
+        v = serve_dist.all_gather_dim(v, 2, *kv_w)
+    elif kv_w is None and spec[2] is not None:
+        raise ValueError(f"the cache splits kv heads over {spec[2]}, the "
+                         f"weights do not")
+    seq_axes, row0 = (), 0
+    if spec[1] is not None:
+        seq_axes, _, i = sharding._block(spec[1], mesh)
+        row0 = i * rows
+    idx = cache["index"].long().expand(b)
+    pos = idx[:, None] + torch.arange(s, device=x.device)[None, :]
+    _write_rows(ck, cv, k, v, pos - row0)
     new_cache = dict(cache, index=cache["index"] + s)
-    return _matmul_out(out, params["wo"]), new_cache
+    heads = serve_dist.sharded("heads", cfg.n_heads)
+    kh, vh = ck, cv
+    # Rows and heads split over one axis (``cache_seq`` on "model"): the
+    # ranks that combine a row's partials must hold the same heads, so
+    # each attends every head over its rows and keeps its own after.
+    every_head = heads is not None and heads[1] in seq_axes
+    q_local = q.shape[2]
+    if every_head:
+        q = serve_dist.all_gather_dim(q, 2, *heads)
+    elif heads is not None and spec[2] is None:
+        kh, vh = _local_kv_heads(ck, cv, cfg.n_heads, q_local,
+                                 heads[0].index(heads[1]))
+    kh, vh = kh.to(q.dtype), vh.to(q.dtype)
+    if s == 1:
+        lens = (idx + 1 - row0).clamp(0, rows).int()
+        if seq_axes:
+            out, lse = kernel_ops.flash_decode(q[:, 0], kh, vh, lens,
+                                               return_lse=True)
+            out = _combine_seq(out, lse, mesh, seq_axes)
+        else:
+            out = kernel_ops.flash_decode(q[:, 0], kh, vh, lens)
+        out = out[:, None]
+    else:
+        kj = row0 + torch.arange(rows, device=x.device)[None, None, :]
+        mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
+        if seq_axes:
+            out, lse = _partial_attention(q, kh, vh, mask)
+            out = _combine_seq(out, lse, mesh, seq_axes).to(q.dtype)
+        else:
+            out = sdpa(q, kh, vh, mask=mask)
+    if every_head:
+        out = out.narrow(2, heads[0].index(heads[1]) * q_local, q_local)
+    y = _matmul_out(out, params["wo"])
+    if heads is not None:
+        serve_dist.all_reduce(y, *heads)      # wo split by rows
+    return y, new_cache
 
 
 def paged_writes(cache: Params, s: int) -> tuple:
@@ -427,12 +544,14 @@ def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
     ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
     and no RoPE (as the reference), the output scaled by ``tanh(gate)``
     where the layer has a gate (llama-3.2-vision). Under a train step's
-    model axis it is split by heads as the self-attention is
-    (``_attention_train``), and the gate scales the summed output, so
-    that its gradient is whole on every rank."""
-    train = train_dist.sharded("heads", cfg.n_heads)
-    if train is not None:
-        y = _attention_train(params, cfg, x, None, False, *train,
+    model axis, or a serving mesh's (``serve.dist.split``; ``kv_src``
+    then holds this rank's slots, as the tokens do), it is split by heads
+    as the self-attention is (``_attention_train``), and the gate scales
+    the summed output, so that its gradient is whole on every rank."""
+    split = train_dist.sharded("heads", cfg.n_heads) \
+        or serve_dist.split("heads", cfg.n_heads)
+    if split is not None:
+        y = _attention_train(params, cfg, x, None, False, *split,
                              kv_src=kv_src)
     else:
         q, k, v = _cross_qkv(params, cfg, x, kv_src)

@@ -20,9 +20,12 @@ gated RMSNorm normalises over all ``h * p`` channels: the sum of
 squares is summed over the axis both ways (``TrainMesh.all_sum``) and
 divided by the global width, and each rank reads its slice of the
 replicated scale (taken through ``copy``). Where ``ssm_heads`` does not
-divide the axis the mixer replicates and runs whole on every rank. The
-kernel path (no gradient) and the cached path (no mesh serves a Mamba
-layer) are never split.
+divide the axis the mixer replicates and runs whole on every rank.
+**Under a serving mesh** (``serve.dist.split``) the kernel path and the
+cached path split the same way, with the serving collectives (``copy``
+the identity, each sum one ``all_reduce``): the conv and SSM state of a
+rank's cache hold its heads, as ``transformer.init_caches(...,
+ruleset=)`` builds them.
 
 Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
 in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
+from repro_torch.serve import dist as serve_dist
 from repro_torch.train import dist as train_dist
 
 Params = Dict[str, object]
@@ -194,6 +198,8 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
     ``use_kernel=False`` branch): the path a gradient can pass."""
     split = None if use_kernel or cache is not None else \
         train_dist.sharded("ssm_heads", cfg.n_heads)
+    if split is None:
+        split = serve_dist.split("ssm_heads", cfg.n_heads)
     w_b, w_c = params["w_B"], params["w_C"]
     if split is not None:
         tm, axis = split
@@ -263,11 +269,15 @@ def _split_rmsnorm(params: Params, y, width: int, tm, axis: str,
     return (yf * torch.rsqrt(var + eps) * scale).to(dtype)
 
 
+def cache_shapes(cfg: MambaConfig, batch: int) -> Dict[str, tuple]:
+    """The conv and SSM state's shapes for ``batch`` slots."""
+    h, p, n = cfg.n_heads, cfg.head_dim, cfg.d_state
+    return {"conv": (batch, cfg.d_conv - 1, h, p), "ssm": (batch, h, p, n)}
+
+
 def init_cache(cfg: MambaConfig, batch: int, device,
                dtype: torch.dtype) -> Params:
     """Zero conv and SSM state for ``batch`` slots (no ``index``: the
     caller adds the one it needs)."""
-    h, p, n = cfg.n_heads, cfg.head_dim, cfg.d_state
-    return {"conv": torch.zeros((batch, cfg.d_conv - 1, h, p), dtype=dtype,
-                                device=device),
-            "ssm": torch.zeros((batch, h, p, n), dtype=dtype, device=device)}
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in cache_shapes(cfg, batch).items()}

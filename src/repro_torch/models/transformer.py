@@ -18,14 +18,18 @@ weights and a scalar fp32 "gate"); then, when ``d_ff > 0``, "ln2" and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import layers, mamba, moe
+from repro_torch.train import dist as train_dist
 
 Params = Dict[str, Any]
 
@@ -345,7 +349,9 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens,
     blocks and MLPs by heads and ``mlp`` (``models.layers``), the
     mixtures by experts (``models.moe``), the Mamba mixers by
     ``ssm_heads`` (``models.mamba``); over the data axis the mixtures
-    route over the whole batch."""
+    route over the whole batch. With ``cfg.remat``, a forward that
+    builds a gradient (no caches, grad mode on) checkpoints each period
+    (``_remat_periods``)."""
     x = layers.embed(params["embed"], tokens, cfg.dtype, vocab=cfg.vocab)
     if cross_kv is not None:
         cross_kv = cross_kv.to(cfg.dtype)
@@ -363,22 +369,84 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens,
     writes = layers.paged_writes(caches[0], tokens.shape[1]) \
         if caches is not None and "kp" in caches[0] else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, block in enumerate(params["blocks"]):
-        cache = caches[i] if caches is not None else None
-        x, nc, a = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
-                                cross_kv=cross_kv, ssd_kernel=ssd_kernel,
-                                writes=writes)
-        aux = aux + a
-        if caches is not None:
-            new_caches.append(nc)
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        x, aux = _remat_periods(params, cfg, x, cross_kv, ssd_kernel)
+    else:
+        for i, block in enumerate(params["blocks"]):
+            cache = caches[i] if caches is not None else None
+            x, nc, a = _layer_apply(block, cfg, cfg.kind(i), x, cache=cache,
+                                    cross_kv=cross_kv,
+                                    ssd_kernel=ssd_kernel, writes=writes)
+            aux = aux + a
+            if caches is not None:
+                new_caches.append(nc)
     x = layers.norm(cfg.norm, params["ln_f"], x)
     return (layers.unembed(params["unembed"], x, vocab=cfg.vocab),
             new_caches, aux)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the matrix products' outputs (the
+    reference's ``dots_saveable``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_periods(params: Params, cfg: ModelConfig, x, cross_kv,
+                   ssd_kernel: bool):
+    """The decoder's layers with each period (the pattern's layers)
+    checkpointed (``torch.utils.checkpoint``, non-reentrant): the backward
+    runs the period again, collectives included, from its saved input
+    (and, under "dots", its matrix products' outputs). The recompute
+    may run on the autograd engine's thread, so each period installs the
+    train step's mesh and the serving ruleset that were active around it.
+    Returns (x, the summed aux loss)."""
+    tm, rs = train_dist.active(), sharding.current_ruleset()
+    n_pos = len(cfg.pattern)
+    context = (functools.partial(
+        checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+        if cfg.remat_policy == "dots" else checkpoint.noop_context_fn)
+
+    def period(x, start: int):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        with train_dist.use_mesh(tm), sharding.use_ruleset(rs):
+            for i in range(start, start + n_pos):
+                x, _, a = _layer_apply(params["blocks"][i], cfg, cfg.kind(i),
+                                       x, cross_kv=cross_kv,
+                                       ssd_kernel=ssd_kernel)
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, cfg.n_layers, n_pos):
+        x, a = checkpoint.checkpoint(period, x, start, use_reentrant=False,
+                                     context_fn=context)
+        aux = aux + a
+    return x, aux
+
+
+# The logical dims of each contiguous cache leaf (the reference's dry-run
+# specs): each goes through ``Ruleset.spec``, so a dim that does not
+# divide its axes replicates.
+_CACHE_DIMS = {"k": ("batch", "cache_seq", "kv_heads", None),
+               "v": ("batch", "cache_seq", "kv_heads", None),
+               "conv": ("batch", None, "ssm_heads", None),
+               "ssm": ("batch", "ssm_heads", None, None),
+               "index": ("batch",)}
+
+
+def cache_spec(ruleset: sharding.Ruleset, kind: str, shape) -> tuple:
+    """The spec of a contiguous cache leaf (``_CACHE_DIMS``) under
+    ``ruleset``."""
+    return ruleset.spec(_CACHE_DIMS[kind][:len(shape)], tuple(shape))
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 per_slot_index: bool = False, device=None,
-                dtype: Optional[torch.dtype] = None) -> List[Params]:
+                dtype: Optional[torch.dtype] = None,
+                ruleset: Optional[sharding.Ruleset] = None) -> List[Params]:
     """Contiguous decode caches, one per layer, in the compute dtype:
 
     * attention (``"attn"`` and ``"cross"`` layers: the cross-attention
@@ -387,19 +455,38 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
     each with an int32 ``index``: (batch,) per-slot write positions with
     ``per_slot_index`` (continuous batching), else one scalar position
-    shared by every slot. All layers share one index tensor."""
+    shared by every slot. All layers share one index tensor.
+
+    Under a ``ruleset`` with a mesh, this rank's shard of those caches
+    (``cache_spec``: its slots, and its kv heads, rows or SSM heads where
+    they divide their axes), and each attention cache holds its k/v
+    ``spec``, which the layers read (``layers._contiguous_apply``:
+    the rows' split is not seen in the shapes)."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
-    index = torch.zeros((batch,) if per_slot_index else (), dtype=torch.int32,
-                        device=device)
+    sharded = ruleset is not None and ruleset.mesh is not None
+
+    def local(kind, shape):
+        if not sharded:
+            return tuple(shape), None
+        return sharding.local_shape(ruleset, _CACHE_DIMS[kind][:len(shape)],
+                                    shape)
+
+    def zeros(kind, shape, dt):
+        return torch.zeros(local(kind, shape)[0], dtype=dt, device=device)
+
+    index = zeros("index", (batch,), torch.int32) if per_slot_index else \
+        torch.zeros((), dtype=torch.int32, device=device)
     caches = []
     for i in range(cfg.n_layers):
         if cfg.kind(i) in ("attn", "cross"):
             shape = (batch, max_len, cfg.n_kv_heads, cfg.dhead)
-            c = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+            c = {"k": zeros("k", shape, dtype), "v": zeros("v", shape, dtype)}
+            if sharded:
+                c["spec"] = local("k", shape)[1]
         else:
-            c = mamba.init_cache(cfg.mamba_cfg(), batch, device, dtype)
+            c = {kind: zeros(kind, shape, dtype) for kind, shape in
+                 mamba.cache_shapes(cfg.mamba_cfg(), batch).items()}
         c["index"] = index
         caches.append(c)
     return caches

@@ -79,9 +79,53 @@ def sharded(name: str, size: int) -> Optional[Tuple[Any, str]]:
     return None if axis is None else (active[0], axis)
 
 
-def all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum ``x`` over ``axis`` in place on every rank; returns it."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+def active_mesh():
+    """The ambient serving ruleset's mesh where it is a real one (with
+    ``index`` and ``group``) of more than one rank, whatever its axes:
+    the contiguous caches' mesh path (``models.layers``), which a data
+    axis alone (the batch's slots, a cache's rows) also takes. None
+    otherwise."""
+    rs = sharding.current_ruleset()
+    if rs is None or not hasattr(rs.mesh, "group"):
+        return None
+    if all(int(n) == 1 for n in dict(rs.mesh.shape).values()):
+        return None
+    return rs.mesh
+
+
+class Split:
+    """The serving mesh's side of a layer split over a model axis, with
+    the interface of a train step's ``train.dist.TrainMesh`` that the
+    split layers read (``ruleset``, ``mesh``, ``copy``, ``reduce``,
+    ``all_sum``): serving runs no backward, so ``copy`` is the identity
+    and ``reduce`` and ``all_sum`` are one ``all_reduce``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.ruleset = sharding.current_ruleset()
+
+    def copy(self, x, axis: str):
+        return x
+
+    def reduce(self, x, axis: str):
+        return all_reduce(x.contiguous(), self.mesh, axis)
+
+    all_sum = reduce
+
+
+def split(name: str, size: int) -> Optional[Tuple[Split, str]]:
+    """(``Split``, axis) where the ambient serving ruleset shards a dim
+    named ``name`` of global ``size`` over a pool mesh's axis, else
+    None (``sharded``)."""
+    tp = sharded(name, size)
+    return None if tp is None else (Split(tp[0]), tp[1])
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` (a sum unless ``op`` says otherwise) over ``axis``
+    in place on every rank; returns it."""
+    dist.all_reduce(x, op=op, group=mesh.group(axis))
     return x
 
 

@@ -123,6 +123,28 @@ def test_cuda_contiguous_decode_matches_plain_version(cuda_device, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 128])
+def test_cuda_contiguous_decode_lse_matches_plain_version(cuda_device, dtype,
+                                                          d):
+    """``return_lse``: each row's log-sum-exp against the plain version's
+    (-inf at length 0), the output bit-equal to the default launch's."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 7)
+    b, h, kvh, max_len = 8, 32, 8, 1024
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    k, v, q = mk(b, max_len, kvh, d), mk(b, max_len, kvh, d), mk(b, h, d)
+    lengths = torch.tensor([0, 1, 255, 256, 257, 700, 1024, 1500],
+                           dtype=torch.int32, device=cuda_device)
+    out, lse = ops.flash_decode(q, k, v, lengths, return_lse=True)
+    want, want_lse = ref.flash_decode(q, k, v, lengths, return_lse=True)
+    torch.cuda.synchronize()
+    assert ref.compare(out, want)[0]
+    assert torch.equal(out, ops.flash_decode(q, k, v, lengths))
+    assert torch.isneginf(lse[0]).all()
+    assert ref.compare(lse[1:], want_lse[1:])[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 16, 16, 64, 256, 288),
                                    (4, 64, 8, 128, 512, 528)],
                          ids=["whisper-medium", "llama-3.2-vision-90b"])
