@@ -276,6 +276,25 @@ fake-group trace on meta; remat "full" and "dots" against none on
 qwen2-0.5b's gradients within 1e-6 (peak memory and time logged).
 ``python3 chip_smoke.py --phase 26`` runs the build and phase 26 alone.
 
+Phase 27 takes the reference's attention and cache knobs to the card:
+qwen2-0.5b whole, bf16 compute, its train step at 4 x 512 with fp32 and
+bf16 softmax probabilities (``attn_probs_fp32``) in turns, twice each,
+from the same seeded state (losses finite and within 2^-7 of each other,
+each mode's census and FLOPs equal to its meta trace, argument + temp
+traced within 3 % of ``max_memory_allocated``; step ms, peaks and the
+score tensors' bytes logged); qwen3-4b at full width, bf16, one decode
+step at b 8 against 2,048 live rows of int8 caches (argument bytes
+traced equal to the tensors' and within 0.5 % of the allocator's count,
+census equal, ``flash_decode`` once a layer a step and within
+``ref.TOLERANCE`` of its plain version on the cast cache, a planted K
+row saturating as the reference's cast does); and ``expand_kv`` on
+qwen3-4b at full width in fp32 (the cache-less forward and the
+contiguous prefill within 1e-5 of the flag off, the contiguous engine's
+decode launching ``flash_decode`` once a layer a step, tok/s of both
+logged, the paged engine's chunks and decode steps launching the paged
+kernels once a layer; ``attn_probs_fp32`` False bit-equal to True).
+``python3 chip_smoke.py --phase 27`` runs the build and phase 27 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -5532,6 +5551,393 @@ def dry_mesh_verdicts(ranks, want, configs, T, summary,
     return failed
 
 
+# ----------------------------------------------------------------------------
+# Phase 27: the reference's attention and cache knobs on the card
+# ----------------------------------------------------------------------------
+# (a) qwen2-0.5b whole, bf16 compute over fp32 masters, the train step at
+# 4 x 512 with fp32 and bf16 softmax probabilities (``attn_probs_fp32``
+# True, False), in turns, twice each, each run from the same seeded state
+# and batch (the least of KNOB_STEPS steps' ms and max_memory_allocated
+# logged; the loss is the first step's, on the seeded weights); the
+# losses finite
+# and the bf16-probability loss within KNOB_LOSS_RTOL of the fp32 one
+# (the modes differ by one bf16 rounding of each probability, 2^-8
+# relative; the loss, a mean of 2,048 log-softmaxes, may move by at most
+# twice that); each mode's op census and FLOPs on the card equal to its
+# meta trace, and its traced argument + temp bytes within KNOB_MEM_RTOL
+# of max_memory_allocated. (b) qwen3-4b at full width, bf16, the cached
+# contiguous forward at b 8 against 2,048 live rows of int8 caches:
+# argument bytes traced within KNOB_ARG_RTOL of what the build allocated,
+# census equal, ``flash_decode`` launched once a layer a step on the cast
+# cache and within ref.TOLERANCE of its plain version there, a planted K
+# row saturating on the card as the reference's cast does. (c)
+# ``expand_kv`` on qwen3-4b at full width, fp32: the cache-less plain
+# forward and the contiguous prefill (masked ``sdpa``) within
+# KNOB_EXPAND_TOL of the flag off, the contiguous engine's decode
+# launching ``flash_decode`` once a layer a step under the flag, and the
+# paged engine's chunks and decode steps their paged kernels. (d) fp32:
+# ``attn_probs_fp32`` False bit-equal to True.
+KNOB_TRAIN_ARCH, KNOB_TRAIN = "qwen2-0.5b", (4, 512)
+KNOB_DECODE_ARCH, KNOB_DECODE = "qwen3-4b", (8, 2048)
+KNOB_LOSS_RTOL = 2.0 ** -7
+KNOB_MEM_RTOL = 0.03
+KNOB_ARG_RTOL = 0.005
+KNOB_EXPAND_TOL = 1e-5
+KNOB_CACHELESS, KNOB_PROMPT = (2, 512), (2, 300)
+KNOB_REQUESTS, KNOB_NEW = 8, 16
+KNOB_STEPS = 3                   # timed train steps a run, the least kept
+# A K row planted on the card, and what the reference's cast makes of it
+# in bf16 (127.9 rounds to 128 first).
+KNOB_PLANTED = (300.0, -300.0, 127.9, -127.9, float("nan"))
+KNOB_SATURATED = [127, -128, 127, -128, 0]
+
+
+def score_bytes(trace, s: int) -> int:
+    """Bytes of the (b, kvh, group, s, s) results of a trace: the plain
+    ``sdpa``'s scores, probabilities and their temporaries."""
+    sizes = {}
+    total = 0
+    for op in trace.ops:
+        for shape, dtype in op.results:
+            if len(shape) == 5 and shape[-2:] == (s, s):
+                if dtype not in sizes:
+                    sizes[dtype] = torch.empty(
+                        (), dtype=getattr(torch, dtype)).element_size()
+                total += math.prod(shape) * sizes[dtype]
+    return total
+
+
+def knob_train(dev, configs, T, steps) -> tuple:
+    """(a): the bf16 train step with each softmax mode."""
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.optim import adamw
+
+    b, s = KNOB_TRAIN
+    base_cfg = dataclasses.replace(configs.get_config(KNOB_TRAIN_ARCH),
+                                   compute_dtype="bfloat16")
+    tokens, labels = SyntheticLMData(DataConfig(
+        vocab=base_cfg.vocab, seq_len=s, global_batch=b)).batch_at(0)
+    failed, runs, out = [], {True: [], False: []}, {}
+    # Each mode twice, in turns: a first run meets the allocator cold.
+    # The step writes its state in place and returns it, and a trace
+    # holds its arguments: each is dropped before the next count.
+    for fp32 in (True, False, True, False):
+        cfg = dataclasses.replace(base_cfg, attn_probs_fp32=fp32)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        state = steps.init_state(cfg, seed=0, device=dev).tree()
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        step = steps.make_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(KNOB_STEPS):
+            t0 = time.perf_counter()
+            new_state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                loss = float(metrics["loss"])    # the seeded weights'
+            del new_state, metrics
+        ms = min(times)
+        peak = torch.cuda.max_memory_allocated() - base
+        del state
+        runs[fp32].append((loss, ms, peak))
+        log(f"  {cfg.name} bf16 train step {b} x {s}, attn_probs_fp32 "
+            f"{fp32}: loss {loss:.6f}, {KNOB_STEPS} steps "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms (least kept), "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB above what was "
+            f"held before the state")
+        if len(runs[fp32]) == 2:
+            # The second run of the mode is also traced on the card, from
+            # a fresh state again.
+            torch.cuda.empty_cache()
+            state = steps.init_state(cfg, seed=0, device=dev).tree()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            (new_state, _), real = traced(step, state, batch)
+            torch.cuda.synchronize()
+            tpeak = torch.cuda.max_memory_allocated() - base
+            del state, new_state
+            params = T.param_shapes(cfg)
+            mstate = steps.TrainState(
+                params=params, opt=adamw.adamw_init(params),
+                step=torch.zeros((), dtype=torch.int32,
+                                 device="meta")).tree()
+            mbatch = {k: torch.zeros((b, s), dtype=torch.int32,
+                                     device="meta")
+                      for k in ("tokens", "labels")}
+            _, mtrace = traced(steps.make_train_step(cfg), mstate, mbatch)
+            f, summary = dry_against_meta(
+                f"{cfg.name} bf16 train step, attn_probs_fp32 {fp32}",
+                real, mtrace, held, ms, T.model_flops(cfg, b, s,
+                                                      mode="train"))
+            failed += f
+            traced_bytes = summary["argument"] + summary["temp"]
+            if abs(traced_bytes - tpeak) > KNOB_MEM_RTOL * tpeak:
+                failed.append(f"attn_probs_fp32 {fp32}: argument + temp "
+                              f"{traced_bytes:.6e} traced, "
+                              f"max_memory_allocated {tpeak:.6e}")
+            summary["scores"] = score_bytes(mtrace, s)
+            log(f"    argument + temp traced {traced_bytes / 2**30:.2f} GiB "
+                f"against max_memory_allocated {tpeak / 2**30:.2f} GiB "
+                f"({100 * (traced_bytes / tpeak - 1):+.2f} %, gate "
+                f"{100 * KNOB_MEM_RTOL:.0f} %); score-tensor bytes "
+                f"{summary['scores']:.6e}")
+            out[fp32] = summary
+            del real, mtrace, mstate, params
+        del batch, step
+    torch.cuda.empty_cache()
+    l32, l16 = runs[True][-1][0], runs[False][-1][0]
+    if not all(math.isfinite(r[0]) for v in runs.values() for r in v):
+        failed.append(f"a loss is not finite: {runs}")
+    if abs(l16 - l32) > KNOB_LOSS_RTOL * abs(l32):
+        failed.append(f"bf16-probability loss {l16:.6f} against fp32's "
+                      f"{l32:.6f}: beyond {KNOB_LOSS_RTOL:.3e} relative")
+    ratio = out[False]["scores"] / out[True]["scores"] if out.get(True) \
+        and out[True]["scores"] else float("nan")
+    log(f"  losses fp32 probabilities {l32:.6f}, bf16 {l16:.6f} "
+        f"({abs(l16 - l32) / abs(l32):.3e} relative, gate "
+        f"{KNOB_LOSS_RTOL:.3e}); second runs {runs[True][-1][1]:.1f} ms / "
+        f"{runs[False][-1][1]:.1f} ms, peaks "
+        f"{runs[True][-1][2] / 2**30:.2f} / {runs[False][-1][2] / 2**30:.2f}"
+        f" GiB; score-tensor bytes bf16 / fp32 {ratio:.3f} (expected about "
+        f"0.5); temp bytes traced {out[True]['temp'] / 2**30:.2f} / "
+        f"{out[False]['temp'] / 2**30:.2f} GiB")
+    return failed, dict(runs=runs, loss_rel=abs(l16 - l32) / abs(l32),
+                        score_ratio=ratio,
+                        temp={k: v["temp"] for k, v in out.items()})
+
+
+def knob_saturation(dev, layers) -> list:
+    """(b): a K row with KNOB_PLANTED written into an int8 cache on the
+    card through the contiguous write (``layers._write_rows``), read back
+    against the reference's values (bf16) and the CPU's cast (fp32)."""
+    failed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        row = torch.tensor(KNOB_PLANTED, dtype=torch.float32).to(dtype)
+        want = layers.cast_to(row, torch.int8).tolist()
+        k = torch.zeros((1, 2, 1, len(KNOB_PLANTED)), dtype=dtype,
+                        device=dev)
+        k[0, 1, 0] = row.to(dev)
+        ck = torch.zeros((1, 4, 1, len(KNOB_PLANTED)), dtype=torch.int8,
+                         device=dev)
+        cv = torch.zeros_like(ck)
+        layers._write_rows(ck, cv, k, k, torch.tensor([[1, 2]], device=dev))
+        got = ck[0, 2, 0].cpu().tolist()
+        wraps = row.to(dev).to(torch.int8).cpu().tolist()
+        if got != want or (dtype == torch.bfloat16
+                           and got != KNOB_SATURATED):
+            failed.append(f"int8 write from {dtype}: {got} on the card, "
+                          f"{want} on the CPU, want {KNOB_SATURATED}")
+        log(f"  planted K row {list(KNOB_PLANTED)} from {dtype} written to "
+            f"an int8 cache on the card: {got} (the CPU's cast {want}; a "
+            f"plain .to(int8) on the card gives {wraps})")
+    return failed
+
+
+def knob_decode(dev, ops, ref, configs, T) -> tuple:
+    """(b): qwen3-4b's bf16 decode step against int8 caches."""
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_items
+
+    failed = knob_saturation(dev, layers)
+    cfg = dataclasses.replace(configs.get_config(KNOB_DECODE_ARCH),
+                              compute_dtype="bfloat16")
+    b, rows = KNOB_DECODE
+    fn = dry_decode_fn(T)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    caches = T.init_caches(cfg, b, rows, device=dev, dtype=torch.int8)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    for c in caches:
+        # Small integers, as a qk-normed K rounds: every row live. In
+        # place, so that no temporary moves the allocator's count.
+        for name in ("k", "v"):
+            c[name].random_(-4, 5, generator=gen)
+    caches[0]["index"].fill_(rows - 1)
+    last = torch.zeros((b,), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    cache_b = sum(c[n].numel() * c[n].element_size()
+                  for c in caches for n in ("k", "v"))
+    tensor_b = sum(t.numel() * t.element_size() for t in
+                   [t for _, t in tree_items(params)] + [last, caches[0][
+                       "index"]] + [c[n] for c in caches for n in ("k", "v")])
+    with torch.no_grad():
+        fn(params, cfg, last, caches)
+        caches[0]["index"].fill_(rows - 1)
+        ops.reset_launches()
+        fn(params, cfg, last, caches)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        caches[0]["index"].fill_(rows - 1)
+        torch.cuda.reset_peak_memory_stats()
+        _, real = traced(fn, params, cfg, last, caches)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+
+        def step(i):
+            caches[0]["index"].fill_(rows - 1)
+            fn(params, cfg, last, caches)
+
+        ms = time_ms(step, 1, iters=2, spin=True)
+        q = torch.randn((b, cfg.n_heads, cfg.dhead), generator=gen,
+                        device=dev).bfloat16()
+        k, v = (caches[0][n].to(torch.bfloat16) for n in ("k", "v"))
+        lens = torch.full((b,), rows, dtype=torch.int32, device=dev)
+        ok, err = ref.compare(ops.flash_decode(q, k, v, lens),
+                              ref.flash_decode(q, k, v, lens))
+    want = {"flash_decode": cfg.n_layers}
+    if launches != want:
+        failed.append(f"int8-cache decode step launches {launches}, want "
+                      f"{want}")
+    if not ok:
+        failed.append(f"flash_decode on the cast int8 cache: max_abs_err "
+                      f"{err:.3e} beyond ref.TOLERANCE")
+    log(f"  {cfg.name} bf16 decode b {b} against {rows} int8 rows: cache "
+        f"{cache_b / 1e9:.4f} GB (bf16 would hold {2 * cache_b / 1e9:.4f}); "
+        f"launches a step {launches} (want {want}); flash_decode on layer "
+        f"0's cache cast to bf16 against its plain version: max_abs_err "
+        f"{err:.3e} ({'within' if ok else 'BEYOND'} ref.TOLERANCE)")
+    del params, caches, k, v
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        _, mtrace = traced(
+            fn, T.init_params(cfg, torch.Generator(), device="meta"), cfg,
+            torch.zeros((b,), dtype=torch.int32, device="meta"),
+            T.init_caches(cfg, b, rows, device="meta", dtype=torch.int8))
+    f, summary = dry_against_meta(
+        f"{cfg.name} bf16 decode against int8 caches", real, mtrace, held,
+        ms, T.model_flops(cfg, b, 1, mode="inference", cache_len=rows))
+    failed += f
+    if abs(summary["argument"] - held) > KNOB_ARG_RTOL * held \
+            or summary["argument"] != tensor_b:
+        failed.append(f"int8 decode: argument bytes {summary['argument']:.6e}"
+                      f" traced against {held:.6e} allocated (gate "
+                      f"{KNOB_ARG_RTOL}) and {tensor_b:.6e} in the tensors "
+                      f"(gate: equal)")
+    log(f"    argument bytes traced {summary['argument']:.6e}: the build's "
+        f"tensors hold {tensor_b:.6e} B, the allocator counts {held:.6e} "
+        f"({100 * (summary['argument'] / held - 1):+.3f} %, gate "
+        f"{100 * KNOB_ARG_RTOL:.1f} %)")
+    log(f"    argument + temp traced "
+        f"{(summary['argument'] + summary['temp']) / 2**30:.2f} GiB against "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB (logged)")
+    summary.update(cache=cache_b, peak=peak, max_abs_err=err)
+    return failed, summary
+
+
+def knob_expand(dev, ops, configs, T, engine) -> tuple:
+    """(c) and (d): qwen3-4b at full width in fp32 with ``expand_kv`` on
+    and off, and with ``attn_probs_fp32`` off."""
+    from repro_torch.serve.engine import ServeConfig
+
+    failed, out = [], {}
+    cfg = dataclasses.replace(configs.get_config(KNOB_DECODE_ARCH),
+                              compute_dtype="float32")
+    on = dataclasses.replace(cfg, expand_kv=True)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.RandomState(27)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, KNOB_CACHELESS).astype(np.int64)).to(dev)
+    prompt = torch.from_numpy(rng.randint(
+        0, cfg.vocab, KNOB_PROMPT).astype(np.int64)).to(dev)
+
+    def prefill(c):
+        caches = T.init_caches(c, KNOB_PROMPT[0], MAX_LEN,
+                               per_slot_index=True, device=dev)
+        return engine.prefill(params, c, prompt, caches)[0]
+
+    with torch.no_grad():
+        plain = T.forward(params, cfg, tokens)[0]
+        expanded = T.forward(params, on, tokens)[0]
+        bf16_probs = T.forward(params, dataclasses.replace(
+            cfg, attn_probs_fp32=False), tokens)[0]
+        pre_off, pre_on = prefill(cfg), prefill(on)
+    for label, a, b_ in (("cache-less forward", expanded, plain),
+                         ("contiguous prefill", pre_on, pre_off)):
+        err = max_diff(a, b_)
+        scale = max(1.0, float(b_.abs().max()))
+        out[label] = err
+        if err > KNOB_EXPAND_TOL * scale:
+            failed.append(f"expand_kv {label}: logits {err:.3e} from the "
+                          f"flag off (scale {scale:.3f})")
+        log(f"  {cfg.name} fp32 {label}, expand_kv on against off: max "
+            f"|diff| {err:.3e} (gate {KNOB_EXPAND_TOL} x {scale:.3f})")
+    same = torch.equal(bf16_probs, plain)
+    if not same:
+        failed.append(f"fp32 compute: attn_probs_fp32 False moved the "
+                      f"logits by {max_diff(bf16_probs, plain):.3e}")
+    log(f"  {cfg.name} fp32 cache-less forward, attn_probs_fp32 False "
+        f"bit-equal to True: {same}")
+    del plain, expanded, bf16_probs, pre_off, pre_on
+    torch.cuda.empty_cache()
+    prompts = make_requests(cfg.vocab, KNOB_REQUESTS, lo=64, hi=512)
+    scfg = ServeConfig(max_len=MAX_LEN, batch=B)
+    streams = {}
+    for c in (cfg, on, on, cfg):
+        eng, launches, finished, tok_s = run_engine(
+            f"{cfg.name} fp32 contiguous, expand_kv {c.expand_kv}", params,
+            c, scfg, prompts, dev, ops, capture=False, max_new=KNOB_NEW)
+        want = c.n_layers * eng.decode_steps
+        if launches["flash_decode"] != want:
+            failed.append(f"expand_kv {c.expand_kv}: {launches} in "
+                          f"{eng.decode_steps} decode steps, want "
+                          f"flash_decode {want}")
+        streams[c.expand_kv] = finished
+        out[f"tok_s_expand_{c.expand_kv}"] = tok_s
+        del eng
+    log(f"  greedy streams with expand_kv on equal to off: "
+        f"{streams[True] == streams[False]} (logged)")
+    # The paged engine under the flag: its prefill chunks and decode
+    # steps keep the paged kernels.
+    eng, launches, finished, _ = run_engine(
+        f"{cfg.name} fp32 paged, expand_kv True", params, on,
+        ServeConfig(max_len=MAX_LEN, batch=B, paged=True, page_size=PS,
+                    chunk_size=CHUNK), prompts, dev, ops, capture=False,
+        max_new=KNOB_NEW)
+    want = {"flash_attention_paged": on.n_layers * eng.chunk_steps,
+            "flash_decode_paged": on.n_layers * eng.decode_steps}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"paged engine under expand_kv: launches {got}, "
+                      f"want {want}")
+    log(f"  paged engine under expand_kv: launches {got} (want {want}); "
+        f"streams equal to the contiguous engine's: "
+        f"{finished == streams[True]} (logged)")
+    del eng, params
+    torch.cuda.empty_cache()
+    return failed, out
+
+
+def run_knobs(dev, ops, ref, configs, T, steps, engine) -> dict:
+    """Phase 27."""
+    summary, failed = {}, []
+    t0 = time.perf_counter()
+    for name, part in (
+            ("train", lambda: knob_train(dev, configs, T, steps)),
+            ("int8_decode", lambda: knob_decode(dev, ops, ref, configs, T)),
+            ("expand_kv", lambda: knob_expand(dev, ops, configs, T,
+                                              engine))):
+        t1 = time.perf_counter()
+        f, summary[name] = part()
+        failed += f
+        log(f"  phase 27 {name}: {time.perf_counter() - t1:.1f} s")
+        torch.cuda.empty_cache()
+    summary["s"] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return summary
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5570,6 +5976,12 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "27"]:
+        # Phase 27 alone, after the build.
+        summary = run_knobs(dev, ops, ref, configs, T, steps, engine)
+        log(f"  phase 27 alone: {summary}")
+        return
 
     if sys.argv[1:] == ["--phase", "26"]:
         # Phase 26 alone, after the build.
@@ -5912,6 +6324,11 @@ def main() -> None:
     dry = run_dry(dev, ops, ref, configs, T, steps)
     log(f"  phase 26 took {dry['s']:.1f} s")
 
+    log("== the reference's attention and cache knobs: bf16 probabilities "
+        "in training, int8 caches, expand_kv ==")
+    knobs = run_knobs(dev, ops, ref, configs, T, steps, engine)
+    log(f"  phase 27 took {knobs['s']:.1f} s")
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -5927,7 +6344,8 @@ def main() -> None:
         f"{dissection}; families {families}; encoder-decoder "
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
         f"tensor-parallel {tp}; training over ranks {train_dist}; the "
-        f"model axis {model_axis}; the dry run's accounting {dry}; total "
+        f"model axis {model_axis}; the dry run's accounting {dry}; the "
+        f"knobs {knobs}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

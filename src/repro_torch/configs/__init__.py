@@ -66,9 +66,20 @@ class ModelConfig:
     (paged prefill and decode, contiguous decode) whatever ``use_flash``
     says; the SSD scan runs its kernel wherever a forward serves, and
     the plain chunked scan where the training step asks for it
-    (``forward_aux(..., ssd_kernel=False)``); softmax probabilities are
-    always fp32. The reference's ``use_ssd_kernel`` and
-    ``attn_probs_fp32`` have no field here.
+    (``forward_aux(..., ssd_kernel=False)``). The reference's
+    ``use_ssd_kernel`` and ``scan_layers`` have no field here: the first
+    is what the forward's ``ssd_kernel`` decides, the second an XLA
+    compile switch (the port loops over its layers).
+
+    ``attn_probs_fp32`` False keeps the plain ``sdpa``'s scores and
+    probabilities in the compute dtype (bf16 halves each materialised
+    score tensor) where True, the default, casts them to fp32;
+    ``expand_kv`` repeats the kv heads to the query heads before the
+    plain ``sdpa``'s scores (the reference's GSPMD hint for kv heads
+    that do not divide the model axis). Both reach only the plain
+    ``sdpa``, never a kernel: the cached kernel paths keep their kernels
+    under ``expand_kv`` (``models.layers``), and the cross-attention
+    keeps fp32 probabilities, as in the reference.
 
     ``remat`` recomputes each period's activations (the pattern's
     layers) in the backward pass instead of keeping them
@@ -103,6 +114,8 @@ class ModelConfig:
     n_frontend_tokens: int = 0               # vision/audio stub tokens
     compute_dtype: str = "float32"
     use_flash: bool = False
+    expand_kv: bool = False      # repeat kv heads to q heads in ``sdpa``
+    attn_probs_fp32: bool = True  # False: bf16 scores and probabilities
     remat: bool = False
     remat_policy: str = "full"   # "full" | "dots" (save matmul outputs)
 

@@ -21,9 +21,17 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # all cells
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both --out dryrun.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape decode_32k --kv-dtype int8
 
-The reference's ``--kv-dtype int8``, ``--expand-kv`` and ``--bf16-probs``
-reach fields the port does not have and are refused (exit 2).
+The reference's memory knobs map as its ``prepare_cfg`` maps them:
+``--bf16-probs`` sets ``attn_probs_fp32=False`` (the plain ``sdpa``'s
+scores and probabilities in bf16), ``--expand-kv`` sets ``expand_kv``
+(kv heads repeated to the query heads before the plain ``sdpa``), and
+``--kv-dtype int8`` builds the contiguous attention and Mamba caches in
+int8 (``input_specs(..., kv_dtype=torch.int8)``), written with
+saturation and cast back to the compute dtype on every read, so the
+kernels (counted by ``kernels/cost.py`` at the dtype they are launched
+with) read the cast copy.
 """
 
 import argparse
@@ -49,25 +57,14 @@ from repro_torch.train import steps as train_steps
 
 META = torch.device("meta")
 
-# The reference's flags that reach fields the port does not have.
-REFUSED = {
-    "kv_dtype": "--kv-dtype int8: the port's caches hold the compute dtype; "
-                "an int8 cache here would be a cast without a scale, which "
-                "the decode kernels cannot read",
-    "expand_kv": "--expand-kv: a GSPMD sharding hint (repeat the kv heads "
-                 "before the attention); the port writes each collective "
-                 "itself and has no such field",
-    "bf16_probs": "--bf16-probs: the port's softmax probabilities are always "
-                  "fp32 (ModelConfig has no attn_probs_fp32)",
-}
-
 
 def input_specs(cfg: T.ModelConfig, shape: shapes_mod.ShapeSpec,
-                ruleset: shd.Ruleset) -> Dict[str, Any]:
+                ruleset: shd.Ruleset,
+                kv_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Meta stand-ins for one cell's inputs on this rank. A train step
     takes the global batch and cuts its rows itself; the serving paths
     take this rank's slots (the batch's rule) and its shard of the
-    contiguous caches."""
+    contiguous caches, in ``kv_dtype`` (default: the compute dtype)."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         specs = {"tokens": torch.zeros((b, s), dtype=torch.int32,
@@ -81,7 +78,7 @@ def input_specs(cfg: T.ModelConfig, shape: shapes_mod.ShapeSpec,
         return specs
     rows = shd.local_shape(ruleset, ("batch",), (b,))[0][0]
     specs = {"caches": T.init_caches(cfg, b, s, device=META,
-                                     ruleset=ruleset)}
+                                     dtype=kv_dtype, ruleset=ruleset)}
     if shape.kind == "prefill":
         specs["tokens"] = torch.zeros((rows, s), dtype=torch.int32,
                                       device=META)
@@ -128,13 +125,18 @@ def cache_bytes(caches) -> Dict[str, float]:
 
 def prepare_cfg(cfg: T.ModelConfig, args) -> T.ModelConfig:
     """The reference's cell config: bf16 compute, remat on unless
-    ``--no-remat``, and the knobs the flags set."""
+    ``--no-remat``, and the knobs the flags set (``--expand-kv``,
+    ``--bf16-probs`` among them)."""
     upd: Dict[str, Any] = {"compute_dtype": "bfloat16",
                            "remat": not args.no_remat}
     if args.moe_impl:
         upd["moe_impl"] = args.moe_impl
     if args.flash:
         upd["use_flash"] = True
+    if args.expand_kv:
+        upd["expand_kv"] = True
+    if args.bf16_probs:
+        upd["attn_probs_fp32"] = False
     if args.remat_policy:
         upd["remat_policy"] = args.remat_policy
     if args.capacity_factor:
@@ -186,7 +188,8 @@ def trace_cell(arch_id: str, shape_name: str, multi_pod: bool,
         shape = shapes_mod.SHAPES[shape_name]
         ruleset = shd.Ruleset(rules=cell_rules(shape, args), mesh=mesh,
                               fsdp=not args.no_fsdp and shape.kind == "train")
-        specs = input_specs(cfg, shape, ruleset)
+        kv_dtype = torch.int8 if args.kv_dtype == "int8" else None
+        specs = input_specs(cfg, shape, ruleset, kv_dtype=kv_dtype)
         trace = op_analysis.OpTrace()
         t0 = time.time()
         if shape.kind == "train":
@@ -318,13 +321,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
-    refused = [why for flag, why in REFUSED.items() if getattr(args, flag)]
-    if refused:
-        for why in refused:
-            print(f"dryrun: refused: {why}", file=sys.stderr)
-        sys.exit(2)
-    sys.exit(run(args))
+    sys.exit(run(parser().parse_args(argv)))
 
 
 if __name__ == "__main__":

@@ -129,6 +129,21 @@ class AttnConfig:
     qkv_bias: bool = False
     rope_theta: Optional[float] = 10000.0
     causal: bool = True
+    expand_kv: bool = False    # repeat kv heads to q heads in ``sdpa``
+    probs_fp32: bool = True    # fp32 scores and probabilities in ``sdpa``
+
+
+def cast_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` as the reference's ``astype`` casts it. A float
+    tensor cast to an integer dtype (an int8 cache) saturates, as XLA's
+    conversion does: NaN becomes 0, values past the type's range its
+    bounds, the rest truncated toward zero (torch's own cast wraps, 300
+    becoming 44). Any other cast is ``x.to(dtype)``."""
+    if dtype.is_floating_point or not x.dtype.is_floating_point:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    x = torch.nan_to_num(x, nan=0.0).clamp(info.min, info.max)
+    return x.to(dtype)
 
 
 def _matmul_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -160,20 +175,34 @@ def _project_qkv(params: Params, cfg: AttnConfig, x, positions):
     return q, k, v
 
 
-def sdpa(q, k, v, mask=None):
-    """Scaled dot-product attention with GQA head broadcasting.
+def sdpa(q, k, v, mask=None, expand_kv: bool = False,
+         probs_fp32: bool = True):
+    """Scaled dot-product attention with GQA head broadcasting, the
+    reference's ``sdpa`` step for step (not the kernels' math).
 
     q: (b, sq, h, d); k/v: (b, skv, kvh, d); ``mask`` additive, shaped
-    (sq, skv) or (b, sq, skv). Scores in q's dtype, cast to fp32 for the
-    softmax; probabilities cast back to q's dtype before P.V — the
-    reference's ``sdpa`` with ``probs_fp32``, not the kernels' math."""
+    (sq, skv) or (b, sq, skv). ``expand_kv`` repeats each kv head to its
+    group of query heads before the scores (``repeat_interleave``). The
+    scores are computed in q's dtype and cast to fp32 where
+    ``probs_fp32`` (the default), else kept in q's dtype; the mask is
+    cast to the scores' dtype; the row maximum is taken in the scores'
+    dtype (the reference takes it in fp32 and casts it back: the same
+    value, since a maximum is one of its inputs, without an fp32 copy of
+    the scores); the exponentials, their sum and the division run in the
+    scores' dtype, and the probabilities are cast to q's dtype before
+    P.V. With fp32 q the flag changes nothing, bit for bit."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
+    if expand_kv and group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+        kvh, group = h, 1
     qg = q.reshape(b, sq, kvh, group, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(d)
-    scores = scores.float()
+    scores = scores.to(torch.float32 if probs_fp32 else q.dtype)
     if mask is not None:
+        mask = mask.to(scores.dtype)
         scores = scores + (mask[:, None, None] if mask.dim() == 3 else mask)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
@@ -199,9 +228,14 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
 
     Without a cache, ``use_flash`` runs the full-sequence kernel
     (``kernels.ops.flash_attention``, fp32 softmax, no backward), else the
-    masked plain ``sdpa``. With a cache it is not read: cached attention
-    always runs its kernels. ``writes``: a paged cache's ``paged_writes``
-    for this step, computed here where not given."""
+    masked plain ``sdpa`` under ``cfg.expand_kv`` and ``cfg.probs_fp32``.
+    With a cache it is not read: cached attention always runs its
+    kernels, ``expand_kv`` or not (the reference sends its cached paths
+    to the plain ``sdpa`` under ``expand_kv``, a GSPMD hint; the
+    kernels' GQA indexing is the same math). The plain ``sdpa`` a
+    cached path runs (a contiguous or sharded paged prefill) takes both
+    flags. ``writes``: a paged cache's ``paged_writes`` for this step,
+    computed here where not given."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     if cache is not None:
@@ -229,7 +263,8 @@ def attention_apply(params: Params, cfg: AttnConfig, x,
         out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
     else:
         mask = causal_mask(s, device=x.device) if cfg.causal else None
-        out = sdpa(q, k, v, mask=mask)
+        out = sdpa(q, k, v, mask=mask, expand_kv=cfg.expand_kv,
+                   probs_fp32=cfg.probs_fp32)
     return _matmul_out(out, params["wo"]), None
 
 
@@ -246,7 +281,9 @@ def _attention_train(params: Params, cfg: AttnConfig, x, positions,
     every head) and, with the kv heads replicated, ``wk``/``wv``/``b_k``
     /``b_v``. With ``kv_src`` it is the cross-attention's
     (``_cross_qkv``), whose keys and values come from ``kv_src``, which
-    enters through ``copy`` too."""
+    enters through ``copy`` too, and which keeps fp32 probabilities and
+    the grouped heads whatever ``cfg`` says (the reference's
+    ``cross_attention_apply`` passes neither flag to ``sdpa``)."""
     kv_sharded = tm.ruleset.sharded("kv_heads", cfg.n_kv_heads) is not None
     partial = ("q_norm", "k_norm") if kv_sharded else (
         "q_norm", "k_norm", "wk", "wv", "b_k", "b_v")
@@ -264,10 +301,13 @@ def _attention_train(params: Params, cfg: AttnConfig, x, positions,
                                tm.mesh.index(axis))
     if use_flash:
         out = kernel_ops.flash_attention(q, k, v, causal=cfg.causal)
+    elif kv_src is not None:
+        out = sdpa(q, k, v)
     else:
         mask = causal_mask(x.shape[1], device=x.device) if cfg.causal \
             else None
-        out = sdpa(q, k, v, mask=mask)
+        out = sdpa(q, k, v, mask=mask, expand_kv=cfg.expand_kv,
+                   probs_fp32=cfg.probs_fp32)
     return tm.reduce(_matmul_out(out, params["wo"]), axis)
 
 
@@ -278,7 +318,9 @@ def _write_rows(ck, cv, k, v, local):
     each row is written at ``local mod L`` with its new value where it is
     kept and the value already there where it is dropped. Within a piece
     of at most L consecutive rows those targets are distinct, so no two
-    writes meet; pieces run in order, each reading what the last left."""
+    writes meet; pieces run in order, each reading what the last left.
+    The rows are cast to the cache's dtype by ``cast_to`` (an int8 cache
+    saturates, as the reference's does)."""
     b, s = local.shape
     rows = ck.shape[1]
     slots = torch.arange(b, device=k.device)[:, None].expand(b, s)
@@ -286,28 +328,32 @@ def _write_rows(ck, cv, k, v, local):
         p, sl = local[:, a:a + rows], slots[:, a:a + rows]
         kept = ((p >= 0) & (p < rows))[..., None, None]
         t = p.remainder(rows)
-        ck[sl, t] = torch.where(kept, k[:, a:a + rows].to(ck.dtype),
+        ck[sl, t] = torch.where(kept, cast_to(k[:, a:a + rows], ck.dtype),
                                 ck[sl, t])
-        cv[sl, t] = torch.where(kept, v[:, a:a + rows].to(cv.dtype),
+        cv[sl, t] = torch.where(kept, cast_to(v[:, a:a + rows], cv.dtype),
                                 cv[sl, t])
 
 
-def _partial_attention(q, k, v, mask):
+def _partial_attention(q, k, v, mask, probs_fp32: bool = True):
     """The plain masked attention of q (b, sq, h, d) over k/v (b, skv,
-    kvh, d) in fp32, and each row's log-sum-exp of its scaled scores
+    kvh, d), and each row's fp32 log-sum-exp of its scaled scores
     (b, sq, h): one rank's part of attention over a cache whose rows the
-    ranks share out (``_combine_seq``). A row with no key left by the
-    mask has a log-sum-exp near ``NEG_INF``, which weighs nothing."""
+    ranks share out (``_combine_seq``). It runs in fp32, or in q's dtype
+    where ``probs_fp32`` is False. A row with no key left by the mask has
+    a log-sum-exp near
+    ``NEG_INF``, which weighs nothing. (The reference splits rows
+    through GSPMD and has no such function.)"""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
-    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
-    scores = scores + mask[:, None, None]
+    sd = torch.float32 if probs_fp32 else q.dtype
+    qg = q.to(sd).reshape(b, sq, kvh, h // kvh, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(sd)) / math.sqrt(d)
+    scores = scores + mask.to(sd)[:, None, None]
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
-    lse = (m + torch.log(l))[..., 0].permute(0, 3, 1, 2)   # (b, q, kvh, g)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.to(sd))
+    lse = (m.float() + torch.log(l.float()))[..., 0].permute(0, 3, 1, 2)
     return out.reshape(b, sq, h, d), lse.reshape(b, sq, h)
 
 
@@ -334,7 +380,9 @@ def _contiguous_apply(params: Params, cfg: AttnConfig, x, q, k, v,
     """Attention against a contiguous KV cache, on one rank or sharded by
     the serving mesh (``serve.dist.active_mesh``).
 
-    cache = {"k"/"v": (b, max_len, kvh, hd) in the compute dtype, "index":
+    cache = {"k"/"v": (b, max_len, kvh, hd) in the cache's dtype (the
+    compute dtype, or int8: written through ``cast_to``, read back cast to
+    q's dtype before any kernel or ``sdpa``), "index":
     (b,) per-slot write positions, or a scalar one shared by every slot,
     and under a mesh the k/v ``spec``}. The s new K/V rows are written at
     ``index`` first, **in place** (the reference returns a new cache);
@@ -344,7 +392,7 @@ def _contiguous_apply(params: Params, cfg: AttnConfig, x, q, k, v,
     decode kernel (``kernels.ops.flash_decode``) over each slot's first
     ``index + 1`` rows; at s > 1 (prefill) it is the reference's plain
     causal ``sdpa`` over the whole cache, query r of slot i seeing rows
-    ``<= index[i] + r``.
+    ``<= index[i] + r``, under ``cfg.expand_kv`` and ``cfg.probs_fp32``.
 
     Under a mesh this rank holds its slots of the batch, and its kv heads
     and block of rows where the cache's ``spec``
@@ -406,10 +454,11 @@ def _contiguous_apply(params: Params, cfg: AttnConfig, x, q, k, v,
         kj = row0 + torch.arange(rows, device=x.device)[None, None, :]
         mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
         if seq_axes:
-            out, lse = _partial_attention(q, kh, vh, mask)
+            out, lse = _partial_attention(q, kh, vh, mask, cfg.probs_fp32)
             out = _combine_seq(out, lse, mesh, seq_axes).to(q.dtype)
         else:
-            out = sdpa(q, kh, vh, mask=mask)
+            out = sdpa(q, kh, vh, mask=mask, expand_kv=cfg.expand_kv,
+                       probs_fp32=cfg.probs_fp32)
     if every_head:
         out = out.narrow(2, heads[0].index(heads[1]) * q_local, q_local)
     y = _matmul_out(out, params["wo"])
@@ -498,7 +547,8 @@ def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
     are scattered into the owning rank's pages, and the page-table walk
     gathers the contiguous view on every rank; at s == 1 the contiguous
     decode kernel (``kernels.ops.flash_decode``) attends it, at s > 1
-    the masked plain ``sdpa`` (as the reference). A head-sharded output
+    the masked plain ``sdpa`` under ``cfg.expand_kv`` and
+    ``cfg.probs_fp32`` (as the reference). A head-sharded output
     projection is summed over ranks."""
     mesh, axis = serve_dist.active_pool_mesh()
     s = x.shape[1]
@@ -522,7 +572,8 @@ def _paged_apply_sharded(params: Params, cfg: AttnConfig, x, q, k, v,
     else:
         kj = torch.arange(ck.shape[1], device=x.device)[None, None, :]
         mask = torch.where(kj <= pos[:, :, None], 0.0, NEG_INF).float()
-        out = sdpa(q, ck, cv, mask=mask)
+        out = sdpa(q, ck, cv, mask=mask, expand_kv=cfg.expand_kv,
+                   probs_fp32=cfg.probs_fp32)
     y = _matmul_out(out, params["wo"])
     if heads is not None:
         serve_dist.all_reduce(y, *heads)      # wo split by rows
@@ -543,8 +594,10 @@ def cross_attention_apply(params: Params, cfg: AttnConfig, x, kv_src):
     """Cross-attention: queries from x (b, s, d), keys and values from
     ``kv_src`` (b, n, d) in x's dtype; unmasked plain ``sdpa``, no biases
     and no RoPE (as the reference), the output scaled by ``tanh(gate)``
-    where the layer has a gate (llama-3.2-vision). Under a train step's
-    model axis, or a serving mesh's (``serve.dist.split``; ``kv_src``
+    where the layer has a gate (llama-3.2-vision). It keeps fp32
+    probabilities and grouped kv heads whatever ``cfg.probs_fp32`` and
+    ``cfg.expand_kv`` say, as the reference's, which passes neither to
+    ``sdpa``. Under a train step's model axis, or a serving mesh's (``serve.dist.split``; ``kv_src``
     then holds this rank's slots, as the tokens do), it is split by heads
     as the self-attention is (``_attention_train``), and the gate scales
     the summed output, so that its gradient is whole on every rank."""

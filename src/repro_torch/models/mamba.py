@@ -29,7 +29,9 @@ ruleset=)`` builds them.
 
 Cache: ``{"conv": (b, d_conv - 1, h, p), "ssm": (b, h, p, n), "index"}``
 in the cache dtype. ``mamba_apply`` returns new conv/ssm tensors (it does
-not write the cache in place).
+not write the cache in place), cast to the cache's dtype by
+``layers.cast_to`` (an int8 state saturates, as the reference's does);
+it reads ``conv`` in x's dtype and ``ssm`` in fp32, as the reference.
 """
 
 from __future__ import annotations
@@ -248,8 +250,8 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
         out = split[0].reduce(out, split[1])          # w_ssm_out's rows
     new_cache = None
     if cache is not None:
-        new_cache = {"conv": new_conv.to(cache["conv"].dtype),
-                     "ssm": hn.to(cache["ssm"].dtype),
+        new_cache = {"conv": layers.cast_to(new_conv, cache["conv"].dtype),
+                     "ssm": layers.cast_to(hn, cache["ssm"].dtype),
                      "index": cache["index"] + l}
     return out, new_cache
 

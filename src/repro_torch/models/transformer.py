@@ -39,7 +39,8 @@ def attn_cfg(cfg: ModelConfig, causal: bool = True) -> layers.AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.dhead,
         qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta, causal=causal)
+        rope_theta=cfg.rope_theta, causal=causal,
+        expand_kv=cfg.expand_kv, probs_fp32=cfg.attn_probs_fp32)
 
 
 def mlp_cfg(cfg: ModelConfig) -> layers.MLPConfig:
@@ -447,7 +448,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 per_slot_index: bool = False, device=None,
                 dtype: Optional[torch.dtype] = None,
                 ruleset: Optional[sharding.Ruleset] = None) -> List[Params]:
-    """Contiguous decode caches, one per layer, in the compute dtype:
+    """Contiguous decode caches, one per layer, in ``dtype`` (default:
+    the compute dtype; int8 is the reference's dry-run knob, written with
+    saturation and read back in the compute dtype, ``layers.cast_to``):
 
     * attention (``"attn"`` and ``"cross"`` layers: the cross-attention
       keeps no cache): ``k``/``v`` (batch, max_len, kvh, dhead);

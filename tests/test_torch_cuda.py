@@ -1068,3 +1068,69 @@ def test_cuda_paged_writes_keep_the_last_write(cuda_device):
         vp = torch.zeros_like(kp)
         paged.write_rows(kp, vp, k, k, page, row)
         assert torch.equal(kp[0], want) and torch.equal(vp[0], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_int8_cache_writes_saturate(cuda_device, dtype):
+    """``layers.cast_to`` and the contiguous write (``layers._write_rows``)
+    into an int8 cache on the card give the CPU's values: NaN to 0, the
+    int8 bounds past them, truncation toward zero inside (bf16 rounds
+    127.9 to 128 first), as the reference's ``astype(int8)`` does."""
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, generator=g) * 200
+    x[:5] = torch.tensor([300.0, -300.0, 127.9, -127.9, float("nan")])
+    x = x.to(dtype)
+    want = layers.cast_to(x, torch.int8)
+    if dtype == torch.bfloat16:
+        assert want[:5].tolist() == [127, -128, 127, -128, 0]
+    assert torch.equal(layers.cast_to(x.to(cuda_device), torch.int8).cpu(),
+                       want)
+    k = x.reshape(1, 2, 32, 64).to(cuda_device)
+    ck = torch.zeros((1, 4, 32, 64), dtype=torch.int8, device=cuda_device)
+    cv = torch.zeros_like(ck)
+    layers._write_rows(ck, cv, k, -k, torch.tensor([[1, 2]],
+                                                   device=cuda_device))
+    assert torch.equal(ck[0, 1:3].cpu().reshape(-1), want)
+    assert torch.equal(cv[0, 1:3].cpu().reshape(-1),
+                       layers.cast_to(-x, torch.int8))
+
+
+def test_cuda_flash_decode_reads_an_int8_cache_cast_to_bf16(cuda_device):
+    """qwen3-4b's decode shape (b 8, 32/8 heads of 80) against an int8
+    cache of small integers (a qk-normed K rounds so) cast to bf16, as
+    the cached forward casts it: the kernel within ``ref.TOLERANCE`` of
+    its plain version; and the qwen3-4b smoke (at head_dim 64, a width
+    the kernel is built for) in fp32, a prefill and a decode step against
+    int8 caches on the card within 1e-4 of the CPU's logits (in bf16 one
+    element truncated across an integer apart moves them far more than
+    the arithmetic does)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    b, h, kvh, d, rows = 8, 32, 8, 80, 2048
+    kc, vc = (torch.randint(-4, 5, (b, rows, kvh, d), generator=g,
+                            device=cuda_device, dtype=torch.int8)
+              for _ in range(2))
+    q = torch.randn(b, h, d, generator=g, device=cuda_device).bfloat16()
+    lens = torch.tensor([1, 2, 255, 256, 700, 1500, rows - 1, rows],
+                        dtype=torch.int32, device=cuda_device)
+    k, v = kc.bfloat16(), vc.bfloat16()
+    ops.reset_launches()
+    ok, err = ref.compare(ops.flash_decode(q, k, v, lens),
+                          ref.flash_decode(q, k, v, lens))
+    assert ok, err
+    assert ops.LAUNCHES["flash_decode"] == 1
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-4b"), head_dim=64)
+    params = T.init_params(cfg, device="cpu")
+    prompt = torch.arange(2, 14).reshape(2, 6)
+    logits = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t: t.to(dev), params)
+        caches = T.init_caches(cfg, 2, 16, device=dev, dtype=torch.int8)
+        with torch.no_grad():
+            _, caches = T.forward(p, cfg, prompt.to(dev), caches=caches)
+            out, _ = T.forward(p, cfg, prompt[:, -1:].to(dev), caches=caches)
+        logits[str(dev)] = out.float().cpu()
+    scale = float(logits["cpu"].abs().max())
+    assert float((logits["cuda"] - logits["cpu"]).abs().max()) \
+        <= 1e-4 * scale

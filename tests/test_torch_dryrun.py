@@ -30,7 +30,12 @@ same thing.
   never live in the test process): qwen2-0.5b ``train_4k`` on both
   meshes, mamba2-370m ``decode_32k``, jamba ``long_500k`` (its attention
   caches held 1/16 a rank: ``cache_seq`` over ``data``), qwen3-4b
-  ``long_500k`` skipped with its reason; each refused flag exits 2.
+  ``long_500k`` skipped with its reason; and the reference's memory
+  knobs, each cell traced with and without its flag: ``--kv-dtype int8``
+  halves qwen3-4b's ``decode_32k`` K/V bytes and mamba2-370m's conv and
+  SSM state, ``--bf16-probs`` lowers qwen2-0.5b's ``train_4k`` temp
+  bytes, ``--expand-kv`` raises them by exactly the repeated kv heads
+  of one layer and leaves the decode cell (the kernel's path) as it is.
 """
 
 import json
@@ -59,7 +64,6 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import shapes
 from repro_torch.core import hwmodel, op_analysis, roofline
 from repro_torch.kernels import cost, ops
-from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -285,11 +289,19 @@ def test_meta_branches_give_the_plain_shapes_and_their_cost():
 def cli(tmp_path_factory):
     """The launcher's cells, each in its own process, run together."""
     out = tmp_path_factory.mktemp("dryrun")
-    runs = {"qwen2": ["--arch", "qwen2-0.5b", "--shape", "train_4k",
-                      "--mesh", "both"],
-            "mamba2": ["--arch", "mamba2-370m", "--shape", "decode_32k"],
+    qwen2 = ["--arch", "qwen2-0.5b", "--shape", "train_4k"]
+    mamba2 = ["--arch", "mamba2-370m", "--shape", "decode_32k"]
+    qwen3 = ["--arch", "qwen3-4b", "--shape", "decode_32k"]
+    runs = {"qwen2": qwen2 + ["--mesh", "both"],
+            "mamba2": mamba2,
             "jamba": ["--arch", "jamba-v0.1-52b", "--shape", "long_500k"],
-            "qwen3": ["--arch", "qwen3-4b", "--shape", "long_500k"]}
+            "qwen3": ["--arch", "qwen3-4b", "--shape", "long_500k"],
+            "qwen3_decode": qwen3,
+            "qwen3_decode_int8": qwen3 + ["--kv-dtype", "int8"],
+            "qwen3_decode_expand_kv": qwen3 + ["--expand-kv"],
+            "mamba2_int8": mamba2 + ["--kv-dtype", "int8"],
+            "qwen2_bf16_probs": qwen2 + ["--bf16-probs"],
+            "qwen2_expand_kv": qwen2 + ["--expand-kv"]}
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
@@ -342,11 +354,49 @@ def test_cli_decode_cells(cli):
     assert "[skip] qwen3-4b x long_500k" in log
 
 
-@pytest.mark.parametrize("flag", [["--kv-dtype", "int8"], ["--expand-kv"],
-                                  ["--bf16-probs"]])
-def test_cli_refuses_what_the_port_lacks(flag, capsys):
-    with pytest.raises(SystemExit) as exit_:
-        dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k", *flag])
-    assert exit_.value.code == 2
-    assert "refused" in capsys.readouterr().err
-    assert not torch.distributed.is_initialized()
+def _knob_cells(cli, name):
+    """(the cell with the flag, the same cell without it), single mesh."""
+    base = {"qwen3_decode_int8": "qwen3_decode",
+            "qwen3_decode_expand_kv": "qwen3_decode",
+            "mamba2_int8": "mamba2", "qwen2_bf16_probs": "qwen2",
+            "qwen2_expand_kv": "qwen2"}[name]
+    (cell,), log = cli[name]
+    assert "1 ok, 0 skipped, 0 failed" in log
+    return _checked(cell, "data=16xmodel=16"), cli[base][0][0]
+
+
+@pytest.mark.parametrize("name", ["qwen3_decode_int8", "mamba2_int8",
+                                  "qwen2_bf16_probs", "qwen2_expand_kv",
+                                  "qwen3_decode_expand_kv"])
+def test_cli_memory_knobs_move_the_counts(cli, name):
+    """Each of the reference's memory knobs, traced in a subprocess
+    against the same cell without it."""
+    cell, base = _knob_cells(cli, name)
+    mem, mem0 = cell["memory"], base["memory"]
+    if name == "qwen3_decode_int8":
+        # The bf16 K/V halved; the arguments lose exactly that.
+        assert cell["cache_bytes"]["kv"] * 2 == base["cache_bytes"]["kv"] > 0
+        assert mem0["argument_bytes"] - mem["argument_bytes"] \
+            == cell["cache_bytes"]["kv"]
+    elif name == "mamba2_int8":
+        assert cell["cache_bytes"]["state"] * 2 \
+            == base["cache_bytes"]["state"] > 0
+        assert cell["cache_bytes"]["kv"] == base["cache_bytes"]["kv"] == 0
+    elif name == "qwen2_bf16_probs":
+        # bf16 scores and probabilities: fewer temp bytes, same arguments.
+        assert mem["temp_bytes"] < 0.9 * mem0["temp_bytes"]
+        assert mem["argument_bytes"] == mem0["argument_bytes"]
+    elif name == "qwen2_expand_kv":
+        # The repeat of one layer's K and V to the query heads lives at
+        # the peak: 2 x rows x seq x (h - kvh) x d bf16 more. qwen2's 14
+        # q heads do not divide model 16, so each rank holds every head.
+        cfg = configs.get_config("qwen2-0.5b")
+        spec = shapes.SHAPES["train_4k"]
+        rows = spec.global_batch // 16
+        repeat = 2 * rows * spec.seq_len * (cfg.n_heads - cfg.n_kv_heads) \
+            * cfg.dhead * 2
+        assert mem["temp_bytes"] - mem0["temp_bytes"] == repeat
+        assert mem["argument_bytes"] == mem0["argument_bytes"]
+    else:
+        # The decode step's attention is the kernel's under expand_kv too.
+        assert cell["cost"] == base["cost"] and mem == mem0

@@ -28,7 +28,7 @@ ATOL = RTOL = 1e-5
 ARCHS = ["qwen3-4b", "qwen2-0.5b"]
 FIELDS = ["name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
           "vocab", "head_dim", "activation", "qk_norm", "qkv_bias",
-          "rope_theta", "compute_dtype"]
+          "rope_theta", "compute_dtype", "expand_kv", "attn_probs_fp32"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -51,9 +51,8 @@ def test_configs_keep_reference_values(arch, full):
     for f in FIELDS:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.dhead == jcfg.dhead
-    # The port has no switch for these: its softmax probabilities are
-    # always fp32, its paged attention always the kernels'.
-    assert jcfg.attn_probs_fp32
+    # The registry leaves the knobs at the reference's defaults.
+    assert cfg.attn_probs_fp32 and not cfg.expand_kv
     if full and arch == "qwen3-4b":
         assert cfg.dhead == 80          # the repo's value, not 128
 
