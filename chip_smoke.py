@@ -295,6 +295,20 @@ logged, the paged engine's chunks and decode steps launching the paged
 kernels once a layer; ``attn_probs_fp32`` False bit-equal to True).
 ``python3 chip_smoke.py --phase 27`` runs the build and phase 27 alone.
 
+28. every tile of every attention wrapper: the prefill bodies at their
+    instantiated query blocks (16 and 64 rows) and both decodes at their
+    split lengths (128, 256 and 512 rows), at qwen3-4b's chunk (b 1, sq
+    256 from start 1024), its speculative verify (b 8, sq 5), the graphed
+    decode's shape (b 8 over 2,048 rows, paged and contiguous) and
+    phi3-mini's MHA decode (head_dim 96), fp32 and bf16: each held to its
+    plain version within ``ref.TOLERANCE`` and counted as launched, with
+    its device time, the bound (``kernels.cost``), the plain version's
+    time, SDPA's device time, the tile chooser's pick
+    (``core.autotune.choose_attn_block``, the tile the wrappers launch
+    with no tile given, which phases 1-27 ran) and the measured fastest
+    tile; one ``tile {...}`` JSON line a tile. ``python3 chip_smoke.py
+    --phase 28`` runs the build and phase 28 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -379,6 +393,8 @@ N_REQUESTS, MAX_NEW = 12, 32
 # freed); phase 4 times width 5 from starts spread up to MAX_LEN.
 SPEC_K = 4
 VERIFY_WIDTHS = (2, 3, 5)
+# Phase 28: the chunk's start (qwen3-4b's chunk step as phase 4 times it).
+TILE_CHUNK_START = 1024
 VERIFY_STARTS = [0, 15, 16, 300, 1023, MAX_LEN - 2, 1800, 700]
 # Phase 17: 12 requests sharing a 1024-token prefix (64 pages, 4 chunks)
 # and unique suffixes of 64-512 tokens.
@@ -1033,12 +1049,19 @@ def ssd_grid(bt: int, l: int, shape=SSD_SHAPES[0]) -> str:
             f"{ssd_mod.P_BLOCK}, chunk of {ssd_mod.CHUNK}, batch row)")
 
 
-def decode_grid(decode_mod, lengths, max_rows: int, page_size: int) -> str:
-    """The split decode's grid at these lengths: its CTAs, and those with
-    rows to read (one query block: the group of 4 fits one)."""
-    rows, n_splits = decode_mod.splits(max_rows, page_size)
-    live = KVH * sum(-(-min(n, max_rows) // rows) for n in lengths)
-    return (f"{n_splits} splits of {rows} rows, {KVH * B * n_splits} CTAs, "
+def decode_grid(decode_mod, lengths, max_rows: int, page_size: int,
+                h: int = H, kvh: int = KVH, d: int = D,
+                dtype=torch.bfloat16) -> str:
+    """The split decode's grid at these lengths, in the splits the tile
+    chooser picks for the shape: its CTAs, and those with rows to read
+    (one query block: a group of up to 16 fits one)."""
+    from repro_torch.kernels import ops
+    q = torch.empty(len(lengths), h, d, dtype=dtype, device="meta")
+    tile = ops.decode_tile(q, kvh, max_rows, page_size)
+    rows, n_splits = decode_mod.splits(max_rows, page_size, tile.block_k)
+    live = kvh * sum(-(-min(n, max_rows) // rows) for n in lengths)
+    return (f"{n_splits} splits of {rows} rows (the chooser's block_k "
+            f"{tile.block_k}), {kvh * len(lengths) * n_splits} CTAs, "
             f"{live} with rows")
 
 
@@ -1176,6 +1199,7 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
         shape=f"b={B} sq={w} starts {starts[0]}..{starts[-1]} h={H} "
               f"kvh={KVH} d={D} page={PS}")
     verify["bound_ms"], verify["bound_by"] = bound(nbytes, ops_n, dtype)
+    vq = ops.prefill_tile(qv, max_pages * PS, True).block_q
     log(f"  flash_attention_paged at the verify shape [{verify['shape']}, "
         f"bf16]: kernel {verify['ms']:.4f} ms at the host's pace, device "
         f"time {verify['device_ms']:.4f} ms "
@@ -1186,8 +1210,8 @@ def time_kernels(dev, ops, ref, decode_mod) -> dict:
         f"{verify['library_device_ms']:.4f} ms), bound "
         f"{verify['bound_ms']:.4f} ms ({verify['bound_by']}: "
         f"{nbytes / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP), grid "
-        f"({-(-w // 64)}, {H}, {B}) CTAs, max_abs_err {err:.3e} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"({-(-w // vq)}, {H}, {B}) CTAs of the chooser's {vq}-row query "
+        f"block, max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
     del views, pools
 
     # Contiguous decode: the same slots and contexts over a (b, max_len,
@@ -1321,7 +1345,7 @@ def time_family_shapes(dev, ops, ref, decode_mod) -> dict:
         bytes=nbytes, ops=4 * kv_rows * h * d,
         shape=f"b={B} h={h} kvh={kvh} d={d} page={PS} contexts "
               f"{lengths[0]}..{lengths[-1]} (sum {kv_rows}); grid "
-              f"{decode_grid(decode_mod, lengths, MAX_LEN, PS)}")
+              f"{decode_grid(decode_mod, lengths, MAX_LEN, PS, h, kvh, d)}")
     del views
     start = 1024
     n_keys = start + CHUNK
@@ -5938,6 +5962,212 @@ def run_knobs(dev, ops, ref, configs, T, steps, engine) -> dict:
     return summary
 
 
+# ----------------------------------------------------------------------------
+# Phase 28: every tile of every attention wrapper, and the tile chooser
+# ----------------------------------------------------------------------------
+
+def _gathered(pools, table, rows=None):
+    """The library yardstick's (b, kvh, rows, d) K/V views of each pool
+    through the table (gathered untimed)."""
+    from repro_torch.kernels import ref
+    out = []
+    for kp, vp in pools:
+        out.append(tuple((t if rows is None else t[:, :rows])
+                         .permute(0, 2, 1, 3).contiguous()
+                         for t in ref.gather_kv(kp, vp, table)))
+    return out
+
+
+def tile_cases(dev, dtype, gen, ops, ref):
+    """Phase 28's cases at one dtype: (wrapper, shape, the tile argument,
+    the tiles the build instantiates, the chooser's pick, run(i, tile),
+    plain(i), library(i), (bytes, operations), the layers cycled)."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_attention as prefill_mod
+    from repro_torch.kernels import flash_decode as decode_mod
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    n_layers, max_pages = 2, MAX_LEN // PS
+    splits = decode_mod.SPLIT_ROWS_SET
+    pools = [(rnd(N_PAGES, PS, KVH, D), rnd(N_PAGES, PS, KVH, D))
+             for _ in range(n_layers)]
+    cases = []
+
+    def sdpa(q4, views, mask):
+        return lambda i: F.scaled_dot_product_attention(
+            q4, views[i][0], views[i][1], attn_mask=mask, enable_gqa=True)
+
+    # qwen3-4b's chunk step: one 256-row chunk at start 1024.
+    start, n_keys = TILE_CHUNK_START, TILE_CHUNK_START + CHUNK
+    table = _tables(gen, dev, [n_keys], max_pages)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    qc = rnd(1, CHUNK, H, D)
+    cmask = (torch.arange(n_keys, device=dev)[None, :]
+             <= start + torch.arange(CHUNK, device=dev)[:, None])
+    pairs = cost.causal_pairs(CHUNK, n_keys)
+    cases.append(dict(
+        wrapper="flash_attention_paged",
+        shape=f"chunk b=1 sq={CHUNK} start={start}", arg="block_q",
+        tiles=prefill_mod.BLOCK_QS,
+        pick=ops.prefill_tile(qc, max_pages * PS, True).block_q,
+        run=lambda i, t: ops.flash_attention_paged(qc, *pools[i], table, st,
+                                                   block_q=t),
+        plain=lambda i: ref.flash_attention_paged(qc, *pools[i], table, st),
+        library=sdpa(qc.permute(0, 2, 1, 3).contiguous(),
+                     _gathered(pools, table, n_keys), cmask),
+        work=(2 * qc.numel() * es + 2 * n_keys * KVH * D * es
+              + 4 * (-(-n_keys // PS) + 1), 4 * pairs * H * D)))
+    # The verify step: B slots of SPEC_K + 1 rows from starts spread up to
+    # the table's end.
+    w = SPEC_K + 1
+    starts = [int(x) for x in np.linspace(512, MAX_LEN - w, B)]
+    vtable = _tables(gen, dev, [s + w for s in starts], max_pages)
+    vst = torch.tensor(starts, dtype=torch.int32, device=dev)
+    qv = rnd(B, w, H, D)
+    vmask = (torch.arange(MAX_LEN, device=dev)[None, None, :]
+             <= (vst[:, None] + torch.arange(w, device=dev)[None, :])
+             [:, :, None])[:, None]
+    pairs = sum(s + r + 1 for s in starts for r in range(w))
+    cases.append(dict(
+        wrapper="flash_attention_paged", shape=f"verify b={B} sq={w}",
+        arg="block_q", tiles=prefill_mod.BLOCK_QS,
+        pick=ops.prefill_tile(qv, max_pages * PS, True).block_q,
+        run=lambda i, t: ops.flash_attention_paged(qv, *pools[i], vtable,
+                                                   vst, block_q=t),
+        plain=lambda i: ref.flash_attention_paged(qv, *pools[i], vtable,
+                                                  vst),
+        library=sdpa(qv.permute(0, 2, 1, 3).contiguous(),
+                     _gathered(pools, vtable), vmask),
+        work=(2 * qv.numel() * es
+              + 2 * sum(s + w for s in starts) * KVH * D * es
+              + 4 * (sum(-(-(s + w) // PS) for s in starts) + B),
+              4 * pairs * H * D)))
+    # The full-sequence kernel at the same two shapes: a 256-row causal
+    # block over 1280 keys, and 5 rows over 1029.
+    for b, sq, skv, label in ((1, CHUNK, n_keys, "chunk"),
+                              (B, w, TILE_CHUNK_START + w, "verify")):
+        q = rnd(b, sq, H, D)
+        kv = [(rnd(b, skv, KVH, D), rnd(b, skv, KVH, D))
+              for _ in range(n_layers)]
+        mask = (torch.arange(skv, device=dev)[None, :]
+                <= skv - sq + torch.arange(sq, device=dev)[:, None])
+        views = [tuple(t.permute(0, 2, 1, 3).contiguous() for t in x)
+                 for x in kv]
+        cases.append(dict(
+            wrapper="flash_attention",
+            shape=f"{label} b={b} sq={sq} skv={skv} causal", arg="block_q",
+            tiles=prefill_mod.BLOCK_QS,
+            pick=ops.prefill_tile(q, skv, True).block_q,
+            run=lambda i, t, q=q, kv=kv: ops.flash_attention(
+                q, *kv[i], causal=True, block_q=t),
+            plain=lambda i, q=q, kv=kv: ref.flash_attention(q, *kv[i],
+                                                            causal=True),
+            library=sdpa(q.permute(0, 2, 1, 3).contiguous(), views, mask),
+            work=cost.flash_attention(b, sq, skv, H, KVH, D, es, True)))
+    # The graphed decode's shape (phase 5: B slots, pages of PS, max_len
+    # MAX_LEN), paged and contiguous, contexts over 512..2048.
+    lengths = [int(x) for x in np.linspace(512, MAX_LEN, B)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dmask = (torch.arange(MAX_LEN, device=dev)[None, :]
+             < lens[:, None])[:, None, None, :]
+    kv_rows = sum(lengths)
+    pages_read = sum(-(-n // PS) for n in lengths)
+    dtable = _tables(gen, dev, lengths, max_pages)
+    for h, kvh, d, label, dpools in (
+            (H, KVH, D, "graphed decode", pools),
+            (PHI3_H, PHI3_KVH, PHI3_D, "phi3-mini MHA decode",
+             [(rnd(N_PAGES, PS, PHI3_KVH, PHI3_D),
+               rnd(N_PAGES, PS, PHI3_KVH, PHI3_D))
+              for _ in range(n_layers)])):
+        q = rnd(B, h, d)
+        cases.append(dict(
+            wrapper="flash_decode_paged",
+            shape=f"{label} b={B} h={h} kvh={kvh} d={d} page={PS}",
+            arg="block_k", tiles=splits,
+            pick=ops.decode_tile(q, kvh, max_pages * PS, PS).block_k,
+            run=lambda i, t, q=q, p=dpools: ops.flash_decode_paged(
+                q, *p[i], dtable, lens, block_k=t),
+            plain=lambda i, q=q, p=dpools: ref.flash_decode_paged(
+                q, *p[i], dtable, lens),
+            library=sdpa(q[:, :, None, :], _gathered(dpools, dtable), dmask),
+            work=(2 * q.numel() * es + 2 * kv_rows * kvh * d * es
+                  + 4 * (pages_read + B), 4 * kv_rows * h * d)))
+    q = rnd(B, H, D)
+    caches = [(rnd(B, MAX_LEN, KVH, D), rnd(B, MAX_LEN, KVH, D))
+              for _ in range(n_layers)]
+    cases.append(dict(
+        wrapper="flash_decode",
+        shape=f"graphed decode b={B} max_len={MAX_LEN}", arg="block_k",
+        tiles=splits, pick=ops.decode_tile(q, KVH, MAX_LEN).block_k,
+        run=lambda i, t: ops.flash_decode(q, *caches[i], lens, block_k=t),
+        plain=lambda i: ref.flash_decode(q, *caches[i], lens),
+        library=sdpa(q[:, :, None, :],
+                     [tuple(t.permute(0, 2, 1, 3).contiguous() for t in c)
+                      for c in caches], dmask),
+        work=cost.flash_decode(B, H, KVH, D, es, kv_rows)))
+    for c in cases:
+        c["layers"] = n_layers
+    return cases
+
+
+def run_tiles(dev, ops, ref) -> dict:
+    """Phase 28: each attention wrapper at each tile the build
+    instantiates, at qwen3-4b's chunk and verify shapes (the paged and the
+    full-sequence prefill), the graphed decode's (paged and contiguous)
+    and phi3-mini's MHA decode, fp32 and bf16: held against its plain
+    version, its device time (launches queued behind a spin), the bound
+    (``kernels.cost``), the plain version's time, SDPA's device time, the
+    launches, the chooser's pick and the measured fastest. One JSON line a
+    tile (``tile {...}``) for ``PERF.md``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    failed, rows, picks = [], [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for c in tile_cases(dev, dtype, gen, ops, ref):
+            want = c["plain"](0)
+            plain_ms = time_ms(c["plain"], c["layers"], iters=5)
+            lib_ms = time_ms(c["library"], c["layers"], spin=True)
+            b_ms, b_by = bound(*c["work"], dtype)
+            times = {}
+            for t in c["tiles"]:
+                ops.reset_launches()
+                ok, err = ref.compare(c["run"](0, t), want)
+                ms = time_ms(lambda i, t=t: c["run"](i, t), c["layers"],
+                             spin=True)
+                torch.cuda.synchronize()
+                launches = ops.LAUNCHES[c["wrapper"]]
+                if not ok or launches < 1:
+                    failed.append((c["wrapper"], c["shape"], dt, t, err,
+                                   launches))
+                times[t] = ms
+                rows.append(dict(
+                    wrapper=c["wrapper"], shape=c["shape"], dtype=dt,
+                    **{c["arg"]: t}, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    launches=launches, max_abs_err=err, ok=ok,
+                    picked=t == c["pick"]))
+                log(f"  tile {json.dumps(rows[-1])}")
+            fastest = min(times, key=times.get)
+            key = f"{c['wrapper']} {c['shape']} {dt}"
+            picks[key] = dict(pick=c["pick"], fastest=fastest,
+                              over_fastest=times[c["pick"]] / times[fastest])
+            log(f"  {key}: the chooser picks {c['arg']} {c['pick']} "
+                f"({times[c['pick']]:.4f} ms), the fastest is {fastest} "
+                f"({times[fastest]:.4f} ms): {picks[key]['over_fastest']:.3f}"
+                f"x the fastest; bound {b_ms:.4f} ms ({b_by}), plain "
+                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms")
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"phase 28: a tile disagrees with its plain "
+                           f"version or did not launch: {failed}")
+    s = time.perf_counter() - t0
+    log(f"  phase 28 took {s:.1f} s: {len(rows)} tiles, all within "
+        f"ref.TOLERANCE of their plain versions")
+    return {"tiles": len(rows), "picks": picks, "s": s}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5976,6 +6206,12 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "28"]:
+        # Phase 28 alone, after the build.
+        summary = run_tiles(dev, ops, ref)
+        log(f"  phase 28 alone: {summary}")
+        return
 
     if sys.argv[1:] == ["--phase", "27"]:
         # Phase 27 alone, after the build.
@@ -6329,6 +6565,10 @@ def main() -> None:
     knobs = run_knobs(dev, ops, ref, configs, T, steps, engine)
     log(f"  phase 27 took {knobs['s']:.1f} s")
 
+    log("== every tile of every attention wrapper, and the tile chooser's "
+        "picks ==")
+    tiles = run_tiles(dev, ops, ref)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = timing[name]
@@ -6345,7 +6585,7 @@ def main() -> None:
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
         f"tensor-parallel {tp}; training over ranks {train_dist}; the "
         f"model axis {model_axis}; the dry run's accounting {dry}; the "
-        f"knobs {knobs}; total "
+        f"knobs {knobs}; the tiles {tiles}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

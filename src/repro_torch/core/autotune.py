@@ -31,11 +31,30 @@ instantiate a few tiles for each input type; the chooser picks among them:
 Attention kernels
 -----------------
 
-The reference chose a Pallas block for each attention problem. The port's
-tiles are compile-time constants of ``kernels/csrc/paged_attention.cu``, so
-there is nothing to choose: ``attn_cost`` prices the tile each kernel runs
-(``decode_tile``, ``PREFILL_TILE``), and the serving models below price
-through it.
+The attention wrappers (``kernels.ops``) take the reference's
+``block_q``/``block_k``; None asks ``choose_attn_block``, which keeps the
+reference's names and contract (the tuning cache below, keyed by card,
+devices and problem) with the port's own tiles and prices:
+
+* a candidate is a tile the build instantiates for the kernel the problem
+  runs (``AttnProblem.kernel``) whose staged tiles fit one block's shared
+  memory: the prefill bodies' query blocks ``BLOCK_QS`` (16 or 64 rows, a
+  template of ``csrc/paged_attention.cu``) by the 64-row key tile; the
+  split decode's one query block by its split lengths
+  (``SPLIT_ROWS_SET``, taken at launch, in whole pages);
+* the reference's MXU efficiency (``mxu_efficiency``) becomes the used
+  share of the padded query block times the fill of the card
+  (``attn_fill``: the launch's CTAs in waves of ``attn_resident_ctas`` on
+  the 132 SMs, an SM's share its warps over its schedulers), at the
+  engine's rate, as ``tile_efficiency`` prices the GEMM; and a launch
+  lasts at least its longest CTA a wave (``cta_share``);
+* the traffic is the reference's (K/V once a visited step of each row),
+  plus, for a decode, the splits' fp32 partials, written and read back by
+  the merge: the term that keeps the shortest split from always winning.
+
+The serving models (``decode_launch``, ``prefill_launch`` and the models
+over them) price the tile ``choose_attn_block(..., use_cache=False)``
+picks, as the reference's do.
 
 Serving-path cost constants
 ---------------------------
@@ -232,6 +251,11 @@ def naive_block(in_bytes: int) -> GemmConfig:
     return GemmConfig(*min(tiles(in_bytes)))
 
 
+# The reference's baseline for its default input, bf16 (``naive_block``
+# gives each input type's).
+NAIVE_BLOCK = naive_block(2)
+
+
 def tuning_gain(p: GemmProblem,
                 gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
     """Naive-vs-tuned comparison — the Ch.1 '+15.4%' analogue, reported by
@@ -248,8 +272,13 @@ def tuning_gain(p: GemmProblem,
 
 
 # ----------------------------------------------------------------------------
-# Attention kernels: the tiles the port's kernels run.
+# Attention kernels: the tiles the port's kernels instantiate, priced on the
+# H100.
 # ----------------------------------------------------------------------------
+
+PREFILL = "prefill"   # prefill_kernel / prefill_mma_kernel
+DECODE = "decode"     # decode_split_kernel
+
 
 @dataclasses.dataclass(frozen=True)
 class AttnProblem:
@@ -259,7 +288,11 @@ class AttnProblem:
     For flash *decode* set ``sq`` to the GQA group size (queries per KV head)
     and ``n_heads`` to ``n_kv_heads`` — that is exactly the row shape the
     decode kernel runs per (slot, kv head) grid step.
-    """
+
+    ``kernel`` names the body that runs the launch (``PREFILL`` or
+    ``DECODE``): the two have different tiles. ``page_size`` is the pool's
+    page for a paged decode, whose splits are whole pages (1: a contiguous
+    cache)."""
 
     sq: int
     skv: int
@@ -268,12 +301,17 @@ class AttnProblem:
     batch: int = 1
     causal: bool = True
     in_bytes: int = 2          # bf16
+    kernel: str = PREFILL
+    page_size: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class AttnBlock:
-    """A kernel's tile: ``block_q`` query rows a CTA (or a query block of
-    the decode's CTA), ``block_k`` key rows a step."""
+    """A kernel's tile. Prefill: ``block_q`` query rows a CTA (one of
+    ``kernels.flash_attention.BLOCK_QS``) and ``block_k`` key rows a step
+    (``TILE_K``). Decode: ``block_q`` the query block of a CTA
+    (``kernels.flash_decode.QUERY_BLOCK``) and ``block_k`` the rows of a
+    split (one of ``SPLIT_ROWS_SET``, rounded to whole pages at launch)."""
 
     block_q: int
     block_k: int
@@ -294,93 +332,285 @@ def _attn_visited_blocks(p: AttnProblem, c: AttnBlock) -> int:
     return total
 
 
-# The prefill body's tile (``prefill_mma_kernel`` and ``prefill_kernel``):
-# a CTA for each (64 query rows, q head, slot); 64-row key tiles, those past
-# the causal diagonal skipped.
-PREFILL_TILE = AttnBlock(_prefill_kernel.BLOCK_Q, _prefill_kernel.TILE_K)
+def attn_threads(p: AttnProblem, c: AttnBlock) -> int:
+    """Threads of one CTA: the decode's 4 warps, the bf16 prefill's warp
+    for every 16 query rows, the fp32 prefill's 256."""
+    if p.kernel == DECODE:
+        return _decode_kernel.THREADS
+    return 2 * c.block_q if p.in_bytes == 2 else 256
 
 
-def decode_tile(in_bytes: int) -> AttnBlock:
-    """The split decode's tile (``decode_split_kernel``): a query block of
-    16 rows (bf16, ``mma.sync``) or 8 (fp32) of one kv head's group, each
-    warp scoring 16 key rows a step."""
-    return AttnBlock(_decode_kernel.QUERY_BLOCK[DTYPE_OF[in_bytes]],
-                     _decode_kernel.WARP_ROWS)
+def attn_smem_bytes(p: AttnProblem, c: AttnBlock) -> int:
+    """Dynamic shared memory of one CTA, as ``csrc/paged_attention.cu``
+    sizes it. bf16 prefill: the Q tile and K/V tiles double-buffered, rows
+    padded to d + 8; fp32 prefill: Q, K, V (rows padded to d + 1) and the
+    P tile; decode: each warp's ring of 16-row K/V stages (3 in bf16, 2 in
+    fp32, rows padded by 16 bytes), the query block, and on a paged pool
+    the page-table entries of a split."""
+    d = p.head_dim
+    if p.kernel == DECODE:
+        stages = 3 if p.in_bytes == 2 else 2
+        ring = stages * 2 * _decode_kernel.WARP_ROWS * (d * p.in_bytes + 16)
+        q = c.block_q * (d + 8) * 2 if p.in_bytes == 2 else c.block_q * d * 4
+        entries = 4 * (_decode_kernel.split_rows(c.block_k, p.page_size)
+                       // p.page_size + 2) if p.page_size > 1 else 0
+        return _decode_kernel.THREADS // 32 * ring + q + entries
+    tk = _prefill_kernel.TILE_K
+    if p.in_bytes == 2:
+        return (c.block_q + 4 * tk) * (d + 8) * 2
+    return 4 * ((c.block_q + 2 * tk) * (d + 1) + c.block_q * (tk + 1))
+
+
+def attn_resident_ctas(p: AttnProblem, c: AttnBlock,
+                       gpu: hwmodel.GPUSpec = hwmodel.H100) -> int:
+    """CTAs of the tile's kernel one SM holds at once, by its shared
+    memory (with the block's reserved kilobyte), thread slots and block
+    slots. Registers are not priced: the attention bodies' counts are not
+    recorded beside the Python (the GEMM's are, ``resident_ctas``)."""
+    return max(1, min(gpu.smem_per_sm // (attn_smem_bytes(p, c)
+                                          + gpu.smem_per_cta_reserved),
+                      gpu.max_threads_per_sm // attn_threads(p, c),
+                      gpu.max_ctas_per_sm))
+
+
+def attn_waves(p: AttnProblem, c: AttnBlock, ctas: int,
+               gpu: hwmodel.GPUSpec = hwmodel.H100) -> int:
+    """Waves of a launch of ``ctas`` CTAs: ``attn_resident_ctas`` on each
+    of the 132 SMs at a time."""
+    return max(1, _ceil_div(ctas, gpu.sms * attn_resident_ctas(p, c, gpu)))
+
+
+def cta_share(p: AttnProblem, c: AttnBlock,
+              gpu: hwmodel.GPUSpec = hwmodel.H100) -> float:
+    """Share of its SM one CTA can drive: its warps over the SM's
+    schedulers (at most 1)."""
+    return min(1.0, _ceil_div(attn_threads(p, c), 32)
+               / gpu.schedulers_per_sm)
+
+
+def attn_fill(p: AttnProblem, c: AttnBlock, ctas: int,
+              gpu: hwmodel.GPUSpec = hwmodel.H100) -> float:
+    """Share of the card a launch of ``ctas`` CTAs keeps busy, the wave
+    quantisation of the port's attention: the CTAs run in waves of
+    ``attn_resident_ctas`` on each of the 132 SMs, and an SM runs at its
+    rate once each of its schedulers has a warp. So the share is the warps
+    an SM holds, averaged over the launch's waves, over its schedulers
+    (at most 1). A CTA is 1 to 8 warps here, so warps, not the GEMM's CTA
+    slots (``tile_efficiency``), measure an SM's share: a 64-row query
+    block on an SM alone keeps its 4 schedulers busy, as four 16-row ones
+    do."""
+    if ctas <= 0:
+        return 1.0
+    waves = attn_waves(p, c, ctas, gpu)
+    warps = _ceil_div(attn_threads(p, c), 32)
+    return min(1.0, ctas * warps / (waves * gpu.sms * gpu.schedulers_per_sm))
+
+
+def _attn_work(p: AttnProblem, c: AttnBlock,
+               page_size: Optional[int] = None) -> dict:
+    """What tile ``c`` does on problem ``p``, from shapes: the products it
+    issues (a query block is padded to ``block_q`` rows, so its products
+    cost the whole block: ``tile_rows_used`` is the used share, 5 of 64 at
+    the speculative verify's width on the 64-row block), the bytes it
+    moves, its CTAs and, with ``page_size``, the page-table entries its
+    rows read (one a page a row, which the serving models price at
+    ``page_lookup_s``).
+
+    Prefill: K/V tiles are read once a visited (query block, key tile)
+    step of each row; the grid is flattened over *q* heads, so under GQA a
+    kv head's K/V are read once a q head. Decode: the grid is (kv head x
+    query block, slot, split); each CTA row scores its rows in 16-row warp
+    tiles, and each split writes its fp32 partial (acc, m, l: d + 2 floats
+    a query row), which the merge reads back (``flash_decode._partials``):
+    a shorter split fills more of the card and moves more partials."""
+    rows = p.batch * p.n_heads
+    if p.kernel == DECODE:
+        split = _decode_kernel.split_rows(c.block_k, p.page_size)
+        n_splits = _ceil_div(p.skv, split)
+        q_blocks = _ceil_div(p.sq, c.block_q)
+        bk = _decode_kernel.WARP_ROWS
+        visited = q_blocks * _ceil_div(p.skv, bk)
+        cta_steps = _ceil_div(min(split, p.skv), bk)     # one split
+        ctas = rows * q_blocks * n_splits
+        partial_bytes = 2 * 4 * rows * p.sq * n_splits * (p.head_dim + 2)
+        cta_partial = 2 * 4 * min(c.block_q, p.sq) * (p.head_dim + 2)
+    else:
+        visited = _attn_visited_blocks(p, c)
+        bk = min(c.block_k, p.skv)
+        cta_steps = _ceil_div(p.skv, c.block_k)   # the last query block's
+        ctas = rows * _ceil_div(p.sq, c.block_q)
+        partial_bytes = cta_partial = 0
+    bq = min(c.block_q, p.sq)
+    flops = rows * visited * 4.0 * bq * bk * p.head_dim
+    used = bq / c.block_q
+    qo_bytes = rows * 2 * p.sq * p.head_dim * p.in_bytes
+    kv_bytes = rows * visited * 2 * bk * p.head_dim * p.in_bytes
+    lookups = rows * _attn_visited_blocks(
+        p, AttnBlock(c.block_q, page_size)) if page_size else 0
+    return {"flops": flops, "issued_flops": flops / used,
+            "traffic_bytes": qo_bytes + kv_bytes + partial_bytes,
+            "partial_bytes": partial_bytes, "ctas": ctas,
+            "cta_issued_flops": cta_steps * 4.0 * c.block_q * bk
+            * p.head_dim,
+            "cta_bytes": (cta_steps * 2 * bk + 2 * bq) * p.head_dim
+            * p.in_bytes + cta_partial,
+            "visited_blocks": visited, "tile_rows_used": used,
+            "page_lookups": lookups}
+
+
+def _price(p: AttnProblem, c: AttnBlock, work: dict,
+           gpu: hwmodel.GPUSpec, grid_ctas: Optional[int] = None) -> dict:
+    """Time of ``work`` (one launch of tile ``c``): the larger of the
+    issued operations over the engine's peak (the tensor cores' bf16 rate,
+    or the CUDA cores' fp32 FFMA rate) and the bytes over the memory rate.
+    Each is the larger of two: the launch's whole work at the share of
+    the card its CTAs fill (``attn_fill``, over ``grid_ctas``, the grid's
+    CTAs, where they differ from the CTAs that do work), and its critical
+    path, the longest CTA's work once a wave at the share of one SM that
+    CTA drives (``cta_share``). A launch that leaves SMs idle neither
+    computes nor loads at the card's rate, and is as long as its longest
+    CTA: more rows never cost less."""
+    ctas = work["ctas"] if grid_ctas is None else grid_ctas
+    fill = attn_fill(p, c, ctas, gpu)
+    path = attn_waves(p, c, ctas, gpu) * gpu.sms / cta_share(p, c, gpu)
+    peak = peak_flops(p.in_bytes, gpu)
+    compute_s = max(work["issued_flops"] / (peak * fill),
+                    path * work["cta_issued_flops"] / peak)
+    memory_s = max(work["traffic_bytes"] / (gpu.hbm_bandwidth * fill),
+                   path * work["cta_bytes"] / gpu.hbm_bandwidth)
+    return dict(work, time_s=max(compute_s, memory_s), compute_s=compute_s,
+                memory_s=memory_s, fill=fill)
 
 
 def attn_cost(p: AttnProblem, c: AttnBlock,
               gpu: hwmodel.GPUSpec = hwmodel.H100,
               page_size: Optional[int] = None) -> Tuple[float, dict]:
     """Modelled time (seconds) of the port's kernel running tile ``c`` on
-    problem ``p``, plus terms: the larger of the bytes over the memory rate
-    and the operations over the engine's peak (the tensor cores' bf16 rate,
-    or the CUDA cores' fp32 FFMA rate).
-
-    K/V tiles are read once a visited (query block, key tile) step of each
-    row: the prefill grid is flattened over *q* heads, so under GQA a kv
-    head's K/V are read once a q head; the decode's over kv heads. A query
-    block is padded to ``block_q`` rows, so its products cost the whole
-    tile (``tile_rows_used`` is the used share: 5 of 64 at the speculative
-    verify's width). With ``page_size``, ``page_lookups`` counts the
-    page-table entries the visited steps read (one a page a row), which
-    the serving models price at ``page_lookup_s``."""
-    rows = p.batch * p.n_heads
-    visited = _attn_visited_blocks(p, c)
-    bq = min(c.block_q, p.sq)
-    bk = min(c.block_k, p.skv)
-    flops = rows * visited * 4.0 * bq * bk * p.head_dim
-    used = bq / c.block_q
-    compute_s = flops / (peak_flops(p.in_bytes, gpu) * used)
-    qo_bytes = rows * 2 * p.sq * p.head_dim * p.in_bytes
-    kv_bytes = rows * visited * 2 * bk * p.head_dim * p.in_bytes
-    memory_s = (qo_bytes + kv_bytes) / gpu.hbm_bandwidth
-    lookups = rows * _attn_visited_blocks(
-        p, AttnBlock(c.block_q, page_size)) if page_size else 0
-    return max(compute_s, memory_s), {
-        "compute_s": compute_s, "memory_s": memory_s, "flops": flops,
-        "traffic_bytes": qo_bytes + kv_bytes, "visited_blocks": visited,
-        "tile_rows_used": used, "page_lookups": lookups}
+    problem ``p``, plus terms (``_attn_work``, ``_price``): the port's
+    counterpart of the reference's MXU efficiency is the padded query
+    block's used share times the fill of the card (``attn_fill``)."""
+    terms = _price(p, c, _attn_work(p, c, page_size), gpu)
+    return terms["time_s"], terms
 
 
-def _launch(parts: List[dict], gpu: hwmodel.GPUSpec) -> dict:
-    """One launch over several problems (the slots of a decode or verify
-    step): their operations and bytes summed, then the larger of the two
-    times."""
-    compute_s = sum(t["compute_s"] for t in parts)
-    memory_s = sum(t["memory_s"] for t in parts)
-    return {"time_s": max(compute_s, memory_s), "compute_s": compute_s,
-            "memory_s": memory_s,
-            "visited_blocks": sum(t["visited_blocks"] for t in parts),
-            "page_lookups": sum(t["page_lookups"] for t in parts)}
+def candidate_attn_blocks(p: AttnProblem,
+                          gpu: hwmodel.GPUSpec = hwmodel.H100,
+                          smem_fraction: float = 1.0) -> List[AttnBlock]:
+    """The tiles the build instantiates for the kernel ``p`` runs whose
+    staged tiles fit ``smem_fraction`` of one block's shared memory (the
+    reference's VMEM budget). Prefill: each of ``BLOCK_QS`` by ``TILE_K``.
+    Decode: the dtype's one query block by each split of
+    ``SPLIT_ROWS_SET`` that rounds to its own whole pages (the largest of
+    those that round alike). None fits: the kernel's naive tile, as the
+    reference falls back to its own."""
+    budget = int(gpu.smem_per_block * smem_fraction)
+    if p.kernel == DECODE:
+        bq = _decode_kernel.QUERY_BLOCK[DTYPE_OF[p.in_bytes]]
+        seen, cands = set(), []
+        for rows in sorted(_decode_kernel.SPLIT_ROWS_SET, reverse=True):
+            run = _decode_kernel.split_rows(rows, p.page_size)
+            if run not in seen:
+                seen.add(run)
+                cands.append(AttnBlock(bq, rows))
+        cands.reverse()
+    else:
+        cands = [AttnBlock(bq, _prefill_kernel.TILE_K)
+                 for bq in _prefill_kernel.BLOCK_QS]
+    out = [c for c in cands if attn_smem_bytes(p, c) <= budget]
+    return out or [naive_attn_block(p)]
+
+
+# The tile every prefill ran before the port chose one (its one compiled
+# query block of 64 rows).
+NAIVE_ATTN_BLOCK = AttnBlock(64, _prefill_kernel.TILE_K)
+
+
+def naive_attn_block(p: AttnProblem) -> AttnBlock:
+    """The tile the kernel ``p`` runs ran before the chooser: the
+    prefill's ``NAIVE_ATTN_BLOCK``; the decode's query block in splits of
+    ``SPLIT_ROWS``."""
+    if p.kernel == DECODE:
+        return AttnBlock(_decode_kernel.QUERY_BLOCK[DTYPE_OF[p.in_bytes]],
+                         _decode_kernel.SPLIT_ROWS)
+    return NAIVE_ATTN_BLOCK
+
+
+def decode_problem(batch: int, n_heads: int, n_kv_heads: int, head_dim: int,
+                   max_rows: int, in_bytes: int = 2,
+                   page_size: int = 1) -> AttnProblem:
+    """The problem a decode wrapper builds from shapes, as the reference's
+    do: the group's rows of each kv head, over the cache's reach
+    (``max_len``, or ``max_pages * page_size``)."""
+    return AttnProblem(sq=max(1, n_heads // n_kv_heads), skv=max(1, max_rows),
+                       n_heads=n_kv_heads, head_dim=head_dim, batch=batch,
+                       causal=False, in_bytes=in_bytes, kernel=DECODE,
+                       page_size=page_size)
+
+
+def _launch(parts: List[dict], p: AttnProblem, c: AttnBlock,
+            gpu: hwmodel.GPUSpec, grid_ctas: Optional[int] = None) -> dict:
+    """One launch of tile ``c`` over several problems (the slots of a
+    decode or verify step, each its own ``_attn_work``): their operations,
+    bytes and CTAs summed, then priced at the launch's fill."""
+    keys = ("flops", "issued_flops", "traffic_bytes", "partial_bytes",
+            "ctas", "visited_blocks", "page_lookups")
+    work = {k: sum(t[k] for t in parts) for k in keys}
+    for k in ("cta_issued_flops", "cta_bytes"):
+        work[k] = max((t[k] for t in parts), default=0)
+    out = _price(p, c, work, gpu, grid_ctas)
+    out["tile"] = (c.block_q, c.block_k)
+    return out
 
 
 def decode_launch(lengths: Iterable[int], n_heads: int, n_kv_heads: int,
                   head_dim: int, page_size: Optional[int] = None,
                   in_bytes: int = 2,
-                  gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+                  gpu: hwmodel.GPUSpec = hwmodel.H100,
+                  max_len: Optional[int] = None,
+                  tile: Optional[AttnBlock] = None) -> dict:
     """One launch of the split decode over slots of live context
     ``lengths``: each slot's (kv head, query block) rows read the K/V rows
     its length reaches (``page_lookups`` counts the table entries, on the
-    paged layout)."""
-    group = max(1, n_heads // n_kv_heads)
-    c = decode_tile(in_bytes)
-    return _launch([attn_cost(AttnProblem(
-        sq=group, skv=max(int(n), 1), n_heads=n_kv_heads, head_dim=head_dim,
-        causal=False, in_bytes=in_bytes), c, gpu, page_size)[1]
-        for n in lengths], gpu)
+    paged layout). The grid, and so the tile and the fill, come from the
+    shapes: the cache's reach ``max_len`` (None: the longest length), in
+    whole pages. ``tile``: None prices the one
+    ``choose_attn_block(..., use_cache=False)`` picks, as the wrapper
+    launches."""
+    lengths = [int(n) for n in lengths]
+    page = page_size or 1
+    reach = _ceil_div(max(max_len or max(lengths, default=1), 1), page) * page
+    p = decode_problem(len(lengths), n_heads, n_kv_heads, head_dim, reach,
+                       in_bytes, page)
+    if tile is None:
+        tile, _ = choose_attn_block(p, gpu, use_cache=False)
+    parts = [_attn_work(dataclasses.replace(p, batch=1, skv=max(n, 1)), tile,
+                        page_size) for n in lengths]
+    return _launch(parts, p, tile, gpu, _attn_work(p, tile)["ctas"])
 
 
 def prefill_launch(starts: Iterable[int], sq: int, n_heads: int,
                    head_dim: int, page_size: Optional[int] = None,
                    in_bytes: int = 2,
-                   gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+                   gpu: hwmodel.GPUSpec = hwmodel.H100,
+                   max_rows: Optional[int] = None,
+                   tile: Optional[AttnBlock] = None) -> dict:
     """One launch of the prefill body: ``sq`` query rows a slot written
     from each slot's ``starts`` and attended causally (a chunk, or the
-    verify at sq = k + 1)."""
-    return _launch([attn_cost(AttnProblem(
-        sq=sq, skv=int(s) + sq, n_heads=n_heads, head_dim=head_dim,
-        causal=True, in_bytes=in_bytes), PREFILL_TILE, gpu, page_size)[1]
-        for s in starts], gpu)
+    verify at sq = k + 1). ``tile``: None prices the one
+    ``choose_attn_block(..., use_cache=False)`` picks for the wrapper's
+    problem, the pool's reach ``max_rows`` (None: the furthest row a slot
+    writes) against sq rows."""
+    starts = [int(s) for s in starts]
+    if tile is None:
+        reach = max_rows or max(starts, default=0) + sq
+        tile, _ = choose_attn_block(AttnProblem(
+            sq=sq, skv=max(reach, sq), n_heads=n_heads, head_dim=head_dim,
+            batch=len(starts), causal=True, in_bytes=in_bytes), gpu,
+            use_cache=False)
+    p = AttnProblem(sq=sq, skv=sq, n_heads=n_heads, head_dim=head_dim,
+                    causal=True, in_bytes=in_bytes)
+    return _launch([_attn_work(dataclasses.replace(p, skv=s + sq), tile,
+                               page_size) for s in starts], p, tile, gpu)
 
 
 # ----------------------------------------------------------------------------
@@ -489,6 +719,86 @@ def drift_ratio(measured_s: float, modeled_s: float) -> float:
     if measured_s <= 0.0 or modeled_s <= 0.0:
         return 0.0
     return measured_s / modeled_s
+
+
+# The attention tile chooser: the cheapest candidate in the model, kept in
+# the tuning cache under a key naming the card, the devices and the problem.
+# Hits are memoised in process (``_attn_memo``, kept while the parsed cache
+# it came from is the one in use), so a wrapper called once a layer costs
+# no file I/O and no pricing after a problem's first call.
+_attn_memo: dict = {}
+_attn_memo_of: Optional[dict] = None
+
+
+def _cache_key(p: AttnProblem, gpu: hwmodel.GPUSpec = hwmodel.H100,
+               mesh_shape=None) -> str:
+    return (f"{gpu.name}:{_mesh_key(mesh_shape)}:sq={p.sq}:skv={p.skv}"
+            f":h={p.n_heads}:d={p.head_dim}:b={p.batch}"
+            f":causal={int(p.causal)}:bytes={p.in_bytes}"
+            f":kernel={p.kernel}:page={p.page_size}")
+
+
+def choose_attn_block(p: AttnProblem,
+                      gpu: hwmodel.GPUSpec = hwmodel.H100,
+                      use_cache: bool = True,
+                      mesh_shape=None) -> Tuple[AttnBlock, dict]:
+    """Minimum-modelled-time tile of ``candidate_attn_blocks``, persisted
+    across processes (the reference's contract).
+
+    The key names the card (``gpu.name``), the devices (``mesh_shape``;
+    None: the process's CUDA device count) and every field of the problem,
+    so single- and multi-device runs keep separate entries. Write-through;
+    a torn file or a malformed entry is a miss that the write overwrites;
+    a hit outside today's candidates is re-derived; ``terms["cached"]``
+    marks a hit. Shapes only: nothing of a launch's data is read."""
+    global _attn_memo, _attn_memo_of
+    key = _cache_key(p, gpu, mesh_shape)
+    if use_cache:
+        cache = _load_tuning_cache()
+        if _attn_memo_of is not cache:
+            _attn_memo, _attn_memo_of = {}, cache
+        memo = _attn_memo.get(key)
+        if memo is not None:
+            return memo[0], dict(memo[1])
+        hit = cache.get(key)
+        if hit is not None:
+            try:
+                blk = AttnBlock(int(hit["block_q"]), int(hit["block_k"]))
+                terms, time_s = dict(hit["terms"]), float(hit["time_s"])
+            except (KeyError, TypeError, ValueError):
+                hit = None
+            if hit is not None and blk in candidate_attn_blocks(p, gpu):
+                terms = dict(terms, time_s=time_s, cached=True)
+                _attn_memo[key] = (blk, terms)
+                return blk, dict(terms)
+    best, best_t, best_terms = None, float("inf"), None
+    for c in candidate_attn_blocks(p, gpu):
+        t, terms = attn_cost(p, c, gpu)
+        if t < best_t:
+            best, best_t, best_terms = c, t, terms
+    if use_cache:
+        _store_tuning_cache(key, {"block_q": best.block_q,
+                                  "block_k": best.block_k,
+                                  "time_s": best_t, "terms": best_terms})
+    return best, dict(best_terms, time_s=best_t)
+
+
+def decode_attn_speedup(max_len: int, lengths: Iterable[int], n_heads: int,
+                        n_kv_heads: int, head_dim: int,
+                        gpu: hwmodel.GPUSpec = hwmodel.H100) -> dict:
+    """Modelled naive-vs-fast decode attention for one engine tick.
+
+    Naive: every slot attends over the full ``max_len`` cache (the seed
+    engine's behaviour). Fast: the split decode reads each slot's rows up
+    to its length. Both are one launch of the tile the chooser picks for
+    the cache's shape (the grid is sized from ``max_len`` either way)."""
+    lengths = [int(n) for n in lengths]
+    naive = decode_launch([max_len] * len(lengths), n_heads, n_kv_heads,
+                          head_dim, gpu=gpu, max_len=max_len)["time_s"]
+    fast = decode_launch(lengths, n_heads, n_kv_heads, head_dim, gpu=gpu,
+                         max_len=max_len)["time_s"]
+    return {"naive_s": naive, "fast_s": fast,
+            "speedup": naive / fast if fast else float("inf")}
 
 
 # Hand-set defaults: assumptions, each replaced by a measurement on the
@@ -746,15 +1056,16 @@ def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
     lengths = [int(n) for n in lengths]
     slots = len(lengths)
     launch = decode_launch(lengths, n_heads, n_kv_heads, head_dim,
-                           page_size, in_bytes, gpu)
+                           page_size, in_bytes, gpu, max_len=max_len)
     _, attn_shard = _tp_shard(tp, n_kv_heads)
     collective_s = _tp_collective_s(slots, tp, in_bytes)
     contig_s = launch["time_s"] / attn_shard + collective_s
     paged_s = (launch["time_s"] + launch["page_lookups"] * page_lookup_s) \
         / attn_shard + collective_s
-    rows, n_splits = _decode_kernel.splits(max_len, page_size)
+    block_q, block_k = launch["tile"]
+    rows, n_splits = _decode_kernel.splits(max_len, page_size, block_k)
     group = max(1, n_heads // n_kv_heads)
-    q_blocks = _ceil_div(group, decode_tile(in_bytes).block_q)
+    q_blocks = _ceil_div(group, block_q)
 
     out = reservation(lengths, max_len, page_size)   # the one accounting
     bytes_per_row = 2 * n_kv_heads * head_dim * in_bytes     # K + V
@@ -767,6 +1078,7 @@ def paged_decode_model(max_len: int, lengths: Iterable[int], n_heads: int,
         "visited_blocks": launch["page_lookups"],
         "ctas": slots * n_kv_heads * q_blocks * n_splits,
         "split_rows": rows,
+        "tile": launch["tile"],
         "tokens_per_s_contig": slots / contig_s if contig_s else 0.0,
         "tokens_per_s_paged": slots / paged_s if paged_s else 0.0,
         "hbm_paged_bytes_per_layer": out["rows_resident"] * bytes_per_row,
@@ -815,10 +1127,17 @@ def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
     cached_rows = max(0, min(int(cached_rows), prompt_len - 1))
     probe_s = _ceil_div(cached_rows, page_size) * const.prefix_hash_s
     n_chunks = _ceil_div(prompt_len - cached_rows, chunk)
+    # The chunk step's one tile: the chooser's for the wrapper's problem,
+    # a chunk against the prompt's reach in whole pages.
+    reach = max(_ceil_div(prompt_len, page_size) * page_size, chunk)
+    tile, _ = choose_attn_block(AttnProblem(
+        sq=chunk, skv=reach, n_heads=n_heads, head_dim=head_dim,
+        causal=True, in_bytes=in_bytes), gpu, use_cache=False)
     attn_s, lookup_s, visited_total, worst_chunk_s = 0.0, 0.0, 0, 0.0
     for i in range(n_chunks):
         launch = prefill_launch([cached_rows + i * chunk], chunk, n_heads,
-                                head_dim, page_size, in_bytes, gpu)
+                                head_dim, page_size, in_bytes, gpu,
+                                tile=tile)
         t, visited = launch["time_s"] / attn_shard, launch["page_lookups"]
         attn_s += t
         lookup_s += visited * page_lookup_s
@@ -841,6 +1160,7 @@ def prefill_chunk_model(prompt_len: int, chunk: int, n_heads: int,
         "visited_blocks": visited_total,
         "interleave_latency_s": worst_chunk_s,
         "lookup_overhead_frac": lookup_s / attn_s if attn_s else 0.0,
+        "tile": (tile.block_q, tile.block_k),
     }
 
 
@@ -958,8 +1278,9 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
       tick whatever its width;
     * attention: a plain tick is the split decode (one launch over the
       slots); a verify of width k + 1 is the prefill body at sq = k + 1
-      from each slot's write position (its query tile padded to 64 rows,
-      K/V read once a q head), with the page-table term;
+      from each slot's write position (its query block padded to the
+      chooser's ``block_q`` rows, K/V read once a q head), with the
+      page-table term;
     * dense operations for ``slots * (k + 1)`` tokens at the engine's peak;
     * the chunk-dispatch constant, once a tick;
     * drafting: ``slots * k`` draft weight streams (``draft_bytes``, 0 for
@@ -987,9 +1308,11 @@ def spec_decode_model(lengths: Iterable[int], n_heads: int,
             launch = decode_launch(lengths, n_heads, n_kv_heads, head_dim,
                                    page_size, in_bytes, gpu)
         else:
-            launch = prefill_launch([max(n, 1) - 1 for n in lengths], width,
-                                    n_heads, head_dim, page_size, in_bytes,
-                                    gpu)
+            launch = prefill_launch(
+                [max(n, 1) - 1 for n in lengths], width, n_heads, head_dim,
+                page_size, in_bytes, gpu,
+                max_rows=_ceil_div(max(lengths, default=1) + width,
+                                   page_size) * page_size)
         attn = (launch["time_s"] + launch["page_lookups"] * page_lookup_s) \
             / attn_shard
         dense = 2.0 * n_params * slots * width \

@@ -47,9 +47,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import autotune, hwmodel
+from repro_torch.kernels.flash_decode import SPLIT_ROWS
 
-# The page-lookup probe's geometry: qwen3-4b's attention as served.
+# The page-lookup probe's geometry: qwen3-4b's attention as served, in
+# splits of the rows every decode ran before the tile chooser.
 LOOKUP_HEADS, LOOKUP_KV_HEADS, LOOKUP_HEAD_DIM, LOOKUP_PAGE = 32, 8, 80, 16
+LOOKUP_SPLIT = SPLIT_ROWS
 # Context lengths it sweeps (rows a slot), and its slots.
 LOOKUP_LENGTHS = (512, 1024, 2048, 4096, 8192)
 LOOKUP_LENGTHS_FAST = (256, 512, 1024)
@@ -196,13 +199,16 @@ def probe_page_lookup(device: torch.device,
             if cuda else 1
         sets = _lookup_inputs(gen, device, batch, length, copies)
 
+        # The tile is pinned (``LOOKUP_SPLIT``): the chooser's pick moves
+        # with the sweep's lengths, and the slope would move with it.
         def paged(i):
             q, kp, vp, table, _, _, lens = sets[i]
-            return ops.flash_decode_paged(q, kp, vp, table, lens)
+            return ops.flash_decode_paged(q, kp, vp, table, lens,
+                                          block_k=LOOKUP_SPLIT)
 
         def contig(i):
             q, _, _, _, kc, vc, lens = sets[i]
-            return ops.flash_decode(q, kc, vc, lens)
+            return ops.flash_decode(q, kc, vc, lens, block_k=LOOKUP_SPLIT)
 
         if cuda:
             tp = min(_device_s(paged, copies, iters) for _ in range(n))
@@ -230,6 +236,7 @@ def probe_page_lookup(device: torch.device,
         "page_lookup_s", value, "s/lookup", n * len(lengths), spread,
         {"probe": "table_sweep_slope", "tables": list(lengths),
          "batch": batch, "page_size": LOOKUP_PAGE,
+         "split_rows": LOOKUP_SPLIT,
          "heads": (LOOKUP_HEADS, LOOKUP_KV_HEADS, LOOKUP_HEAD_DIM),
          "lookups": visited, "t_paged_s": t_paged, "t_contig_s": t_contig,
          "slope_paged_s": slope_paged, "slope_contig_s": slope_contig,

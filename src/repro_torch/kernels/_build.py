@@ -34,8 +34,9 @@ SIGNATURES = {
     "contiguous_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
     "paged_prefill": [_I, _I, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _P],
-    "flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     "ssd_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "blocked_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pchase": [_P, _P, _I, _P],

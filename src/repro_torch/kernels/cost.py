@@ -5,7 +5,11 @@ from shapes alone. One count, read by the wrappers' meta branches
 
 Bytes are each input read once and each output written once (the
 analogue of an HLO fusion, which counts only its outside operands and
-results); FLOPs are the multiply-adds of the products, two a
+results), plus, in a launch's record, the decode's split partials, the
+one traffic its tile adds (``flash_decode(n_splits=)``; a bound leaves
+them out). A prefill's query block changes neither count: its padded
+rows are not useful FLOPs, and its K/V re-reads are not the function's
+bytes. FLOPs are the multiply-adds of the products, two a
 multiply-add. The exponentials and the softmax's sums are not counted,
 as ``torch.utils.flop_counter`` counts none for the plain versions.
 """
@@ -16,16 +20,23 @@ from typing import Tuple
 
 
 def flash_decode(b: int, h: int, kvh: int, d: int, esize: int,
-                 kv_rows: int, lse: bool = False) -> Tuple[int, int]:
+                 kv_rows: int, lse: bool = False,
+                 n_splits: int = 0) -> Tuple[int, int]:
     """(bytes, FLOPs) of a contiguous decode of b query rows of h heads
     over ``kv_rows`` cache rows in all (the sum of the slots' lengths;
     the dry run's static shapes take every row of the cache): q read and
     the output written, each row's K and V of ``kvh`` heads read, the
     int32 lengths, and with ``lse`` the fp32 (b, h) log-sum-exps
-    written. Each query head scores and sums each row: 4 d FLOPs."""
+    written. Each query head scores and sums each row: 4 d FLOPs.
+
+    ``n_splits``: the splits the launched tile cuts each slot into
+    (``flash_decode.splits``); each writes its fp32 partial (d + 2 floats
+    a query row) and the merge reads it back. 0, the function's own
+    inputs and outputs alone, is what a bound counts."""
     nbytes = 2 * b * h * d * esize + 2 * kv_rows * kvh * d * esize + 4 * b
     if lse:
         nbytes += 4 * b * h
+    nbytes += 2 * 4 * b * h * n_splits * (d + 2)
     return nbytes, 4 * kv_rows * h * d
 
 

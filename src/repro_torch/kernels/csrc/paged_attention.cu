@@ -50,24 +50,27 @@
 // entries, then the first copies, one after another), and the merge's tail
 // after a wave whose last CTAs finish alone.
 //
-// Prefill at a 256-row chunk, and the full-sequence forward, do 4 * d
-// flops per (query, key) pair and read each K/V row once per query block:
-// they are bound by operations. The design: one CTA per (batch row, q
-// head, 64 query rows). bf16 runs FlashAttention-2's mma.sync body on the
-// tensor cores (prefill_mma_kernel: 4 warps of 16 query rows, Q in
-// registers, K/V tiles double-buffered by cp.async). fp32 stays on the
-// CUDA cores, which keep full fp32 where the tensor cores would take it
-// only as TF32: 256 threads each own a 4x4 block of the 64x64 score tile
-// in registers (rows ty+16i, columns tx+16j, so shared-memory reads are
-// conflict-free), fp32 FMAs (prefill_kernel). Causality is a loop
-// bound, not a grid: a CTA walks key tiles up to the last key its last
-// query row sees, and masks only what lies past the diagonal (or past the
-// end) inside a tile, so any sq and skv work, 1 and primes included. The
-// TPU kernel instead enumerates the lower triangle of (q block, k block)
-// pairs in scalar-prefetched maps and snaps its blocks to divisors of the
-// lengths. q, k and v are read in their (b, s, heads, d) layout; GQA is
-// kv_head = head / group. A wgmma body (head_dim 80's 160-byte rows do
-// not fit wgmma's 128-byte swizzle) is later work.
+// Prefill at a 256-row chunk, and the full-sequence forward, do 4 * d flops per
+// (query, key) pair and read each K/V row once per query block: they are bound
+// by operations. The design: one CTA per (batch row, q head, BQ query rows), BQ
+// chosen at launch among PrefillBlockQs (16 or 64: the caller's tile, or
+// core.autotune's choice). bf16 runs FlashAttention-2's mma.sync body on the
+// tensor cores (prefill_mma_kernel: a warp of 16 query rows for every 16 rows
+// of BQ, Q in registers, K/V tiles double-buffered by cp.async). fp32 stays on
+// the CUDA cores, which keep full fp32 where the tensor cores would take it
+// only as TF32: 256 threads each own a (BQ / 16) x 4 block of the BQ x 64 score
+// tile in registers (rows ty+16i, columns tx+16j, so shared-memory reads are
+// conflict-free), fp32 FMAs (prefill_kernel). A short query block (the
+// speculative verify's 5 rows) pads to 16 rows, not 64: the 64-row tile ran 3
+// of its 4 warps on zeros. The key tile stays kTileK = 64. Causality is a loop
+// bound, not a grid: a CTA walks key tiles up to the last key its last query
+// row sees, and masks only what lies past the diagonal (or past the end) inside
+// a tile, so any sq and skv work, 1 and primes included. The TPU kernel instead
+// enumerates the lower triangle of (q block, k block) pairs in
+// scalar-prefetched maps and snaps its blocks to divisors of the lengths. q, k and v
+// are read in their (b, s, heads, d) layout; GQA is kv_head = head / group. A
+// wgmma body (head_dim 80's 160-byte rows do not fit wgmma's 128-byte swizzle)
+// is later work.
 //
 // The page walk: the prefill reads each row's physical page from the table
 // (page_table[slot, row / page_size]) before a tile's rows are loaded; the
@@ -76,6 +79,7 @@
 // so one build serves every chunk position and every context length.
 
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
@@ -96,7 +100,11 @@ using repro::split_bf16;
 
 constexpr int kThreads = 256;
 constexpr int kTileK = 64;     // key rows staged per iteration
-constexpr int kBlockQ = 64;    // prefill query rows per CTA
+// The prefill query blocks the build instantiates (``BLOCK_QS`` of
+// kernels/flash_attention.py): BQ query rows a CTA, chosen at launch by
+// the entries' block_q. The mma body runs one warp for every 16 rows; the
+// fp32 body's 256 threads each own BQ / 16 rows of the score tile.
+using PrefillBlockQs = std::integer_sequence<int, 16, 64>;
 
 // Where a slot's logical K/V rows live. rows(slot)(r) is the index of
 // logical row r in the (rows, kvh, d) view of the pool or cache, and
@@ -206,7 +214,7 @@ __device__ void load_kv_tile(const T* __restrict__ src, Rows rows, int kvh,
 // fixed `offset` (skv - sq: a sequence's causal diagonal). Causal: it sees
 // keys <= its position that the layout holds (< max_rows()); otherwise
 // every key the layout holds.
-template <typename T, int D, typename Layout>
+template <typename T, int D, int BQ, typename Layout>
 __global__ void __launch_bounds__(kThreads, 2)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                const T* __restrict__ vp, Layout layout,
@@ -215,6 +223,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int DP = D + 1;
   constexpr int PP = kTileK + 1;
   constexpr int DC = D / 16;  // output columns per thread
+  constexpr int RI = BQ / 16;  // query rows per thread
   constexpr int kPer = Elem<T>::kPerVec;
   constexpr int kVecs = D / kPer;
   const int qb = blockIdx.x;
@@ -222,21 +231,21 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int slot = blockIdx.z;
   const int hk = head / (h / kvh);
   extern __shared__ float smem[];
-  float* q_s = smem;                  // kBlockQ x DP
-  float* k_s = q_s + kBlockQ * DP;    // kTileK x DP
+  float* q_s = smem;                  // BQ x DP
+  float* k_s = q_s + BQ * DP;         // kTileK x DP
   float* v_s = k_s + kTileK * DP;     // kTileK x DP
-  float* p_s = v_s + kTileK * DP;     // kBlockQ x PP
+  float* p_s = v_s + kTileK * DP;     // BQ x PP
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int start = starts != nullptr ? starts[slot] : offset;
-  const int q0 = qb * kBlockQ;
-  const int nq = min(kBlockQ, sq - q0);
+  const int q0 = qb * BQ;
+  const int nq = min(BQ, sq - q0);
   // The loop bound: the last key this block's last query sees.
   const int n_keys = causal ? min(start + q0 + nq, layout.max_rows())
                             : layout.max_rows();
   const auto rows = layout.rows(slot);
-  for (int v = tid; v < kBlockQ * kVecs; v += kThreads) {
+  for (int v = tid; v < BQ * kVecs; v += kThreads) {
     const int r = v / kVecs;
     const int c = (v % kVecs) * kPer;
     float tmp[kPer];
@@ -250,9 +259,9 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int e = 0; e < kPer; ++e) q_s[r * DP + c + e] = tmp[e];
   }
-  float m[4], l[4], acc[4][DC];
+  float m[RI], l[RI], acc[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -263,25 +272,25 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     load_kv_tile<T, D>(kp, rows, kvh, hk, k0, n_keys, k_s);
     load_kv_tile<T, D>(vp, rows, kvh, hk, k0, n_keys, v_s);
     __syncthreads();
-    float s[4][4];
+    float s[RI][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
+      float a[RI], b[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * DP + d];
+      for (int i = 0; i < RI; ++i) a[i] = q_s[(ty + 16 * i) * DP + d];
 #pragma unroll
       for (int j = 0; j < 4; ++j) b[j] = k_s[(tx + 16 * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int pos = start + q0 + ty + 16 * i;
       bool ok[4];
       float mx = kNegInf;
@@ -315,7 +324,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
       for (int c = 0; c < DC; ++c) vv[c] = v_s[kk * DP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float p = p_s[(ty + 16 * i) * PP + kk];
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
@@ -323,7 +332,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= nq) continue;
     // Zero-guarded denominator, as in the TPU kernel.
@@ -336,34 +345,35 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 // ---------------------------------------------------------------------------
 // The bf16 prefill body on the tensor cores (mma.sync), FlashAttention-2's
-// design: one CTA per (batch row, q head, 64 query rows), 4 warps of 16
-// query rows. Q is staged once and held in registers as ldmatrix
-// A-fragments; 64-key K/V tiles are double-buffered in shared memory with
-// cp.async (16 bytes at a time, zero-filled past n_keys so that table
-// entries past a slot's rows are never read). S = Q.K^T is mma.sync
+// design: one CTA per (batch row, q head, BQ query rows), one warp for each 16
+// query rows (BQ 64: 4 warps; BQ 16: one). Q is staged once and held in
+// registers as ldmatrix A-fragments; 64-key K/V tiles are double-buffered in
+// shared memory with cp.async (16 bytes at a time, zero-filled past n_keys so
+// that table entries past a slot's rows are never read). S = Q.K^T is mma.sync
 // m16n8k16 into fp32 (K fed by ldmatrix); the online softmax works on the
-// accumulator fragments, reducing across each row's quad of lanes; P stays
-// in registers and becomes the A-fragments of P.V (V fed by
-// ldmatrix.trans), into an fp32 O. P rounded once to bf16 would move each
-// weight by up to 2^-9 of itself, enough to move a row over a few keys by
-// two bf16 steps of its output, past ref.TOLERANCE; so P goes in as a bf16
-// high part plus a bf16 residual, two products that keep 16 bits of each
-// weight. Shared-memory rows
-// are padded to D + 8 elements: at 144, 176, 208 and 272 bytes the 8 row
-// addresses of an ldmatrix fall on distinct banks.
+// accumulator fragments, reducing across each row's quad of lanes; P stays in
+// registers and becomes the A-fragments of P.V (V fed by ldmatrix.trans), into
+// an fp32 O. P rounded once to bf16 would move each weight by up to 2^-9 of
+// itself, enough to move a row over a few keys by two bf16 steps of its output,
+// past ref.TOLERANCE; so P goes in as a bf16 high part plus a bf16 residual,
+// two products that keep 16 bits of each weight. Shared-memory rows are padded
+// to D + 8 elements: at 144, 176, 208 and 272 bytes the 8 row addresses of an
+// ldmatrix fall on distinct banks.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows = kBlockQ
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, int BQ>
 struct MmaTile {
+  static constexpr int kThreads = BQ * 2;  // a warp for every 16 rows
   static constexpr int kRow = D + 8;  // padded row, elements
-  static constexpr int kBytes = kTileK * kRow * 2;  // one 64-row tile
+  static constexpr int kBytes = kTileK * kRow * 2;  // one K or V tile
+  static constexpr int kQBytes = BQ * kRow * 2;     // the Q tile
+  // Q, then K and V double-buffered.
+  static constexpr int kSmem = kQBytes + 4 * kBytes;
 };
-static_assert(kBlockQ == kTileK, "q and k/v tiles share one layout");
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -378,37 +388,42 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Issue the copies of logical rows [k0, k0 + kTileK) of kv head `hk` into
 // the padded tile at `dst`; rows at or past n_rows are zero-filled and
 // their addresses (page-table entries) unread.
-template <int D, typename Rows>
+template <int D, int BQ, typename Rows>
 __device__ __forceinline__ void load_tile_async(const bf16* __restrict__ src,
                                                 Rows rows, int kvh, int hk,
                                                 int k0, int n_rows,
                                                 uint32_t dst) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int v = threadIdx.x; v < kTileK * kChunks; v += kMmaThreads) {
+  for (int v = threadIdx.x; v < kTileK * kChunks;
+       v += MmaTile<D, BQ>::kThreads) {
     const int r = v / kChunks;
     const int c = (v % kChunks) * 8;
     const bool valid = k0 + r < n_rows;
     const bf16* g = valid ? src + (rows(k0 + r) * kvh + hk) * D + c : src;
-    cp_async16(dst + (r * MmaTile<D>::kRow + c) * 2, g, valid);
+    cp_async16(dst + (r * MmaTile<D, BQ>::kRow + c) * 2, g, valid);
   }
 }
 
 // The same contract as prefill_kernel, for bf16.
-template <int D, typename Layout>
-__global__ void __launch_bounds__(kMmaThreads)
+template <int D, int BQ, typename Layout>
+__global__ void __launch_bounds__(MmaTile<D, BQ>::kThreads)
 prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    const bf16* __restrict__ vp, Layout layout,
                    const int* __restrict__ starts, int offset, bool causal,
                    bf16* __restrict__ out, int sq, int h, int kvh,
                    float scale_log2) {
-  using M = MmaTile<D>;
+  using M = MmaTile<D, BQ>;
   constexpr int kRow = M::kRow;
   constexpr int KD = D / 16;  // k-steps of Q.K^T over d
   constexpr int ND = D / 8;   // 8-column blocks of O
   extern __shared__ __align__(16) uint8_t mma_smem[];
   const uint32_t q_s = smem_u32(mma_smem);
-  const auto k_s = [&](int buf) { return q_s + (1 + buf) * M::kBytes; };
-  const auto v_s = [&](int buf) { return q_s + (3 + buf) * M::kBytes; };
+  const auto k_s = [&](int buf) {
+    return q_s + M::kQBytes + buf * M::kBytes;
+  };
+  const auto v_s = [&](int buf) {
+    return q_s + M::kQBytes + (2 + buf) * M::kBytes;
+  };
   // The last query blocks, which see the most keys, start first.
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int head = blockIdx.y;
@@ -418,8 +433,8 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int start = starts != nullptr ? starts[slot] : offset;
-  const int q0 = qb * kBlockQ;
-  const int nq = min(kBlockQ, sq - q0);
+  const int q0 = qb * BQ;
+  const int nq = min(BQ, sq - q0);
   // The loop bound: the last key this block's last query sees.
   const int n_keys = causal ? min(start + q0 + nq, layout.max_rows())
                             : layout.max_rows();
@@ -427,7 +442,7 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const auto rows = layout.rows(slot);
 
   // Q (zeros past sq) and the first K/V tile: one group.
-  for (int v = tid; v < kBlockQ * (D / 8); v += kMmaThreads) {
+  for (int v = tid; v < BQ * (D / 8); v += M::kThreads) {
     const int r = v / (D / 8);
     const int c = (v % (D / 8)) * 8;
     const bool valid = r < nq;
@@ -436,8 +451,8 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     cp_async16(q_s + (r * kRow + c) * 2, g, valid);
   }
   if (n_tiles > 0) {
-    load_tile_async<D>(kp, rows, kvh, hk, 0, n_keys, k_s(0));
-    load_tile_async<D>(vp, rows, kvh, hk, 0, n_keys, v_s(0));
+    load_tile_async<D, BQ>(kp, rows, kvh, hk, 0, n_keys, k_s(0));
+    load_tile_async<D, BQ>(vp, rows, kvh, hk, 0, n_keys, v_s(0));
   }
   cp_async_commit();
 
@@ -458,10 +473,10 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
-      load_tile_async<D>(kp, rows, kvh, hk, (t + 1) * kTileK, n_keys,
-                         k_s(buf ^ 1));
-      load_tile_async<D>(vp, rows, kvh, hk, (t + 1) * kTileK, n_keys,
-                         v_s(buf ^ 1));
+      load_tile_async<D, BQ>(kp, rows, kvh, hk, (t + 1) * kTileK, n_keys,
+                             k_s(buf ^ 1));
+      load_tile_async<D, BQ>(vp, rows, kvh, hk, (t + 1) * kTileK, n_keys,
+                             v_s(buf ^ 1));
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile t (and Q) have landed
@@ -582,10 +597,12 @@ prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 // Decode, flash-decoding's design. The grid is (kv head x query block, slot,
 // split): each CTA attends one run of rows_per_split rows of one slot for
 // up to G query rows of one kv head (the group's rows share each K/V row
-// read). The host sizes n_splits from the cache's reach (max_pages *
-// page_size, or max_len), never from `lengths`; a split at or past the
-// slot's clamped length reads nothing and exits. Inside a split
-// each of the 4 warps walks its own 16-row tiles (warp w takes tiles w,
+// read). rows_per_split is the decode's tile, taken at launch (one of
+// kernels/flash_decode.py's SPLIT_ROWS_SET, rounded to whole pages: any
+// positive value runs). The host sizes n_splits from the cache's reach
+// (max_pages * page_size, or max_len), never from `lengths`; a split at
+// or past the slot's clamped length reads nothing and exits. Inside a
+// split each of the 4 warps walks its own 16-row tiles (warp w takes tiles w,
 // w + 4, ...) through its own ring of kStages shared-memory stages filled
 // by cp.async in K/V's own dtype (16 bytes a copy; rows padded by 16 bytes,
 // so that a quarter-warp's 16-byte reads of 8 rows, and ldmatrix's 8 row
@@ -1143,17 +1160,17 @@ cudaError_t dispatch_decode(const void* q, const void* k, const void* v,
                                 stream);
 }
 
-template <int D, typename Layout>
+template <int D, int BQ, typename Layout>
 cudaError_t launch_prefill_mma(const void* q, const void* kp, const void* vp,
                                Layout layout, const void* starts, int offset,
                                bool causal, void* out, int b, int sq, int h,
                                int kvh, cudaStream_t stream) {
-  constexpr int smem = 5 * MmaTile<D>::kBytes;  // q, k[2], v[2]
-  auto kernel = prefill_mma_kernel<D, Layout>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
+  using M = MmaTile<D, BQ>;
+  auto kernel = prefill_mma_kernel<D, BQ, Layout>;
+  cudaError_t err = repro::allow_smem(kernel, M::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(
+  const dim3 grid((sq + BQ - 1) / BQ, h, b);
+  kernel<<<grid, M::kThreads, M::kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
       static_cast<const bf16*>(vp), layout, static_cast<const int*>(starts),
       offset, causal, static_cast<bf16*>(out), sq, h, kvh,
@@ -1161,22 +1178,35 @@ cudaError_t launch_prefill_mma(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
-template <typename T, int D, typename Layout>
+template <typename T, int D, int BQ, typename Layout>
 cudaError_t launch_prefill(const void* q, const void* kp, const void* vp,
                            Layout layout, const void* starts, int offset,
                            bool causal, void* out, int b, int sq, int h,
                            int kvh, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
-                      ((kBlockQ + 2 * kTileK) * (D + 1) + kBlockQ * (kTileK + 1));
-  auto kernel = prefill_kernel<T, D, Layout>;
+                      ((BQ + 2 * kTileK) * (D + 1) + BQ * (kTileK + 1));
+  auto kernel = prefill_kernel<T, D, BQ, Layout>;
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, h, b);
+  const dim3 grid((sq + BQ - 1) / BQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
       layout, static_cast<const int*>(starts), offset, causal, static_cast<T*>(out),
       sq, h, kvh, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
+}
+
+// Run `launch` at the instantiated query block equal to block_q; an
+// uninstantiated one returns kUnsupported and launches nothing.
+template <typename Launch, int... BQs>
+int by_block_q(std::integer_sequence<int, BQs...>, int block_q,
+               Launch launch) {
+  int err = repro::kUnsupported;
+  (void)((block_q == BQs &&
+          (err = static_cast<int>(launch(std::integral_constant<int, BQs>{})),
+           true)) ||
+         ...);
+  return err;
 }
 
 }  // namespace
@@ -1249,19 +1279,25 @@ extern "C" int contiguous_decode(int dtype, int d, const void* q,
   }                                                                            \
   return repro::kUnsupported
 #define PREFILL(T, D, LAYOUT, STARTS, OFFSET, CAUSAL)                          \
-  return static_cast<int>(launch_prefill<T, D>(                                \
-      q, k, v, LAYOUT, STARTS, OFFSET, CAUSAL, out, b, sq, h, kvh,             \
-      static_cast<cudaStream_t>(stream)))
+  return by_block_q(PrefillBlockQs{}, block_q, [&](auto bq) {                  \
+    return launch_prefill<T, D, decltype(bq)::value>(                          \
+        q, k, v, LAYOUT, STARTS, OFFSET, CAUSAL, out, b, sq, h, kvh,           \
+        static_cast<cudaStream_t>(stream));                                    \
+  })
 #define PREFILL_MMA(D, LAYOUT, STARTS, OFFSET, CAUSAL)                         \
-  return static_cast<int>(launch_prefill_mma<D>(                               \
-      q, k, v, LAYOUT, STARTS, OFFSET, CAUSAL, out, b, sq, h, kvh,             \
-      static_cast<cudaStream_t>(stream)))
+  return by_block_q(PrefillBlockQs{}, block_q, [&](auto bq) {                  \
+    return launch_prefill_mma<D, decltype(bq)::value>(                         \
+        q, k, v, LAYOUT, STARTS, OFFSET, CAUSAL, out, b, sq, h, kvh,           \
+        static_cast<cudaStream_t>(stream));                                    \
+  })
 
+// block_q: the query rows a CTA, one of PrefillBlockQs (else -1, nothing
+// launched).
 extern "C" int paged_prefill(int dtype, int d, const void* q, const void* k,
                              const void* v, const void* table,
                              const void* starts, void* out, int b, int sq,
                              int h, int kvh, int page_size, int max_pages,
-                             void* stream) {
+                             int block_q, void* stream) {
   const PagedLayout layout{static_cast<const int*>(table), page_size, max_pages};
   DISPATCH_PREFILL(layout, starts, 0, true);
 }
@@ -1271,7 +1307,7 @@ extern "C" int paged_prefill(int dtype, int d, const void* q, const void* k,
 extern "C" int flash_attention(int dtype, int d, const void* q, const void* k,
                                const void* v, void* out, int b, int sq,
                                int skv, int h, int kvh, int causal,
-                               void* stream) {
+                               int block_q, void* stream) {
   const ContiguousLayout layout{skv};
   DISPATCH_PREFILL(layout, nullptr, skv - sq, causal != 0);
 }

@@ -9,7 +9,8 @@ One kernel body, two ways to find a slot's K/V rows:
   cache.
 
 Single-token GQA decode, flash-decoding's design: each slot's context is
-cut into splits of ``rows_per_split`` rows, one CTA per (kv head, slot,
+cut into splits of ``rows_per_split`` rows (the decode's tile, one of
+``SPLIT_ROWS_SET`` rounded to whole pages), one CTA per (kv head, slot,
 split), and the last of a slot's splits to finish merges their fp32
 partials in split order; the contiguous decode's merge can also write
 each query row's log-sum-exp (``lse``: the sequence-parallel decode
@@ -29,7 +30,13 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 96, 128)
-SPLIT_ROWS = 256   # rows a split covers, rounded to whole pages
+# The split lengths a launch takes (the decode's counterpart of the
+# reference's key block: the unit of the cache one CTA walks), each rounded
+# to whole pages; any positive length runs, so none is a template of the
+# build. SPLIT_ROWS is the one every decode ran before the chooser
+# (``core.autotune.choose_attn_block``) picked among them.
+SPLIT_ROWS_SET = (128, 256, 512)
+SPLIT_ROWS = 256
 # The split kernel's tile (csrc/paged_attention.cu): a CTA takes a query
 # block of QUERY_BLOCK[dtype] rows of one kv head's group (``G`` of
 # ``dispatch_decode``: 16 rows on the tensor cores, 8 on the CUDA cores;
@@ -37,15 +44,22 @@ SPLIT_ROWS = 256   # rows a split covers, rounded to whole pages
 # (``kWarpRows``). ``core.autotune`` prices these tiles.
 QUERY_BLOCK = {torch.bfloat16: 16, torch.float32: 8}
 WARP_ROWS = 16
+THREADS = 128      # a CTA's 4 warps (``kDecThreads``)
 
 
-def splits(max_rows: int, page_size: int = 1) -> Tuple[int, int]:
+def split_rows(rows: int, page_size: int = 1) -> int:
+    """A split of about ``rows`` rows in whole pages (at least one)."""
+    return max(1, rows // page_size) * page_size
+
+
+def splits(max_rows: int, page_size: int = 1,
+           rows: int = SPLIT_ROWS) -> Tuple[int, int]:
     """(rows_per_split, n_splits) for a cache whose slots reach at most
     ``max_rows`` rows (``max_pages * page_size``, or ``max_len``): runs of
-    about ``SPLIT_ROWS`` rows in whole pages that together cover
-    ``max_rows``. Shapes only: a slot's length decides at run time which
-    splits have rows, never how many there are."""
-    rows = max(1, SPLIT_ROWS // page_size) * page_size
+    about ``rows`` rows in whole pages that together cover ``max_rows``.
+    Shapes only: a slot's length decides at run time which splits have
+    rows, never how many there are."""
+    rows = split_rows(rows, page_size)
     return rows, max(1, -(-max_rows // rows))
 
 
@@ -94,13 +108,15 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: error {err}")
 
 
-def paged_decode(q, k_pages, v_pages, page_table, lengths, out) -> None:
-    """Launch on the current stream; raise if the launch fails."""
+def paged_decode(q, k_pages, v_pages, page_table, lengths, out,
+                 rows: int = SPLIT_ROWS) -> None:
+    """Launch on the current stream, in splits of about ``rows`` rows;
+    raise if the launch fails."""
     lib = _build.load()
     b, h, d = q.shape
     _, page_size, kvh, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    rows, n_splits = splits(max_pages * page_size, page_size)
+    rows, n_splits = splits(max_pages * page_size, page_size, rows)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, counters = _partials(q, n_splits), _counters(q, stream)
     _raise_on(lib.paged_decode(
@@ -110,14 +126,15 @@ def paged_decode(q, k_pages, v_pages, page_table, lengths, out) -> None:
         page_size, max_pages, rows, n_splits, stream), "paged_decode")
 
 
-def contiguous_decode(q, k, v, lengths, out, lse=None) -> None:
-    """Launch on the current stream; raise if the launch fails. ``lse``:
-    None, or an fp32 (b, h) tensor the merge writes each row's
-    log-sum-exp into."""
+def contiguous_decode(q, k, v, lengths, out, lse=None,
+                      rows: int = SPLIT_ROWS) -> None:
+    """Launch on the current stream, in splits of ``rows`` rows; raise if
+    the launch fails. ``lse``: None, or an fp32 (b, h) tensor the merge
+    writes each row's log-sum-exp into."""
     lib = _build.load()
     b, h, d = q.shape
     _, max_len, kvh, _ = k.shape
-    rows, n_splits = splits(max_len)
+    rows, n_splits = splits(max_len, 1, rows)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part, counters = _partials(q, n_splits), _counters(q, stream)
     _raise_on(lib.contiguous_decode(

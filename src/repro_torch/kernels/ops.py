@@ -3,9 +3,12 @@
 Same arguments and layouts as ``repro/kernels/ops.py``'s
 ``flash_attention`` / ``flash_decode_paged`` / ``flash_attention_paged`` /
 ``flash_decode`` / ``ssd_scan`` / ``gemm`` / ``pchase``, and
-``pchase_timed``, the chase timed load by load; block sizes are
-the CUDA kernels' own constants, and ``gemm``'s tile one of those it
-instantiates. A tensor on the CPU goes to the plain version
+``pchase_timed``, the chase timed load by load. The attention wrappers
+take the reference's ``block_q``/``block_k``, and ``gemm`` its ``block``:
+None takes the tile ``core.autotune`` chooses from the shapes alone; a
+given tile snaps to one the kernel instantiates (``prefill_tile``,
+``decode_tile``). ``ssd_scan``'s chunk stays the kernel's constant. A
+tensor on the CPU goes to the plain version
 (``kernels.ref``); a CUDA tensor goes to the kernel, or the wrapper raises.
 There is no fallback from one to the other.
 
@@ -165,19 +168,79 @@ def _check_flash(q, k, v, causal: bool) -> None:
                          f"(65535)")
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def _snap(tile: int, instantiated, what: str) -> int:
+    """The largest instantiated tile not above ``tile``; below the
+    smallest, raise."""
+    fits = [t for t in instantiated if t <= int(tile)]
+    if not fits:
+        raise ValueError(f"{what} {tile} is below the smallest tile the "
+                         f"kernel instantiates: {tuple(instantiated)}")
+    return max(fits)
+
+
+def prefill_tile(q, skv: int, causal: bool, block_q=None, block_k=None,
+                 choose: bool = True):
+    """The tile (``autotune.AttnBlock``) a prefill of q (b, sq, h, d) over
+    ``skv`` keys runs. A given ``block_q`` snaps to the largest of
+    ``flash_attention.BLOCK_QS`` not above it, ``block_k`` to the key tile
+    ``TILE_K`` (the reference snaps to the largest divisor of the length
+    instead: the kernel masks ragged edges, so it needs none); a tile below
+    the smallest raises. None takes ``autotune.choose_attn_block``'s tile
+    for the reference wrappers' problem, from shapes alone; with
+    ``choose`` False (the plain path, whose result no tile changes) a None
+    stays None."""
+    if choose and (block_q is None or block_k is None):
+        b, sq, h, d = q.shape
+        chosen, _ = autotune.choose_attn_block(autotune.AttnProblem(
+            sq=sq, skv=skv, n_heads=h, head_dim=d, batch=b, causal=causal,
+            in_bytes=q.element_size()))
+        block_q = chosen.block_q if block_q is None else block_q
+        block_k = chosen.block_k if block_k is None else block_k
+    return autotune.AttnBlock(
+        None if block_q is None else _snap(block_q, _prefill.BLOCK_QS,
+                                           "block_q"),
+        None if block_k is None else _snap(block_k, (_prefill.TILE_K,),
+                                           "block_k"))
+
+
+def decode_tile(q, kvh: int, max_rows: int, page_size: int = 1,
+                block_k=None, choose: bool = True):
+    """The tile a decode of q (b, h, d) over a cache of ``kvh`` kv heads
+    reaching ``max_rows`` rows runs: the dtype's query block by a split of
+    ``block_k`` rows. A given ``block_k`` snaps to the largest of
+    ``flash_decode.SPLIT_ROWS_SET`` not above it (below the smallest
+    raises), and runs rounded to whole pages (``flash_decode.splits``).
+    None takes ``autotune.choose_attn_block``'s split for the reference
+    wrappers' problem (sq = the group, the kv heads, not causal), from
+    shapes alone; with ``choose`` False a None stays None."""
+    b, h, d = q.shape
+    if choose and block_k is None:
+        chosen, _ = autotune.choose_attn_block(autotune.decode_problem(
+            b, h, kvh, d, max_rows, q.element_size(), page_size))
+        block_k = chosen.block_k
+    return autotune.AttnBlock(
+        _decode.QUERY_BLOCK.get(q.dtype, 0),
+        None if block_k is None else _snap(block_k, _decode.SPLIT_ROWS_SET,
+                                           "block_k"))
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q=None,
+                    block_k=None):
     """Full-sequence GQA attention: q (b, sq, h, d) vs k/v (b, skv, kvh,
     d), fp32 online softmax, the output in q's dtype. Causal: query i
     attends keys ``<= i + skv - sq``. Any sq and skv (the kernel masks the
-    ragged edges). Returns (b, sq, h, d)."""
+    ragged edges). ``block_q``/``block_k``: the tile (``prefill_tile``).
+    Returns (b, sq, h, d)."""
     _check_flash(q, k, v, causal)
+    tile = prefill_tile(q, k.shape[1], causal, block_q, block_k,
+                        choose=q.device.type != "cpu")
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     if out.numel():
         if q.device.type == "cuda":
-            _prefill.flash_attention(q, k, v, causal, out)
+            _prefill.flash_attention(q, k, v, causal, out, tile.block_q)
             LAUNCHES["flash_attention"] += 1
         _record("flash_attention", [q, k, v], [out],
                 lambda: cost.flash_attention(b, sq, k.shape[1], h, k.shape[2],
@@ -185,45 +248,60 @@ def flash_attention(q, k, v, causal: bool = True):
     return out
 
 
-def flash_decode_paged(q, k_pages, v_pages, page_table, lengths):
+def flash_decode_paged(q, k_pages, v_pages, page_table, lengths,
+                       block_k=None):
     """Paged GQA decode: q (b, h, d) vs a (n_pages, page_size, kvh, d)
     pool walked through ``page_table`` (b, max_pages); slot i attends its
-    first ``lengths[i]`` rows (0 gives zeros). Returns (b, h, d)."""
+    first ``lengths[i]`` rows (0 gives zeros). ``block_k``: the rows of a
+    split (``decode_tile``). Returns (b, h, d)."""
     _check(q, k_pages, v_pages, lengths, 3, page_table)
+    page_size = k_pages.shape[1]
+    tile = decode_tile(q, k_pages.shape[2], page_table.shape[1] * page_size,
+                       page_size, block_k, choose=q.device.type != "cpu")
     if q.device.type == "cpu":
         return ref.flash_decode_paged(q, k_pages, v_pages, page_table,
                                       lengths)
     out = torch.empty_like(q)
     if q.shape[0]:
-        _decode.paged_decode(q, k_pages, v_pages, page_table, lengths, out)
+        _decode.paged_decode(q, k_pages, v_pages, page_table, lengths, out,
+                             tile.block_k)
         LAUNCHES["flash_decode_paged"] += 1
     return out
 
 
-def flash_attention_paged(q, k_pages, v_pages, page_table, starts):
+def flash_attention_paged(q, k_pages, v_pages, page_table, starts,
+                          block_q=None, block_k=None):
     """Causal chunk attention against a paged pool: q (b, sq, h, d) at
     global positions ``starts[i] + [0, sq)``; the chunk's own K/V rows
-    must already be written through the table. Returns (b, sq, h, d)."""
+    must already be written through the table. ``block_q``/``block_k``:
+    the tile (``prefill_tile``, over the pool's reach ``max_pages *
+    page_size``, as the reference's problem). Returns (b, sq, h, d)."""
     _check(q, k_pages, v_pages, starts, 4, page_table)
+    tile = prefill_tile(q, page_table.shape[1] * k_pages.shape[1], True,
+                        block_q, block_k, choose=q.device.type != "cpu")
     if q.device.type == "cpu":
         return ref.flash_attention_paged(q, k_pages, v_pages, page_table,
                                          starts)
     out = torch.empty_like(q)
     if q.shape[0] and q.shape[1]:
-        _prefill.paged_prefill(q, k_pages, v_pages, page_table, starts, out)
+        _prefill.paged_prefill(q, k_pages, v_pages, page_table, starts, out,
+                               tile.block_q)
         LAUNCHES["flash_attention_paged"] += 1
     return out
 
 
-def flash_decode(q, k, v, lengths, return_lse: bool = False):
+def flash_decode(q, k, v, lengths, block_k=None, return_lse: bool = False):
     """Contiguous GQA decode: q (b, h, d) vs a ragged (b, max_len, kvh, d)
     cache in q's dtype; slot i attends its first ``min(lengths[i],
-    max_len)`` rows (0 gives zeros). Returns (b, h, d), and with
-    ``return_lse`` also each row's log-sum-exp of its scaled scores,
-    fp32 (b, h), -inf for a zero-length slot. On meta tensors the rows
-    are counted at the cache's full length (the dry run's static
-    shapes)."""
+    max_len)`` rows (0 gives zeros). ``block_k``: the rows of a split
+    (``decode_tile``). Returns (b, h, d), and with ``return_lse`` also
+    each row's log-sum-exp of its scaled scores, fp32 (b, h), -inf for a
+    zero-length slot. On meta tensors the rows are counted at the cache's
+    full length (the dry run's static shapes), with the partials of the
+    splits the chosen tile cuts."""
     _check(q, k, v, lengths, 3, meta=True)
+    tile = decode_tile(q, k.shape[2], k.shape[1], 1, block_k,
+                       choose=q.device.type != "cpu")
     if q.device.type == "cpu":
         return ref.flash_decode(q, k, v, lengths, return_lse=return_lse)
     b, h, d = q.shape
@@ -232,13 +310,15 @@ def flash_decode(q, k, v, lengths, return_lse: bool = False):
         if return_lse else None
     if b:
         if q.device.type == "cuda":
-            _decode.contiguous_decode(q, k, v, lengths, out, lse)
+            _decode.contiguous_decode(q, k, v, lengths, out, lse,
+                                      tile.block_k)
             LAUNCHES["flash_decode"] += 1
+        n_splits = _decode.splits(k.shape[1], 1, tile.block_k)[1]
         _record("flash_decode", [q, k, v, lengths],
                 [out] + ([lse] if return_lse else []),
                 lambda: cost.flash_decode(b, h, k.shape[2], d,
                                           q.element_size(), b * k.shape[1],
-                                          return_lse))
+                                          return_lse, n_splits))
     return (out, lse) if return_lse else out
 
 

@@ -305,7 +305,7 @@ def test_env_switch_forces_defaults(tmp_cache, monkeypatch):
 def _cost(sq, skv, causal=True, heads=8, batch=1, tile=None):
     p = autotune.AttnProblem(sq=sq, skv=skv, n_heads=heads, head_dim=128,
                              batch=batch, causal=causal)
-    return autotune.attn_cost(p, tile or autotune.PREFILL_TILE)
+    return autotune.attn_cost(p, tile or autotune.NAIVE_ATTN_BLOCK)
 
 
 @given(st.integers(min_value=1, max_value=4096))
@@ -321,14 +321,22 @@ def test_attn_cost_monotone_in_query_length(sq):
 
 
 def test_attn_cost_monotone_in_rows():
-    for b, h in ((1, 4), (2, 8), (4, 32)):
-        assert _cost(256, 1024, heads=h, batch=b)[0] < \
-            _cost(256, 1024, heads=2 * h, batch=b)[0]
+    """More rows never cost less; once the launch's CTAs fill the card
+    (a wave is 4 CTAs on each of the 132 SMs here), they cost more. Below
+    that the launch is as long as its longest CTA, whatever the rows."""
+    for b, h in ((1, 4), (2, 8), (4, 32), (8, 32), (16, 32)):
+        small = _cost(256, 1024, heads=h, batch=b)
+        big = _cost(256, 1024, heads=2 * h, batch=b)
+        assert small[0] <= big[0]
+        if b * h * 4 >= 4 * hwmodel.H100.sms:
+            assert small[0] < big[0], (b, h)
 
 
 def test_causal_skips_work_and_traffic():
-    c, terms_c = _cost(1024, 1024, causal=True)
-    f, terms_f = _cost(1024, 1024, causal=False)
+    """At a launch of several waves (8 x 8 heads x 16 query blocks): one
+    wave's time is its longest CTA's, which sees every key either way."""
+    c, terms_c = _cost(1024, 1024, causal=True, batch=8)
+    f, terms_f = _cost(1024, 1024, causal=False, batch=8)
     assert terms_c["visited_blocks"] < terms_f["visited_blocks"]
     assert terms_c["traffic_bytes"] < terms_f["traffic_bytes"]
     assert c < f
@@ -345,17 +353,25 @@ def test_query_tile_padding_prices_the_verify_shape():
 
 
 def test_decode_tiles_and_peaks_follow_the_dtype():
-    assert autotune.decode_tile(2) == autotune.AttnBlock(16, 16)
-    assert autotune.decode_tile(4) == autotune.AttnBlock(8, 16)
+    """A decode's candidates are the dtype's one query block (16 rows on
+    the tensor cores, 8 on the CUDA cores) by each split length; its
+    products run at that engine's peak times the used share of the block
+    and the launch's fill."""
     p = autotune.AttnProblem(sq=4, skv=2048, n_heads=8, head_dim=80,
-                             causal=False, in_bytes=4)
-    _, f32 = autotune.attn_cost(p, autotune.decode_tile(4))
-    assert f32["compute_s"] == pytest.approx(
-        f32["flops"] / (hwmodel.H100.peak_fp32_flops * 4 / 8))
-    _, b16 = autotune.attn_cost(dataclasses.replace(p, in_bytes=2),
-                                autotune.decode_tile(2))
-    assert b16["compute_s"] == pytest.approx(
-        b16["flops"] / (hwmodel.H100.peak_bf16_flops * 4 / 16))
+                             batch=8, causal=False, in_bytes=4,
+                             kernel=autotune.DECODE)
+    for in_bytes, bq, peak in ((4, 8, hwmodel.H100.peak_fp32_flops),
+                               (2, 16, hwmodel.H100.peak_bf16_flops)):
+        q = dataclasses.replace(p, in_bytes=in_bytes)
+        cands = autotune.candidate_attn_blocks(q)
+        assert cands == [autotune.AttnBlock(bq, r)
+                         for r in decode_kernel.SPLIT_ROWS_SET]
+        _, t = autotune.attn_cost(q, cands[0])
+        assert t["tile_rows_used"] == 4 / bq
+        assert t["compute_s"] >= t["flops"] / (peak * 4 / bq * t["fill"])
+        assert t["compute_s"] == pytest.approx(max(
+            t["flops"] / (peak * 4 / bq * t["fill"]),
+            hwmodel.H100.sms * t["cta_issued_flops"] / peak))
 
 
 def test_prefill_reads_kv_once_a_q_head():
@@ -371,7 +387,9 @@ def test_page_lookups_count_pages_a_row_visits():
     assert launch["page_lookups"] == 8 * 8 * 1024 // 16
     assert autotune.decode_launch([1024] * 8, 32, 8, 80)["page_lookups"] == 0
     m = autotune.paged_decode_model(2048, [1024] * 8, 32, 8, 80, 16)
-    assert m["ctas"] == 8 * 8 * 1 * 8                # b x kvh x gb x splits
+    rows, n_splits = decode_kernel.splits(2048, 16, m["tile"][1])
+    assert m["split_rows"] == rows
+    assert m["ctas"] == 8 * 8 * 1 * n_splits         # b x kvh x gb x splits
     assert m["paged_s"] == pytest.approx(
         m["contig_s"] + launch["page_lookups"] * autotune.PAGE_LOOKUP_S)
 
@@ -520,11 +538,20 @@ def _cu() -> str:
 
 
 @pytest.mark.parametrize("name,value", [
-    ("kBlockQ", prefill_kernel.BLOCK_Q), ("kTileK", prefill_kernel.TILE_K),
-    ("kWarpRows", decode_kernel.WARP_ROWS)])
+    ("PrefillBlockQs", prefill_kernel.BLOCK_QS),
+    ("kTileK", prefill_kernel.TILE_K),
+    ("kWarpRows", decode_kernel.WARP_ROWS),
+    ("kDecThreads", decode_kernel.THREADS)])
 def test_tile_constants_match_the_cuda_source(name, value):
-    m = re.search(rf"constexpr int {name} = (\d+);", _cu())
-    assert m and int(m.group(1)) == value, name
+    """The Python copies against the source: a scalar constant, or the
+    set of query blocks the prefill bodies are instantiated at."""
+    if isinstance(value, tuple):
+        m = re.search(rf"using {name} = std::integer_sequence<int, "
+                      rf"([\d, ]+)>;", _cu())
+        assert m and tuple(int(x) for x in m.group(1).split(",")) == value
+    else:
+        m = re.search(rf"constexpr int {name} = (\d+);", _cu())
+        assert m and int(m.group(1)) == value, name
 
 
 def test_decode_query_block_matches_the_cuda_source():

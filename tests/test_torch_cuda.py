@@ -222,6 +222,93 @@ def test_cuda_decodes_across_split_boundaries(cuda_device, paged, dtype, d):
     assert not any(c.any() for c in flash_decode._COUNTERS.values())
 
 
+@pytest.mark.parametrize("block_q", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 96])
+def test_cuda_prefill_tiles_match_plain_versions(cuda_device, block_q, dtype,
+                                                 d):
+    """Each instantiated query block of both prefill bodies against the
+    plain version: the paged prefill at the verify's shape (8 slots x 5
+    rows, ragged starts, a freed slot) and at a 100-row chunk, and the
+    full-sequence attention causal and not (100 queries, 300 keys), each
+    launch counted once."""
+    g = torch.Generator(device=cuda_device).manual_seed(block_q + d)
+    b, h, kvh, ps, n_pages, max_pages = 8, 32, 8, 16, 600, 64
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device,   # noqa
+                                dtype=torch.float32).to(dtype)
+    kp, vp = mk(n_pages, ps, kvh, d), mk(n_pages, ps, kvh, d)
+    table = torch.stack([torch.randperm(n_pages - 1, generator=g,
+                                        device=cuda_device)[:max_pages] + 1
+                         for _ in range(b)]).int()
+    table[5] = 0
+    starts = torch.tensor([0, 15, 16, 300, 1022, 7, 511, 919],
+                          dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    for sq in (5, 100):
+        q = mk(b, sq, h, d)
+        got = ops.flash_attention_paged(q, kp, vp, table, starts,
+                                        block_q=block_q)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, ref.flash_attention_paged(q, kp, vp,
+                                                             table, starts))
+        assert ok, (sq, err)
+    q, k, v = mk(2, 100, h, d), mk(2, 300, kvh, d), mk(2, 300, kvh, d)
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal, block_q=block_q)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, ref.flash_attention(q, k, v,
+                                                       causal=causal))
+        assert ok, (causal, err)
+    assert ops.LAUNCHES["flash_attention_paged"] == 2
+    assert ops.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("block_k", flash_decode.SPLIT_ROWS_SET)
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 96])
+def test_cuda_decode_splits_match_plain_versions(cuda_device, block_k, paged,
+                                                 dtype, d):
+    """Each split length of both decodes against the plain version (GQA
+    32 / 8 and MHA 32 / 32), lengths straddling the splits; a second
+    launch gives the same bits (one split length, one summation order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(block_k + d)
+    ps, max_pages = 16, 64
+    b = len(SPLIT_LENGTHS)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32,
+                           device=cuda_device)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)  # noqa
+    for h, kvh in ((32, 8), (32, 32)):
+        q = mk(b, h, d).to(dtype)
+        if paged:
+            n_pages = 1 + b * max_pages
+            kv = [mk(n_pages, ps, kvh, d).to(dtype) for _ in range(2)]
+            perm = torch.randperm(n_pages - 1, generator=g,
+                                  device=cuda_device) + 1
+            args = (q, *kv, perm.reshape(b, max_pages).int(), lengths)
+            run, plain = ops.flash_decode_paged, ref.flash_decode_paged
+        else:
+            kv = [mk(b, max_pages * ps, kvh, d).to(dtype) for _ in range(2)]
+            args = (q, *kv, lengths)
+            run, plain = ops.flash_decode, ref.flash_decode
+        got = run(*args, block_k=block_k)
+        again = run(*args, block_k=block_k)
+        torch.cuda.synchronize()
+        ok, err = ref.compare(got, plain(*args))
+        assert ok, (h, kvh, err)
+        assert torch.equal(got, again), (h, kvh)
+
+
+def test_cuda_prefill_entries_refuse_an_uninstantiated_block_q(cuda_device):
+    """The C entries launch nothing at a query block the build does not
+    instantiate (the wrappers snap before they get there)."""
+    from repro_torch.kernels import flash_attention as prefill
+    q = torch.zeros(1, 8, 4, 80, device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 2, 80, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="error -1"):
+        prefill.flash_attention(q, kv, kv, True, torch.empty_like(q), 32)
+
+
 # (bt, l) of the SSD scan: one row, one chunk of 128 and either side of
 # it, ragged lengths, the longest prompt; batch 1 as the engine prefills.
 SSD_CASES = [(2, 1), (2, 127), (2, 128), (2, 129), (2, 300), (2, 1536),

@@ -64,6 +64,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import shapes
 from repro_torch.core import hwmodel, op_analysis, roofline
 from repro_torch.kernels import cost, ops
+from repro_torch.kernels import flash_decode as _decode
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -255,10 +256,15 @@ def test_meta_branches_give_the_plain_shapes_and_their_cost():
     def meta(*ts):
         return [torch.empty_like(t, device="meta") for t in ts]
 
+    # The launch records the partials of the splits its chosen tile cuts.
+    tile = ops.decode_tile(q, 2, 40, block_k=None)
+    n_splits = _decode.splits(40, 1, tile.block_k)[1]
+
     calls = [
         ("flash_decode", lambda *t: ops.flash_decode(*t, lens.to(t[0].device),
                                                      return_lse=True),
-         (q, k, k), cost.flash_decode(2, 8, 2, 64, 4, 80, lse=True)),
+         (q, k, k), cost.flash_decode(2, 8, 2, 64, 4, 80, lse=True,
+                                      n_splits=n_splits)),
         ("ssd_scan", ops.ssd_scan, (x, a, bc, bc),
          cost.ssd_scan(1, 20, 4, 64, 16, 4, 128)),
         ("flash_attention", ops.flash_attention, (qf, kf, kf),
