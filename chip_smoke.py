@@ -309,6 +309,25 @@ kernels once a layer; ``attn_probs_fp32`` False bit-equal to True).
     tile; one ``tile {...}`` JSON line a tile. ``python3 chip_smoke.py
     --phase 28`` runs the build and phase 28 alone.
 
+29. the SSD scan at each chunk the kernel instantiates (32, 64 and 128
+    rows; ``ops.ssd_scan(chunk=)``): (a) every chunk, fp32 and bf16, at
+    mamba2-370m's and jamba's head shapes, over phase 3's lengths and
+    those either side of one and two chunks, from a zero and a given
+    state, held to the plain version at the same chunk within
+    ``ref.TOLERANCE``, two launches bit-equal, each launch counted, the
+    hand-off's ints left at zero; (b) each chunk's device time at l 1024
+    at both shapes, fp32 and bf16, beside its bound (``kernels.cost`` at
+    that chunk) and the plain version's time, one ``chunk {...}`` JSON
+    line each; (c) mamba2-370m at full width served by the graphed
+    contiguous engine with ``MambaConfig.chunk`` at 128, 64 and 32 (the
+    scan launched once a layer an admission at each), and its first two
+    layers in fp32: the logits of a 1031-row prompt at chunk 64 within
+    1e-3 of chunk 128's and of the plain version's, greedy streams at 64
+    equal to 128's; (d) a planted fault, the scan run chunk by chunk with
+    the state not carried across a chunk boundary (phase 10's), which
+    the logits must show past 1e-3. ``python3 chip_smoke.py --phase 29`` runs
+    the build and phase 29 alone.
+
 The line before the last holds the kernels' numbers as JSON, and the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -372,6 +391,10 @@ PHI3_H, PHI3_KVH, PHI3_D = 32, 32, 96
 # ragged lengths, the longest prompt; batch 1 as the engine prefills.
 SSD_CASES = ((2, 1), (2, 2), (2, 127), (2, 128), (2, 129), (2, 300),
              (2, 1031), (2, 1536), (1, 129), (1, 1024))
+# Phase 29: the mamba2-370m engine at each chunk serves CHUNK_PROMPTS
+# prompts of 64-512 tokens and one of 1031 (a prime: ragged at every
+# chunk), CHUNK_NEW new tokens each.
+CHUNK_PROMPTS, CHUNK_NEW = 3, 16
 # Lengths whose device time phase 4 logs: a one-chunk prompt, the timed
 # one, and the longest the engine prefills.
 SSD_DEVICE_LENGTHS = (128, 1024, 1536)
@@ -1029,7 +1052,8 @@ def time_ms(fn, n_layers: int, iters: int = 50, spin: bool = False) -> float:
         cycles *= 4
 
 
-def ssd_work(l: int, esize: int, shape=SSD_SHAPES[0]) -> tuple:
+def ssd_work(l: int, esize: int, shape=SSD_SHAPES[0],
+             chunk: int = SSD_CHUNK) -> tuple:
     """(bytes, flops) of a batch-1 SSD scan of l rows at a head shape (h,
     p, n), the main path's by default, from a zero state: x read and y
     written, a_log, B and C read, the fp32 state written. The flops are
@@ -1039,14 +1063,15 @@ def ssd_work(l: int, esize: int, shape=SSD_SHAPES[0]) -> tuple:
     from repro_torch.kernels import cost
 
     h, p, n = shape
-    return cost.ssd_scan(1, l, h, p, n, esize, SSD_CHUNK)
+    return cost.ssd_scan(1, l, h, p, n, esize, chunk)
 
 
-def ssd_grid(bt: int, l: int, shape=SSD_SHAPES[0]) -> str:
+def ssd_grid(bt: int, l: int, shape=SSD_SHAPES[0],
+             chunk: int = SSD_CHUNK) -> str:
     from repro_torch.kernels import ssd_scan as ssd_mod
-    gx, gy, gz = ssd_mod.grid(bt, l, shape[0], shape[1])
+    gx, gy, gz = ssd_mod.grid(bt, l, shape[0], shape[1], chunk)
     return (f"({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs (head x p-block of "
-            f"{ssd_mod.P_BLOCK}, chunk of {ssd_mod.CHUNK}, batch row)")
+            f"{ssd_mod.P_BLOCK}, chunk of {chunk}, batch row)")
 
 
 def decode_grid(decode_mod, lengths, max_rows: int, page_size: int,
@@ -1737,6 +1762,22 @@ def paged_paths(ops, ref) -> dict:
     }
 
 
+def ssd_no_carry(ops):
+    """A planted fault: the SSD scan launched chunk by chunk, the state
+    not carried across a chunk boundary (every chunk after the first
+    starts from zero)."""
+    def scan(x, a_log, b, c, h0=None, chunk=SSD_CHUNK):
+        ys, state = [], None
+        for t0 in range(0, x.shape[1], chunk):
+            part = [t[:, t0:t0 + chunk].contiguous()
+                    for t in (x, a_log, b, c)]
+            y, state = ops.ssd_scan(*part, h0=h0 if t0 == 0 else None,
+                                    chunk=chunk)
+            ys.append(y)
+        return torch.cat(ys, dim=1), state
+    return scan
+
+
 def contiguous_paths(ops, ref) -> dict:
     """Phase 10's paths: the plain versions, and the kernels with planted
     faults: the contiguous decode given ``lengths - 1`` (each slot's
@@ -1747,15 +1788,6 @@ def contiguous_paths(ops, ref) -> dict:
     state (it shows in the decode step, which starts from that state).
     "reorder" is the plain path with the scan's sums in another order
     (chunks of 64): the plain path's own fp32 noise."""
-    def ssd_no_carry(x, a_log, b, c, h0=None):
-        ys, state = [], None
-        for t0 in range(0, x.shape[1], SSD_CHUNK):
-            part = [t[:, t0:t0 + SSD_CHUNK].contiguous()
-                    for t in (x, a_log, b, c)]
-            y, state = ops.ssd_scan(*part, h0=h0 if t0 == 0 else None)
-            ys.append(y)
-        return torch.cat(ys, dim=1), state
-
     def ssd_no_state(*args, **kwargs):
         y, state = ops.ssd_scan(*args, **kwargs)
         return y, torch.zeros_like(state)
@@ -1764,10 +1796,10 @@ def contiguous_paths(ops, ref) -> dict:
         "plain": dict(flash_decode=ref.flash_decode, ssd_scan=ref.ssd_scan),
         "decode fault": dict(flash_decode=lambda q, k, v, n:
                              ops.flash_decode(q, k, v, n - 1)),
-        "ssd fault": dict(ssd_scan=ssd_no_carry),
+        "ssd fault": dict(ssd_scan=ssd_no_carry(ops)),
         "ssd state fault": dict(ssd_scan=ssd_no_state),
-        "reorder": dict(ssd_scan=lambda *a, **k: ref.ssd_scan(*a, chunk=64,
-                                                               **k)),
+        "reorder": dict(ssd_scan=lambda *a, chunk=None, **k:
+                        ref.ssd_scan(*a, chunk=64, **k)),
     }
 
 
@@ -2971,7 +3003,7 @@ def init_model(name, configs, T, dev, n_layers=None):
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     torch.cuda.synchronize()
-    log(f"  {cfg.name}: {T.param_count(params) / 1e9:.3f} B parameters, "
+    log(f"  {cfg.name}: {T.tree_param_count(params) / 1e9:.3f} B parameters, "
         f"{cfg.n_layers} layers ({'/'.join(cfg.pattern)}), d_model "
         f"{cfg.d_model}, bf16, initialised in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3202,8 +3234,8 @@ def run_training(dev, ops, configs, T, steps) -> dict:
                  + fresh["metrics"])
     step_s = dts[len(dts) // 2]
     tokens = 4 * 512
-    out = {"params_B": round(T.param_count(fresh["state"]["params"]) / 1e9,
-                             4),
+    n_params = T.tree_param_count(fresh["state"]["params"])
+    out = {"params_B": round(n_params / 1e9, 4),
            "losses": losses, "step_ms": step_s * 1e3,
            "tokens_per_s": tokens / step_s, "peak_GiB": peak,
            "first_30_steps_s": wall,
@@ -3500,7 +3532,7 @@ def run_encdec_training(ops, configs, T) -> dict:
     step_s = sorted(m["dt"] for m in run["metrics"])[len(losses) // 2]
     out = dict(step_ms=1e3 * step_s, tokens_per_s=2 * 448 / step_s,
                peak_gib=peak, losses=losses, wall_s=wall,
-               params_B=T.param_count(run["state"]["params"]) / 1e9)
+               params_B=T.tree_param_count(run["state"]["params"]) / 1e9)
     log(f"  whisper-medium training ({out['params_B']:.4f} B parameters, "
         f"fp32 masters, bf16 compute), batch 2 x 448 with the frontend "
         f"stub: losses {[round(x, 4) for x in losses]}; step "
@@ -3955,7 +3987,7 @@ def run_train_families(dev, ops, configs, T, steps) -> dict:
                 verdict = (f"(logged only: the CPU at 1 thread against "
                            f"{threads} {worst(c1, cg):.3e})")
                 del c1
-            log(f"  {cfg.name} ({T.param_count(params) / 1e9:.4f} B "
+            log(f"  {cfg.name} ({T.tree_param_count(params) / 1e9:.4f} B "
                 f"parameters, {compute} compute, fp32 masters), batch {b} x "
                 f"{s}: loss card {gl:.6f} CPU {cl:.6f}, aux card {ga:.6f} "
                 f"CPU {ca:.6f}; gradients, worst leaf's |diff| / its max "
@@ -4001,7 +4033,8 @@ def run_train_families(dev, ops, configs, T, steps) -> dict:
         losses=losses, step_ms=1e3 * step_s, state_gb=state_gb,
         tokens_per_s=MAMBA_BATCH * MAMBA_SEQ / step_s,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"  mamba2-370m whole ({T.param_count(state['params']) / 1e9:.4f} B "
+    n_params = T.tree_param_count(state["params"])
+    log(f"  mamba2-370m whole ({n_params / 1e9:.4f} B "
         f"parameters; fp32 masters and both AdamW moments {state_gb:.2f} GB;"
         f" bf16 compute, the plain chunked scan in fp32), batch "
         f"{MAMBA_BATCH} x {MAMBA_SEQ}: losses {[round(x, 4) for x in losses]}"
@@ -4016,7 +4049,7 @@ def run_train_families(dev, ops, configs, T, steps) -> dict:
     del state
     torch.cuda.empty_cache()
     dbrx = configs.get_config("dbrx-132b")
-    one = T.param_count_of(dataclasses.replace(dbrx, n_layers=1))
+    one = T.param_count(dataclasses.replace(dbrx, n_layers=1))
     experts = dbrx.n_experts * 3 * dbrx.d_model * dbrx.d_ff
     log(f"  full-width MoE training does not fit one 80 GB card: dbrx-132b "
         f"cut to one layer holds {one / 1e9:.2f} B parameters "
@@ -6168,6 +6201,246 @@ def run_tiles(dev, ops, ref) -> dict:
     return {"tiles": len(rows), "picks": picks, "s": s}
 
 
+def ssd_chunk_cases(chunk: int) -> tuple:
+    """Phase 29's (bt, l) at one chunk: phase 3's, and lengths either side
+    of one and two chunks."""
+    extra = ((2, chunk - 1), (2, chunk), (2, chunk + 1), (2, 2 * chunk + 1))
+    return tuple(dict.fromkeys(SSD_CASES + extra))
+
+
+@contextlib.contextmanager
+def mamba_chunk(chunk: int):
+    """Every Mamba layer scans at ``MambaConfig.chunk`` = ``chunk`` (the
+    registry's configurations leave it at the reference's 128)."""
+    from repro_torch.configs import ModelConfig
+
+    real = ModelConfig.mamba_cfg
+    ModelConfig.mamba_cfg = \
+        lambda self: dataclasses.replace(real(self), chunk=chunk)
+    try:
+        yield
+    finally:
+        ModelConfig.mamba_cfg = real
+
+
+def check_chunks(dev, ops, ref, decode_mod) -> list:
+    """Phase 29 (a): each chunk against the plain version at that chunk;
+    returns failures."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    failures = []
+    for chunk in ssd_mod.CHUNKS:
+        cases = ssd_chunk_cases(chunk)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in SSD_SHAPES:
+                worst, n, same_all = 0.0, 0, True
+                for bt, l in cases:
+                    for h0 in (False, True):
+                        x, a, b, c, h = ssd_inputs(gen, dev, dtype, bt, l,
+                                                   h0, shape)
+                        ops.reset_launches()
+                        y, st = ops.ssd_scan(x, a, b, c, h0=h, chunk=chunk)
+                        y2, st2 = ops.ssd_scan(x, a, b, c, h0=h, chunk=chunk)
+                        torch.cuda.synchronize()
+                        launches = ops.LAUNCHES["ssd_scan"]
+                        wy, ws = ref.ssd_scan(x, a, b, c, h0=h, chunk=chunk)
+                        (ok_y, err_y), (ok_s, err_s) = (
+                            ref.compare(y, wy, normwise=True),
+                            ref.compare(st, ws, normwise=True))
+                        same = torch.equal(y, y2) and torch.equal(st, st2)
+                        worst, n = max(worst, err_y, err_s), n + 1
+                        same_all = same_all and same
+                        if not (ok_y and ok_s and same and launches == 2):
+                            failures.append(("ssd_scan", chunk, dtype, shape,
+                                             bt, l, h0, err_y, err_s, same,
+                                             launches))
+                log(f"  ssd_scan chunk {chunk:3d} {str(dtype):14s} (h, p, n) "
+                    f"{shape}: {n} cases (l in {sorted({l for _, l in cases})}"
+                    f", zero and given state), worst max_abs_err {worst:.3e} "
+                    f"(tolerance scaled by |y|, |state|), second launch "
+                    f"{'bit-identical' if same_all else 'DIFFERS'}")
+    left = [c for c in decode_mod._COUNTERS.values() if c.any()]
+    log(f"  the hand-off's tickets and counts after these launches: "
+        f"{'all zero' if not left else 'NOT ZERO'}; "
+        f"{len(failures)} failures")
+    if left:
+        failures.append(("ssd_scan tickets or counts left non-zero", left))
+    return failures
+
+
+def time_chunks(dev, ops, ref) -> list:
+    """Phase 29 (b): each chunk's device time at l SSD_L, both head shapes,
+    bf16 and fp32, beside its bound, the host-paced time and the plain
+    version's; one ``chunk {...}`` JSON line each."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+
+    gen = torch.Generator(device=dev).manual_seed(290)
+    rows = []
+    for shape in SSD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            es = torch.tensor([], dtype=dtype).element_size()
+            sets = [ssd_inputs(gen, dev, dtype, 1, SSD_L, shape=shape)[:4]
+                    for _ in range(12)]
+            for chunk in ssd_mod.CHUNKS:
+                y, st = ops.ssd_scan(*sets[0], chunk=chunk)
+                wy, ws = ref.ssd_scan(*sets[0], chunk=chunk)
+                (ok_y, err_y), (ok_s, err_s) = (
+                    ref.compare(y, wy, normwise=True),
+                    ref.compare(st, ws, normwise=True))
+                run = lambda i, c=chunk: ops.ssd_scan(*sets[i], chunk=c)  # noqa: E731
+                nbytes, n_ops = ssd_work(SSD_L, es, shape, chunk)
+                b_ms, b_by = bound(nbytes, n_ops, dtype)
+                device_ms = time_ms(run, len(sets), spin=True)
+                rows.append(dict(
+                    shape=f"bt=1 l={SSD_L} (h, p, n)={shape}",
+                    dtype="bf16" if dtype == torch.bfloat16 else "fp32",
+                    chunk=chunk, device_ms=device_ms,
+                    ms=time_ms(run, len(sets)),
+                    plain_ms=time_ms(lambda i, c=chunk: ref.ssd_scan(
+                        *sets[i], chunk=c), len(sets), iters=10),
+                    bound_ms=b_ms, bound_by=b_by,
+                    bound_share=b_ms / device_ms,
+                    max_abs_err=max(err_y, err_s), ok=ok_y and ok_s,
+                    grid=ssd_grid(1, SSD_L, shape, chunk)))
+                log(f"  chunk {json.dumps(rows[-1])}")
+            del sets
+    return rows
+
+
+def serve_chunks(dev, ops, ref, configs, T) -> dict:
+    """Phase 29 (c) and (d): mamba2-370m at full width served at each
+    chunk; its first layers in fp32 at chunk 64 against 128, the plain
+    version and the planted fault."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.serve.engine import ServeConfig
+
+    cfg, params = init_model("mamba2-370m", configs, T, dev)
+    prompts = make_requests(cfg.vocab, CHUNK_PROMPTS, lo=64, hi=512) + \
+        make_requests(cfg.vocab, 1, lo=1031, hi=1031)
+    log(f"  prompt lengths {[len(p) for p in prompts]}, {CHUNK_NEW} new "
+        f"each, graphed")
+    ccfg = ServeConfig(max_len=MAX_LEN, batch=B, eos_id=-1)
+    failed, out = [], {"launches": {}, "tok_s": {}}
+    streams = {}
+    # In turns, the default first and last: host-paced tok/s drifts
+    # within a call.
+    order = [SSD_CHUNK] + [c for c in sorted(ssd_mod.CHUNKS, reverse=True)
+                           if c != SSD_CHUNK] + [SSD_CHUNK]
+    for chunk in order:
+        with mamba_chunk(chunk):
+            eng, finished, wall, launches = serve(params, cfg, ccfg, prompts,
+                                                  CHUNK_NEW, dev, ops)
+        check_served(eng, finished, prompts, CHUNK_NEW, cfg.vocab)
+        admissions = sum(eng.prefill_buckets.values())
+        want = cfg.n_layers * admissions
+        streams.setdefault(chunk, finished)
+        same = sum(int(a == b) for r in finished
+                   for a, b in zip(finished[r], streams[SSD_CHUNK][r]))
+        out["launches"][chunk] = launches["ssd_scan"]
+        tok_s = len(prompts) * CHUNK_NEW / wall
+        out["tok_s"].setdefault(chunk, []).append(tok_s)
+        log(f"  chunk {chunk}: {tok_s:.1f} tok/s ({wall:.2f} s, "
+            f"{eng.ticks} ticks); ssd_scan launches {launches['ssd_scan']} "
+            f"(want {cfg.n_layers} layers x {admissions} admissions); bf16 "
+            f"greedy streams {same}/{len(prompts) * CHUNK_NEW} tokens equal "
+            f"to chunk {SSD_CHUNK}'s first run (logged: the random 48-layer "
+            f"stack is chaotic)")
+        if launches["ssd_scan"] != want:
+            failed.append(f"chunk {chunk}: ssd_scan launched "
+                          f"{launches['ssd_scan']} times, want {want}")
+        del eng
+    torch.cuda.empty_cache()
+
+    cut = dict(params, blocks=params["blocks"][:MAMBA_CHECK_LAYERS])
+    f32cfg = dataclasses.replace(cfg, n_layers=MAMBA_CHECK_LAYERS,
+                                 compute_dtype="float32")
+    prompt = prompts[-1]
+    logits = {}
+    for chunk in (128, 64):
+        with mamba_chunk(chunk):
+            logits[chunk] = contiguous_logits(cut, f32cfg, T, dev, prompt)
+    with mamba_chunk(64), kernel_ops(ops, ssd_scan=ref.ssd_scan):
+        plain = contiguous_logits(cut, f32cfg, T, dev, prompt)
+    with mamba_chunk(64), kernel_ops(ops, ssd_scan=ssd_no_carry(ops)):
+        fault = contiguous_logits(cut, f32cfg, T, dev, prompt)
+    for part, what in ((0, f"{len(prompt) - 1}-row prefill"),
+                       (1, "decode step")):
+        d128 = max_diff(logits[64][part], logits[128][part])
+        dplain = max_diff(logits[64][part], plain[part])
+        dfault = max_diff(fault[part], logits[64][part])
+        log(f"  mamba2-370m first {MAMBA_CHECK_LAYERS} layers fp32 {what}: "
+            f"max |logit diff| chunk 64 against 128 {d128:.3e}, against the "
+            f"plain version at 64 {dplain:.3e} (limit {FP32_LOGIT_TOL:g}); "
+            f"the state not carried {dfault:.3e}")
+        out[f"fp32 {what}"] = dict(against_128=d128, against_plain=dplain,
+                                   fault=dfault)
+        if max(d128, dplain) > FP32_LOGIT_TOL:
+            failed.append(f"{what}: chunk 64 {d128:.3e} from 128, "
+                          f"{dplain:.3e} from plain")
+    if out[f"fp32 {len(prompt) - 1}-row prefill"]["fault"] <= FP32_LOGIT_TOL:
+        failed.append("the state not carried did not show in the prefill's "
+                      "logits")
+    fstreams = {}
+    for chunk in (128, 64):
+        with mamba_chunk(chunk):
+            eng, fstreams[chunk], _, _ = serve(cut, f32cfg, ccfg, prompts,
+                                               CHUNK_NEW, dev, ops)
+        check_served(eng, fstreams[chunk], prompts, CHUNK_NEW, cfg.vocab)
+        del eng
+    diff = first_difference(fstreams[64], fstreams[128])
+    log(f"  fp32 first {MAMBA_CHECK_LAYERS} layers, greedy streams at chunk "
+        f"64 against 128: {'equal' if diff is None else f'DIFFER at {diff}'}")
+    if diff is not None:
+        failed.append(f"fp32 greedy streams at chunk 64 differ from 128's "
+                      f"at {diff}")
+    del params, cut
+    torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError("phase 29: " + "; ".join(failed))
+    return out
+
+
+def run_chunks(dev, ops, ref, configs, T, decode_mod) -> dict:
+    """Phase 29: the SSD scan at each chunk (``ops.ssd_scan(chunk=)``),
+    (a) held to its plain version, (b) timed, (c) served through the
+    mamba2-370m engine and (d) a dropped hand-off caught. Returns the
+    ``kernels`` line's entries for the chunks other than the default
+    (phase 9 runs 128), and a summary."""
+    t0 = time.perf_counter()
+    failures = check_chunks(dev, ops, ref, decode_mod)
+    gen = torch.Generator(device=dev).manual_seed(291)
+    x, a, b, c, _ = ssd_inputs(gen, dev, torch.float32, 1, 1031)
+    fy, _ = ssd_no_carry(ops)(x, a, b, c, chunk=64)
+    wy, _ = ref.ssd_scan(x, a, b, c, chunk=64)
+    ok, err = ref.compare(fy, wy, normwise=True)
+    log(f"  (d) the state not carried across chunks of 64, l 1031, fp32: "
+        f"max_abs_err {err:.3e} against the plain version (must exceed "
+        f"the tolerance)")
+    if ok:
+        failures.append(("the state not carried passed", err))
+    if failures:
+        raise RuntimeError(f"phase 29: a chunk disagrees with its plain "
+                           f"version: {failures}")
+    rows = time_chunks(dev, ops, ref)
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError("phase 29: a timed chunk disagrees with its plain "
+                           "version")
+    torch.cuda.empty_cache()
+    served = serve_chunks(dev, ops, ref, configs, T)
+    kernels = {}
+    for r in rows:
+        if (r["shape"].endswith(str(SSD_SHAPES[0])) and r["dtype"] == "bf16"
+                and r["chunk"] != SSD_CHUNK):
+            kernels[f"ssd_scan chunk={r['chunk']}"] = dict(
+                r, library_ms=None, launches=served["launches"][r["chunk"]])
+    s = time.perf_counter() - t0
+    log(f"  phase 29 took {s:.1f} s")
+    return {"kernels": kernels, "served": served, "s": s,
+            "device_ms": {f"{r['shape']} {r['dtype']} chunk {r['chunk']}":
+                          r["device_ms"] for r in rows}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6206,6 +6479,12 @@ def main() -> None:
     if failed:
         raise RuntimeError(f"the GEMM tile chooser's registers differ from "
                            f"this build's: {failed}")
+
+    if sys.argv[1:] == ["--phase", "29"]:
+        # Phase 29 alone, after the build.
+        summary = run_chunks(dev, ops, ref, configs, T, decode_mod)
+        log(f"  phase 29 alone: {summary}")
+        return
 
     if sys.argv[1:] == ["--phase", "28"]:
         # Phase 28 alone, after the build.
@@ -6569,8 +6848,17 @@ def main() -> None:
         "picks ==")
     tiles = run_tiles(dev, ops, ref)
 
+    log("== the SSD scan at each chunk it instantiates: held to the plain "
+        "version, timed, and mamba2-370m served at each ==")
+    chunks = run_chunks(dev, ops, ref, configs, T, decode_mod)
+    line = dict(KERNELS)
+    for name, r in chunks["kernels"].items():
+        line[name] = KERNELS["ssd_scan"]
+        timing[name] = r
+        main_launches[name] = r["launches"]
+
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in line.items():
         r = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -6585,7 +6873,8 @@ def main() -> None:
         f"{ {k: v for k, v in encdec.items() if k != 'kernels'} }; "
         f"tensor-parallel {tp}; training over ranks {train_dist}; the "
         f"model axis {model_axis}; the dry run's accounting {dry}; the "
-        f"knobs {knobs}; the tiles {tiles}; total "
+        f"knobs {knobs}; the tiles {tiles}; the chunks "
+        f"{ {k: v for k, v in chunks.items() if k != 'kernels'} }; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

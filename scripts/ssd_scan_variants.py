@@ -11,10 +11,11 @@ design choice of its bf16 body undone: an edited copy of
 device time of a batch-1 scan at the main path's head shape (h 32, p 64,
 n 128) at l 128, 1024 and 1536: 50 launches over 12 input sets queued
 behind a spin of the card (``chip_smoke.time_ms(..., spin=True)``), the
-best of 3 repeats. The kernel as it is runs first and last. Variants that
-compute a wrong result are marked "time only"; the others are checked
-against the plain version at each length first. The last line is a JSON
-object of the times. Needs a CUDA card and ``nvcc``.
+best of 3 repeats, at the default chunk (``chip_smoke.py`` phase 29 times
+every chunk the kernel instantiates). The kernel as it is runs first and
+last. Variants that compute a wrong result are marked "time only"; the
+others are checked against the plain version at each length first. The
+last line is a JSON object of the times. Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,32 +33,32 @@ PY = "src/repro_torch/kernels/ssd_scan.py"
 LENGTHS = (128, 1024, 1536)
 
 SCORE_LOOP = """#pragma unroll
-  for (int jp = 0; jp < 8; ++jp) {
-    if (jp > rb) break;
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t ca[4], b[4];
-      ldsm_x4(c_row + kk * 32, ca);
-      ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
-                     kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
-      mma_bf16(s[2 * jp], ca, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
-    }
-  }"""
-SCORE_LOOP_K_OUTER = """#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t ca[4];
-    ldsm_x4(c_row + kk * 32, ca);
-#pragma unroll
-    for (int jp = 0; jp < 8; ++jp) {
+    for (int jp = 0; jp < kRB; ++jp) {
       if (jp > rb) break;
-      uint32_t b[4];
-      ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
-                     kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
-      mma_bf16(s[2 * jp], ca, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
-    }
-  }"""
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t ca[4], b[4];
+        ldsm_x4(c_row + kk * 32, ca);
+        ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
+                       kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
+        mma_bf16(s[2 * jp], ca, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
+      }
+    }"""
+SCORE_LOOP_K_OUTER = """#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t ca[4];
+      ldsm_x4(c_row + kk * 32, ca);
+#pragma unroll
+      for (int jp = 0; jp < kRB; ++jp) {
+        if (jp > rb) break;
+        uint32_t b[4];
+        ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
+                       kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
+        mma_bf16(s[2 * jp], ca, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
+      }
+    }"""
 
 # name: (checked against the plain version, [(file, old, new), ...])
 VARIANTS = {
@@ -65,9 +66,6 @@ VARIANTS = {
     "p-blocks of 16": (True, [
         (CU, "constexpr int kPBlock = 32;", "constexpr int kPBlock = 16;"),
         (PY, "P_BLOCK = 32 ", "P_BLOCK = 16 ")]),
-    "chunks of 64": (True, [
-        (CU, "constexpr int kChunk = 128;", "constexpr int kChunk = 64;"),
-        (PY, "CHUNK = 128", "CHUNK = 64")]),
     "accurate expf for the decay": (True, [
         (CU, "fast_exp2((ci - cum_s[j]) * kLog2e)", "expf(ci - cum_s[j])")]),
     "branch inside the k loop": (True, [(CU, SCORE_LOOP, SCORE_LOOP_K_OUTER)]),

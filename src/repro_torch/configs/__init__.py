@@ -4,8 +4,10 @@ hybrids of the two, an encoder-decoder (whisper-medium) and a decoder
 with gated cross-attention layers (llama-3.2-vision-90b).
 
 ``get_config(name)`` returns the full configuration, ``get_smoke(name)``
-the reduced same-family one used by the CPU tests. Field values are the
-reference's own (``repro/configs/<arch>.py``), head_dim included.
+the reduced same-family one used by the CPU tests; ``name`` is a module
+name of ``ARCHS`` (what ``list_archs`` returns, as the reference's does)
+or its CLI id in ``ALIASES``. Field values are the reference's own
+(``repro/configs/<arch>.py``), head_dim included.
 """
 
 from __future__ import annotations
@@ -16,6 +18,21 @@ from typing import Optional, Tuple
 
 import torch
 
+# The registry's modules, in the reference's order.
+ARCHS = [
+    "whisper_medium",
+    "qwen3_4b",
+    "qwen2_0_5b",
+    "granite_3_8b",
+    "phi3_mini_3_8b",
+    "dbrx_132b",
+    "llama4_maverick_400b",
+    "jamba_v0_1_52b",
+    "llama_3_2_vision_90b",
+    "mamba2_370m",
+]
+
+# CLI ids (--arch) use dashes.
 ALIASES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
@@ -182,13 +199,15 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 def list_archs():
-    return list(ALIASES)
+    """The registry's module names (``ARCHS``), as the reference's
+    ``list_archs``; ``canonical_id`` maps each to its CLI id."""
+    return list(ARCHS)
 
 
 def canonical_id(name: str) -> str:
-    """The registry's name (``list_archs``) of ``name``, which may be
-    that name, its module's or an alias of either; anything else comes
-    back as it is."""
+    """The CLI id (a key of ``ALIASES``) of ``name``, which may be that
+    id, its module's name (``list_archs``) or an alias of either;
+    anything else comes back as it is."""
     for cli, mod in ALIASES.items():
         if mod == ALIASES.get(name, name).replace("-", "_").replace(".", "_"):
             return cli

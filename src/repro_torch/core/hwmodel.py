@@ -32,6 +32,7 @@ from typing import Optional
 
 KiB = 1024
 MiB = 1024 * KiB
+GiB = 1024 * MiB
 
 VOLTA_INSTR_LATENCY = {
     # Table 4.1, Volta rows.

@@ -37,7 +37,8 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
-    "ssd_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ssd_scan": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _P],
     "blocked_gemm": [_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "pchase": [_P, _P, _I, _P],
     "pchase_timed": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P],

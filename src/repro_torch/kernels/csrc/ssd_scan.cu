@@ -4,7 +4,7 @@
 // x (bt, l, h, p) dt-scaled, a_log (bt, l, h) fp32 log decays (<= 0),
 // b and c (bt, l, n) shared by every head of a batch row (one group),
 // optional h0 (bt, h, p, n) fp32. Outputs y (bt, l, h, p) in x's dtype and
-// the final state (bt, h, p, n) fp32. Per chunk of kChunk rows, with
+// the final state (bt, h, p, n) fp32. Per chunk of CHUNK rows, with
 // a_cum the chunk's inclusive cumulative sum of a_log:
 //
 //   y[i]   = sum_{j <= i} (C[i] . B[j]) exp(a_cum[i] - a_cum[j]) x[j]
@@ -16,13 +16,21 @@
 // VMEM scratch across a sequential grid axis over chunks. On Hopper blocks
 // run in parallel and in no order, so the carry is made explicit.
 //
+// The chunk is a template argument, as the reference's Pallas grid takes
+// it from ops.ssd_scan(chunk=): CHUNK in {32, 64, 128} (launch_chunk).
+// 32 is the least that the cumulative sum (whole rows a lane) and the fp32
+// body's 32-row score blocks allow; 256 would need 232,832 B of shared
+// memory in the fp32 body at d_state 128, past the 232,448 B a block may
+// opt into. A smaller chunk makes more CTAs of less work each and a
+// longer hand-off chain (l / CHUNK chunks in a row).
+//
 // The grid is (head x p-block, chunk, batch row). Rows of p are
 // independent: y[:, p-block] and the state's p-block rows need only
 // x[:, p-block]. So each CTA owns kPBlock rows of p of one head over one
-// chunk (bt 1, l 1024, h 32: 512 CTAs, where one CTA per head looping over
-// the chunks gave 32). Chunks are independent except for the state, which
-// goes from chunk to chunk through a look-back hand-off in the same
-// launch:
+// chunk (bt 1, l 1024, h 32, chunk 128: 512 CTAs, where one CTA per head
+// looping over the chunks gave 32). Chunks are independent except for the
+// state, which goes from chunk to chunk through a look-back hand-off in the
+// same launch:
 //   1. a CTA takes its chunk from an int ticket per (batch row, head,
 //      p-block), so chunk c belongs to a CTA that started after the one
 //      that holds chunk c - 1, whatever order the hardware schedules
@@ -47,9 +55,11 @@
 // by exp(a_cum[-1] - a_cum), the fp32 state), which goes in as a bf16 high
 // part plus a bf16 residual (16 bits, as the attention bodies' P.V): one
 // bf16 rounding of a decay-weighted operand (about 2e-3 relative) would
-// move the fp32 state past ref.TOLERANCE. Each of the 8 warps owns 16 rows
-// of the chunk for the scores and y, and a 16 x 32 block of S at d_state
-// 128 (at 16, two warps own 16 x 16 each). C.B^T is
+// move the fp32 state past ref.TOLERANCE. The warps take the chunk's
+// 16-row blocks in turn for the scores and y (at chunk 128 each of the 8
+// warps owns one; at 64 and 32 only 4 and 2 warps have rows), and each owns
+// a 16 x 32 block of S at d_state 128 (at 16, two warps own 16 x 16 each),
+// summed over the chunk's rows 16 at a time. C.B^T is
 // recomputed by each p-block of each head (64 CTAs a chunk at h 32):
 // sharing it would take a second hand-off through device memory. The
 // scores' decays exp(a_cum[i] - a_cum[j]) go through the special-function
@@ -60,7 +70,7 @@
 // accurate expf on the same grid and hand-off: register blocks of fp32
 // FMAs fed from shared memory.
 //
-// Ragged length: the chunk stays kChunk rows and the last chunk is masked
+// Ragged length: the chunk stays CHUNK rows and the last chunk is masked
 // (rows past l load as x = 0, B = C = 0, a = 0: they neither decay nor feed
 // the state, and are not stored). The reference wrapper instead shrinks
 // the chunk to a divisor of l, down to 1 at a prime length.
@@ -72,7 +82,8 @@
 // CTA is a short serial program (stage 72 KB; S; the hand-off; the
 // triangular C.B^T, 16 rows a warp, so the last warp does 8 times the
 // first's), two CTAs an SM, and the hand-off adds one round trip through
-// L2 per chunk and (batch row, head, p-block), 8 in a row at l 1024.
+// L2 per chunk and (batch row, head, p-block), 8 in a row at l 1024 (32
+// at chunk 32).
 // A CTA does all of its chunk's work that needs no carried state before
 // it waits.
 
@@ -94,7 +105,6 @@ using repro::split_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // 8 warps
-constexpr int kChunk = 128;     // rows a CTA scans
 constexpr int kPBlock = 32;     // rows of p (of one head) a CTA owns
 constexpr int kRowBlock = 32;   // fp32 body: query rows per score block
 constexpr float kLog2e = 1.4426950408889634f;
@@ -173,13 +183,15 @@ __device__ void publish(int* done, int chunk) {
 }
 
 // Inclusive cumulative sum of the chunk's log decays (a[r * stride] for
-// r < nv, 0 past it) into cum[0, kChunk), by warp 0: kChunk / 32 rows a
+// r < nv, 0 past it) into cum[0, CHUNK), by warp 0: CHUNK / 32 rows a
 // lane, then a scan of the lanes' totals. The caller syncs before reading
 // cum.
+template <int CHUNK>
 __device__ void chunk_cumsum(const float* __restrict__ a, int64_t stride,
                              int nv, float* __restrict__ cum) {
-  constexpr int kPer = kChunk / 32;
-  static_assert(kPer * 32 == kChunk, "the chunk is whole rows a lane");
+  constexpr int kPer = CHUNK / 32;
+  static_assert(kPer >= 1 && kPer * 32 == CHUNK,
+                "the chunk is whole rows a lane");
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
   float v[kPer];
@@ -206,28 +218,29 @@ __device__ void chunk_cumsum(const float* __restrict__ a, int64_t stride,
 // the 8 row addresses of an ldmatrix fall on distinct banks.
 // ---------------------------------------------------------------------------
 
-template <int N>
+template <int N, int CHUNK>
 struct MmaSmem {
   static constexpr int kRowN = N + 8;          // C, B and state rows
   static constexpr int kRowX = kPBlock + 8;    // x rows
-  static constexpr int kCBytes = kChunk * kRowN * 2;
-  static constexpr int kXBytes = kChunk * kRowX * 2;
+  static constexpr int kCBytes = CHUNK * kRowN * 2;
+  static constexpr int kXBytes = CHUNK * kRowX * 2;
   static constexpr int kHBytes = kPBlock * kRowN * 2;
   static constexpr int kBytes =
-      2 * kCBytes + kXBytes + 2 * kHBytes + 2 * kChunk * 4;
+      2 * kCBytes + kXBytes + 2 * kHBytes + 2 * CHUNK * 4;
 };
 
-template <int P, int N>
+template <int P, int N, int CHUNK>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_mma_kernel(const bf16* __restrict__ x,
                     const float* __restrict__ a_log,
                     const bf16* __restrict__ bm, const bf16* __restrict__ cm,
                     const float* __restrict__ h0, bf16* __restrict__ y,
                     float* hout, int* __restrict__ sync, int l, int h) {
-  using S = MmaSmem<N>;
+  using S = MmaSmem<N, CHUNK>;
   constexpr int kRowN = S::kRowN;
   constexpr int kRowX = S::kRowX;
   constexpr int NB = kPBlock / 8;   // 8-column blocks of a y row block
+  constexpr int kRB = CHUNK / 16;   // 16-row blocks of the chunk
   // The warps that own S (kPBlock x N), a 16 x SC block each, SC a
   // multiple of 16 (one ldmatrix.trans of B feeds two n8 products): at n
   // 128 all 8 warps own 16 x 32; at n 16 (jamba) S is 32 x 16, two warps
@@ -239,6 +252,7 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   static_assert(P % kPBlock == 0 && SC % 16 == 0 && SW % (kPBlock / 16) == 0,
                 "p and n tile the CTA");
   static_assert(N % 16 == 0, "C.B^T and C.h^T step over n by 16");
+  static_assert(CHUNK % 16 == 0, "the chunk is whole 16-row blocks");
   extern __shared__ __align__(16) uint8_t smem[];
   const uint32_t c_s = smem_u32(smem);
   const uint32_t b_s = c_s + S::kCBytes;
@@ -248,7 +262,7 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   bf16* hh = reinterpret_cast<bf16*>(smem + 2 * S::kCBytes + S::kXBytes);
   bf16* hl = hh + kPBlock * kRowN;
   float* cum_s = reinterpret_cast<float*>(hl + kPBlock * kRowN);
-  float* w_s = cum_s + kChunk;  // exp(a_cum[-1] - a_cum)
+  float* w_s = cum_s + CHUNK;   // exp(a_cum[-1] - a_cum)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -258,12 +272,12 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   const int p0 = (blockIdx.x % (P / kPBlock)) * kPBlock;
   int* ticket = sync_slot(sync);
   const int chunk = take_chunk(ticket);
-  const int t0 = chunk * kChunk;
-  const int nv = min(kChunk, l - t0);               // live rows
+  const int t0 = chunk * CHUNK;
+  const int nv = min(CHUNK, l - t0);                // live rows
   const int64_t row0 = (int64_t)blockIdx.z * l + t0;  // (bt, t0) as a row
 
   // Stage C, B and x's p-block in their own dtype; rows past nv are zeros.
-  for (int v = tid; v < kChunk * (N / 8); v += kThreads) {
+  for (int v = tid; v < CHUNK * (N / 8); v += kThreads) {
     const int r = v / (N / 8);
     const int c = (v % (N / 8)) * 8;
     const bool valid = r < nv;
@@ -271,7 +285,7 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
     cp_async16(c_s + (r * kRowN + c) * 2, cm + off, valid);
     cp_async16(b_s + (r * kRowN + c) * 2, bm + off, valid);
   }
-  for (int v = tid; v < kChunk * (kPBlock / 8); v += kThreads) {
+  for (int v = tid; v < CHUNK * (kPBlock / 8); v += kThreads) {
     const int r = v / (kPBlock / 8);
     const int c = (v % (kPBlock / 8)) * 8;
     const bool valid = r < nv;
@@ -279,10 +293,10 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
     cp_async16(x_s + (r * kRowX + c) * 2, x + off, valid);
   }
   cp_async_commit();
-  chunk_cumsum(a_log + row0 * h + head, h, nv, cum_s);
+  chunk_cumsum<CHUNK>(a_log + row0 * h + head, h, nv, cum_s);
   __syncthreads();
-  const float cum_last = cum_s[kChunk - 1];
-  for (int r = tid; r < kChunk; r += kThreads)
+  const float cum_last = cum_s[CHUNK - 1];
+  for (int r = tid; r < CHUNK; r += kThreads)
     w_s[r] = expf(cum_last - cum_s[r]);
   cp_async_wait<0>();
   __syncthreads();
@@ -364,108 +378,113 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x,
   }
   publish(done, chunk);  // its barrier also orders the hh/hl writes
 
-  // y for this warp's 16 rows i0..: scores C.B^T over columns up to the
-  // warp's last row, decayed and masked; then (scores) . x and C . h_prev^T.
-  const int rb = warp;  // row block
-  const int i0 = rb * 16;
-  if (i0 >= nv) return;
-  float s[16][4];
+  // y for the row blocks this warp takes in turn (one at most while CHUNK
+  // <= 8 * 16), 16 rows i0.. each: scores C.B^T over columns up to the
+  // block's last row, decayed and masked; then (scores) . x and
+  // C . h_prev^T.
+  for (int rb = warp; rb < kRB; rb += kWarps) {
+    const int i0 = rb * 16;
+    if (i0 >= nv) break;
+    float s[2 * kRB][4];
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < 2 * kRB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  const uint32_t c_row =
-      c_s + ((i0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kRowN +
-             8 * (lane >> 4)) * 2;
-  // One branch per 16 key columns (rb is not known to be warp-uniform, and
-  // a branch inside the k loop stalls the mma.sync stream at each one).
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const uint32_t c_row =
+        c_s + ((i0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kRowN +
+               8 * (lane >> 4)) * 2;
+    // One branch per 16 key columns (rb is not known to be warp-uniform,
+    // and a branch inside the k loop stalls the mma.sync stream at each
+    // one).
 #pragma unroll
-  for (int jp = 0; jp < 8; ++jp) {
-    if (jp > rb) break;
+    for (int jp = 0; jp < kRB; ++jp) {
+      if (jp > rb) break;
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t ca[4], b[4];
-      ldsm_x4(c_row + kk * 32, ca);
-      ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
-                     kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
-      mma_bf16(s[2 * jp], ca, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
-    }
-  }
-  // The decay by the special-function unit (see the note at the top):
-  // most of these exponents are far below -126 at the model's decays.
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int i = i0 + g + 8 * hf;
-    const float ci = cum_s[i];
-#pragma unroll
-    for (int jb = 0; jb < 16; ++jb) {
-      if (jb >= 2 * (rb + 1)) break;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 8 * jb + 2 * t4 + e;
-        // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
-        s[jb][2 * hf + e] =
-            j <= i ? s[jb][2 * hf + e] * fast_exp2((ci - cum_s[j]) * kLog2e)
-                   : 0.f;
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t ca[4], b[4];
+        ldsm_x4(c_row + kk * 32, ca);
+        ldsm_x4(b_s + ((jp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
+                       kk * 16 + 8 * ((lane >> 3) & 1)) * 2, b);
+        mma_bf16(s[2 * jp], ca, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], ca, b[2], b[3]);
       }
     }
-  }
-  float o[NB][4], off[NB][4];
+    // The decay by the special-function unit (see the note at the top):
+    // most of these exponents are far below -126 at the model's decays.
 #pragma unroll
-  for (int j = 0; j < NB; ++j)
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = i0 + g + 8 * hf;
+      const float ci = cum_s[i];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = off[j][e] = 0.f;
+      for (int jb = 0; jb < 2 * kRB; ++jb) {
+        if (jb >= 2 * (rb + 1)) break;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    if (kk > rb) break;
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* p = &s[2 * kk + (i >> 1)][2 * (i & 1)];
-      split_bf16(p[0], p[1], hi[i], lo[i]);
-    }
-#pragma unroll
-    for (int dp = 0; dp < NB / 2; ++dp) {
-      uint32_t b[4];
-      ldsm_x4_trans(x_s + ((kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                               kRowX + dp * 16 + 8 * (lane >> 4)) * 2, b);
-      mma_bf16(o[2 * dp], hi, b[0], b[1]);
-      mma_bf16(o[2 * dp], lo, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], hi, b[2], b[3]);
-      mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
-    }
-  }
-  if (has_prev) {
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      uint32_t ca[4];
-      ldsm_x4(c_row + kk * 32, ca);
-#pragma unroll
-      for (int pp = 0; pp < NB / 2; ++pp) {
-        uint32_t bh[4], bl[4];
-        const uint32_t at = ((pp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN +
-                             kk * 16 + 8 * ((lane >> 3) & 1)) * 2;
-        ldsm_x4(hh_s + at, bh);
-        ldsm_x4(hl_s + at, bl);
-        mma_bf16(off[2 * pp], ca, bh[0], bh[1]);
-        mma_bf16(off[2 * pp], ca, bl[0], bl[1]);
-        mma_bf16(off[2 * pp + 1], ca, bh[2], bh[3]);
-        mma_bf16(off[2 * pp + 1], ca, bl[2], bl[3]);
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * jb + 2 * t4 + e;
+          // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
+          s[jb][2 * hf + e] =
+              j <= i ? s[jb][2 * hf + e] * fast_exp2((ci - cum_s[j]) * kLog2e)
+                     : 0.f;
+        }
       }
     }
-  }
+    float o[NB][4], off[NB][4];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int i = i0 + g + 8 * hf;
-    if (i >= nv) continue;
-    const float e = expf(cum_s[i]);
-    bf16* yr = y + ((row0 + i) * h + head) * P + p0 + 2 * t4;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-      *reinterpret_cast<uint32_t*>(yr + 8 * nb) =
-          pack_bf16(fmaf(e, off[nb][2 * hf], o[nb][2 * hf]),
-                    fmaf(e, off[nb][2 * hf + 1], o[nb][2 * hf + 1]));
+      for (int e = 0; e < 4; ++e) o[j][e] = off[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kRB; ++kk) {
+      if (kk > rb) break;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* p = &s[2 * kk + (i >> 1)][2 * (i & 1)];
+        split_bf16(p[0], p[1], hi[i], lo[i]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < NB / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(x_s + ((kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                 kRowX + dp * 16 + 8 * (lane >> 4)) * 2, b);
+        mma_bf16(o[2 * dp], hi, b[0], b[1]);
+        mma_bf16(o[2 * dp], lo, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], hi, b[2], b[3]);
+        mma_bf16(o[2 * dp + 1], lo, b[2], b[3]);
+      }
+    }
+    if (has_prev) {
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t ca[4];
+        ldsm_x4(c_row + kk * 32, ca);
+#pragma unroll
+        for (int pp = 0; pp < NB / 2; ++pp) {
+          uint32_t bh[4], bl[4];
+          const uint32_t at =
+              ((pp * 16 + (lane & 7) + 8 * (lane >> 4)) * kRowN + kk * 16 +
+               8 * ((lane >> 3) & 1)) * 2;
+          ldsm_x4(hh_s + at, bh);
+          ldsm_x4(hl_s + at, bl);
+          mma_bf16(off[2 * pp], ca, bh[0], bh[1]);
+          mma_bf16(off[2 * pp], ca, bl[0], bl[1]);
+          mma_bf16(off[2 * pp + 1], ca, bh[2], bh[3]);
+          mma_bf16(off[2 * pp + 1], ca, bl[2], bl[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = i0 + g + 8 * hf;
+      if (i >= nv) continue;
+      const float e = expf(cum_s[i]);
+      bf16* yr = y + ((row0 + i) * h + head) * P + p0 + 2 * t4;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        *reinterpret_cast<uint32_t*>(yr + 8 * nb) =
+            pack_bf16(fmaf(e, off[nb][2 * hf], o[nb][2 * hf]),
+                      fmaf(e, off[nb][2 * hf + 1], o[nb][2 * hf + 1]));
+    }
   }
 }
 
@@ -503,33 +522,35 @@ __device__ void load_rows(const T* __restrict__ src, int64_t stride,
   }
 }
 
-template <int N>
+template <int N, int CHUNK>
 struct FmaSmem {
-  static constexpr int kFloats = kChunk * kPBlock + kChunk * (N + 1) +
+  static constexpr int kFloats = CHUNK * kPBlock + CHUNK * (N + 1) +
                                  kRowBlock * (N + 1) +
-                                 kRowBlock * (kChunk + 1) +
-                                 kPBlock * (N + 1) + 2 * kChunk;
+                                 kRowBlock * (CHUNK + 1) +
+                                 kPBlock * (N + 1) + 2 * CHUNK;
 };
 
-template <int P, int N>
+template <int P, int N, int CHUNK>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
                 const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ h0, float* __restrict__ y,
                 float* hout, int* __restrict__ sync, int l, int h) {
   static_assert(P % kPBlock == 0 && N % 16 == 0, "p and n tile the CTA");
+  static_assert(CHUNK % kRowBlock == 0, "the chunk is whole score blocks");
   constexpr int NP = N + 1;        // padded row of B, C and the state
-  constexpr int QP = kChunk + 1;   // padded row of the score block
+  constexpr int QP = CHUNK + 1;    // padded row of the score block
+  constexpr int JC = CHUNK / 16;   // score columns a thread owns
   constexpr int PC = kPBlock / 16; // y columns / state rows a thread owns
   constexpr int NC = N / 16;       // state columns a thread owns
   extern __shared__ float fsmem[];
-  float* x_s = fsmem;                    // kChunk x kPBlock
-  float* b_s = x_s + kChunk * kPBlock;   // kChunk x NP
-  float* c_s = b_s + kChunk * NP;        // kRowBlock x NP
+  float* x_s = fsmem;                    // CHUNK x kPBlock
+  float* b_s = x_s + CHUNK * kPBlock;    // CHUNK x NP
+  float* c_s = b_s + CHUNK * NP;         // kRowBlock x NP
   float* s_s = c_s + kRowBlock * NP;     // kRowBlock x QP (decayed scores)
   float* st_s = s_s + kRowBlock * QP;    // kPBlock x NP (h_prev)
-  float* cum_s = st_s + kPBlock * NP;    // kChunk: a_cum
-  float* w_s = cum_s + kChunk;           // kChunk: exp(a_cum[-1] - a_cum)
+  float* cum_s = st_s + kPBlock * NP;    // CHUNK: a_cum
+  float* w_s = cum_s + CHUNK;            // CHUNK: exp(a_cum[-1] - a_cum)
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -537,18 +558,18 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
   const int p0 = (blockIdx.x % (P / kPBlock)) * kPBlock;
   int* ticket = sync_slot(sync);
   const int chunk = take_chunk(ticket);
-  const int t0 = chunk * kChunk;
-  const int nv = min(kChunk, l - t0);
+  const int t0 = chunk * CHUNK;
+  const int nv = min(CHUNK, l - t0);
   const int64_t row0 = (int64_t)blockIdx.z * l + t0;
   const int64_t x_row = (int64_t)h * P;  // stride between rows t of x, y
 
   load_rows<float, kPBlock>(x + row0 * x_row + (int64_t)head * P + p0,
-                            x_row, nv, kChunk, x_s, kPBlock);
-  load_rows<float, N>(bm + row0 * N, N, nv, kChunk, b_s, NP);
-  chunk_cumsum(a_log + row0 * h + head, h, nv, cum_s);
+                            x_row, nv, CHUNK, x_s, kPBlock);
+  load_rows<float, N>(bm + row0 * N, N, nv, CHUNK, b_s, NP);
+  chunk_cumsum<CHUNK>(a_log + row0 * h + head, h, nv, cum_s);
   __syncthreads();
-  const float cum_last = cum_s[kChunk - 1];
-  for (int r = tid; r < kChunk; r += kThreads)
+  const float cum_last = cum_s[CHUNK - 1];
+  for (int r = tid; r < CHUNK; r += kThreads)
     w_s[r] = expf(cum_last - cum_s[r]);
   __syncthreads();
 
@@ -604,17 +625,17 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
     // Scores of rows ty and ty + 16 of the block against columns
     // tx + 16 jj; only columns up to the block's last row are needed.
     const int ncol = (i0 + kRowBlock) / 16;
-    float s[2][8];
+    float s[2][JC];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[r][jj] = 0.f;
+      for (int jj = 0; jj < JC; ++jj) s[r][jj] = 0.f;
 #pragma unroll 4
     for (int n = 0; n < N; ++n) {
       const float a0 = c_s[ty * NP + n];
       const float a1 = c_s[(ty + 16) * NP + n];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JC; ++jj) {
         if (jj < ncol) {
           const float bj = b_s[(tx + 16 * jj) * NP + n];
           s[0][jj] = fmaf(a0, bj, s[0][jj]);
@@ -627,7 +648,7 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
       const int i = ty + 16 * r;
       const float ci = cum_s[i0 + i];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JC; ++jj) {
         const int j = tx + 16 * jj;
         // exp of a sum of a_log over (j, i]: at most 1 for j <= i.
         s_s[i * QP + j] =
@@ -680,19 +701,19 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a_log,
   }
 }
 
-template <int P, int N>
+template <int P, int N, int CHUNK>
 cudaError_t launch_ssd(int dtype, const void* x, const void* a_log,
                        const void* b, const void* c, const void* h0, void* y,
                        void* hout, void* sync, int bt, int l, int h,
                        cudaStream_t stream) {
-  const dim3 grid(h * (P / kPBlock), (l + kChunk - 1) / kChunk, bt);
+  const dim3 grid(h * (P / kPBlock), (l + CHUNK - 1) / CHUNK, bt);
   const float* a = static_cast<const float*>(a_log);
   const float* s0 = static_cast<const float*>(h0);
   float* so = static_cast<float*>(hout);
   int* sy = static_cast<int*>(sync);
   if (dtype == 1) {
-    auto kernel = ssd_scan_mma_kernel<P, N>;
-    const size_t smem = MmaSmem<N>::kBytes;
+    auto kernel = ssd_scan_mma_kernel<P, N, CHUNK>;
+    const size_t smem = MmaSmem<N, CHUNK>::kBytes;
     cudaError_t err = repro::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(
@@ -700,8 +721,8 @@ cudaError_t launch_ssd(int dtype, const void* x, const void* a_log,
         static_cast<const bf16*>(c), s0, static_cast<bf16*>(y), so, sy, l,
         h);
   } else {
-    auto kernel = ssd_scan_kernel<P, N>;
-    const size_t smem = sizeof(float) * FmaSmem<N>::kFloats;
+    auto kernel = ssd_scan_kernel<P, N, CHUNK>;
+    const size_t smem = sizeof(float) * FmaSmem<N, CHUNK>::kFloats;
     cudaError_t err = repro::allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(
@@ -712,24 +733,46 @@ cudaError_t launch_ssd(int dtype, const void* x, const void* a_log,
   return cudaGetLastError();
 }
 
+// The instantiated chunk equal to `chunk`; any other launches nothing.
+template <int P, int N>
+int launch_chunk(int chunk, int dtype, const void* x, const void* a_log,
+                 const void* b, const void* c, const void* h0, void* y,
+                 void* hout, void* sync, int bt, int l, int h,
+                 cudaStream_t stream) {
+  switch (chunk) {
+    case 32:
+      return static_cast<int>(launch_ssd<P, N, 32>(
+          dtype, x, a_log, b, c, h0, y, hout, sync, bt, l, h, stream));
+    case 64:
+      return static_cast<int>(launch_ssd<P, N, 64>(
+          dtype, x, a_log, b, c, h0, y, hout, sync, bt, l, h, stream));
+    case 128:
+      return static_cast<int>(launch_ssd<P, N, 128>(
+          dtype, x, a_log, b, c, h0, y, hout, sync, bt, l, h, stream));
+    default:
+      return repro::kUnsupported;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, b, c and y); (p, n) = (64, 128)
-// (mamba2-370m) or (64, 16) (jamba-v0.1).
+// (mamba2-370m) or (64, 16) (jamba-v0.1); chunk in {32, 64, 128}.
 // h0 may be null (a zero initial state). `sync` is 2 * bt * h * (p / 32)
 // zeroed ints, left zeroed. Returns the cudaError_t of the launch (0 on
-// success), or -1 for a dtype or shape this build does not instantiate.
-extern "C" int ssd_scan(int dtype, int p, int n, const void* x,
+// success), or -1 for a dtype, shape or chunk this build does not
+// instantiate.
+extern "C" int ssd_scan(int dtype, int p, int n, int chunk, const void* x,
                         const void* a_log, const void* b, const void* c,
                         const void* h0, void* y, void* hout, void* sync,
                         int bt, int l, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return repro::kUnsupported;
   if (p == 64 && n == 128)
-    return static_cast<int>(launch_ssd<64, 128>(dtype, x, a_log, b, c, h0, y,
-                                                 hout, sync, bt, l, h, s));
+    return launch_chunk<64, 128>(chunk, dtype, x, a_log, b, c, h0, y, hout,
+                                 sync, bt, l, h, s);
   if (p == 64 && n == 16)
-    return static_cast<int>(launch_ssd<64, 16>(dtype, x, a_log, b, c, h0, y,
-                                                hout, sync, bt, l, h, s));
+    return launch_chunk<64, 16>(chunk, dtype, x, a_log, b, c, h0, y, hout,
+                                sync, bt, l, h, s);
   return repro::kUnsupported;
 }

@@ -7,8 +7,8 @@ Same arguments and layouts as ``repro/kernels/ops.py``'s
 take the reference's ``block_q``/``block_k``, and ``gemm`` its ``block``:
 None takes the tile ``core.autotune`` chooses from the shapes alone; a
 given tile snaps to one the kernel instantiates (``prefill_tile``,
-``decode_tile``). ``ssd_scan``'s chunk stays the kernel's constant. A
-tensor on the CPU goes to the plain version
+``decode_tile``), and ``ssd_scan``'s ``chunk`` to one of the kernel's
+chunks (``ssd_chunk``). A tensor on the CPU goes to the plain version
 (``kernels.ref``); a CUDA tensor goes to the kernel, or the wrapper raises.
 There is no fallback from one to the other.
 
@@ -333,7 +333,16 @@ def _record(name: str, inputs, outputs, work) -> None:
                                   nbytes=nbytes)
 
 
-def _check_ssd(x, a_log, b, c, h0) -> None:
+def ssd_chunk(chunk: int) -> int:
+    """The chunk an SSD scan asked for ``chunk`` runs: the largest of
+    ``ssd_scan.CHUNKS`` not above it; below the smallest, raise. (The
+    reference snaps to the largest divisor of the length instead, down to
+    1 at a prime length: the kernel masks a ragged last chunk, so it
+    needs no divisor.)"""
+    return _snap(chunk, _ssd.CHUNKS, "ssd_scan chunk")
+
+
+def _check_ssd(x, a_log, b, c, h0, chunk: int) -> None:
     """Raise on anything the SSD scan kernel does not take."""
     if x.dim() != 4 or a_log.dim() != 3 or b.dim() != 3:
         raise ValueError(f"ranks x {x.dim()} (want 4), a_log {a_log.dim()} "
@@ -361,30 +370,33 @@ def _check_ssd(x, a_log, b, c, h0) -> None:
     if (p, n) not in _ssd.SHAPES:
         raise ValueError(f"kernel takes (head_dim, d_state) in "
                          f"{_ssd.SHAPES}, got {(p, n)}")
-    _ssd.check_grid(bt, l, h, p)
+    _ssd.check_grid(bt, l, h, p, chunk)
 
 
-def ssd_scan(x, a_log, b, c, h0=None):
+def ssd_scan(x, a_log, b, c, h0=None, chunk: int = _ssd.DEFAULT_CHUNK):
     """Chunked Mamba-2 SSD scan: x (bt, l, h, p) dt-scaled inputs, a_log
     (bt, l, h) fp32 log decays, b/c (bt, l, n) in x's dtype shared by all
     heads, h0 (bt, h, p, n) fp32 or None (zeros). Returns y (bt, l, h, p)
-    in x's dtype and the final state (bt, h, p, n) fp32. Any l: the last
-    chunk is masked, the chunk size stays ``ssd_scan.CHUNK``."""
-    _check_ssd(x, a_log, b, c, h0)
+    in x's dtype and the final state (bt, h, p, n) fp32. ``chunk`` (the
+    reference's default, 128) snaps down to an instantiated chunk
+    (``ssd_chunk``), which both the kernel and the plain version run. Any
+    l: the last chunk is masked."""
+    chunk = ssd_chunk(chunk)
+    _check_ssd(x, a_log, b, c, h0, chunk)
     if x.device.type == "cpu":
-        return ref.ssd_scan(x, a_log, b, c, h0, chunk=_ssd.CHUNK)
+        return ref.ssd_scan(x, a_log, b, c, h0, chunk=chunk)
     bt, l, h, p = x.shape
     y = torch.empty_like(x)
     state = torch.empty((bt, h, p, b.shape[-1]), dtype=torch.float32,
                         device=x.device)
     if bt and h:
         if x.device.type == "cuda":
-            _ssd.ssd_scan(x, a_log, b, c, h0, y, state)
+            _ssd.ssd_scan(x, a_log, b, c, h0, y, state, chunk)
             LAUNCHES["ssd_scan"] += 1
         _record("ssd_scan", [x, a_log, b, c] + ([] if h0 is None else [h0]),
                 [y, state],
                 lambda: cost.ssd_scan(bt, l, h, p, b.shape[-1],
-                                      x.element_size(), _ssd.CHUNK,
+                                      x.element_size(), chunk,
                                       h0 is not None))
     return y, state
 

@@ -80,7 +80,10 @@ def serve_once(params, cfg, scfg, prompts, max_new, device, capture):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-4b", choices=configs.list_archs())
+    ap.add_argument("--arch", default="qwen3-4b", type=configs.canonical_id,
+                    choices=list(configs.ALIASES),
+                    help="a CLI id or its module's name "
+                         "(configs.list_archs())")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--eager", action="store_true",
                     help="launch every step's ops from Python (default: "

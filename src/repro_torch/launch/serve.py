@@ -151,7 +151,10 @@ def _report(engine, arrivals, res, inj, dt, tcfg, process, rate) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-4b", choices=configs.list_archs())
+    ap.add_argument("--arch", default="qwen3-4b", type=configs.canonical_id,
+                    choices=list(configs.ALIASES),
+                    help="a CLI id or its module's name "
+                         "(configs.list_archs())")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config")
     ap.add_argument("--requests", type=int, default=8)

@@ -145,7 +145,10 @@ def frontend_stub(cfg: ModelConfig, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=configs.list_archs())
+    ap.add_argument("--arch", required=True, type=configs.canonical_id,
+                    choices=list(configs.ALIASES),
+                    help="a CLI id or its module's name "
+                         "(configs.list_archs())")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config")
     ap.add_argument("--steps", type=int, default=50)

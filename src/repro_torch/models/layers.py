@@ -175,22 +175,25 @@ def _project_qkv(params: Params, cfg: AttnConfig, x, positions):
     return q, k, v
 
 
-def sdpa(q, k, v, mask=None, expand_kv: bool = False,
+def sdpa(q, k, v, mask=None, kv_lengths=None, expand_kv: bool = False,
          probs_fp32: bool = True):
     """Scaled dot-product attention with GQA head broadcasting, the
     reference's ``sdpa`` step for step (not the kernels' math).
 
     q: (b, sq, h, d); k/v: (b, skv, kvh, d); ``mask`` additive, shaped
-    (sq, skv) or (b, sq, skv). ``expand_kv`` repeats each kv head to its
-    group of query heads before the scores (``repeat_interleave``). The
-    scores are computed in q's dtype and cast to fp32 where
-    ``probs_fp32`` (the default), else kept in q's dtype; the mask is
-    cast to the scores' dtype; the row maximum is taken in the scores'
-    dtype (the reference takes it in fp32 and casts it back: the same
-    value, since a maximum is one of its inputs, without an fp32 copy of
-    the scores); the exponentials, their sum and the division run in the
-    scores' dtype, and the probabilities are cast to q's dtype before
-    P.V. With fp32 q the flag changes nothing, bit for bit."""
+    (sq, skv) or (b, sq, skv); ``kv_lengths`` (b,) masks a cache: row b's
+    keys at or past ``kv_lengths[b]`` score ``NEG_INF`` in the scores'
+    dtype (after the mask), as the reference's. ``expand_kv`` repeats
+    each kv head to its group of query heads before the scores
+    (``repeat_interleave``). The scores are computed in q's dtype and
+    cast to fp32 where ``probs_fp32`` (the default), else kept in q's
+    dtype; the mask is cast to the scores' dtype; the row maximum is
+    taken in the scores' dtype (the reference takes it in fp32 and casts
+    it back: the same value, since a maximum is one of its inputs,
+    without an fp32 copy of the scores); the exponentials, their sum and
+    the division run in the scores' dtype, and the probabilities are cast
+    to q's dtype before P.V. With fp32 q the flag changes nothing, bit
+    for bit."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     group = h // kvh
@@ -204,6 +207,12 @@ def sdpa(q, k, v, mask=None, expand_kv: bool = False,
     if mask is not None:
         mask = mask.to(scores.dtype)
         scores = scores + (mask[:, None, None] if mask.dim() == 3 else mask)
+    if kv_lengths is not None:
+        valid = (torch.arange(k.shape[1], device=scores.device)[None, :]
+                 < kv_lengths.to(scores.device)[:, None])       # (b, skv)
+        scores = torch.where(valid[:, None, None, None, :], scores,
+                             torch.tensor(NEG_INF, dtype=scores.dtype,
+                                          device=scores.device))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
@@ -211,10 +220,12 @@ def sdpa(q, k, v, mask=None, expand_kv: bool = False,
     return out.reshape(b, sq, h, d)
 
 
-def causal_mask(sq: int, device=None):
-    """Additive causal mask (sq, sq); query i attends keys <= i."""
-    qi = torch.arange(sq, device=device)[:, None]
-    kj = torch.arange(sq, device=device)[None, :]
+def causal_mask(sq: int, skv: Optional[int] = None, offset: int = 0,
+                device=None):
+    """Additive causal mask (sq, skv), skv sq by default; query i attends
+    keys <= i + offset."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    kj = torch.arange(skv or sq, device=device)[None, :]
     return torch.where(kj <= qi, 0.0, NEG_INF).float()
 
 

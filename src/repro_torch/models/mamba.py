@@ -5,7 +5,8 @@ short causal conv applied to x only. ``ssd_chunked`` is the chunked SSD
 algorithm of the Mamba-2 paper (arXiv:2405.21060, Listing 1) and
 ``ssd_reference`` the O(l) sequential recurrence, both plain fp32 PyTorch.
 On the serving path a prompt (l > 1) goes through the SSD scan kernel
-(``kernels.ops.ssd_scan``, its plain version on the CPU) and one decode
+(``kernels.ops.ssd_scan`` at ``MambaConfig.chunk``, snapped to a chunk the
+kernel instantiates; its plain version on the CPU) and one decode
 step (l == 1 with a cache) through the exact recurrence. Training passes
 ``use_kernel=False`` (the kernel has no backward): the sequence then runs
 the differentiable ``ssd_chunked`` in fp32, as the reference's default
@@ -49,6 +50,9 @@ from repro_torch.serve import dist as serve_dist
 from repro_torch.train import dist as train_dist
 
 Params = Dict[str, object]
+# The reference's name for the decode cache, the module note's {"conv",
+# "ssm", "index"}.
+MambaCache = Dict[str, object]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,17 +191,18 @@ def _causal_conv(x, w, cache_conv=None):
 
 
 def mamba_apply(params: Params, cfg: MambaConfig, x,
-                cache: Optional[Params] = None, use_kernel: bool = True
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
+                cache: Optional[MambaCache] = None, use_kernel: bool = True
+                ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
     """Mamba-2 mixer. x: (b, l, d_model) -> (b, l, d_model).
 
     With a cache, l == 1 runs the exact one-step recurrence from the
-    cached state; l > 1 runs the SSD scan kernel from the cached state
-    (the reference's kernel branch starts from zeros instead: a fault
-    recorded in ROADMAP Queue 3, not copied). ``use_kernel=False`` runs
-    the sequence through ``ssd_chunked`` in fp32 instead, its chunk
-    halved from ``cfg.chunk`` until it divides l (the reference's
-    ``use_kernel=False`` branch): the path a gradient can pass."""
+    cached state; l > 1 runs the SSD scan kernel at ``cfg.chunk`` from the
+    cached state (the reference's kernel branch starts from zeros
+    instead: a fault recorded in ROADMAP Queue 3, not copied).
+    ``use_kernel=False`` runs the sequence through ``ssd_chunked`` in
+    fp32 instead, its chunk halved from ``cfg.chunk`` until it divides l
+    (the reference's ``use_kernel=False`` branch): the path a gradient
+    can pass."""
     split = None if use_kernel or cache is not None else \
         train_dist.sharded("ssm_heads", cfg.n_heads)
     if split is None:
@@ -229,7 +234,8 @@ def mamba_apply(params: Params, cfg: MambaConfig, x,
                               cmat.float(), h0=h0)
         y = y.to(dtype)
     elif use_kernel:
-        y, hn = kernel_ops.ssd_scan(x_scaled, a_log, bmat, cmat, h0=h0)
+        y, hn = kernel_ops.ssd_scan(x_scaled, a_log, bmat, cmat, h0=h0,
+                                    chunk=cfg.chunk)
     else:
         chunk = min(cfg.chunk, l)
         while l % chunk:

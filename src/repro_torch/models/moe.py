@@ -86,6 +86,7 @@ class MoEConfig:
     n_shared: int = 0           # shared (always-on) experts
     capacity_factor: float = 1.25
     impl: str = "dense_mask"    # "dense_mask" | "capacity"
+    router_dtype: torch.dtype = torch.float32   # logits, softmax, top-k
 
     def shared_cfg(self) -> layers.MLPConfig:
         return layers.MLPConfig(self.d_model, self.d_ff * self.n_shared,
@@ -223,18 +224,30 @@ def _global_tokens(t: int) -> int:
 
 def _route(params: Params, cfg: MoEConfig, x,
            split: Optional[_ModelSplit] = None):
-    """Router in fp32 -> (weights (t, k) in x's dtype, ids (t, k), aux).
-    x: (t, d). Over the data axis ``aux`` is the whole batch's; over an
-    expert-split model axis the logits are gathered first, so every rank
-    routes alike."""
+    """Router in ``cfg.router_dtype`` -> (weights (t, k) in x's dtype,
+    ids (t, k), aux). x: (t, d). The reference's arithmetic in that
+    dtype: ``jax.nn.softmax``'s exp(l - max) / sum rounded at each step
+    (in fp32 the fused ``torch.softmax`` does the same steps; in a
+    narrower dtype it rounds once, so the steps are written out), and
+    ``jax.lax.top_k``'s ties to the lower expert (a stable sort, the
+    cheapest exact rule on the card: in bf16 the probabilities of a random
+    router tie often). Over the data axis ``aux`` is the whole batch's;
+    over an expert-split model axis the logits are gathered first, so
+    every rank routes alike."""
     router = params["router"]
     if split is not None and not split.experts:
         router = split.copy(router)
-    logits = x.float() @ router.float()
+    rd = cfg.router_dtype
+    logits = x.to(rd) @ router.to(rd)
     if split is not None and split.experts:
         logits = split.gather(logits, 1)
-    probs = torch.softmax(logits, dim=-1)
-    weights, ids = torch.topk(probs, cfg.top_k, dim=-1)
+    if rd == torch.float32:
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :cfg.top_k], ids[:, :cfg.top_k]
     weights = weights / weights.sum(dim=-1, keepdim=True)
     # Switch-style load balance: E * sum_e f_e * p_e.
     t = x.shape[0]

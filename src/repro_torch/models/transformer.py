@@ -30,6 +30,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.dist import sharding
 from repro_torch.models import layers, mamba, moe
 from repro_torch.train import dist as train_dist
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
@@ -145,14 +146,10 @@ def param_shapes(cfg: ModelConfig) -> Params:
                        dtype=torch.float32)
 
 
-def param_count(params: Params) -> int:
-    def walk(p):
-        if isinstance(p, torch.Tensor):
-            return p.numel()
-        if isinstance(p, dict):
-            return sum(walk(v) for v in p.values())
-        return sum(walk(v) for v in p)
-    return walk(params)
+def tree_param_count(params: Params) -> int:
+    """Elements in a parameter tree's leaves (``param_count`` counts the
+    same from a configuration, as the reference's does)."""
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -162,13 +159,13 @@ def active_param_count(cfg: ModelConfig) -> int:
     top-k experts and its shared ones), as the reference counts. The
     serving cost models price the weight stream with it
     (``serve.spec.rechoose_k``, ``telemetry.drift_report``)."""
-    return param_count_of(cfg, active=True)
+    return param_count(cfg, active=True)
 
 
-def param_count_of(cfg: ModelConfig, active: bool = False) -> int:
+def param_count(cfg: ModelConfig, active: bool = False) -> int:
     """Parameters ``init_params`` draws for ``cfg``, from the
-    configuration alone; ``active`` counts only the top-k of each
-    mixture's experts."""
+    configuration alone (the reference's ``param_count``); ``active``
+    counts only the top-k of each mixture's experts."""
     d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dhead,
                         cfg.d_ff)
     norm = 2 * d if cfg.norm == "layer" else d

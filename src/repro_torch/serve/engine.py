@@ -125,6 +125,7 @@ from repro_torch.serve import paged as paged_mod
 from repro_torch.serve import sampling
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve import telemetry as telemetry_mod
+from repro_torch.serve.sampling import sampler  # noqa: F401 (reference name)
 
 
 @dataclasses.dataclass(frozen=True)

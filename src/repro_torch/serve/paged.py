@@ -232,6 +232,10 @@ class PageAllocator:
         freed.reverse()
         return freed
 
+    def reset(self) -> None:
+        """Free everything and zero the counters (an engine restart)."""
+        self.__post_init__()
+
     def rows_resident(self) -> int:
         """K/V rows the pool holds live, the null page included."""
         return (self.pages_in_use + 1) * self.page_size
@@ -259,7 +263,11 @@ class PageAllocator:
         return {"pages_exclusive": exclusive, "pages_shared": shared,
                 "pages_cached_idle": cached_idle}
 
-    def occupancy(self) -> dict:
+    def occupancy(self, lengths: Optional[Dict[int, int]] = None) -> dict:
+        """The pool's counters; with per-slot ``lengths`` (rows each slot
+        holds) also the internal fragmentation: rows its pages hold but no
+        slot uses (``fragmentation_rows``), and their share of the rows
+        allocated (``fragmentation_frac``)."""
         out = {
             "n_pages": self.n_pages,
             "page_size": self.page_size,
@@ -279,6 +287,12 @@ class PageAllocator:
         out.update(self.page_classes())
         if self.n_devices > 1:
             out["pages_in_use_by_device"] = self.device_occupancy()
+        if lengths is not None:
+            alloc_rows = sum(len(ps) * self.page_size
+                             for ps in self.slot_pages.values())
+            unused = alloc_rows - sum(int(n) for n in lengths.values())
+            out["fragmentation_rows"] = unused
+            out["fragmentation_frac"] = unused / max(1, alloc_rows)
         return out
 
 

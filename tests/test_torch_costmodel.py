@@ -171,7 +171,7 @@ def test_active_param_count_equals_the_reference(arch, full):
     if not full:
         params = T.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
-        assert T.param_count(params) == T.active_param_count(cfg)
+        assert T.tree_param_count(params) == T.active_param_count(cfg)
 
 
 # ----------------------------------------------------------------------------

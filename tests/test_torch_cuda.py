@@ -368,6 +368,54 @@ def test_cuda_ssd_scan_at_jambas_shape_matches_plain_version(cuda_device,
     assert not any(c.any() for c in flash_decode._COUNTERS.values())
 
 
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 64, 128), (128, 64, 16)])
+def test_cuda_ssd_scan_at_each_chunk_matches_plain_version(cuda_device,
+                                                           shape, dtype,
+                                                           chunk):
+    """Each chunk the kernel instantiates, at mamba2-370m's and jamba's
+    head shapes, against the plain version at the same chunk (within the
+    tolerance, scaled as above), at lengths either side of one and two
+    chunks and a prime one, from a zero and a given state: two launches
+    give the same bits, each is counted, the hand-off's ints stay zero."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    assert chunk in ssd_mod.CHUNKS
+    g = torch.Generator(device=cuda_device).manual_seed(chunk)
+    h, p, n = shape
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda_device)   # noqa
+    for bt, l in ((2, chunk - 1), (2, chunk + 1), (1, 2 * chunk + 1),
+                  (1, 1031)):
+        x = mk(bt, l, h, p).to(dtype)
+        a = -mk(bt, l, h).abs() * 0.1
+        b, c = (mk(bt, l, n).mul(0.3).to(dtype) for _ in range(2))
+        for h0 in (None, mk(bt, h, p, n)):
+            ops.reset_launches()
+            y, state = ops.ssd_scan(x, a, b, c, h0=h0, chunk=chunk)
+            y2, state2 = ops.ssd_scan(x, a, b, c, h0=h0, chunk=chunk)
+            torch.cuda.synchronize()
+            wy, ws = ref.ssd_scan(x, a, b, c, h0=h0, chunk=chunk)
+            assert ref.compare(y, wy, normwise=True)[0]
+            assert ref.compare(state, ws, normwise=True)[0]
+            assert torch.equal(y, y2) and torch.equal(state, state2)
+            assert ops.LAUNCHES["ssd_scan"] == 2
+    assert not any(c.any() for c in flash_decode._COUNTERS.values())
+
+
+def test_cuda_ssd_scan_refuses_an_uninstantiated_chunk(cuda_device):
+    """The C entry launches nothing at a chunk the build does not
+    instantiate (the wrapper snaps before it gets there)."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    a = torch.zeros(1, 8, 2, device=cuda_device)
+    bc = torch.zeros(1, 8, 16, device=cuda_device)
+    y, state = torch.empty_like(x), torch.empty(1, 2, 64, 16,
+                                                device=cuda_device)
+    with pytest.raises(RuntimeError, match="error -1"):
+        ssd_mod.ssd_scan(x, a, bc, bc, None, y, state, 96)
+    assert ops.ssd_scan(x, a, bc, bc, chunk=96)[0].shape == x.shape
+
+
 def test_cuda_kernels_refuse_shapes_they_do_not_build(cuda_device):
     """A head_dim or an SSD (p, n) that no instance covers raises before a
     launch; nothing falls back to a plain version."""

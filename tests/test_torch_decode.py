@@ -201,7 +201,7 @@ GLOBAL = re.compile(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
                     r"(\w+)\s*\(", re.S)
 ARG = {"typename T": "__nv_bfloat16", "int D": "80", "int G": "16",
        "int P": "64", "int N": "128", "int BM": "128", "int BN": "128",
-       "int BQ": "16",
+       "int BQ": "16", "int CHUNK": "64",
        "bool kVec": "true", "bool kTma": "true", "bool kBypassL1": "true"}
 
 

@@ -83,7 +83,9 @@ def test_shapes_equal_the_reference():
     assert {k: vars(v) for k, v in shapes.SHAPES.items()} == \
         {k: vars(v) for k, v in jshapes.SHAPES.items()}
     assert shapes.SUBQUADRATIC == jshapes.SUBQUADRATIC
-    archs = configs.list_archs()
+    assert configs.list_archs() == jconfigs.list_archs()
+    archs = [configs.canonical_id(a) for a in configs.list_archs()]
+    assert archs == [jconfigs.canonical_id(a) for a in jconfigs.list_archs()]
     assert shapes.cells(archs) == jshapes.cells(archs)
     for a in archs:
         for s in shapes.SHAPES:

@@ -35,18 +35,19 @@ SSD_TOL = 2e-4
 def test_grid_and_sync_ints_are_sized_from_shapes(bt, l, h, p, grid, ints):
     """One CTA per (head x p-block of 32, chunk of 128, batch row); a
     ticket and a count per (batch row, head, p-block)."""
-    assert _ssd.grid(bt, l, h, p) == grid
+    assert _ssd.grid(bt, l, h, p, _ssd.DEFAULT_CHUNK) == grid
     assert _ssd.sync_ints(bt, h, p) == ints
 
 
 def test_grid_limit_on_y_and_z():
     """Chunks go on the grid's y and batch rows on its z, each at most
     65535: the wrapper raises before a launch CUDA would refuse."""
-    _ssd.check_grid(65535, 65535 * _ssd.CHUNK, 32, 64)
+    chunk = _ssd.DEFAULT_CHUNK
+    _ssd.check_grid(65535, 65535 * chunk, 32, 64, chunk)
     with pytest.raises(ValueError, match="65535"):
-        _ssd.check_grid(1, 65535 * _ssd.CHUNK + 1, 32, 64)
+        _ssd.check_grid(1, 65535 * chunk + 1, 32, 64, chunk)
     with pytest.raises(ValueError, match="65535"):
-        _ssd.check_grid(65536, 128, 32, 64)
+        _ssd.check_grid(65536, 128, 32, 64, chunk)
 
 
 class _FakeLib:
@@ -64,9 +65,9 @@ class _FakeLib:
 
 
 def test_launch_passes_the_shapes_and_zeroed_ints(monkeypatch):
-    """The wrapper hands the kernel (dtype, p, n, pointers, sync, bt, l,
-    h, stream), with at least ``sync_ints`` zeroed ints from the buffer
-    the decodes share per (device, stream)."""
+    """The wrapper hands the kernel (dtype, p, n, chunk, pointers, sync,
+    bt, l, h, stream), with at least ``sync_ints`` zeroed ints from the
+    buffer the decodes share per (device, stream)."""
     lib = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -77,13 +78,13 @@ def test_launch_passes_the_shapes_and_zeroed_ints(monkeypatch):
     a = torch.zeros(bt, l, h)
     b = torch.zeros(bt, l, n)
     y, state = torch.empty_like(x), torch.empty(bt, h, p, n)
-    _ssd.ssd_scan(x, a, b, b, None, y, state)
+    _ssd.ssd_scan(x, a, b, b, None, y, state, 64)
     args = lib.calls["ssd_scan"]
-    assert args[:3] == (0, p, n)
-    assert args[7] is None                      # no h0: a zero state
-    assert args[11:] == (bt, l, h, 5)
+    assert args[:4] == (0, p, n, 64)
+    assert args[8] is None                      # no h0: a zero state
+    assert args[12:] == (bt, l, h, 5)
     sync = _decode._COUNTERS[(x.device, 5)]
-    assert args[10] == sync.data_ptr()
+    assert args[11] == sync.data_ptr()
     assert sync.numel() >= _ssd.sync_ints(bt, h, p)
     assert sync.dtype == torch.int32 and not sync.any()
 
@@ -105,7 +106,7 @@ def test_plain_ssd_scan_matches_pallas_at_the_kernel_shape():
     assert not any(ops.LAUNCHES.values())
     assert y.shape == (bt, l, h, p) and state.shape == (bt, h, p, n)
     wy, ws = jssd.ssd_scan(*(jnp.asarray(t) for t in (x, a, b, c)),
-                           chunk=_ssd.CHUNK, interpret=True)
+                           chunk=_ssd.DEFAULT_CHUNK, interpret=True)
     np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=SSD_TOL,
                                rtol=SSD_TOL)
     np.testing.assert_allclose(state.numpy(), np.asarray(ws), atol=SSD_TOL,
