@@ -2601,8 +2601,13 @@ def run_overload(params, cfg, scfg, dev, ops) -> dict:
     with open(OVERLOAD_TRACE) as f:
         back = json.load(f)
     tracks = {e["tid"] for e in back["traceEvents"] if "tid" in e}
-    phases = {f"phase:{name}" for name in g.telemetry.span_stats()
-              if name != "prefill_chunk"}
+    # Every outermost span outside a slot has its phase's track (a child
+    # span nests in its parent's); a timed engine also has the device's.
+    phases = {f"phase:{name}" for name, *_, parent, _, track
+              in g.telemetry.spans if parent is None
+              and track.startswith("phase:")}
+    if g.telemetry.timing:
+        phases.add("device")
     slots = {f"slot:{i}" for i in range(g.scfg.batch)}
     log(f"  chrome trace {os.path.relpath(OVERLOAD_TRACE, ROOT)}: "
         f"{len(back['traceEvents'])} events, {os.path.getsize(OVERLOAD_TRACE)}"

@@ -136,6 +136,15 @@ def _report(engine, arrivals, res, inj, dt, tcfg, process, rate) -> None:
               f"/{s['tick_wall_s_p99'] * 1e3:.2f} ms, ttft p50 "
               f"{s['ttft_ms_p50']:.0f} ms, tpot p50 {s['tpot_ms_p50']:.1f} "
               f"ms/token")
+    if "ttft_wall_ms_p50" in s:
+        print(f"  stamps: ttft p50/p95/p99 {s['ttft_wall_ms_p50']:.1f}/"
+              f"{s['ttft_wall_ms_p95']:.1f}/{s['ttft_wall_ms_p99']:.1f} ms, "
+              f"queue wait p50/p95/p99 {s['queue_wait_ms_p50']:.1f}/"
+              f"{s['queue_wait_ms_p95']:.1f}/{s['queue_wait_ms_p99']:.1f} ms")
+    if "prefill_wait_ms_p50" in s:
+        print(f"  prefill wait p50/p95/p99 {s['prefill_wait_ms_p50']:.1f}/"
+              f"{s['prefill_wait_ms_p95']:.1f}/"
+              f"{s['prefill_wait_ms_p99']:.1f} ms")
     if inj is not None:
         print(f"  faults: {inj.injected} injected, {inj.cleared} cleared, "
               f"{engine.pool.pages_in_use if engine.pool else 0} pages "

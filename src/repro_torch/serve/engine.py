@@ -68,9 +68,19 @@ prices with them the chunk size when ``chunk_size`` is None
 **Telemetry** (``serve.telemetry``): every decision emits a typed event,
 and the decision counters (``preemptions``, ``admission_rejections``, the
 spec and prefix counters) are views over its aggregates; the phases and
-steps of a tick run under wall-clock spans. No synchronisation is added
-for it: the decode and verify spans end with the step's read of its
-picks, the chunk span with the launch only.
+steps of a tick run under wall-clock spans (a step's load, launch and
+read, page work, token bookkeeping), and on the card the device work they
+enqueue under device spans, which the read that ends a decode, a verify,
+a prompt's last chunk or a contiguous prefill settles onto the host clock
+(the device idle between them charged to the host spans). No
+synchronisation is added for it: the decode and verify spans end with
+the step's read of its picks, the chunk span with the launch. Every
+blocking host<->device transfer or read the engine issues is counted
+(``host_syncs``, telemetry on or off: a copy from host memory waits for
+the stream to drain on the card), and a request carries wall-clock
+stamps of its submission, first admission, first prompt chunk and first
+token (``Request.submit_t``, ``admit_t``, ``first_chunk_t``,
+``first_token_t``; None with telemetry off).
 
 The page table and the per-slot write positions live on the host (numpy)
 and are copied into static device buffers before each step: every change
@@ -224,6 +234,13 @@ class Request:
     rclass: str = "default"      # SLO class name (ServeConfig.classes)
     preempt_count: int = 0       # times evicted back to the queue
     readmitted_at: Optional[int] = None  # tick of the last re-admission
+    # Wall-clock stamps (``Telemetry.clock()``; None with telemetry off):
+    # submitted, first admitted, its first prompt chunk served (a
+    # contiguous prefill: at admission), first token recorded.
+    submit_t: Optional[float] = None
+    admit_t: Optional[float] = None
+    first_chunk_t: Optional[float] = None
+    first_token_t: Optional[float] = None
 
 
 @torch.no_grad()
@@ -411,7 +428,13 @@ class ServingEngine:
         # spec and prefix counters, shed_by_class, preemption_log) are
         # views over the telemetry's aggregates.
         self.telemetry = telemetry_mod.Telemetry(
-            enabled=serve_cfg.telemetry, capacity=serve_cfg.trace_capacity)
+            enabled=serve_cfg.telemetry, capacity=serve_cfg.trace_capacity,
+            device=self.device)
+        # The requests' wall-clock stamps by rid (telemetry on), as
+        # ``serve.traffic.summarize`` reads them: field -> rid -> seconds.
+        self.stamps: Dict[str, Dict[int, float]] = {
+            f: {} for f in ("submit_t", "admit_t", "first_chunk_t",
+                            "first_token_t")}
         # Overload accounting, as ``serve.traffic.summarize`` reads it.
         self.submit_tick: Dict[int, int] = {}   # rid -> tick of submit()
         self.finish_tick: Dict[int, int] = {}   # rid -> tick of last token
@@ -562,14 +585,16 @@ class ServingEngine:
             # token and drafts, and the target's pick at each position.
             self._vtok = torch.zeros((b, self.spec_k + 1), **ints)
             self._picks = torch.zeros((b, self.spec_k + 1), **ints)
-            self._verify = steps["verify"] = graphs.Step(self._verify_fn(),
-                                                         dev, capture)
+            self._verify = steps["verify"] = graphs.Step(
+                self._verify_fn(), dev, capture, self.telemetry,
+                "spec_verify.replay")
         if not self.spec_k or self.scfg.degrade \
                 or self.scfg.spec_adapt_every is not None:
             # A speculative engine decodes only on its degraded ticks and
             # while its adaptive width is 0.
-            self._decode = steps["decode"] = graphs.Step(self._decode_fn(),
-                                                         dev, capture)
+            self._decode = steps["decode"] = graphs.Step(
+                self._decode_fn(), dev, capture, self.telemetry,
+                "decode.replay")
         if self.pool is not None:
             # Chunk: a batch-1 view of the pools through the slot's table
             # row, its tokens, write position, sampled row and key.
@@ -583,8 +608,9 @@ class ServingEngine:
             self._chunk_caches = [dict(c, pages=self._cpages,
                                        index=self._cstart)
                                   for c in self.caches]
-            self._chunk = steps["chunk"] = graphs.Step(self._chunk_fn(), dev,
-                                                       capture)
+            self._chunk = steps["chunk"] = graphs.Step(
+                self._chunk_fn(), dev, capture, self.telemetry,
+                "prefill_chunk.replay")
         self.graphed = next(iter(steps.values())).graph is not None
         if dev.type == "cuda":
             for c in self.caches:
@@ -686,42 +712,69 @@ class ServingEngine:
         ``start``). Returns the token at ``last_in_chunk``, drawn under
         ``req``'s next key, as a device scalar that the next chunk step
         overwrites: the host reads it only after the final chunk."""
-        self._ctok.copy_(torch.from_numpy(tokens))
-        self._cstart.fill_(start)
-        self._clast.fill_(last_in_chunk)
-        self._cpages.copy_(torch.from_numpy(self.pages[slot:slot + 1]))
-        if self.scfg.temperature:
-            self._ckey.copy_(self._emit_key(req))
-        self._chunk()
+        tel = self.telemetry
+        with tel.span("prefill_chunk.load", self.ticks, slot=slot,
+                      rid=req.rid, device=True):
+            self._upload(self._ctok, tokens)
+            self._cstart.fill_(start)
+            self._clast.fill_(last_in_chunk)
+            self._upload(self._cpages, self.pages[slot:slot + 1])
+            if self.scfg.temperature:
+                self._upload(self._ckey, self._emit_key(req))
+        with tel.span("prefill_chunk.launch", self.ticks, slot=slot,
+                      rid=req.rid):
+            self._chunk(self.ticks, slot)
         self.prefill_traces.setdefault(self.chunk, 1)
         self.chunk_steps += 1
         return self._cnext
+
+    def _upload(self, dst: torch.Tensor, src) -> None:
+        """``dst.copy_(src)`` from host memory (a numpy array or a CPU
+        tensor): a pageable copy, which on the card waits for the stream
+        to drain, so it counts as a host sync."""
+        dst.copy_(torch.from_numpy(src) if isinstance(src, np.ndarray)
+                  else src)
+        self.telemetry.count("host_syncs")
+
+    def _read(self, name: str, out: torch.Tensor) -> np.ndarray:
+        """The step's picks on the host (a blocking read, counted), the
+        read's device span ended and the pending device spans settled by
+        it."""
+        tel = self.telemetry
+        with tel.span(name, self.ticks, device=True):
+            picks = out.cpu()
+            tel.settle()
+        tel.count("host_syncs")
+        return picks.numpy().copy()
 
     def _load_positions(self, active: List[int]) -> None:
         """Copy the write positions, the page table and (sampled) the
         active rows' key inputs into the static buffers a decode or
         verify step reads."""
         c0 = self.caches[0]
-        c0["index"].copy_(torch.from_numpy(self.index))
+        self._upload(c0["index"], self.index)
         if self.pool is not None:
-            c0["pages"].copy_(torch.from_numpy(self.pages))
+            self._upload(c0["pages"], self.pages)
         if self.scfg.temperature:
             rids, ts = self._rid_ts(active)
-            self._rids.copy_(torch.from_numpy(rids))
-            self._ts.copy_(torch.from_numpy(ts))
+            self._upload(self._rids, rids)
+            self._upload(self._ts, ts)
 
     @torch.no_grad()
     def _decode_step(self, active: List[int]) -> np.ndarray:
         """One token for every slot (free and mid-prefill slots ride
         along: their rows land in the null page, are overwritten, or are
         never attended)."""
-        self._load_positions(active)
-        self._tok.copy_(torch.from_numpy(self.last_tok))
-        self._decode()
+        tel = self.telemetry
+        with tel.span("decode.load", self.ticks, device=True):
+            self._load_positions(active)
+            self._upload(self._tok, self.last_tok)
+        with tel.span("decode.launch", self.ticks):
+            self._decode(self.ticks)
         self.decode_traces = 1
         self.decode_steps += 1
         self.index += 1
-        return self._next.cpu().numpy().copy()
+        return self._read("decode.read", self._next)
 
     @torch.no_grad()
     def _verify_step(self, tokens: np.ndarray, active: List[int]
@@ -729,13 +782,16 @@ class ServingEngine:
         """Score ``tokens`` (batch, spec_k + 1) from every slot's write
         position; returns the picks (batch, spec_k + 1). Every write
         position advances by the width, as the step's own did."""
-        self._load_positions(active)
-        self._vtok.copy_(torch.from_numpy(tokens))
-        self._verify()
+        tel = self.telemetry
+        with tel.span("spec_verify.load", self.ticks, device=True):
+            self._load_positions(active)
+            self._upload(self._vtok, tokens)
+        with tel.span("spec_verify.launch", self.ticks):
+            self._verify(self.ticks)
         self.verify_traces = 1
         self.verify_steps += 1
         self.index += self.spec_k + 1
-        return self._picks.cpu().numpy().copy()
+        return self._read("spec_verify.read", self._picks)
 
     # -- sampling keys --------------------------------------------------------
 
@@ -791,21 +847,31 @@ class ServingEngine:
                              f"max_len {self.scfg.max_len}")
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :true_len] = prompt
-        row = T.init_caches(self.cfg, 1, self.scfg.max_len,
-                            per_slot_index=True, device=self.device)
-        logits, row = T.forward(self.params, self.cfg,
-                                torch.from_numpy(padded).to(self.device),
-                                caches=row)
+        tel = self.telemetry
+        with tel.device_span("prefill_bucket", self.ticks, slot):
+            row = T.init_caches(self.cfg, 1, self.scfg.max_len,
+                                per_slot_index=True, device=self.device)
+            tokens = torch.from_numpy(padded).to(self.device)
+            tel.count("host_syncs")
+            logits, row = T.forward(self.params, self.cfg, tokens, caches=row)
+            for full, part in zip(self.caches, row):
+                for name, t in full.items():
+                    if name != "index":
+                        t[slot].copy_(part[name][0])
+            key = None
+            if self.scfg.temperature:
+                key = self._emit_key(req).to(self.device)
+                tel.count("host_syncs")
+            nxt = self._pick(logits[0, true_len - 1], key)
         self.prefill_buckets[bucket] = self.prefill_buckets.get(bucket, 0) + 1
         self.prefill_traces.setdefault(bucket, 1)
-        for full, part in zip(self.caches, row):
-            for name, t in full.items():
-                if name != "index":
-                    t[slot].copy_(part[name][0])
         self.index[slot] = true_len
-        key = self._emit_key(req).to(self.device) \
-            if self.scfg.temperature else None
-        return int(self._pick(logits[0, true_len - 1], key))
+        with tel.span("prefill_bucket.read", self.ticks, slot=slot,
+                      rid=req.rid, device=True):
+            tok = int(nxt)
+            tel.settle()
+        tel.count("host_syncs")
+        return tok
 
     # -- page-table plumbing --------------------------------------------------
 
@@ -834,13 +900,14 @@ class ServingEngine:
         old, new = self.pool.cow(slot, pos)
         self.telemetry.emit(self.ticks, "cow_copy", slot=slot, old=old,
                             new=new, pos=pos)
-        if self.mesh is not None:
-            serve_dist.copy_page(self.caches, old, new, self.mesh,
-                                 self._pool_axis)
-        else:
-            for c in self.caches:
-                c["kp"][new].copy_(c["kp"][old])
-                c["vp"][new].copy_(c["vp"][old])
+        with self.telemetry.device_span("cow_copy", self.ticks, slot):
+            if self.mesh is not None:
+                serve_dist.copy_page(self.caches, old, new, self.mesh,
+                                     self._pool_axis)
+            else:
+                for c in self.caches:
+                    c["kp"][new].copy_(c["kp"][old])
+                    c["vp"][new].copy_(c["vp"][old])
         self.pages[slot, pos] = new
 
     def _cow_range(self, slot: int, lo: int, hi: int) -> None:
@@ -1022,6 +1089,7 @@ class ServingEngine:
     # -- request lifecycle ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
+        self._stamp(req, "submit_t")
         self.submit_tick.setdefault(req.rid, self.ticks)
         self._arrival_seq.setdefault(req.rid, self._n_arrivals)
         self._n_arrivals += 1
@@ -1107,6 +1175,7 @@ class ServingEngine:
         req.generated.append(tok)
         if len(req.generated) == 1 and req.rid not in self.first_token_tick:
             self.first_token_tick[req.rid] = self.ticks
+            self._stamp(req, "first_token_t")
         if tok == self.scfg.eos_id or len(req.generated) >= req.max_new:
             req.done = True
             self.finished[req.rid] = req.generated
@@ -1230,6 +1299,7 @@ class ServingEngine:
                     return            # hold: everyone waits for pages
                 self.queue.pop(qi)
                 self._charge_bucket(req)
+                self._stamp(req, "admit_t")
                 self.slots[i] = req
                 if req.preempt_count:
                     req.readmitted_at = self.ticks   # the storm guard
@@ -1251,9 +1321,11 @@ class ServingEngine:
                         self.telemetry.emit(self.ticks, "prefix_miss",
                                             rid=req.rid, slot=i)
                     self._chain[i] = (hit_digest, n_hit)
-                if cow_at is not None:
-                    self._cow_page(i, cow_at)
-                self._append_pages(i, self.pool.alloc(i, suffix_need))
+                with self.telemetry.span("pages", self.ticks, slot=i,
+                                         rid=req.rid):
+                    if cow_at is not None:
+                        self._cow_page(i, cow_at)
+                    self._append_pages(i, self.pool.alloc(i, suffix_need))
                 break
 
     def _admit_whole(self, i: int, qi: int, req: Request) -> None:
@@ -1264,20 +1336,32 @@ class ServingEngine:
         prompt = self._effective_prompt(req)
         self.queue.pop(qi)
         self._charge_bucket(req)
+        self._stamp(req, "admit_t")
+        self._stamp(req, "first_chunk_t")
         self.telemetry.emit(self.ticks, "admit", rid=req.rid, slot=i,
                             rclass=req.rclass, rows=len(prompt),
                             readmit=req.preempt_count)
         bucket = self.bucket_for(len(prompt))
-        with self.telemetry.span("prefill_bucket", self.ticks,
-                                 slot=i) as sp:
+        with self.telemetry.span("prefill_bucket", self.ticks, slot=i,
+                                 rid=req.rid) as sp:
             n0 = self.prefill_traces.get(bucket, 0)
             tok = self._prefill_into_slot(prompt, i, req)
             sp.compile = self.prefill_traces.get(bucket, 0) > n0
         self.slots[i] = req
         self._slot_seq[i] = self._admit_seq
         self._admit_seq += 1
-        if not self._record(i, req, tok):
-            self.last_tok[i] = tok
+        with self.telemetry.span("record", self.ticks, slot=i, rid=req.rid):
+            if not self._record(i, req, tok):
+                self.last_tok[i] = tok
+
+    def _stamp(self, req: Request, field: str) -> None:
+        """Set ``req``'s wall-clock stamp ``field`` (``submit_t``,
+        ``admit_t``, ``first_chunk_t``, ``first_token_t``) once, and keep
+        it by rid in ``stamps``; nothing with telemetry off."""
+        if self.telemetry.enabled and getattr(req, field) is None:
+            t = self.telemetry.clock()
+            setattr(req, field, t)
+            self.stamps[field][req.rid] = t
 
     def _prefill_order(self) -> List[int]:
         """Mid-prefill slots, fewest chunks left first, aged: each tick a
@@ -1319,14 +1403,16 @@ class ServingEngine:
             n = min(self.chunk, true_len - cursor)
             need = paged_mod.chunk_page_need(
                 cursor, n, len(self.pool.slot_pages.get(i, ())), ps, max_len)
-            if need:
-                if not self._preempt_for(need, protect={i}):
+            with tel.span("pages", self.ticks, slot=i, rid=req.rid):
+                if need and not self._preempt_for(need, protect={i}):
                     continue                   # stalled, retry next tick
-                self._append_pages(i, self.pool.alloc(i, need))
-            # The chunk step writes its whole padded width.
-            self._cow_range(i, cursor, cursor + self.chunk)
+                if need:
+                    self._append_pages(i, self.pool.alloc(i, need))
+                # The chunk step writes its whole padded width.
+                self._cow_range(i, cursor, cursor + self.chunk)
             served += 1
             self._prefill_wait.pop(i, None)
+            self._stamp(req, "first_chunk_t")
             chunk_toks = np.zeros((1, self.chunk), np.int64)
             chunk_toks[0, :n] = prompt[cursor:cursor + n]
             end = cursor + n
@@ -1336,7 +1422,8 @@ class ServingEngine:
             last_in = (true_len - 1 - cursor) if end == true_len else n - 1
             tel.emit(self.ticks, "prefill_chunk", rid=req.rid, slot=i,
                      start=cursor, rows=n)
-            with tel.span("prefill_chunk", self.ticks, slot=i) as sp:
+            with tel.span("prefill_chunk", self.ticks, slot=i,
+                          rid=req.rid) as sp:
                 n0 = self.prefill_traces.get(self.chunk, 0)
                 tok = self._chunk_step(chunk_toks, cursor, i, last_in, req)
                 sp.compile = self.prefill_traces.get(self.chunk, 0) > n0
@@ -1348,9 +1435,14 @@ class ServingEngine:
                 self._prefilling[i] = end
                 continue
             del self._prefilling[i]            # prefill complete
-            tok = int(tok)
-            if not self._record(i, req, tok):
-                self.last_tok[i] = tok
+            with tel.span("prefill_chunk.read", self.ticks, slot=i,
+                          rid=req.rid, device=True):
+                tok = int(tok)
+                tel.settle()
+            tel.count("host_syncs")
+            with tel.span("record", self.ticks, slot=i, rid=req.rid):
+                if not self._record(i, req, tok):
+                    self.last_tok[i] = tok
 
     def _update_pressure(self) -> None:
         """The load-shedding latch (``degrade``): the pressure signal
@@ -1440,13 +1532,14 @@ class ServingEngine:
             nxt = self._decode_step(active)
             sp.compile = self.decode_traces > n0
         active_set = set(active)
-        for i in range(self.scfg.batch):
-            if i in active_set:
-                if not self._record(i, self.slots[i], int(nxt[i])):
-                    continue
-            # Freed or empty slot: feed back 0 so stale output never
-            # aliases eos_id.
-            nxt[i] = 0
+        with tel.span("record", self.ticks):
+            for i in range(self.scfg.batch):
+                if i in active_set:
+                    if not self._record(i, self.slots[i], int(nxt[i])):
+                        continue
+                # Freed or empty slot: feed back 0 so stale output never
+                # aliases eos_id.
+                nxt[i] = 0
         self.last_tok = nxt.astype(np.int64)
 
     def _draft_history(self, req: Request) -> np.ndarray:
@@ -1508,28 +1601,31 @@ class ServingEngine:
             picks = self._verify_step(tokens, active)
             sp.compile = self.verify_traces > n0
         last = np.zeros((self.scfg.batch,), np.int64)
-        for i in active:
-            req = self.slots[i]
-            # Only what was drafted is scored: a zero-padded position that
-            # matched would inflate the accept count.
-            accepted, emitted = spec_mod.longest_accept(
-                tokens[i, 1:1 + n_prop[i]], picks[i, :n_prop[i] + 1])
-            self._adapt_proposed += n_prop[i]
-            self._adapt_accepted += accepted
-            done, n_rec = False, 0
-            for tok in emitted:
-                n_rec += 1
-                if self._record(i, req, tok):
-                    done = True                # EOS or max_new: rest dropped
-                    break
-            # One event a (slot, tick), carrying the accept accounting.
-            tel.emit(self.ticks, "spec_verify", rid=req.rid, slot=i,
-                     proposed=n_prop[i], accepted=accepted, emitted=n_rec)
-            if not done:
-                # Live rows: the pending token and the n_rec - 1 accepted
-                # drafts; the last emitted token is fed back unwritten.
-                self.index[i] = base_len[i] + n_rec
-                last[i] = emitted[n_rec - 1]
+        with tel.span("record", self.ticks):
+            for i in active:
+                req = self.slots[i]
+                # Only what was drafted is scored: a zero-padded position
+                # that matched would inflate the accept count.
+                accepted, emitted = spec_mod.longest_accept(
+                    tokens[i, 1:1 + n_prop[i]], picks[i, :n_prop[i] + 1])
+                self._adapt_proposed += n_prop[i]
+                self._adapt_accepted += accepted
+                done, n_rec = False, 0
+                for tok in emitted:
+                    n_rec += 1
+                    if self._record(i, req, tok):
+                        done = True        # EOS or max_new: rest dropped
+                        break
+                # One event a (slot, tick), carrying the accept accounting.
+                tel.emit(self.ticks, "spec_verify", rid=req.rid, slot=i,
+                         proposed=n_prop[i], accepted=accepted,
+                         emitted=n_rec)
+                if not done:
+                    # Live rows: the pending token and the n_rec - 1
+                    # accepted drafts; the last emitted token is fed back
+                    # unwritten.
+                    self.index[i] = base_len[i] + n_rec
+                    last[i] = emitted[n_rec - 1]
         self.last_tok = last
 
     def _agree_on_drafts(self, tokens: np.ndarray, n_prop: Dict[int, int],
@@ -1567,7 +1663,7 @@ class ServingEngine:
         the number of slots making progress. The tick and its phases run
         under wall-clock spans; none adds a synchronisation."""
         tel = self.telemetry
-        t0 = tel.clock()
+        t0 = tel.tick_start()
         self.ticks += 1
         self._update_pressure()
         with tel.span("admit", self.ticks):
@@ -1575,7 +1671,8 @@ class ServingEngine:
         with tel.span("prefill", self.ticks):
             if self.pool is not None:
                 self._prefill_tick()
-                self._ensure_decode_pages()
+                with tel.span("pages", self.ticks):
+                    self._ensure_decode_pages()
         active = [i for i, s in enumerate(self.slots)
                   if s is not None and i not in self._prefilling]
         if not active:

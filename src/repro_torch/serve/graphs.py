@@ -14,6 +14,16 @@ graph, and every call replays the graph. On the CPU, or with
 ``capture=False``, every call runs ``fn``. Nothing falls back: a capture
 or a replay that fails raises.
 
+``Step(..., tel=, name=)`` times each run as the device span ``name`` of
+the engine's ``serve.telemetry.Telemetry`` when that times device spans.
+Captured, the graph then holds a pair of timing events as its first and
+last node, which each replay re-binds to a pair of the telemetry's pooled
+events (``cuGraphExecEventRecordNodeSetEvent``), so the span starts when
+the device starts the graph and a launch's host latency falls before it.
+The capture checks, by one replay, that the bound events time, and raises
+where they do not. Run eagerly, the pair is recorded around the run.
+Untimed, the graph holds the step's own nodes alone.
+
 ``ops.LAUNCHES`` counts wrapper calls, which a replay does not make. The
 capture counts the wrapper calls it records, then reads the captured
 graph's kernel nodes back from the driver and raises unless each of the
@@ -51,6 +61,59 @@ KERNELS = ((("decode_split_kernel", "PagedLayout"), "flash_decode_paged"),
            (("pchase_timed_kernel",), "pchase_timed"))
 
 _KERNEL_NODE = 0          # CU_GRAPH_NODE_TYPE_KERNEL
+_EVENT_RECORD_NODE = 7    # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+_P = ctypes.c_void_p
+
+
+def _libcuda():
+    """The CUDA driver library (``libcuda``), with the argument types of
+    the calls made here declared."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    for name, args in (
+            ("cuGraphGetNodes", (_P, _P, ctypes.POINTER(ctypes.c_size_t))),
+            ("cuGraphNodeGetType", (_P, ctypes.POINTER(ctypes.c_int))),
+            ("cuGraphEventRecordNodeGetEvent", (_P, ctypes.POINTER(_P))),
+            ("cuGraphExecEventRecordNodeSetEvent", (_P, _P, _P))):
+        fn = getattr(cuda, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return cuda
+
+
+def _check(err: int, call: str) -> None:
+    if err:
+        raise RuntimeError(f"{call} failed: CUresult {err}")
+
+
+def _nodes(cuda, raw_graph: int) -> list:
+    graph = _P(raw_graph)
+    n = ctypes.c_size_t(0)
+    _check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+           "cuGraphGetNodes")
+    nodes = (_P * n.value)()
+    _check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+           "cuGraphGetNodes")
+    out = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        _check(cuda.cuGraphNodeGetType(_P(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+        out.append((_P(node), kind.value))
+    return out
+
+
+def event_nodes(raw_graph: int) -> Dict[int, object]:
+    """A captured graph's event-record nodes, by the event each records
+    (a ``cudaEvent_t`` as an int)."""
+    cuda = _libcuda()
+    out = {}
+    for node, kind in _nodes(cuda, raw_graph):
+        if kind == _EVENT_RECORD_NODE:
+            ev = _P()
+            _check(cuda.cuGraphEventRecordNodeGetEvent(node,
+                                                       ctypes.byref(ev)),
+                   "cuGraphEventRecordNodeGetEvent")
+            out[ev.value] = node
+    return out
 
 
 def wrapper_of(name: str) -> Optional[str]:
@@ -73,39 +136,21 @@ class _KernelNodeParams(ctypes.Structure):
 def kernel_names(raw_graph: int) -> list:
     """The mangled names of a captured graph's kernel nodes (a
     ``cudaGraph_t`` as an int), read from the driver."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-
-    def check(err: int, call: str) -> None:
-        if err:
-            raise RuntimeError(f"{call} failed: CUresult {err}")
-
-    graph = ctypes.c_void_p(raw_graph)
-    n = ctypes.c_size_t(0)
-    check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(n)),
-          "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
-          "cuGraphGetNodes")
+    cuda = _libcuda()
     names = []
-    for node in nodes[:n.value]:
-        node = ctypes.c_void_p(node)
-        kind = ctypes.c_int()
-        check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)),
-              "cuGraphNodeGetType")
-        if kind.value != _KERNEL_NODE:
+    for node, kind in _nodes(cuda, raw_graph):
+        if kind != _KERNEL_NODE:
             continue
         p = _KernelNodeParams()
-        check(cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
-              "cuGraphKernelNodeGetParams")
+        _check(cuda.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
+               "cuGraphKernelNodeGetParams")
         name = ctypes.c_char_p()
         if p.func:
-            check(cuda.cuFuncGetName(ctypes.byref(name),
-                                     ctypes.c_void_p(p.func)),
-                  "cuFuncGetName")
+            _check(cuda.cuFuncGetName(ctypes.byref(name), _P(p.func)),
+                   "cuFuncGetName")
         else:
-            check(cuda.cuKernelGetName(ctypes.byref(name),
-                                       ctypes.c_void_p(p.kern)),
-                  "cuKernelGetName")
+            _check(cuda.cuKernelGetName(ctypes.byref(name), _P(p.kern)),
+                   "cuKernelGetName")
         names.append(name.value.decode())
     return names
 
@@ -125,15 +170,22 @@ class Step:
     docstring). ``launches`` are the wrapper calls the capture recorded,
     ``nodes`` the port's kernels read back from the captured graph (equal,
     or the capture raised); ``graph_bytes`` is the device memory of the
-    graph's private pool: the segments the allocator holds for it."""
+    graph's private pool: the segments the allocator holds for it.
+    ``timing`` says how a run's device span ``name`` is timed: "graph"
+    (events inside the graph), "eager" (around the run), or None (not
+    timed)."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
-                 capture: bool):
+                 capture: bool, tel=None, name: Optional[str] = None):
         self.fn = fn
         self.graph = None
         self.launches: Dict[str, int] = {}    # kernel -> wrapper calls
         self.nodes: Dict[str, int] = {}       # kernel -> graph nodes
         self.graph_bytes = 0
+        timed = tel is not None and tel.timing
+        self.tel = tel if timed else None
+        self.name = name
+        self.timing = "eager" if timed else None
         if device.type != "cuda":
             return
         counted = dict(ops.LAUNCHES)
@@ -145,15 +197,21 @@ class Step:
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
         if capture:
-            self._capture(device, stream)
+            self._capture(device, stream, timed)
         ops.LAUNCHES.update(counted)
 
-    def _capture(self, device: torch.device, stream) -> None:
+    def _capture(self, device: torch.device, stream, timed: bool) -> None:
         before = dict(ops.LAUNCHES)
         # Kept, so that its nodes can be read after the capture.
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        marks = [torch.cuda.Event(enable_timing=True, external=True)
+                 for _ in range(2)] if timed else None
         with torch.cuda.graph(graph, stream=stream):
+            if marks:
+                marks[0].record(stream)
             self.fn()
+            if marks:
+                marks[1].record(stream)
         graph.instantiate()
         torch.cuda.synchronize(device)
         self.launches = {k: ops.LAUNCHES[k] - before[k] for k in before
@@ -168,11 +226,48 @@ class Step:
         self.graph_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg["segment_pool_id"]) == pool)
+        if timed:
+            self._marks = marks
+            self._bind_marks(device)
+            self.timing = "graph"
 
-    def __call__(self) -> None:
+    def _bind_marks(self, device: torch.device) -> None:
+        """Find the graph's two event nodes and check, by one replay, that
+        events bound to them time on this card; raise where they do not."""
+        nodes = event_nodes(self.graph.raw_cuda_graph())
+        self._event_nodes = [nodes[m.cuda_event] for m in self._marks]
+        self._exec = _P(self.graph.raw_cuda_graph_exec())
+        self._set_event = _libcuda().cuGraphExecEventRecordNodeSetEvent
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        b.record()
+        self._bind(a, b)
+        self.graph.replay()
+        torch.cuda.synchronize(device)
+        ms = a.elapsed_time(b)
+        # The CUDA driver refuses to re-bind a node whose event was
+        # destroyed: bind back the captured pair, which the step keeps.
+        self._bind(*self._marks)
+        if not ms > 0:
+            raise RuntimeError(f"the events bound to the graph's first and "
+                               f"last node read {ms} ms for a replay")
+
+    def _bind(self, a, b) -> None:
+        for node, ev in zip(self._event_nodes, (a, b)):
+            _check(self._set_event(self._exec, node, _P(ev.cuda_event)),
+                   "cuGraphExecEventRecordNodeSetEvent")
+
+    def __call__(self, tick: int = 0, slot: Optional[int] = None) -> None:
+        tel = self.tel
         if self.graph is None:
-            self.fn()
+            if tel is None:
+                self.fn()
+                return
+            with tel.device_span(self.name, tick, slot):
+                self.fn()
             return
+        if tel is not None:
+            self._bind(*tel.device_marks(self.name, tick, slot))
         self.graph.replay()
         for name, n in self.nodes.items():
             ops.LAUNCHES[name] += n

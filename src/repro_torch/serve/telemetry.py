@@ -15,16 +15,34 @@ Three surfaces, one bookkeeping home:
   disabled (and after ring eviction), so the counters stay exact while
   the ring bounds memory.
 * **Wall-clock spans** — ``perf_counter`` spans around the decode, verify
-  and chunk steps and the host's scheduling phases, with a step's first
-  run (its build: a capture or a first eager run) flagged ``compile``,
-  plus a per-tick wall-time histogram (p50/p99). Spans measure
-  host-observed time: the launch, plus whatever synchronisation the
-  engine already performs. No synchronisation or host<->device transfer
-  is added for telemetry, so a traced engine's streams equal an untraced
-  engine's.
+  and chunk steps, their loads, launches and reads, page work, token
+  bookkeeping and the host's scheduling phases, each with the span open
+  around it (``parent``), with a step's first run (its build: a capture
+  or a first eager run) flagged ``compile``, plus a per-tick wall-time
+  histogram (p50/p99). Spans measure host-observed time. While a
+  ``torch.profiler`` records, each span also opens a
+  ``record_function("engine.<name>")`` range, so a device trace holds the
+  engine's spans beside its kernels.
+* **Device spans** — on a CUDA engine with telemetry on, timing events
+  (a reused pool) bracket every piece of device work the engine enqueues:
+  loads, replays (recorded by the captured graph's first and last node,
+  ``serve.graphs.Step``) and reads. They stay pending until ``settle()``,
+  which the engine calls right after a read it already makes; the host
+  clock then is the time of the last completed event. At the tick's end
+  (or a reading) every settled event maps onto the host clock by its
+  ``elapsed_time`` to that one, so the span around a read holds one clock
+  read of telemetry's own. Each device span is counted as
+  ``<name>.device``; each gap between two device spans is device idle,
+  split over the host spans it overlaps and charged to the innermost as
+  ``idle.<span>`` (``idle.tick`` inside a tick but in no span,
+  ``idle.settle`` over the mapping itself, ``idle.outside`` between
+  ticks).
+  No synchronisation or host<->device transfer is added for telemetry,
+  so a traced engine's streams equal an untraced engine's.
 * **Exporters** — ``chrome_trace()`` emits a Chrome-trace/Perfetto JSON
-  timeline (one track per engine phase, one per slot); ``metrics()``
-  flattens everything into one scalar dict.
+  timeline (one track per engine phase with its child spans nested, one
+  per slot, one for the device); ``metrics()`` flattens everything into
+  one scalar dict.
 * **Drift** — ``drift_report(engine)`` holds the serving cost models
   (``core.autotune``) against the engine's measured spans.
 """
@@ -33,9 +51,10 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 TRACE_SCHEMA_VERSION = 1
 
@@ -61,28 +80,83 @@ EVENT_KINDS = frozenset({
     "prefix_evict",   # LRU reclaim of cached-idle prefix pages
 })
 
+# Aggregate counters the port's engine keeps and the reference's does not:
+# ``host_syncs``, its blocking host<->device transfers and reads.
+PORT_COUNTERS = frozenset({"host_syncs"})
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording (a cheap check)."""
+    return torch._C._autograd._profiler_enabled()
+
 
 class _Span:
-    """Context manager recording one wall-clock span. ``compile`` is set
-    by the caller, inside the block, from the engine's build counters."""
+    """Context manager recording one wall-clock span (and, with
+    ``device``, the device span of the same name). ``compile`` is set by
+    the caller, inside the block, from the engine's build counters."""
 
-    __slots__ = ("_tel", "name", "tick", "slot", "compile", "_t0")
+    __slots__ = ("_tel", "name", "tick", "slot", "rid", "compile", "parent",
+                 "track", "seq", "_t0", "_rf", "_device", "_dev")
 
     def __init__(self, tel: "Telemetry", name: str, tick: int,
-                 slot: Optional[int]):
+                 slot: Optional[int], rid: Optional[int], device: bool):
         self._tel = tel
         self.name = name
         self.tick = tick
         self.slot = slot
+        self.rid = rid
         self.compile = False
+        self._device = device
 
     def __enter__(self) -> "_Span":
-        self._t0 = time.perf_counter()
+        tel = self._tel
+        parent = tel._open[-1] if tel._open else None
+        self.parent = parent
+        # A span nests in its parent's track; a slot's spans in the slot's.
+        self.track = (f"slot:{self.slot}" if self.slot is not None
+                      else parent.track if parent is not None
+                      else f"phase:{self.name}")
+        tel._seq += 1
+        self.seq = tel._seq
+        tel._open.append(self)
+        self._rf = None
+        if _profiling():
+            self._rf = torch.autograd.profiler.record_function(
+                "engine." + self.name)
+            self._rf.__enter__()
+        self._dev = tel._device_open(self.name, self.tick, self.slot) \
+            if self._device else None
+        self._t0 = tel._clock()
         return self
 
     def __exit__(self, *exc) -> None:
-        self._tel._record_span(self, self._t0,
-                               time.perf_counter() - self._t0)
+        tel = self._tel
+        t1 = tel._clock()
+        if self._dev is not None:
+            tel._device_close(self._dev)
+        tel._open.pop()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        tel._record_span(self, self._t0, t1)
+
+
+class _DeviceSpan:
+    """Context manager bracketing the device work enqueued in its block
+    with a pair of pooled timing events (no host span)."""
+
+    __slots__ = ("_tel", "_args", "_dev")
+
+    def __init__(self, tel: "Telemetry", name: str, tick: int,
+                 slot: Optional[int]):
+        self._tel = tel
+        self._args = (name, tick, slot)
+
+    def __enter__(self) -> "_DeviceSpan":
+        self._dev = self._tel._device_open(*self._args)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._tel._device_close(self._dev)
 
 
 class _NullSpan:
@@ -103,24 +177,97 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def charge_idle(gaps: List[Tuple[float, float]],
+                hosts: List[Tuple[float, float, str, int]]
+                ) -> List[Tuple[str, float, float]]:
+    """Split each idle gap ``(a, b)`` (in time order, disjoint) over the
+    host intervals ``(t0, t1, name, seq)`` it overlaps, each part charged
+    to the innermost interval covering it, or to ``outside`` where none
+    does. The intervals nest (spans close in the order they opened; an
+    open one has ``t1`` inf), so one sweep over their ends, with a stack
+    of the intervals open, finds the innermost: the stack's top. Returns
+    ``(name, start, end)`` parts in time order; each gap's parts tile it
+    exactly."""
+    out: List[Tuple[str, float, float]] = []
+    if not gaps:
+        return out
+    lo = gaps[0][0]
+    hosts = [h for h in hosts if h[1] > h[0]]     # an empty one covers none
+    stack = sorted((h for h in hosts if h[0] <= lo < h[1]),
+                   key=lambda h: h[3])
+    # Ends after ``lo``: closes first at one time, inner ones first; then
+    # opens, outer ones first.
+    ends = sorted([(h[1], 0, -h[3], h) for h in hosts
+                   if lo < h[1] < float("inf")]
+                  + [(h[0], 1, h[3], h) for h in hosts if h[0] > lo],
+                  key=lambda e: e[:3])
+    i = 0
+
+    def step(e) -> None:
+        if e[1]:
+            stack.append(e[3])
+        elif stack and stack[-1] is e[3]:
+            stack.pop()
+        elif e[3] in stack:
+            stack.remove(e[3])
+
+    for a, b in gaps:
+        while i < len(ends) and ends[i][0] <= a:
+            step(ends[i])
+            i += 1
+        p = a
+        while p < b:
+            q = min(b, ends[i][0]) if i < len(ends) else b
+            if q > p:
+                name = stack[-1][2] if stack else "outside"
+                if out and out[-1][0] == name and out[-1][2] == p:
+                    out[-1] = (name, out[-1][1], q)
+                else:
+                    out.append((name, p, q))
+            p = q
+            while i < len(ends) and ends[i][0] <= p and p < b:
+                step(ends[i])
+                i += 1
+    return out
+
+
 class Telemetry:
     """One engine's observability state: event ring, aggregates, spans.
 
     Aggregates (``counters``, ``shed_by_class``, ``preemption_log``) are
     updated by every ``emit``/``count`` call whether or not ``enabled``;
     they back the engine's counter views and must stay exact. The ring
-    buffers (events, spans, tick times) and the ``perf_counter`` reads
-    are what ``enabled`` gates."""
+    buffers (events, spans, tick times), the clock reads and the device
+    spans are what ``enabled`` gates.
 
-    def __init__(self, enabled: bool = True, capacity: int = 4096):
+    Device spans are timed when ``enabled`` and either ``device`` is a
+    CUDA device (events: ``torch.cuda.Event(enable_timing=True)``) or
+    ``new_event`` makes the events (anything with ``record()`` and
+    ``elapsed_time(later)`` in ms); ``clock`` is the host clock
+    (``time.perf_counter``, the clock a harness stamps tokens with)."""
+
+    def __init__(self, enabled: bool = True, capacity: int = 4096,
+                 device=None, clock: Callable[[], float] = time.perf_counter,
+                 new_event: Optional[Callable[[], Any]] = None):
         assert capacity >= 1, capacity
         self.enabled = enabled
         self.capacity = capacity
         self.schema_version = TRACE_SCHEMA_VERSION
+        self._clock = clock
+        if new_event is None and device is not None \
+                and torch.device(device).type == "cuda":
+            new_event = lambda: torch.cuda.Event(  # noqa: E731
+                enable_timing=True)
+        self._new_event = new_event
+        self.timing = enabled and new_event is not None
         # Ring entries: (t_rel_s, tick, kind, payload_dict).
         self.events: deque = deque(maxlen=capacity)
-        # Ring entries: (name, t0_rel_s, dur_s, tick, slot, compile).
+        # Ring entries: (name, t0_rel_s, dur_s, tick, slot, compile,
+        # parent, rid, track).
         self.spans: deque = deque(maxlen=capacity)
+        # Ring entries: (name, t0_rel_s, dur_s, tick, slot): the device
+        # spans (``<name>.device``) and the idle parts (``idle.<span>``).
+        self.device_spans: deque = deque(maxlen=capacity)
         # Ring entries: (tick, dur_s), the percentile window.
         self.tick_times: deque = deque(maxlen=capacity)
         self.dropped_events = 0          # ring evictions (aggregates exact)
@@ -132,7 +279,25 @@ class Telemetry:
         self._span_agg: Dict[str, List] = {}
         self._tick_n = 0
         self._tick_total_s = 0.0
-        self._epoch = time.perf_counter()
+        self._epoch = clock()
+        # Open spans (innermost last) and their opening order.
+        self._open: List[_Span] = []
+        self._seq = 0
+        # In flight between settles (kept across ``reset``): the events
+        # recorded and not yet settled, in stream order; the device spans
+        # [name, start, end, tick, slot] (events; the end is a host time
+        # where a settle ended the span); the settled batches (anchor,
+        # events, spans) not yet mapped; the events free for reuse; the
+        # host intervals (t0, t1, name, seq) an idle gap may still
+        # overlap; the open tick; the host time the device last went idle.
+        self._evq: List[Any] = []
+        self._dq: List[List] = []
+        self._settled: List[Tuple[float, List[Any], List[List]]] = []
+        self._pool: List[Any] = []
+        self._hosts: List[Tuple[float, float, str, int]] = []
+        self._tick_open: Optional[Tuple[float, int]] = None
+        self._tick_end: Optional[float] = None
+        self._dev_end: Optional[float] = None
 
     # -- recording ------------------------------------------------------------
 
@@ -167,46 +332,200 @@ class Telemetry:
             return
         if len(self.events) == self.capacity:
             self.dropped_events += 1
-        self.events.append(
-            (time.perf_counter() - self._epoch, tick, kind, payload))
+        self.events.append((self._clock() - self._epoch, tick, kind, payload))
 
-    def span(self, name: str, tick: int, slot: Optional[int] = None):
-        """Wall-clock span context manager; a no-op when disabled."""
+    def span(self, name: str, tick: int, slot: Optional[int] = None,
+             rid: Optional[int] = None, device: bool = False):
+        """Wall-clock span context manager; a no-op when disabled. With
+        ``device`` it also times the device work enqueued in its block
+        (``<name>.device``) when device spans are timed."""
         if not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, tick, slot)
+        return _Span(self, name, tick, slot, rid, device and self.timing)
 
-    def _record_span(self, sp: _Span, t0: float, dur: float) -> None:
-        agg = self._span_agg.get(sp.name)
+    def device_span(self, name: str, tick: int, slot: Optional[int] = None):
+        """Times the device work enqueued in its block as ``<name>.device``
+        (no host span); a no-op unless device spans are timed."""
+        if not self.timing:
+            return _NULL_SPAN
+        return _DeviceSpan(self, name, tick, slot)
+
+    def device_marks(self, name: str, tick: int, slot: Optional[int] = None):
+        """Two pooled events queued as the device span ``name``, for a
+        captured graph's first and last node to record: the caller binds
+        them to the graph's event nodes and replays it."""
+        a, b = self._take(), self._take()
+        self._evq += (a, b)
+        self._dq.append([name, a, b, tick, slot])
+        return a, b
+
+    def _take(self):
+        if self._pool:
+            return self._pool.pop()
+        ev = self._new_event()
+        ev.record()          # a CUDA event exists only once recorded
+        return ev
+
+    def _mark(self):
+        ev = self._take()
+        ev.record()
+        self._evq.append(ev)
+        return ev
+
+    def _device_open(self, name: str, tick: int, slot: Optional[int]):
+        d = [name, self._mark(), None, tick, slot]
+        self._dq.append(d)
+        return d
+
+    def _device_close(self, d: List) -> None:
+        if d[2] is None:     # a settle inside the block ended it already
+            d[2] = self._mark()
+
+    def settle(self) -> None:
+        """Anchor the pending events to the host clock. Called right after
+        a read that left the stream drained (so every pending event has
+        completed): the host clock now is the time of the last event. A
+        device span still open (the read's own) ends here. The events are
+        mapped later (``_map``: at the tick's end or a reading), so that a
+        span around the read holds no more than this clock read."""
+        if not self._evq:
+            return
+        now = self._clock()
+        for d in self._dq:
+            if d[2] is None:
+                d[2] = now           # ended: ``_device_close`` records none
+        self._settled.append((now, self._evq, self._dq))
+        self._evq, self._dq = [], []
+
+    def _map(self) -> None:
+        """Map the settled events onto the host clock: each event lies its
+        ``elapsed_time`` before its batch's last, which is at the batch's
+        anchor. Then each gap between consecutive device spans, from the
+        last mapped one on, is charged to the host spans it overlaps
+        (``charge_idle``). The mapping's own host time is the ``settle``
+        span (a gap over it is charged to ``idle.settle``)."""
+        if not self._settled:
+            return
+        t0 = self._clock()
+        gaps = []
+        end = self._dev_end
+        for now, evq, dq in self._settled:
+            last = evq[-1]
+            at = {id(ev): now - ev.elapsed_time(last) / 1e3
+                  for ev in evq[:-1]}
+            at[id(last)] = now
+            self._pool += evq
+            for name, a, b, tick, slot in dq:
+                a = at[id(a)]
+                b = max(a, b if isinstance(b, float) else at[id(b)])
+                if end is not None and a > end:
+                    gaps.append((end, a))
+                self._record_device(name + ".device", a, b - a, tick, slot)
+                end = b if end is None else max(end, b)
+        self._settled = []
+        self._dev_end = end
+        self._charge(gaps)
+        self._seq += 1
+        t1 = self._clock()
+        self._hosts.append((t0, t1, "settle", self._seq))
+        self._agg("settle", t1 - t0, False)
+
+    def _charge(self, gaps: List[Tuple[float, float]]) -> None:
+        """Charge idle ``gaps`` to the host spans, then drop the host
+        intervals no later gap can overlap (those that ended before the
+        device last went idle)."""
+        hosts = self._hosts + [(sp._t0, float("inf"), sp.name, sp.seq)
+                               for sp in self._open]
+        if self._tick_open is not None:
+            hosts.append((self._tick_open[0], float("inf"), "tick",
+                          self._tick_open[1]))
+        for name, a, b in charge_idle(gaps, hosts):
+            self._record_device("idle." + name, a, b - a, None, None)
+        if self._dev_end is not None:
+            self._hosts = [h for h in self._hosts if h[1] > self._dev_end]
+
+    def _flush_idle(self) -> None:
+        """A reading with no device work in flight since the last settle:
+        the device has been idle from its last span on. Inside a tick
+        that much is charged up to now; between ticks, up to the end of
+        the last tick, and the caller's time since (a profiler stopping,
+        a harness between its window and its reading) is charged to no
+        span. The next gap starts at the reading, so a reading splits the
+        device's timeline at its own time."""
+        if self._evq or self._settled or self._dev_end is None:
+            return
+        now = self._clock()
+        end = now if self._tick_open is not None or self._tick_end is None \
+            else min(now, self._tick_end)
+        if end > self._dev_end:
+            gap = [(self._dev_end, end)]
+            self._dev_end = end
+            self._charge(gap)
+        self._dev_end = max(self._dev_end, now)
+
+    def _agg(self, name: str, dur: float, compile_: bool) -> None:
+        agg = self._span_agg.get(name)
         if agg is None:
-            agg = self._span_agg[sp.name] = [0, 0.0, 0.0, 0, 0.0]
+            agg = self._span_agg[name] = [0, 0.0, 0.0, 0, 0.0]
         agg[0] += 1
         agg[1] += dur
         agg[2] = max(agg[2], dur)
-        if sp.compile:
+        if compile_:
             agg[3] += 1
             agg[4] += dur
+
+    def _record_device(self, name: str, t0: float, dur: float,
+                       tick: Optional[int], slot: Optional[int]) -> None:
+        self._agg(name, dur, False)
+        self.device_spans.append((name, t0 - self._epoch, dur, tick, slot))
+
+    def _record_span(self, sp: _Span, t0: float, t1: float) -> None:
+        dur = t1 - t0
+        self._agg(sp.name, dur, sp.compile)
+        parent = sp.parent.name if sp.parent is not None else None
         self.spans.append((sp.name, t0 - self._epoch, dur, sp.tick,
-                           sp.slot, sp.compile))
+                           sp.slot, sp.compile, parent, sp.rid, sp.track))
+        if self.timing:
+            self._hosts.append((t0, t1, sp.name, sp.seq))
 
     def clock(self) -> float:
-        """Tick-start timestamp (0.0 when disabled; tick_done ignores)."""
-        return time.perf_counter() if self.enabled else 0.0
+        """The host clock (0.0 when disabled): a tick's start for
+        ``tick_done``, a request's stamps."""
+        return self._clock() if self.enabled else 0.0
+
+    def tick_start(self) -> float:
+        """``clock()`` that also opens the tick as the outermost host
+        interval idle is charged to (``idle.tick``)."""
+        t0 = self.clock()
+        if self.timing:
+            self._seq += 1
+            self._tick_open = (t0, self._seq)
+        return t0
 
     def tick_done(self, tick: int, t0: float) -> None:
         """Close the whole-tick wall span opened by ``clock()``."""
         if not self.enabled:
             return
-        dur = time.perf_counter() - t0
+        t1 = self._clock()
+        dur = t1 - t0
         self._tick_n += 1
         self._tick_total_s += dur
         self.tick_times.append((tick, dur))
+        if self._tick_open is not None:
+            self._hosts.append((t0, t1, "tick", self._tick_open[1]))
+            self._tick_open = None
+            self._tick_end = t1
+            self._map()
 
     def reset(self) -> None:
         """Drop everything: rings, aggregates, epoch (a warm-up
-        boundary)."""
+        boundary). Device work in flight stays pending; what was settled
+        is mapped first, and dropped with the rest."""
+        if self.timing:
+            self._map()
         self.events.clear()
         self.spans.clear()
+        self.device_spans.clear()
         self.tick_times.clear()
         self.dropped_events = 0
         self.counters.clear()
@@ -215,7 +534,7 @@ class Telemetry:
         self._span_agg.clear()
         self._tick_n = 0
         self._tick_total_s = 0.0
-        self._epoch = time.perf_counter()
+        self._epoch = self._clock()
 
     # -- queries --------------------------------------------------------------
 
@@ -243,7 +562,12 @@ class Telemetry:
 
     def span_stats(self) -> Dict[str, Dict[str, float]]:
         """Per-span-name aggregates, first runs apart: ``compile_*`` is
-        the steps' builds, ``execute_mean_s`` the steady-state mean."""
+        the steps' builds, ``execute_mean_s`` the steady-state mean. The
+        device's idle is charged up to the reading first, where nothing
+        is in flight (``_flush_idle``), after what was settled is mapped."""
+        if self.timing:
+            self._map()
+            self._flush_idle()
         out = {}
         for name, (n, total, mx, cn, cs) in self._span_agg.items():
             en = n - cn
@@ -280,19 +604,27 @@ class Telemetry:
         """Chrome-trace/Perfetto JSON (the ``traceEvents`` array format).
 
         One track (tid) per engine phase (``phase:decode``, ...) carries
-        the wall-clock spans as complete events (ph="X"); per-slot tracks
-        (``slot:0``, ...) carry slot-attributed spans (prefill chunks) and
-        the decision events as instants (ph="i"). Counter tracks (ph="C")
+        the wall-clock spans as complete events (ph="X"), each child span
+        nested in its parent's track; per-slot tracks (``slot:0``, ...)
+        carry slot-attributed spans (prefill chunks and their children)
+        and the decision events as instants (ph="i"); the ``device`` track
+        carries the device spans and the idle gaps by the host span they
+        were charged to. Counter tracks (ph="C")
         rebuild pool occupancy, queue depth and the live speculation width
         from the decision events. Timestamps are microseconds from the
         telemetry's epoch. Write it with ``json.dump`` and open it at
         ui.perfetto.dev or chrome://tracing."""
         tev = []
-        for name, t0, dur, tick, slot, comp in self.spans:
-            tid = f"slot:{slot}" if slot is not None else f"phase:{name}"
-            tev.append({"name": name, "ph": "X", "pid": 0, "tid": tid,
+        for name, t0, dur, tick, slot, comp, parent, rid, track in self.spans:
+            args = {"tick": tick, "compile": comp, "parent": parent}
+            if rid is not None:
+                args["rid"] = rid
+            tev.append({"name": name, "ph": "X", "pid": 0, "tid": track,
+                        "ts": t0 * 1e6, "dur": dur * 1e6, "args": args})
+        for name, t0, dur, tick, slot in self.device_spans:
+            tev.append({"name": name, "ph": "X", "pid": 0, "tid": "device",
                         "ts": t0 * 1e6, "dur": dur * 1e6,
-                        "args": {"tick": tick, "compile": comp}})
+                        "args": {"tick": tick, "slot": slot}})
         # Counter tracks, integrated from the decision events in ring
         # order. The ring may have evicted the start of the run, so the
         # integrals are clamped at zero: the aggregates hold the totals.
@@ -336,8 +668,11 @@ def drift_report(engine, persist: bool = False) -> Dict[str, Any]:
     * ``decode`` — the mean decode span against ``paged_decode_model``'s
       ``paged_s`` at the run's mean context length and active slots
       (counted on the host each tick: no device read);
-    * ``prefill_chunk`` — the mean chunk span against one chunk of
-      ``prefill_chunk_model``;
+    * ``prefill_chunk`` — the chunk replay's mean device time
+      (``prefill_chunk.replay.device``, a CUDA engine with telemetry on)
+      against one chunk of ``prefill_chunk_model``; where no device span
+      was measured, the mean chunk span (on the card the launch alone);
+      ``span`` says which;
     * ``spec_verify`` — the mean verify span against
       ``spec_decode_model``'s ``spec_tick_s`` at the measured accept rate.
 
@@ -349,8 +684,7 @@ def drift_report(engine, persist: bool = False) -> Dict[str, Any]:
     (``constants``) and carries ``autotune.calibration_report``. With
     ``persist=True`` the measurements go into the tuning cache under the
     ``serve_measured:`` namespace. On the card a decode or verify span
-    ends with the step's read of its picks (device time included); a
-    chunk span is the launch alone."""
+    ends with the step's read of its picks (device time included)."""
     from repro_torch.core import autotune
     from repro_torch.models import transformer as T
 
@@ -401,13 +735,17 @@ def drift_report(engine, persist: bool = False) -> Dict[str, Any]:
             n_spans=dec["execute_n"], mean_context=mean_len,
             mean_slots=mean_slots)
 
-    pc = stats.get("prefill_chunk")
+    pc_span = "prefill_chunk.replay.device"
+    pc = stats.get(pc_span)
+    if not pc:
+        pc_span = "prefill_chunk"
+        pc = stats.get(pc_span)
     if pc and pc["execute_n"]:
         out["prefill_chunk"] = dict(cell(
             pc["execute_mean_s"],
             lambda **kw: autotune.prefill_chunk_model(
                 engine.chunk, engine.chunk, **geom, **kw)["prefill_s"]),
-            n_spans=pc["execute_n"], chunk=engine.chunk)
+            n_spans=pc["execute_n"], chunk=engine.chunk, span=pc_span)
 
     sv = stats.get("spec_verify")
     if sv and sv["execute_n"] and engine.spec_k:

@@ -24,7 +24,8 @@ offer the same arrivals from the same seed.
   ``session_id``) and its replayer.
 * ``summarize`` — the operator's rollup: TTFT/TPOT percentiles (tick
   domain), goodput, shed and preemption accounting, per-class SLO
-  attainment, and milliseconds from the measured tick time.
+  attainment, milliseconds from the measured tick time, and wall-clock
+  TTFT, queue-wait and prefill-wait tails from the requests' stamps.
 
 Times are in engine ticks (one decode step for every active slot), which
 are deterministic and the same on every machine; the measured tick time
@@ -336,6 +337,14 @@ def summarize(engine, arrivals: List[Arrival],
       ``classes`` to also report attainment against any ``ttft_ms`` /
       ``tpot_ms`` targets they carry: SLOs priced in milliseconds on
       the machine actually serving, not just in ticks.
+    * wall-clock stamps: when the engine stamped its requests (telemetry
+      on, ``engine.stamps``), the TTFT from submission to the first token
+      recorded (``ttft_wall_ms_p50/p95/p99``), the queue wait from
+      submission to the first admission (``queue_wait_ms_p50/p95/p99``)
+      and the wait from submission to the first prompt chunk served
+      (``prefill_wait_ms_p50/p95/p99``: the queue and, paged, the turns
+      other prompts' chunks took first), over the requests that reached
+      each, beside the tick-based estimate.
     """
     by_class: Dict[str, List[Arrival]] = {}
     for a in arrivals:
@@ -352,8 +361,15 @@ def summarize(engine, arrivals: List[Arrival],
     tick_ms = tstats["mean_s"] * 1e3 if tstats["n"] else None
     wall_cls = {c.name: c for c in (classes or ())}
 
+    stamps = getattr(engine, "stamps", {})
+    submitted = stamps.get("submit_t", {})
+    walls = (("ttft_wall_ms", stamps.get("first_token_t", {})),
+             ("queue_wait_ms", stamps.get("admit_t", {})),
+             ("prefill_wait_ms", stamps.get("first_chunk_t", {})))
+
     def roll(arrs: List[Arrival]) -> Dict[str, object]:
         ttfts, tpots = [], []
+        wall: Dict[str, List[float]] = {name: [] for name, _ in walls}
         n_done = n_forced = n_rejected = 0
         ttft_ok = tpot_ok = ttft_n = tpot_n = 0
         ttft_ms_ok = tpot_ms_ok = ttft_ms_n = tpot_ms_n = 0
@@ -367,6 +383,9 @@ def summarize(engine, arrivals: List[Arrival],
                 n_forced += 1
             elif out.startswith("rejected"):
                 n_rejected += 1
+            for name, at in walls:
+                if a.rid in at:
+                    wall[name].append(at[a.rid] - submitted[a.rid])
             ft = engine.first_token_tick.get(a.rid)
             sub = engine.submit_tick.get(a.rid)
             if ft is not None and sub is not None:
@@ -408,6 +427,10 @@ def summarize(engine, arrivals: List[Arrival],
             out["ttft_ms_p99"] = out["ttft_p99"] * tick_ms
             out["tpot_ms_p50"] = out["tpot_p50"] * tick_ms
             out["tpot_ms_p99"] = out["tpot_p99"] * tick_ms
+        for name, xs in wall.items():
+            if xs:
+                for q in (50, 95, 99):
+                    out[f"{name}_p{q}"] = _pct(xs, q) * 1e3
         if ttft_ms_n:
             out["ttft_ms_slo_attainment"] = ttft_ms_ok / ttft_ms_n
         if tpot_ms_n:

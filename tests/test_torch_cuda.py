@@ -1269,3 +1269,212 @@ def test_cuda_flash_decode_reads_an_int8_cache_cast_to_bf16(cuda_device):
     scale = float(logits["cpu"].abs().max())
     assert float((logits["cuda"] - logits["cpu"]).abs().max()) \
         <= 1e-4 * scale
+
+
+# ----------------------------------------------------------------------------
+# The engine's own device timing (serve/telemetry.py, serve/graphs.py)
+# ----------------------------------------------------------------------------
+
+def _serve(eng, prompts, max_new=12):
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new=max_new))
+    streams = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return streams
+
+
+def test_cuda_replays_are_timed_inside_their_graphs(cuda_device):
+    """A traced engine's graphs hold a timing event as their first and
+    last node, which time on the card (``timing`` "graph"); an untraced
+    engine's hold no event node. Both serve the same streams; every
+    decode and chunk replay is one device span, and a replay timed inside
+    its graph reads no longer than one timed around it."""
+    cfg = GRAPH_CFGS["attn"]
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 70, 130, 9, 200, 33)]
+    runs, engines = [], {}
+    for traced in (False, True):
+        scfg = ServeConfig(max_len=512, batch=4, paged=True, page_size=16,
+                           chunk_size=64, eos_id=-1, telemetry=traced)
+        eng = engines[traced] = ServingEngine(params, cfg, scfg,
+                                              device=cuda_device)
+        for step in (eng._decode, eng._chunk):
+            nodes = graphs.event_nodes(step.graph.raw_cuda_graph())
+            if not traced:
+                assert step.timing is None and nodes == {}
+            else:
+                assert step.timing == "graph" and len(nodes) == 2
+        runs.append((_serve(eng, prompts), eng.ticks, eng.chunk_steps,
+                     eng.decode_steps))
+    assert runs[0] == runs[1]
+    eng = engines[True]
+    st = eng.telemetry.span_stats()
+    assert st["decode.replay.device"]["n"] == eng.decode_steps
+    assert st["prefill_chunk.replay.device"]["n"] == eng.chunk_steps
+    assert st["decode.replay.device"]["total_s"] > 0
+    assert st["idle.outside"]["total_s"] >= 0
+    inside, around = [], []
+    tel = eng.telemetry
+    tel._dq.clear()
+    tel._pool += tel._evq
+    tel._evq.clear()
+    for _ in range(20):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        eng._decode(0)
+        b.record()
+        (ia, ib), = [d[1:3] for d in tel._dq]
+        torch.cuda.synchronize()
+        tel._dq.clear()
+        tel._pool += tel._evq
+        tel._evq.clear()
+        inside.append(ia.elapsed_time(ib))
+        around.append(a.elapsed_time(b))
+    print(f"decode replay ms inside {np.median(inside):.4f}, around "
+          f"{np.median(around):.4f}")
+    assert np.median(inside) <= np.median(around)
+
+
+def _count_syncs(eng, n_ticks):
+    """(host_syncs counted, syncs PyTorch reports) over ``n_ticks``: the
+    warnings raised inside the ticks, tick by tick."""
+    import warnings
+    n0 = eng.telemetry.counters.get("host_syncs", 0)
+    reported = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n_ticks):
+                before = len(caught)
+                eng.tick()
+                reported += sum("synchroniz" in str(w.message)
+                                for w in caught[before:])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return eng.telemetry.counters["host_syncs"] - n0, reported
+
+
+@pytest.mark.parametrize("paged,temperature", [(True, 0.0), (True, 0.8),
+                                               (False, 0.0)],
+                         ids=["paged", "paged-sampled", "contiguous"])
+def test_cuda_host_syncs_equal_the_syncs_torch_reports(cuda_device, paged,
+                                                       temperature):
+    """Over the same ticks (admissions, chunks, decodes), ``host_syncs``
+    equals the synchronising calls ``torch.cuda.set_sync_debug_mode``
+    reports, with telemetry on and off alike: telemetry adds none. A
+    traced contiguous admission's forward is a device span."""
+    cfg = GRAPH_CFGS["attn"]
+    params = T.init_params(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), device=cuda_device)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(2, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 70, 130, 9, 200, 33)]
+    got = {}
+    for traced in (False, True):
+        scfg = ServeConfig(max_len=512, batch=4, paged=paged, page_size=16,
+                           chunk_size=64 if paged else None, eos_id=-1,
+                           temperature=temperature, seed=1,
+                           telemetry=traced)
+        eng = ServingEngine(params, cfg, scfg, device=cuda_device)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=10))
+        torch.cuda.synchronize()
+        counted, reported = _count_syncs(eng, 25)
+        assert counted == reported > 0, (traced, counted, reported)
+        got[traced] = counted
+        if traced and not paged:
+            st = eng.telemetry.span_stats()["prefill_bucket.device"]
+            print(f"prefill_bucket.device {st['n']} x {st['mean_s']:.6f} s")
+            assert st["total_s"] > 0
+    assert got[True] == got[False]
+
+
+def _cut_chat_cell():
+    """The chat cell's engine and traffic from its files, cut to 4 of
+    granite-3-8b's 40 layers and 32 clients over a batch of 32 (the
+    widths and the page size as published)."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from portbench import harness
+
+    cell = harness.load_cell("granite-3-8b.chat-closed192", root)
+    cell.config["port_config"] = dict(cell.model, n_layers=4)
+    cell.spec = dict(cell.spec, clients=32, ramp_ticks=32, engine=dict(
+        cell.spec["engine"], batch=32, n_pages=1 + 32 * 4096 // 16))
+    return cell
+
+
+def _chat_trace(device, telemetry, ticks=40):
+    """The cut chat cell served through the benchmark's harness, its last
+    ``ticks`` ticks under the benchmark's tracer: the trace's events, the
+    engine, and its span stats when the profiler started and stopped."""
+    import json
+    import tempfile
+    from portbench import harness, tracer, weights
+    from portbench import traffic as traffic_mod
+
+    cell = _cut_chat_cell()
+    dtype = getattr(torch, cell.model["compute_dtype"])
+    params = weights.make(cell.model, 7, device, dtype)
+    eng = harness.build_engine(cell, params, device, telemetry=telemetry)
+    mix = traffic_mod.Mix(cell.spec, 7, cell.model["vocab"])
+    driver = harness.Driver(eng, mix, cell.spec)
+    driver.start()
+    driver.run_ticks(int(cell.spec["ramp_ticks"]))
+    tr = tracer.Tracer()
+    driver.annotate = tr.record_function
+    tr.start()
+    spans0 = eng.telemetry.span_stats()
+    driver.run_ticks(ticks)
+    spans1 = eng.telemetry.span_stats()
+    tr.stop()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        tr.prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return events, eng, spans0, spans1
+
+
+def test_cuda_traced_chat_run_carries_engine_ranges(cuda_device):
+    """A traced engine's profile holds its spans as ``engine.*``
+    ``user_annotation`` ranges beside the kernels; the benchmark's tracer
+    reads such a trace exactly as it reads the same trace without them,
+    and names the idle gaps of a traced and an untraced engine by the
+    same harness phases. The engine's own idle over the profiled ticks is
+    printed beside the profiler's."""
+    from portbench import tracer
+
+    events, eng, s0, s1 = _chat_trace(cuda_device, telemetry=True)
+    names = {e.get("name") for e in events
+             if e.get("cat") == "user_annotation"}
+    assert {"engine.decode", "engine.decode.launch", "engine.decode.load",
+            "engine.decode.read", "engine.record"} <= names, sorted(names)
+    bare = [e for e in events if not str(e.get("name", "")).startswith(
+        "engine.")]
+    assert len(bare) < len(events)
+    prof = tracer.read_trace(events)
+    assert prof == tracer.read_trace(bare)
+    assert not any("engine." in label for label, _ in prof.idle)
+    idle = sum(v["total_s"] - s0.get(k, {"total_s": 0.0})["total_s"]
+               for k, v in s1.items() if k.startswith("idle."))
+    print(f"idle over the traced ticks: profiler "
+          f"{prof.window_s - prof.busy_s:.4f} s of {prof.window_s:.4f}, "
+          f"engine {idle:.4f} s; labels {prof.idle[:4]}")
+    del eng
+    events, eng, _, _ = _chat_trace(cuda_device, telemetry=False)
+    plain = tracer.read_trace(events)
+    print(f"untraced labels {plain.idle[:4]}")
+    assert prof.idle[0][0] == plain.idle[0][0]
+    phases = {"tick", "observe", "between phases"}
+    assert {label.split(" / ")[0] for label, _ in prof.idle + plain.idle} \
+        <= phases

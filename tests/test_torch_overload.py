@@ -36,7 +36,7 @@ from repro.serve import traffic as jtraffic
 from repro_torch import configs
 from repro_torch.bridge import params_from_jax
 from repro_torch.core import autotune
-from repro_torch.serve import engine, faults, spec, traffic
+from repro_torch.serve import engine, faults, spec, telemetry, traffic
 from repro_torch.serve.faults import FaultInjector, Fault, PHANTOM_SLOT
 
 BASE = dict(max_len=64, batch=2, eos_id=-1, paged=True, page_size=8,
@@ -125,12 +125,18 @@ def _tick_domain(summary):
     return clean(summary)
 
 
+def _shared_counters(eng):
+    """The engine's aggregate counters but those only the port keeps."""
+    return {k: v for k, v in eng.telemetry.counters.items()
+            if k not in telemetry.PORT_COUNTERS}
+
+
 def _decisions(eng, arr, pkg):
     return dict(trace=_trace(eng), outcome=eng.outcome,
                 finished=eng.finished, rejected=eng.rejected,
                 shed=dict(eng.shed_by_class),
                 preemption_log=list(eng.preemption_log),
-                counters=dict(eng.telemetry.counters), ticks=eng.ticks,
+                counters=_shared_counters(eng), ticks=eng.ticks,
                 first=eng.first_token_tick, submit=eng.submit_tick,
                 finish=eng.finish_tick,
                 summary=_tick_domain(pkg[1].summarize(eng, arr)))
